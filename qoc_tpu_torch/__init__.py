@@ -1,0 +1,28 @@
+"""qoc_tpu_torch - GRAPE quantum optimal control on PyTorch and CUDA.
+
+The port of ``qoc_tpu`` (JAX on a TPU) to PyTorch with hand-written CUDA
+kernels for the NVIDIA H100. It imports ``torch`` and never ``jax``; each
+module mirrors its ``qoc_tpu`` counterpart by path. Ported so far: the
+Schrödinger path with a ``LinearHamiltonian``, Magnus-M2,
+``TargetStateInfidelity`` and Adam, whose propagation runs through the
+fused expm-product chain kernels (``ops/chain.py``, ``csrc/``). Every entry
+point takes ``device`` and ``dtype``: float64 on the CPU (parity with
+``qoc_tpu``), float32 on CUDA (the kernels' type).
+"""
+
+from qoc_tpu_torch import config  # noqa: F401  (TF32 off for the glue)
+from qoc_tpu_torch.core import (evolve_schroedinger_discrete,
+                                grape_schroedinger_discrete)
+from qoc_tpu_torch.costs import TargetStateInfidelity
+from qoc_tpu_torch.models import LinearHamiltonian
+from qoc_tpu_torch.optim import Adam
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Adam",
+    "LinearHamiltonian",
+    "TargetStateInfidelity",
+    "evolve_schroedinger_discrete",
+    "grape_schroedinger_discrete",
+]

@@ -1,0 +1,529 @@
+"""Fused expm-product chain: the propagation hot loop of Schrödinger GRAPE.
+
+Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (basis-resident regime, no
+per-step prefixes). For a *linear* control Hamiltonian under Magnus-M2 the
+propagator of a time block is
+
+    A_j = Σ_k W_jk G_k,   U_j = exp(A_j),   P = U_{B-1} ··· U_1 U_0,
+
+with real weight rows W (from the controls) and a constant complex
+generator basis G. The steps are split into S contiguous *segments*,
+independent chains that run in parallel (one CUDA block each) and are
+merged by S-1 matrix products; S is picked to fill the card's SMs.
+
+Two kernels carry the op on CUDA tensors, each beside its plain PyTorch
+version of the same math:
+
+- K1, :func:`chain_fwd` (``csrc/chain_fwd.cu``): every segment's prefixes
+  P_t by the f32 Taylor ladder. Plain version :func:`chain_fwd_plain`.
+- K2, :func:`chain_bwd` (``csrc/chain_bwd.cu``): the exact adjoint,
+  T_t = U_{t+1}^H T_{t+1}, gU_t = T_t P_{t-1}^H and the dual-number Taylor
+  at (A_t^H, gU_t), which gives U_t^H and gA_t = L(A_t^H, gU_t). Plain
+  version :func:`chain_bwd_plain`.
+
+A wrapper takes its plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises. The kernels are f32: on CUDA the op
+runs in float32/complex64. On the CPU it runs in the caller's dtype
+(float64 for parity with ``qoc_tpu``), with the same f32-calibrated ladder.
+
+Gradient convention: PyTorch's ``grad`` of a complex tensor is
+dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX op therefore
+seeds its adjoint with ``conj(gbar)`` and carries a conjugated recursion;
+here the same recursion is the plain gradient one: the segment seeds are
+Sf_s^H g C_{s-1}^H and the weight gradient is Re Σ conj(G_k) ∘ gA.
+"""
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from qoc_tpu_torch.config import complex_dtype
+
+__all__ = ["ChainExpmPropagate", "chain_block_plan", "chain_bwd",
+           "chain_bwd_plain", "chain_fwd", "chain_fwd_plain",
+           "ladder_level", "load_kernels", "segment_plan", "KERNEL_DP"]
+
+# The kernels' matrix dimension (csrc/chain_common.cuh DP): smaller d is
+# zero-padded to it (exact), larger d is refused.
+KERNEL_DP = 64
+
+# f32-calibrated Taylor degree ladder (qoc_tpu/ops/expm_pallas.py
+# _F32_LADDER): (degree, batch-max norm threshold). Above the last
+# threshold: per-matrix scaling to theta = 1, T19 and squarings.
+_F32_LADDER = ((4, 0.05), (8, 0.45), (12, 1.2), (19, 3.0))
+_THETA = 1.0
+_MAX_SQUARINGS = 60
+_TAYLOR_COEFFS = tuple(1.0 / math.factorial(k) for k in range(20))
+# Degree-8 Taylor in 3 products (expm_pallas.py _D8X).
+_D8X = (-0.2791515105738877, -0.06978787764347194, 1.9965103670821102,
+        -1.0443935504465197, -0.06254782056757438, -0.024382370915357013,
+        0.005092363918911529, 1.0, 1.0, 2.585142563711936)
+
+# Segment plan: at least this many steps per segment, at most this many
+# segments (about one per SM of an H100, which has 132).
+_MIN_SEGMENT_STEPS = 8
+_MAX_SEGMENTS = 128
+
+# Time-block plan: residual bytes one block may hold (its prefixes plus
+# the backward's per-step gradient planes).
+_BLOCK_BYTES = 2 * 1024 ** 3
+
+
+# ---------------------------------------------------------------------------
+# Kernel library: built from csrc/ at first use, keyed by a source hash
+# ---------------------------------------------------------------------------
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_SOURCES = ("chain_fwd.cu", "chain_bwd.cu")
+_HEADERS = ("chain_common.cuh",)
+_BUILD_DIR = _PKG / "_build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit that builds the chain kernels.")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@functools.cache
+def load_kernels():
+    """Build the chain kernels' shared library (once per source hash, into
+    ``qoc_tpu_torch/_build/<hash>/``) and load it with ctypes.
+
+    The compiler's register/spill report is kept beside the library as
+    ``build.log``."""
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        digest.update((_CSRC / name).read_bytes())
+    out_dir = _BUILD_DIR / digest.hexdigest()[:16]
+    lib_path = out_dir / "libqoc_chain.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / "libqoc_chain.{}.so".format(os.getpid())
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+               *[str(_CSRC / name) for name in _SOURCES]]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("building the chain kernels failed:\n"
+                               + proc.stderr)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    lib.qoc_chain_fwd.restype = cint
+    lib.qoc_chain_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, cint,
+                                  cint, cint, ptr]
+    lib.qoc_chain_bwd.restype = cint
+    lib.qoc_chain_dp.restype = cint
+    lib.qoc_chain_stash_slots.restype = cint
+    if lib.qoc_chain_dp() != KERNEL_DP:
+        raise RuntimeError("chain kernel library DP {} != {}".format(
+            lib.qoc_chain_dp(), KERNEL_DP))
+    return lib
+
+
+def _check_cuda_args(w, norm, *mats):
+    dev = w.device
+    if w.dtype != torch.float32 or norm.dtype != torch.float32:
+        raise TypeError("the chain kernels take float32 weights and norms")
+    if norm.numel() != 1 or norm.device != dev:
+        raise ValueError("norm must be one float32 value on the weights' "
+                         "device")
+    if w.dim() != 3 or not w.is_contiguous():
+        raise ValueError("weights must be a contiguous (S, L, n_b) tensor")
+    for m in mats:
+        if (m.dtype != torch.complex64 or m.device != dev
+                or not m.is_contiguous()
+                or m.shape[-2:] != (KERNEL_DP, KERNEL_DP)):
+            raise ValueError(
+                "chain kernel matrices must be contiguous complex64 "
+                "(..., {0}, {0}) tensors on the weights' device".format(
+                    KERNEL_DP))
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (same math as the kernels)
+# ---------------------------------------------------------------------------
+
+
+class _Dual:
+    """Dual number (value, tangent) of matrices: (X, dX)(Y, dY) =
+    (XY, dX Y + X dY). Lets one Taylor routine serve exp and its Fréchet
+    derivative, as the kernels' dual evaluation does."""
+
+    __slots__ = ("v", "dv")
+
+    def __init__(self, v, dv):
+        self.v = v
+        self.dv = dv
+
+    def __matmul__(self, other):
+        return _Dual(self.v @ other.v, self.dv @ other.v + self.v @ other.dv)
+
+    def __add__(self, other):
+        if isinstance(other, _Dual):
+            return _Dual(self.v + other.v, self.dv + other.dv)
+        return _Dual(self.v + other, self.dv)    # constant: no tangent
+
+    __radd__ = __add__
+
+    def __mul__(self, scale):
+        return _Dual(self.v * scale, self.dv * scale)
+
+    __rmul__ = __mul__
+
+
+def _where(mask, a, b):
+    if isinstance(a, _Dual):
+        return _Dual(torch.where(mask, a.v, b.v), torch.where(mask, a.dv, b.dv))
+    return torch.where(mask, a, b)
+
+
+def _taylor4(m, eye):
+    c = _TAYLOR_COEFFS
+    m2 = m @ m
+    return c[0] * eye + c[1] * m + c[2] * m2 + m2 @ (c[3] * m + c[4] * m2)
+
+
+def _taylor8(m, eye):
+    x1, x2, x3, x4, x5, x6, x7, y0, y1, y2 = _D8X
+    m2 = m @ m
+    m4 = m2 @ (x1 * m + x2 * m2)
+    m8 = (x3 * m2 + m4) @ (x4 * eye + x5 * m + x6 * m2 + x7 * m4)
+    return y0 * eye + y1 * m + y2 * m2 + m8
+
+
+def _chunk(k, eye, m, m2, m3):
+    c = _TAYLOR_COEFFS
+    return c[k] * eye + c[k + 1] * m + c[k + 2] * m2 + c[k + 3] * m3
+
+
+def _taylor12(m, eye):
+    m2 = m @ m
+    m3 = m2 @ m
+    m4 = m2 @ m2
+    x = _chunk(8, eye, m, m2, m3) + _TAYLOR_COEFFS[12] * m4
+    x = _chunk(4, eye, m, m2, m3) + m4 @ x
+    return _chunk(0, eye, m, m2, m3) + m4 @ x
+
+
+def _taylor19(m, eye):
+    m2 = m @ m
+    m3 = m2 @ m
+    m4 = m2 @ m2
+    p = _chunk(16, eye, m, m2, m3)
+    for k in (12, 8, 4, 0):
+        p = p @ m4 + _chunk(k, eye, m, m2, m3)
+    return p
+
+
+_TAYLOR = (_taylor4, _taylor8, _taylor12, _taylor19)
+
+
+def ladder_level(norm):
+    """Index into the f32 degree ladder for a batch-max norm (a 0-dim
+    tensor, compared in its own dtype as the kernels compare in f32):
+    0..3 = degree 4/8/12/19, 4 = scaling and squaring. Reads the norm on
+    the host (the kernels read it on the device instead)."""
+    for j, (_, theta) in enumerate(_F32_LADDER):
+        if bool(norm <= theta):
+            return j
+    return len(_F32_LADDER)
+
+
+def _expm_ladder(m, level):
+    """exp of a batch of matrices m (a tensor, or a _Dual for the Fréchet
+    derivative) at ladder ``level``."""
+    v = m.v if isinstance(m, _Dual) else m
+    eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+    if level < len(_TAYLOR):
+        return _TAYLOR[level](m, eye)
+    norm1 = torch.abs(v).sum(dim=-2).amax(dim=-1)
+    # fmax, as the kernels' fmaxf: a NaN norm gives 0 squarings.
+    s = torch.ceil(torch.log2(torch.fmax(norm1 / _THETA,
+                                         torch.ones_like(norm1))))
+    s = torch.clamp(s, 0, _MAX_SQUARINGS)
+    p = _taylor19(m * torch.exp2(-s)[..., None, None], eye)
+    for j in range(int(s.max())):
+        p = _where((j < s)[..., None, None], p @ p, p)
+    return p
+
+
+def _generators(w_t, basis):
+    """(S, n_b) real weights x (n_b, dp, dp) basis -> (S, dp, dp)."""
+    n_b, dp = basis.shape[0], basis.shape[-1]
+    return (w_t.to(basis.dtype) @ basis.reshape(n_b, dp * dp)).reshape(
+        -1, dp, dp)
+
+
+def chain_fwd_plain(w, basis, norm):
+    """Plain version of K1: ``w`` (S, L, n_b) real, ``basis`` (n_b, dp, dp)
+    complex, ``norm`` the batch-max 1-norm of the generators. Returns
+    prefpad (S, L+1, dp, dp): slot 0 = I, slot t+1 = P_t of each segment."""
+    s_count, length = w.shape[:2]
+    dp = basis.shape[-1]
+    level = ladder_level(norm)
+    out = torch.empty((s_count, length + 1, dp, dp), dtype=basis.dtype,
+                      device=w.device)
+    p = torch.eye(dp, dtype=basis.dtype, device=w.device).expand(
+        s_count, dp, dp)
+    out[:, 0] = p
+    for t in range(length):
+        p = _expm_ladder(_generators(w[:, t], basis), level) @ p
+        out[:, t + 1] = p
+    return out
+
+
+def chain_bwd_plain(w, basis_h, norm, prefpad, seeds):
+    """Plain version of K2: ``basis_h`` holds G_k^H, ``norm`` is the
+    batch-max inf-norm of the generators (the 1-norm of A^H), ``prefpad``
+    comes from K1 and ``seeds`` (S, dp, dp) is each segment's gradient at
+    its last prefix. Returns gA (S, L, dp, dp), the gradient of every
+    step's generator."""
+    s_count, length = w.shape[:2]
+    dp = basis_h.shape[-1]
+    level = ladder_level(norm)
+    out = torch.empty((s_count, length, dp, dp), dtype=basis_h.dtype,
+                      device=w.device)
+    t_cur, uh = seeds, None
+    for t in range(length - 1, -1, -1):
+        if uh is not None:
+            t_cur = uh @ t_cur
+        gu = t_cur @ prefpad[:, t].mH
+        dual = _expm_ladder(_Dual(_generators(w[:, t], basis_h), gu), level)
+        uh = dual.v
+        out[:, t] = dual.dv
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def chain_fwd(w, basis, norm):
+    """K1: same contract as :func:`chain_fwd_plain`. On a CPU tensor it is
+    the plain version; on a CUDA tensor it launches ``csrc/chain_fwd.cu``
+    (float32, dp = :data:`KERNEL_DP`) or raises."""
+    if w.device.type == "cpu":
+        return chain_fwd_plain(w, basis, norm)
+    if w.device.type != "cuda":
+        raise ValueError("chain_fwd runs on cpu or cuda tensors, got "
+                         + str(w.device))
+    _check_cuda_args(w, norm, basis)
+    s_count, length, n_b = w.shape
+    if basis.shape[0] != n_b:
+        raise ValueError("basis has {} terms, weights {}".format(
+            basis.shape[0], n_b))
+    out = torch.empty((s_count, length + 1, KERNEL_DP, KERNEL_DP),
+                      dtype=torch.complex64, device=w.device)
+    out[:, 0] = torch.eye(KERNEL_DP, dtype=torch.complex64, device=w.device)
+    with torch.cuda.device(w.device):
+        err = load_kernels().qoc_chain_fwd(
+            w.data_ptr(), basis.data_ptr(), norm.data_ptr(), out.data_ptr(),
+            s_count, length, n_b, _stream(w.device))
+    if err != 0:
+        raise RuntimeError("chain forward kernel launch failed: CUDA error "
+                           "{}".format(err))
+    chain_fwd.launches += 1
+    return out
+
+
+chain_fwd.launches = 0
+
+
+def chain_bwd(w, basis_h, norm, prefpad, seeds):
+    """K2: same contract as :func:`chain_bwd_plain`. On a CPU tensor it is
+    the plain version; on a CUDA tensor it launches ``csrc/chain_bwd.cu``
+    or raises."""
+    if w.device.type == "cpu":
+        return chain_bwd_plain(w, basis_h, norm, prefpad, seeds)
+    if w.device.type != "cuda":
+        raise ValueError("chain_bwd runs on cpu or cuda tensors, got "
+                         + str(w.device))
+    _check_cuda_args(w, norm, basis_h, prefpad, seeds)
+    s_count, length, n_b = w.shape
+    if (prefpad.shape[:2] != (s_count, length + 1)
+            or seeds.shape[0] != s_count or basis_h.shape[0] != n_b):
+        raise ValueError("chain_bwd: prefpad {}, seeds {}, basis {} do not "
+                         "match weights {}".format(
+                             tuple(prefpad.shape), tuple(seeds.shape),
+                             tuple(basis_h.shape), tuple(w.shape)))
+    lib = load_kernels()
+    out = torch.empty((s_count, length, KERNEL_DP, KERNEL_DP),
+                      dtype=torch.complex64, device=w.device)
+    stash = torch.empty((s_count, lib.qoc_chain_stash_slots(), KERNEL_DP,
+                         KERNEL_DP), dtype=torch.complex64, device=w.device)
+    with torch.cuda.device(w.device):
+        err = lib.qoc_chain_bwd(
+            w.data_ptr(), basis_h.data_ptr(), norm.data_ptr(),
+            prefpad.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+            stash.data_ptr(), s_count, length, n_b, _stream(w.device))
+    if err != 0:
+        raise RuntimeError("chain backward kernel launch failed: CUDA error "
+                           "{}".format(err))
+    chain_bwd.launches += 1
+    return out
+
+
+chain_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Glue (plain torch): plans, norms, segment merge, seeds, projection
+# ---------------------------------------------------------------------------
+
+
+def segment_plan(n_steps):
+    """(segments S, steps per segment L) for a chain of ``n_steps``: at
+    least 8 steps a segment, at most 128 segments. The S*L - n_steps
+    padded steps carry zero weights (U = I exactly)."""
+    length = max(_MIN_SEGMENT_STEPS, -(-n_steps // _MAX_SEGMENTS))
+    return -(-n_steps // length), length
+
+
+def chain_block_plan(d, n_steps, itemsize=8):
+    """Steps per time block of the loss. A block holds its prefixes as
+    residuals and, in the backward, one gradient plane per step: about
+    2 * dp^2 * itemsize bytes a step, capped at 2 GiB a block. One block
+    (the whole chain, most segments in flight) whenever that fits; the
+    Table-3 headline (d = 64, 10^4 steps, complex64) holds ~330 MB of
+    prefixes. Blocks hold their residuals until the backward (no remat)."""
+    dp = max(d, KERNEL_DP)
+    step_bytes = 2 * dp * dp * itemsize
+    return max(1, min(n_steps, _BLOCK_BYTES // step_bytes))
+
+
+def _norm_max(w, basis_ri, d):
+    """(max_j ||A_j||_1, max_j ||A_j||_inf) over all steps, exactly, on the
+    device (qoc_tpu chain_pallas.py _exact_norm_max): the 1-norm picks the
+    forward's Taylor degree, the inf-norm (= 1-norm of A^H) the backward's."""
+    a = (w @ basis_ri).reshape(-1, d, d, 2)
+    absa = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1])
+    return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+
+
+def _prefix_products(prods):
+    """Inclusive ordered prefix products x[s] = prods[s] ··· prods[0]
+    (Hillis-Steele: log2(S) batched matmuls)."""
+    off = 1
+    while off < prods.shape[0]:
+        prods = torch.cat((prods[:off], prods[off:] @ prods[:-off]))
+        off *= 2
+    return prods
+
+
+def _suffix_products(prods):
+    """Inclusive ordered suffix products z[s] = prods[S-1] ··· prods[s]."""
+    off = 1
+    while off < prods.shape[0]:
+        prods = torch.cat((prods[off:] @ prods[:-off], prods[-off:]))
+        off *= 2
+    return prods
+
+
+class _ChainExpm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, op):
+        total, saved = op._forward(w)
+        ctx.op, ctx.n_steps = op, w.shape[0]
+        ctx.save_for_backward(*saved)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad_total):
+        grad_w = ctx.op._backward(grad_total, *ctx.saved_tensors)
+        return grad_w[:ctx.n_steps], None
+
+
+class ChainExpmPropagate:
+    """P(w) = exp(A_{B-1}) ··· exp(A_0), A_j = Σ_k w[j, k] G_k, with the
+    exact gradient to the real weights ``w`` (B, n_b).
+
+    ``basis`` :: numpy complex (n_b, d, d), Magnus/dt factors folded in.
+    ``device``/``dtype``: the real dtype of ``w``; on CUDA it must be
+    float32 (the kernels' type) and d <= :data:`KERNEL_DP`.
+    ``plain=True`` runs the plain PyTorch versions of K1/K2 on any device:
+    the reference the kernels are compared with. Propagation never sets
+    it, so on CUDA the op runs the kernels."""
+
+    def __init__(self, basis, device, dtype, plain=False):
+        basis = np.asarray(basis)
+        device = torch.device(device)
+        cdtype = complex_dtype(dtype)
+        n_b, d = basis.shape[0], basis.shape[-1]
+        if device.type == "cuda":
+            if dtype != torch.float32:
+                raise TypeError("the chain kernels are float32; got "
+                                + str(dtype))
+            if d > KERNEL_DP:
+                raise ValueError(
+                    "the chain kernels take d <= {} (got d = {}); larger "
+                    "Hilbert spaces need the generic route (ROADMAP slice "
+                    "2).".format(KERNEL_DP, d))
+            dp = KERNEL_DP
+        else:
+            dp = d
+        g = torch.zeros((n_b, dp, dp), dtype=cdtype, device=device)
+        g[:, :d, :d] = torch.as_tensor(basis, dtype=cdtype, device=device)
+        self.basis = g
+        self.basis_h = g.mH.contiguous()
+        # Real view of the unpadded basis: norms and the W̄ projection.
+        self.basis_ri = torch.view_as_real(
+            g[:, :d, :d].contiguous()).reshape(n_b, 2 * d * d)
+        self.d, self.dp, self.n_b = d, dp, n_b
+        if plain:
+            self._fwd, self._bwd = chain_fwd_plain, chain_bwd_plain
+        else:
+            self._fwd, self._bwd = chain_fwd, chain_bwd
+
+    def __call__(self, w):
+        return _ChainExpm.apply(w, self)
+
+    def _forward(self, w):
+        n_steps = w.shape[0]
+        s_count, length = segment_plan(n_steps)
+        n1, ninf = _norm_max(w, self.basis_ri, self.d)
+        w_seg = torch.zeros((s_count * length, self.n_b), dtype=w.dtype,
+                            device=w.device)
+        w_seg[:n_steps] = w
+        # Segment s owns steps [s L, (s+1) L): a reshape, no transpose.
+        w_seg = w_seg.reshape(s_count, length, self.n_b)
+        prefpad = self._fwd(w_seg, self.basis, n1)
+        d = self.d
+        prods = prefpad[:, length, :d, :d]
+        cums = _prefix_products(prods)
+        return cums[-1].clone(), (w_seg, prefpad, cums, prods, ninf)
+
+    def _backward(self, grad_total, w_seg, prefpad, cums, prods, ninf):
+        s_count, length, _ = w_seg.shape
+        d, dp = self.d, self.dp
+        eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
+        before = torch.cat((eye, cums[:-1]))                 # C_{s-1}
+        after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
+        seeds = torch.zeros((s_count, dp, dp), dtype=prods.dtype,
+                            device=prods.device)
+        seeds[:, :d, :d] = after.mH @ grad_total.to(prods.dtype) @ before.mH
+        grad_a = self._bwd(w_seg, self.basis_h, ninf, prefpad, seeds)
+        grad_a = torch.view_as_real(grad_a[..., :d, :d]).reshape(
+            s_count * length, 2 * d * d)
+        return grad_a @ self.basis_ri.T
+

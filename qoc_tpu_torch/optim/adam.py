@@ -1,0 +1,78 @@
+"""Adam optimizer, on device.
+
+Counterpart of ``qoc_tpu/optim/adam.py`` (reference
+qoc/standard/optimizers/adam.py:9-165): textbook Adam with bias correction,
+plus the reference's extras (exponential learning-rate decay, gradient
+norm-rescaling, elementwise gradient clipping). The state is a dict of
+tensors that the GRAPE loop threads through its iterations; the update is
+the arithmetic of ``qoc_tpu``'s ``Adam.update_jax``, step for step, and
+never reads a value back to the host. The reference's host loop
+(``run``/``update`` on numpy) is ROADMAP slice 3 of the port.
+"""
+
+import torch
+
+__all__ = ["Adam"]
+
+
+class Adam:
+    name = "adam"
+    supports_fused = True
+
+    def __init__(self, beta_1=0.9, beta_2=0.999, clip_grads=None,
+                 epsilon=1e-8, learning_rate=1e-3, learning_rate_decay=None,
+                 operation_policy=None, scale_grads=None):
+        self.apply_scale_grads = scale_grads is not None
+        self.apply_clip_grads = clip_grads is not None
+        self.apply_learning_rate_decay = learning_rate_decay is not None
+        self.beta_1 = beta_1
+        self.beta_2 = beta_2
+        self.clip_grads = clip_grads
+        self.epsilon = epsilon
+        self.initial_learning_rate = learning_rate
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.scale_grads = scale_grads
+
+    def __str__(self):
+        return ("{}, beta_1: {}, beta_2: {}, epsilon: {}, lr0: {}, "
+                "lr_decay: {}, clip_grads: {}, scale_grads: {}"
+                "".format(self.name, self.beta_1, self.beta_2, self.epsilon,
+                          self.initial_learning_rate,
+                          self.learning_rate_decay, self.clip_grads,
+                          self.scale_grads))
+
+    def init_state(self, params):
+        """Optimizer state: first and second moments and the step count
+        (int32 on the params' device)."""
+        return {
+            "m": torch.zeros_like(params),
+            "v": torch.zeros_like(params),
+            "t": torch.zeros((), dtype=torch.int32, device=params.device),
+        }
+
+    def update(self, state, grads, params):
+        """One Adam step: returns (new state, new params)."""
+        t = state["t"]
+        if self.apply_learning_rate_decay:
+            learning_rate = (self.initial_learning_rate
+                             * torch.exp(-t.to(grads.dtype)
+                                         / self.learning_rate_decay))
+        else:
+            learning_rate = self.initial_learning_rate
+        if self.apply_scale_grads:
+            grads = (grads / torch.linalg.vector_norm(grads)) \
+                * self.scale_grads
+        if self.apply_clip_grads:
+            grads = torch.clamp(grads, -self.clip_grads, self.clip_grads)
+
+        t = t + 1
+        b1, b2 = self.beta_1, self.beta_2
+        tf = t.to(grads.dtype)
+        m = b1 * state["m"] + (1 - b1) * grads
+        v = b2 * state["v"] + (1 - b2) * torch.square(grads)
+        m_hat = m / (1 - b1 ** tf)
+        v_hat = v / (1 - b2 ** tf)
+        params = params - learning_rate * m_hat / (torch.sqrt(v_hat)
+                                                   + self.epsilon)
+        return {"m": m, "v": v, "t": t}, params
