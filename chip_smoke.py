@@ -16,8 +16,27 @@ Phases, one line each:
 4. the Table-3 headline loss and gradient (d = 64, 10 complex controls,
    10^4 steps, seed 0), kernel route against the plain route;
 5. grape_schroedinger_discrete on that problem, 2 warm-up + 10 timed Adam
-   iterations, with both kernels' launch counters read around the run;
-6. K1 and K2 times beside their plain versions at the headline shapes.
+   iterations, with every kernel's launch counter set to 0 before the run
+   and read after it (K1 and K2 launched, K5 not);
+6. K1 and K2 times beside their plain versions, their bounds and
+   torch.linalg.matrix_exp of the same generators, at the headline shapes;
+7. K5 (forward and adjoint of the plane chain) against its plain versions
+   in float32, at d = 64 and 16 with planes scaled onto every ladder level,
+   at 3, 37 and 2001 steps, the padded rows and steps exactly the identity,
+   the op's total against a float64 matrix_exp product, and at the M4
+   problem's own planes;
+8. the headline problem with its Hamiltonian as a torch callable (the plane
+   route, K5) against the LinearHamiltonian (the fused route, K1/K2): M2
+   loss and control gradient at 10^4 steps;
+9. grape_schroedinger_discrete under Magnus-M4 on the JAX package's
+   bench_m4 problem (d = 64, 10 complex controls, 2001 steps, T = 20, seed
+   0), 2 warm-up + 10 timed iterations, counters read around the run (K5
+   launched, K1/K2 not); then the two-transmon iSWAP problem of
+   examples/2_iswap_gate.py written with torch operations (d = 16, 241
+   steps, M2 callable), 20 iterations;
+10. K5 times at the M4 shapes beside their plain versions, their bounds,
+   torch.linalg.matrix_exp of the same planes (exps only, no chain) and the
+   conjugate transpose of the planes that the adjoint kernel does on load.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -47,6 +66,20 @@ CONTROL_EVAL_COUNT = 10_000
 EVOLUTION_TIME = 100.0
 WARMUP_ITERATIONS = 2
 TIMED_ITERATIONS = 10
+# Magnus-M4 configuration (bench.py:276-291 of the JAX package): the
+# Table-3 widths over 2001 steps of T = 20.
+M4_STEPS = 2001
+M4_EVOLUTION_TIME = 20.0
+ISWAP_ITERATIONS = 20
+
+# One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
+# tensor cores, HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Complex DP^3 products a step of the Taylor ladder per level: degree
+# 4/8/12/19, and degree 19 before the squarings of the last level.
+LADDER_PRODUCTS = (2, 3, 5, 7, 7)
+LEVEL_NORMS = (0.03, 0.3, 1.0, 2.5, 7.0)
 
 
 def _rel(got, want):
@@ -58,9 +91,11 @@ def _random_hermitian(rng, d):
     return ((h + h.conj().T) / 2).astype(np.complex64)
 
 
-def table3_problem(iteration_count):
+def table3_problem(iteration_count, system_eval_count=SYSTEM_EVAL_COUNT,
+                   evolution_time=EVOLUTION_TIME, magnus="M2"):
     """The headline problem, built like the JAX package's bench.py with
-    seed 0: (pstate, hamiltonian, costs)."""
+    seed 0: (pstate, hamiltonian, costs). With 2001 steps, T = 20 and M4 it
+    is bench_m4's problem."""
     from qoc_tpu_torch.core.common import initialize_controls
     from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
                                       InterpolationPolicy, LinearHamiltonian,
@@ -78,13 +113,83 @@ def table3_problem(iteration_count):
     target[0, -1] = 1
     costs = [TargetStateInfidelity(target)]
     initial_controls, max_norms = initialize_controls(
-        True, CONTROL_COUNT, CONTROL_EVAL_COUNT, EVOLUTION_TIME, None, None)
+        True, CONTROL_COUNT, system_eval_count, evolution_time, None, None)
     pstate = GrapeSchroedingerDiscreteState(
-        True, CONTROL_COUNT, CONTROL_EVAL_COUNT, 1, costs, EVOLUTION_TIME,
+        True, CONTROL_COUNT, system_eval_count, 1, costs, evolution_time,
         hamiltonian, None, initial_controls, initial,
         InterpolationPolicy.LINEAR, iteration_count, 0, max_norms,
-        MagnusPolicy.M2, 0, Adam(), None, False, 0, SYSTEM_EVAL_COUNT)
+        MagnusPolicy[magnus], 0, Adam(), None, False, 0, system_eval_count)
     return pstate, hamiltonian, costs
+
+
+def m4_problem(iteration_count):
+    return table3_problem(iteration_count, M4_STEPS, M4_EVOLUTION_TIME, "M4")
+
+
+def torch_callable(hamiltonian, dev):
+    """The LinearHamiltonian's H(c, t) = h0 + Σ c_i A_i + conj(c_i) A_i^H
+    written as a plain torch callable: it takes the plane route."""
+    h0 = torch.as_tensor(hamiltonian.h0, dtype=torch.complex64, device=dev)
+    ops = torch.as_tensor(hamiltonian.operators, dtype=torch.complex64,
+                          device=dev)
+
+    def h(controls, t):
+        drive = torch.einsum("i,iab->ab", controls, ops)
+        return h0 + drive + drive.mH
+    return h
+
+
+def m4_planes(dev):
+    """The M4 problem's generator planes (2001, 64, 64) at its initial
+    controls, built as its loss builds them."""
+    from qoc_tpu_torch.core.schroedinger import plane_builder
+    pstate, hamiltonian, _ = m4_problem(1)
+    dt = float(pstate.dt)
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
+                          device=dev)
+    planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
+    times = torch.arange(pstate.system_eval_count - 1, dtype=torch.float32,
+                         device=dev) * dt
+    controls = torch.as_tensor(pstate.initial_controls,
+                               dtype=torch.complex64, device=dev)
+    with torch.no_grad():
+        return planes(controls, times).to(torch.complex64)
+
+
+def kernel_bound(step_norms, level, dual, tensors):
+    """(bound ms, what bounds it, GFLOP) of one chain-kernel call: the
+    larger of its complex products over the FP32 peak and the bytes of its
+    inputs and outputs (``tensors``, each once) over the HBM rate.
+    ``step_norms`` are the 1-norms of the matrices the ladder exponentiates
+    (A_t forward, A_t^H adjoint), one per step the kernel walks: at the
+    squaring level they give this run's squarings. Elementwise work is not
+    counted."""
+    n = step_norms.shape[0]
+    ladder = LADDER_PRODUCTS[level] * n
+    if level == len(LADDER_PRODUCTS) - 1:
+        ladder += int(torch.clamp(torch.ceil(torch.log2(
+            torch.clamp(step_norms, min=1.0))), 0, 60).sum())
+    # The adjoint: dual products (3 each), T update and gU; the forward U P.
+    products = 3 * ladder + 2 * n if dual else ladder + n
+    flops = products * 8 * D ** 3
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
+
+
+def reset_launches():
+    from qoc_tpu_torch.ops import chain
+    for fn in (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
+               chain.plane_bwd):
+        fn.launches = 0
+
+
+def read_launches():
+    from qoc_tpu_torch.ops import chain
+    return {"K1": chain.chain_fwd.launches, "K2": chain.chain_bwd.launches,
+            "K5 fwd": chain.plane_fwd.launches,
+            "K5 bwd": chain.plane_bwd.launches}
 
 
 def headline_weights(pstate, dev):
@@ -299,12 +404,10 @@ def phase_headline(dev):
 
 def phase_grape(dev):
     from qoc_tpu_torch import grape_schroedinger_discrete
-    from qoc_tpu_torch.ops import chain
 
     pstate, hamiltonian, costs = table3_problem(1)
     iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
-    chain.chain_fwd.launches = 0
-    chain.chain_bwd.launches = 0
+    reset_launches()
     result = grape_schroedinger_discrete(
         CONTROL_COUNT, CONTROL_EVAL_COUNT, costs, EVOLUTION_TIME,
         hamiltonian, pstate.initial_states, SYSTEM_EVAL_COUNT,
@@ -312,14 +415,13 @@ def phase_grape(dev):
         iteration_count=iterations, log_iteration_step=0,
         max_control_norms=pstate.max_control_norms,
         fused_chunk=WARMUP_ITERATIONS, device=dev)
-    launches = {"K1": chain.chain_fwd.launches,
-                "K2": chain.chain_bwd.launches}
+    launches = read_launches()
     errors = np.asarray(result.errors)
     print("phase 5 grape: {} iterations, {:.2f} it/s steady ({} timed after "
-          "{} warm-up), error {:.6f} -> {:.6f}, launches K1 {} K2 {}".format(
+          "{} warm-up), error {:.6f} -> {:.6f}, launches {}".format(
               result.iteration_count_ran, result.iterations_per_s,
               TIMED_ITERATIONS, WARMUP_ITERATIONS, errors[0], errors[-1],
-              launches["K1"], launches["K2"]), flush=True)
+              launches), flush=True)
     if result.iteration_count_ran != iterations:
         raise RuntimeError("GRAPE stopped early")
     if not (np.all(np.isfinite(errors))
@@ -327,8 +429,10 @@ def phase_grape(dev):
         raise RuntimeError("non-finite GRAPE result")
     if not errors[-1] < errors[0]:
         raise RuntimeError("GRAPE error did not fall")
-    if min(launches.values()) < 1:
+    if min(launches["K1"], launches["K2"]) < 1:
         raise RuntimeError("the GRAPE run did not launch both kernels")
+    if launches["K5 fwd"] or launches["K5 bwd"]:
+        raise RuntimeError("the fused route launched the plane kernels")
     return launches, result.iterations_per_s
 
 
@@ -363,11 +467,312 @@ def phase_timing(dev, headline_w):
 
     ms["op fwd+bwd"] = cuda_ms(lambda: fwd_bwd(op), 5)
     ms["op fwd+bwd plain"] = cuda_ms(lambda: fwd_bwd(plain_op), 2)
+    # The generators the kernels exponentiate, for the bounds and the
+    # library yardstick (exps only, no chain).
+    a = torch.einsum("jk,kab->jab", w_seg.reshape(-1, op.n_b).to(
+        torch.complex64), op.basis)
+    ms["matrix_exp"] = cuda_ms(lambda: torch.linalg.matrix_exp(a), 3)
+    absa = a.abs()
+    bounds = {
+        "K1": kernel_bound(absa.sum(-2).amax(-1), chain.ladder_level(n1),
+                           False, [w_seg, op.basis, n1, pref]),
+        "K2": kernel_bound(absa.sum(-1).amax(-1), chain.ladder_level(ninf),
+                           True, [w_seg, op.basis_h, ninf, pref, seeds,
+                                  pref[:, 1:]]),
+    }
     print("phase 6 timing (S x L = {} x {}, levels {}/{}): ".format(
         s_count, length, chain.ladder_level(n1), chain.ladder_level(ninf))
-        + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items()),
-        flush=True)
-    return ms
+        + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+        + "; " + ", ".join(
+            "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time"
+            "".format(k, b[0], b[1], b[2], b[0] / ms[k])
+            for k, b in bounds.items()), flush=True)
+    return ms, bounds
+
+
+def _unit_planes(rng, n_steps, d):
+    """(n_steps, d, d) anti-Hermitian planes (unitary steps) with unit
+    batch-max 1-norm, complex128 numpy."""
+    h = rng.normal(size=(n_steps, d, d)) + 1j * rng.normal(
+        size=(n_steps, d, d))
+    a = -0.5j * (h + np.conjugate(np.swapaxes(h, -1, -2)))
+    return a / np.abs(a).sum(-2).max()
+
+
+def _segment_planes(a):
+    """The plane op's kernel inputs for planes ``a`` (B, d, d): a_seg
+    (S, L, 64, 64) zero-padded, and the batch-max 1- and inf-norms."""
+    from qoc_tpu_torch.ops import chain
+    n_steps, d = a.shape[0], a.shape[-1]
+    s_count, length = chain.segment_plan(n_steps)
+    a_seg = torch.zeros((s_count * length, chain.KERNEL_DP,
+                         chain.KERNEL_DP), dtype=torch.complex64,
+                        device=a.device)
+    a_seg[:n_steps, :d, :d] = a
+    n1, ninf = chain._plane_norm_max(a)
+    return a_seg.reshape(s_count, length, chain.KERNEL_DP,
+                         chain.KERNEL_DP), n1, ninf
+
+
+def _compare_plane_kernels(a):
+    """K5 forward and adjoint against their plain versions on the same
+    inputs: (max |err| fwd, rel fwd, max |err| bwd, rel bwd, levels,
+    kernel prefixes)."""
+    from qoc_tpu_torch.ops import chain
+    a_seg, n1, ninf = _segment_planes(a)
+    pref_k = chain.plane_fwd(a_seg, n1)
+    pref_p = chain.plane_fwd_plain(a_seg, n1)
+    gen = torch.Generator(device=a.device).manual_seed(1)
+    seeds = torch.randn((a_seg.shape[0], chain.KERNEL_DP, chain.KERNEL_DP),
+                        dtype=torch.complex64, device=a.device, generator=gen)
+    ga_k = chain.plane_bwd(a_seg, ninf, pref_p, seeds)
+    ga_p = chain.plane_bwd_plain(a_seg, ninf, pref_p, seeds)
+    torch.cuda.synchronize()
+    for name, x in (("K5 fwd", pref_k), ("K5 bwd", ga_k)):
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(name + " produced non-finite values")
+    return (float((pref_k - pref_p).abs().max()), _rel(pref_k, pref_p),
+            float((ga_k - ga_p).abs().max()), _rel(ga_k, ga_p),
+            (chain.ladder_level(n1), chain.ladder_level(ninf)), pref_k)
+
+
+def _check_padding(pref, d, n_steps):
+    """Padded rows and columns of every prefix, and the prefixes after the
+    last real step, exactly the identity's."""
+    eye = torch.eye(pref.shape[-1] - d, dtype=pref.dtype, device=pref.device)
+    last = n_steps - (pref.shape[0] - 1) * (pref.shape[1] - 1)
+    tail = pref[-1, last:]
+    if not (torch.equal(pref[..., d:, d:], eye.expand_as(pref[..., d:, d:]))
+            and not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+            and torch.equal(tail, tail[:1].expand_as(tail))):
+        raise RuntimeError("K5 padding is not exactly the identity "
+                           "(d = {}, {} steps)".format(d, n_steps))
+
+
+def phase_plane_kernels(dev):
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate
+    rng = np.random.default_rng(0)
+    for d in (D, 16):
+        for n_steps in (3, 37, M4_STEPS):
+            base = _unit_planes(rng, n_steps, d)
+            tgt = torch.as_tensor(_random_hermitian(rng, d), device=dev)
+            rows = []
+            for target in LEVEL_NORMS:
+                a = torch.as_tensor((base * target).astype(np.complex64),
+                                    device=dev)
+                err1, rel1, err2, rel2, levels, pref = \
+                    _compare_plane_kernels(a)
+                if d < D:
+                    _check_padding(pref, d, n_steps)
+                # The autograd op end to end: total and plane gradient.
+                outs = []
+                for plain in (False, True):
+                    at = a.clone().requires_grad_(True)
+                    total = plane_chain_propagate(at, plain)
+                    loss = torch.sum(torch.abs(total - tgt) ** 2)
+                    grad, = torch.autograd.grad(loss, at)
+                    outs.append((total.detach(), grad))
+                torch.cuda.synchronize()
+                rel_total = _rel(outs[0][0], outs[1][0])
+                rel_grad = _rel(outs[0][1], outs[1][1])
+                rows.append("{}/{} {:.1e} {:.1e} {:.1e} {:.1e}".format(
+                    *levels, rel1, rel2, rel_total, rel_grad))
+                if max(rel1, rel_total) > FWD_RTOL or \
+                        max(rel2, rel_grad) > GRAD_RTOL:
+                    raise RuntimeError(
+                        "K5 disagrees with its plain version (d = {}, {} "
+                        "steps, levels {})".format(d, n_steps, levels))
+            print("phase 7 plane kernels: d={} steps={} (levels fwd/bwd, rel "
+                  "fwd, bwd, op total, op grad): {}{}".format(
+                      d, n_steps, "; ".join(rows),
+                      "; padding exact" if d < D else ""), flush=True)
+    # Independent reference on a small input: float64 matrix_exp product.
+    a = torch.as_tensor(_unit_planes(rng, 37, D).astype(np.complex64),
+                        device=dev)
+    total = plane_chain_propagate(a)
+    want = torch.eye(D, dtype=torch.complex128, device=dev)
+    for u in torch.linalg.matrix_exp(a.to(torch.complex128)):
+        want = u @ want
+    rel = _rel(total.to(torch.complex128), want)
+    # The main path's own inputs: the M4 problem's planes.
+    err1, rel1, err2, rel2, levels, _ = _compare_plane_kernels(m4_planes(dev))
+    print("phase 7 plane kernels: 37 steps vs float64 matrix_exp product rel "
+          "{:.2e}; M4 planes levels fwd/bwd {}/{} K5 fwd max|err| {:.3e} (rel "
+          "{:.2e}) K5 bwd max|err| {:.3e} (rel {:.2e})".format(
+              rel, *levels, err1, rel1, err2, rel2), flush=True)
+    if rel > FWD_RTOL:
+        raise RuntimeError("plane op disagrees with the matrix_exp product")
+    if rel1 > FWD_RTOL or rel2 > GRAD_RTOL:
+        raise RuntimeError("K5 disagrees with its plain version at the M4 "
+                           "planes")
+    return {"K5 fwd": err1, "K5 bwd": err2}
+
+
+def phase_cross_route(dev):
+    """The headline's M2 chain through K1/K2 and through K5: the same
+    exp(-i dt H(c(t_mid))) steps, built two ways."""
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+
+    pstate, hamiltonian, _ = table3_problem(1)
+    shape = pstate.controls_shape
+    flat0 = strip_controls(True, pstate.initial_controls)
+    results = []
+    for ham in (hamiltonian, torch_callable(hamiltonian, dev)):
+        pstate.hamiltonian = ham
+        reset_launches()
+        loss = build_schroedinger_loss(pstate, dev, torch.float32)
+        flat = torch.as_tensor(flat0, dtype=torch.float32,
+                               device=dev).requires_grad_(True)
+        error, _ = loss(slap_controls_torch(True, flat, shape))
+        grad, = torch.autograd.grad(error, flat)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(error)) and
+                bool(torch.isfinite(grad).all())):
+            raise RuntimeError("non-finite cross-route loss or gradient")
+        results.append((error.detach(), grad, read_launches()))
+    (fused, g_fused, l_fused), (plane, g_plane, l_plane) = results
+    rel_err = float(abs(plane - fused) / abs(fused))
+    rel_grad = _rel(g_plane, g_fused)
+    print("phase 8 cross-route ({} steps, M2): fused K1/K2 {:.8f} plane "
+          "K5 {:.8f} rel {:.2e}; gradient rel {:.2e}; launches fused {} "
+          "plane {}".format(pstate.system_eval_count - 1, float(fused),
+                            float(plane), rel_err, rel_grad, l_fused,
+                            l_plane), flush=True)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the plane route disagrees with the fused route")
+    if not (l_fused["K1"] and l_fused["K2"] and l_plane["K5 fwd"]
+            and l_plane["K5 bwd"] and not l_plane["K1"]
+            and not l_fused["K5 fwd"]):
+        raise RuntimeError("a route did not run its own kernels")
+
+
+def iswap_problem(dev):
+    """examples/2_iswap_gate.py of the JAX package with torch operations:
+    two 4-level transmons (d = 16), iSWAP as 4-state transfer."""
+    from qoc_tpu_torch import TargetStateInfidelity
+    levels = 4
+    a = np.diag(np.sqrt(np.arange(1, levels)), 1)
+    a1 = np.kron(a, np.eye(levels))
+    a2 = np.kron(np.eye(levels), a)
+    anharmonicity, coupling = -0.2 * 2 * np.pi, 0.01 * 2 * np.pi
+    h0 = (anharmonicity / 2 * (a1.T @ a1.T @ a1 @ a1)
+          + anharmonicity / 2 * (a2.T @ a2.T @ a2 @ a2)
+          + coupling * (a1.T @ a2 + a2.T @ a1))
+    h0_t, a1_t, a2_t = (torch.as_tensor(x, dtype=torch.complex64, device=dev)
+                        for x in (h0, a1, a2))
+
+    def hamiltonian(controls, time):
+        return (h0_t + controls[0] * a1_t + controls[0].conj() * a1_t.T
+                + controls[1] * a2_t + controls[1].conj() * a2_t.T)
+
+    def basis(i, j):
+        v = np.zeros((levels * levels, 1))
+        v[i * levels + j] = 1
+        return v
+
+    initial = np.stack([basis(0, 0), basis(0, 1), basis(1, 0), basis(1, 1)])
+    target = np.stack([basis(0, 0), 1j * basis(1, 0), 1j * basis(0, 1),
+                       basis(1, 1)])
+    return hamiltonian, initial, [TargetStateInfidelity(target)]
+
+
+def phase_m4_grape(dev):
+    from qoc_tpu_torch import grape_schroedinger_discrete
+    from qoc_tpu_torch.models import MagnusPolicy
+
+    pstate, hamiltonian, costs = m4_problem(1)
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    reset_launches()
+    result = grape_schroedinger_discrete(
+        CONTROL_COUNT, M4_STEPS, costs, M4_EVOLUTION_TIME, hamiltonian,
+        pstate.initial_states, M4_STEPS, complex_controls=True,
+        initial_controls=pstate.initial_controls,
+        iteration_count=iterations, log_iteration_step=0,
+        magnus_policy=MagnusPolicy.M4,
+        max_control_norms=pstate.max_control_norms,
+        fused_chunk=WARMUP_ITERATIONS, device=dev)
+    launches = read_launches()
+    errors = np.asarray(result.errors)
+    print("phase 9 M4 grape: {} iterations, {:.2f} it/s steady ({} timed "
+          "after {} warm-up), error {:.6f} -> {:.6f}, launches {}".format(
+              result.iteration_count_ran, result.iterations_per_s,
+              TIMED_ITERATIONS, WARMUP_ITERATIONS, errors[0], errors[-1],
+              launches), flush=True)
+    if result.iteration_count_ran != iterations:
+        raise RuntimeError("M4 GRAPE stopped early")
+    if not (np.all(np.isfinite(errors))
+            and np.all(np.isfinite(result.best_final_states))):
+        raise RuntimeError("non-finite M4 GRAPE result")
+    if not errors[-1] < errors[0]:
+        raise RuntimeError("M4 GRAPE error did not fall")
+    if min(launches["K5 fwd"], launches["K5 bwd"]) < 1 or \
+            launches["K1"] or launches["K2"]:
+        raise RuntimeError("the M4 GRAPE run did not go through K5 alone")
+
+    hamiltonian, initial, costs = iswap_problem(dev)
+    iswap = grape_schroedinger_discrete(
+        2, 241, costs, 120.0, hamiltonian, initial, 241,
+        complex_controls=True, iteration_count=ISWAP_ITERATIONS,
+        log_iteration_step=0,
+        max_control_norms=np.full(2, 0.05 * 2 * np.pi), device=dev)
+    iswap_errors = np.asarray(iswap.errors)
+    print("phase 9 iSWAP grape (d=16, 4 states, 241 steps, M2 callable): {} "
+          "iterations, error {:.6f} -> {:.6f}".format(
+              iswap.iteration_count_ran, iswap_errors[0], iswap_errors[-1]),
+          flush=True)
+    if not (np.all(np.isfinite(iswap_errors))
+            and iswap_errors[-1] < iswap_errors[0]):
+        raise RuntimeError("iSWAP GRAPE error did not fall")
+    return launches, result.iterations_per_s
+
+
+def phase_plane_timing(dev):
+    from qoc_tpu_torch.ops import chain
+
+    a = m4_planes(dev)
+    a_seg, n1, ninf = _segment_planes(a)
+    s_count, length = a_seg.shape[:2]
+    pref = chain.plane_fwd(a_seg, n1)
+    seeds = torch.eye(chain.KERNEL_DP, dtype=torch.complex64,
+                      device=dev).expand(s_count, chain.KERNEL_DP,
+                                         chain.KERNEL_DP).contiguous()
+    ms = {
+        "K5 fwd": cuda_ms(lambda: chain.plane_fwd(a_seg, n1), 10),
+        "K5 fwd plain": cuda_ms(lambda: chain.plane_fwd_plain(a_seg, n1), 3),
+        "K5 bwd": cuda_ms(lambda: chain.plane_bwd(a_seg, ninf, pref, seeds),
+                          10),
+        "K5 bwd plain": cuda_ms(lambda: chain.plane_bwd_plain(
+            a_seg, ninf, pref, seeds), 3),
+        "matrix_exp": cuda_ms(lambda: torch.linalg.matrix_exp(a), 10),
+        "planes mH": cuda_ms(lambda: a_seg.mH.contiguous(), 10),
+    }
+    absa = a_seg.reshape(-1, chain.KERNEL_DP, chain.KERNEL_DP).abs()
+    bounds = {
+        "K5 fwd": kernel_bound(absa.sum(-2).amax(-1), chain.ladder_level(n1),
+                               False, [a_seg, n1, pref]),
+        "K5 bwd": kernel_bound(absa.sum(-1).amax(-1),
+                               chain.ladder_level(ninf), True,
+                               [a_seg, ninf, pref, seeds, pref[:, 1:]]),
+    }
+    print("phase 10 timing (M4 planes, S x L = {} x {}, levels {}/{}): "
+          "".format(s_count, length, chain.ladder_level(n1),
+                    chain.ladder_level(ninf))
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time"
+              "".format(k, b[0], b[1], b[2], b[0] / ms[k])
+              for k, b in bounds.items()), flush=True)
+    return ms, bounds
+
+
+def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda",
+            "source": "qoc_tpu_torch/csrc/" + source,
+            "replaces": "qoc_tpu/ops/chain_pallas.py:" + replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
 def main():
@@ -382,21 +787,24 @@ def main():
     worst = phase_kernels(dev, headline_w)
     phase_headline(dev)
     launches, it_s = phase_grape(dev)
-    ms = phase_timing(dev, headline_w)
+    ms, bounds = phase_timing(dev, headline_w)
+    worst.update(phase_plane_kernels(dev))
+    phase_cross_route(dev)
+    m4_launches, m4_it_s = phase_m4_grape(dev)
+    plane_ms, plane_bounds = phase_plane_timing(dev)
+    launches.update({k: m4_launches[k] for k in ("K5 fwd", "K5 bwd")})
+    ms.update(plane_ms)
+    bounds.update(plane_bounds)
     kernels = [
-        {"name": "chain_fwd", "route": "cuda",
-         "source": "qoc_tpu_torch/csrc/chain_fwd.cu",
-         "replaces": "qoc_tpu/ops/chain_pallas.py:236",
-         "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": ms["K1"], "plain_ms": ms["K1 plain"]},
-        {"name": "chain_bwd", "route": "cuda",
-         "source": "qoc_tpu_torch/csrc/chain_bwd.cu",
-         "replaces": "qoc_tpu/ops/chain_pallas.py:262",
-         "launches": launches["K2"], "max_abs_err": worst["K2"],
-         "ms": ms["K2"], "plain_ms": ms["K2 plain"]},
-    ]
-    print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s"
-          "".format(card, build_s, it_s))
+        _kernel_row(name, source, replaces, launches[key], worst[key],
+                    ms[key], ms[key + " plain"], bounds[key])
+        for name, source, replaces, key in (
+            ("chain_fwd", "chain_fwd.cu", "236", "K1"),
+            ("chain_bwd", "chain_bwd.cu", "262", "K2"),
+            ("plane_fwd", "plane_fwd.cu", "695", "K5 fwd"),
+            ("plane_bwd", "plane_bwd.cu", "718", "K5 bwd"))]
+    print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
+          "M4 GRAPE {:.2f} it/s".format(card, build_s, it_s, m4_it_s))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,171 @@
+"""Where the time of a qoc_tpu_torch GRAPE iteration goes, on one CUDA card.
+
+Run from the root of a checkout, with one NVIDIA GPU and nvcc:
+
+    python3 profiling/torch_grape_profile.py [--json PATH]
+
+For the Table-3 headline (LinearHamiltonian, M2: the fused route, K1/K2)
+and the Magnus-M4 problem of the JAX package's bench_m4 (the plane route,
+K5), both built as chip_smoke.py builds them, it runs one GRAPE iteration
+the way core/graperunner.py does (clip, loss, gradient, Adam update):
+2 warm-up iterations, then 10 timed without the profiler (host clock, one
+synchronise at the end), then 5 under torch.profiler. It prints the card's
+name and power limit, the unprofiled ms per iteration, the device time of
+each kernel class per iteration, the device's busy and idle share of the
+profiled window and the peak device memory; ``--json PATH`` also writes
+them to PATH as JSON.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (problem builders; imports no JAX)
+
+WARMUP, TIMED, PROFILED = 2, 10, 5
+KERNELS = (("chain_fwd_kernel", "K1"), ("chain_bwd_kernel", "K2"),
+           ("plane_fwd_kernel", "K5 fwd"), ("plane_bwd_kernel", "K5 bwd"))
+
+
+def _class(name):
+    for key, label in KERNELS:
+        if key in name:
+            return label
+    lower = name.lower()
+    if "gemm" in lower or "cutlass" in lower:
+        return "glue matmuls (cuBLAS)"
+    if "memcpy" in lower or "memset" in lower:
+        return "glue copies"
+    return "glue elementwise/reductions"
+
+
+def make_iteration(pstate, dev):
+    """One GRAPE iteration of core/graperunner.py on ``pstate``."""
+    from qoc_tpu_torch.core.common import (clip_control_norms_torch,
+                                           slap_controls_torch,
+                                           strip_controls_torch)
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    shape = pstate.controls_shape
+    loss = build_schroedinger_loss(pstate, dev, torch.float32)
+    mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
+                          device=dev)
+    adam = pstate.optimizer
+    params = strip_controls_torch(True, torch.as_tensor(
+        pstate.initial_controls, dtype=torch.complex64, device=dev))
+    state = {"params": params, "opt": adam.init_state(params)}
+
+    def iteration():
+        controls = clip_control_norms_torch(
+            slap_controls_torch(True, state["params"], shape), mcn)
+        flat = strip_controls_torch(True, controls).detach()
+        flat.requires_grad_(True)
+        error, _ = loss(slap_controls_torch(True, flat, shape))
+        grads, = torch.autograd.grad(error, flat)
+        state["opt"], state["params"] = adam.update(state["opt"], grads,
+                                                    state["params"])
+        return error
+    return iteration
+
+
+def profile_cell(name, pstate, dev):
+    iteration = make_iteration(pstate, dev)
+    for _ in range(WARMUP):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    for _ in range(TIMED):
+        iteration()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3 / TIMED
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(PROFILED):
+            iteration()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - start) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("torch.profiler recorded no device time")
+    by_class = {}
+    for e in device:
+        label = _class(e.name)
+        by_class[label] = by_class.get(label, 0.0) + e.time_range.elapsed_us()
+    # Busy time: the union of the device intervals (one stream, so the sum
+    # up to overlaps of copies).
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    busy += cur_end - cur_start
+    first = min(s for s, _ in spans)
+    last = max(e for _, e in spans)
+    result = {
+        "cell": name,
+        "ms_per_iteration_unprofiled": wall_ms,
+        "it_s_unprofiled": 1e3 / wall_ms,
+        "device_ms_per_iteration": {k: v / 1e3 / PROFILED
+                                    for k, v in sorted(by_class.items())},
+        "device_busy_ms_per_iteration": busy / 1e3 / PROFILED,
+        "profiled_window_ms_per_iteration": window_us / 1e3 / PROFILED,
+        "device_span_ms_per_iteration": (last - first) / 1e3 / PROFILED,
+        "idle_share_of_window": 1.0 - busy / window_us,
+        "kernel_launches_per_iteration": len(device) / PROFILED,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    print("{}: {:.3f} ms/iteration unprofiled ({:.2f} it/s); device busy "
+          "{:.3f} of {:.3f} ms profiled (idle {:.1%}), {:.0f} device "
+          "kernels/iteration, peak {:.2f} GB".format(
+              name, wall_ms, 1e3 / wall_ms,
+              result["device_busy_ms_per_iteration"],
+              result["profiled_window_ms_per_iteration"],
+              result["idle_share_of_window"],
+              result["kernel_launches_per_iteration"],
+              result["peak_memory_gb"]), flush=True)
+    for label, ms in sorted(result["device_ms_per_iteration"].items(),
+                            key=lambda kv: -kv[1]):
+        print("  {:32s} {:8.3f} ms  {:5.1%}".format(
+            label, ms, ms / result["device_busy_ms_per_iteration"]))
+    return result
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--json", type=Path, help="write the results here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_grape_profile: needs a CUDA device.")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    results = [profile_cell("headline M2 (fused, K1/K2)",
+                            chip_smoke.table3_problem(1)[0], dev),
+               profile_cell("bench_m4 M4 (plane, K5)",
+                            chip_smoke.m4_problem(1)[0], dev)]
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps({"card": card, "cells": results},
+                                        indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,11 +3,13 @@
 The port of ``qoc_tpu`` (JAX on a TPU) to PyTorch with hand-written CUDA
 kernels for the NVIDIA H100. It imports ``torch`` and never ``jax``; each
 module mirrors its ``qoc_tpu`` counterpart by path. Ported so far: the
-Schrödinger path with a ``LinearHamiltonian``, Magnus-M2,
-``TargetStateInfidelity`` and Adam, whose propagation runs through the
-fused expm-product chain kernels (``ops/chain.py``, ``csrc/``). Every entry
-point takes ``device`` and ``dtype``: float64 on the CPU (parity with
-``qoc_tpu``), float32 on CUDA (the kernels' type).
+Schrödinger path with a ``LinearHamiltonian`` or any torch Hamiltonian
+callable, Magnus M2/M4/M6, ``TargetStateInfidelity`` and Adam, whose
+propagation runs through the fused expm-product chain kernels
+(``ops/chain.py``, ``csrc/``). Every entry point takes ``device`` and
+``dtype``: by default the current CUDA device in float32 (the kernels'
+type), raising ``RuntimeError`` where there is none; ``device="cpu"`` runs
+float64 (parity with ``qoc_tpu``).
 """
 
 from qoc_tpu_torch import config  # noqa: F401  (TF32 off for the glue)

@@ -1,17 +1,33 @@
 """Schrödinger-equation evolution and GRAPE.
 
-Counterpart of ``qoc_tpu/core/schroedinger.py``, fused route: a
-``LinearHamiltonian`` under Magnus-M2 with final-state costs propagates
-through the expm-product chain op (``ops/chain.py``), whose kernels K1/K2
-carry it on CUDA. Steps run in time blocks (``chain_block_plan``; the
-Table-3 headline is one block) composed by a Python loop, and autograd
-chains the blocks' exact gradients.
+Counterpart of ``qoc_tpu/core/schroedinger.py``. Steps run in time blocks
+(``chain_block_plan``; the Table-3 headline is one block) composed by a
+Python loop, and autograd chains the blocks' exact gradients. A block
+propagates through one of two chain ops (``ops/chain.py``), chosen in
+``qoc_tpu``'s order:
+
+- the fused route, for a ``LinearHamiltonian`` under Magnus-M2 with
+  controls: weight rows against a constant generator basis, carried on CUDA
+  by the kernels K1/K2;
+- the plane route, for everything else: any Hamiltonian callable under
+  Magnus M2, M4 or M6, with or without controls, and a ``LinearHamiltonian``
+  under M4 or M6. Each step's Magnus term is built as a complex plane by
+  plain torch operations (differentiated by autograd) and the planes go
+  through the plane chain op, carried on CUDA by the kernels K5.
+
+The Hamiltonian contract of the port: a callable written with ``torch``
+operations, ``(controls (C,) complex tensor or None, t 0-dim real tensor)
+-> (d, d) tensor``, on the controls' device. It is evaluated under
+``torch.func.vmap`` over every Magnus node of a block, so it must not call
+``.item()``, numpy functions on its arguments, or write into them in place.
+Constants it closes over may be numpy arrays or tensors of any complex
+dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: other Hamiltonians and Magnus M4/M6 (the generic expm
-route, slice 2), step costs and intermediate states (the per-step-seed
-chain, slice 2), ``impose_control_conditions`` (the host loop, slice 3),
-save files and resume (slice 4) and ``mesh`` (slice 6).
+ROADMAP slice: d > 64 on CUDA (K6, slice 5), step costs and intermediate
+states (the per-step-seed chain, slice 2), ``impose_control_conditions``
+(the host loop, slice 3), save files and resume (slice 4) and ``mesh``
+(slice 6).
 """
 
 import numpy as np
@@ -26,12 +42,30 @@ from qoc_tpu_torch.models import (EvolveSchroedingerDiscreteState,
                                   GrapeSchroedingerResult,
                                   InterpolationPolicy, LinearHamiltonian,
                                   MagnusPolicy)
-from qoc_tpu_torch.ops.chain import ChainExpmPropagate, chain_block_plan
+from qoc_tpu_torch.ops.chain import (KERNEL_DP, ChainExpmPropagate,
+                                     chain_block_plan, plane_chain_propagate)
 from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
+from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
 from qoc_tpu_torch.optim import Adam
 
 __all__ = ["build_schroedinger_loss", "evolve_schroedinger_discrete",
-           "fused_weights", "grape_schroedinger_discrete"]
+           "fused_weights", "grape_schroedinger_discrete", "plane_builder"]
+
+
+# Magnus term of each policy, and the (d, d) planes a step's build holds at
+# its peak, its output included, which bounds what its autograd graph keeps
+# for the backward: M2 the term; M4 a1, a2, the commutator's two products
+# and the term; M6 three nodes, b1..b3, [b1, b2], the outer commutator's
+# arguments, an inner term, its two products and the term. A callable's own
+# temporaries are not counted.
+_MAGNUS = {
+    MagnusPolicy.M2: (magnus_m2, 1),
+    MagnusPolicy.M4: (magnus_m4, 5),
+    MagnusPolicy.M6: (magnus_m6, 13),
+}
+# What the plane op keeps a step besides the build: its padded input
+# plane, the prefix and the gradient plane its backward writes.
+_PLANE_OP_PLANES = 3
 
 
 def _not_ported(what, roadmap_slice):
@@ -55,24 +89,51 @@ def fused_weights(controls, times, control_eval_times, dt):
     return torch.cat((ones, ri), dim=-1)
 
 
+def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
+    """planes(controls, times) -> (B, d, d): the Magnus term of each step
+    [t, t + dt] for the step start times ``times`` (B,), in the dtype the
+    Hamiltonian gives (``qoc_tpu`` schroedinger.py magnus_term_at)."""
+    magnus = _MAGNUS[magnus_policy][0]
+
+    def hamiltonian_at(controls, t):
+        """H at the node times ``t`` (B,), controls interpolated there."""
+        if controls is None:
+            c_t = None
+        else:
+            c_t = interpolate_linear_set(t, control_eval_times, controls)
+        if isinstance(hamiltonian, LinearHamiltonian):
+            # Its __call__ broadcasts over the controls' leading axis: one
+            # call gives the same planes as the vmapped one below.
+            h = hamiltonian(c_t, t)
+        elif c_t is None:
+            h = torch.func.vmap(lambda t_j: hamiltonian(None, t_j))(t)
+        else:
+            h = torch.func.vmap(hamiltonian)(c_t, t)
+        h = h.to(t.device)
+        return torch.broadcast_to(h, t.shape + h.shape[-2:])
+
+    def planes(controls, times):
+        return magnus(lambda t: -1j * hamiltonian_at(controls, t), dt, times)
+
+    return planes
+
+
 def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
                             log_path=False):
     """The loss: controls (a (E, C) tensor, or None) -> (error,
     final_states), differentiable w.r.t. the controls.
 
-    Mirrors the fused route of ``qoc_tpu``'s build_schroedinger_loss
-    (reference _evaluate_schroedinger_discrete, schroedingerdiscrete.py:
-    356-438, without step costs)."""
+    Mirrors ``qoc_tpu``'s build_schroedinger_loss (reference
+    _evaluate_schroedinger_discrete, schroedingerdiscrete.py:356-438,
+    without step costs): the fused route for a ``LinearHamiltonian`` under
+    M2 with controls, the plane route otherwise (module docstring)."""
     if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
         raise NotImplementedError(
             "The interpolation policy {} is not yet supported for this "
             "method.".format(pstate.interpolation_policy))
-    hamiltonian = pstate.hamiltonian
-    if not isinstance(hamiltonian, LinearHamiltonian):
-        raise _not_ported("A Hamiltonian that is not a LinearHamiltonian "
-                          "(the generic expm route)", 2)
-    if pstate.magnus_policy != MagnusPolicy.M2:
-        raise _not_ported("Magnus policy {}".format(pstate.magnus_policy), 2)
+    if pstate.magnus_policy not in _MAGNUS:
+        raise ValueError("Unrecognized magnus policy {}.".format(
+            pstate.magnus_policy))
     if pstate.step_costs:
         raise _not_ported("Step costs (the per-step-seed chain kernels)", 2)
 
@@ -84,32 +145,46 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     final_step = pstate.final_system_eval_step
     costs = pstate.costs
     d = initial_states.shape[-2]
-    with_controls = pstate.control_eval_times is not None
-    basis = hamiltonian.generator_basis(dt)
-    if not with_controls:
-        basis = basis[:1]            # the drift alone: weight rows [1]
-    chain = ChainExpmPropagate(basis, device, dtype)
-    block = int(time_block_size
-                or chain_block_plan(d, n_steps, cdtype.itemsize))
+    if device.type == "cuda" and d > KERNEL_DP:
+        raise _not_ported("d = {} > {} on CUDA (K6, the streamed chain)"
+                          .format(d, KERNEL_DP), 5)
+    hamiltonian = pstate.hamiltonian
     times = torch.arange(n_steps, dtype=dtype, device=device) * dt
     cet = (torch.as_tensor(pstate.control_eval_times, dtype=dtype,
-                           device=device) if with_controls else None)
+                           device=device)
+           if pstate.control_eval_times is not None else None)
+    fused = (isinstance(hamiltonian, LinearHamiltonian)
+             and pstate.magnus_policy == MagnusPolicy.M2 and cet is not None)
+    if fused:
+        chain = ChainExpmPropagate(hamiltonian.generator_basis(dt), device,
+                                   dtype)
+        planes_per_step = 2
+
+        def propagate(controls, t_block):
+            return chain(fused_weights(controls, t_block, cet, dt))
+        route, kernels = "fused chain", "K1/K2"
+    else:
+        planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
+        planes_per_step = _PLANE_OP_PLANES + _MAGNUS[pstate.magnus_policy][1]
+
+        def propagate(controls, t_block):
+            return plane_chain_propagate(planes(controls, t_block).to(cdtype))
+        route, kernels = "plane chain", "K5"
+    block = int(time_block_size
+                or chain_block_plan(d, n_steps, cdtype.itemsize,
+                                    planes_per_step))
     if log_path:
-        print("qoc_tpu_torch: propagation path = fused chain, {} "
-              "(LinearHamiltonian, M2, no step costs; d={}, block={})."
-              "".format("CUDA kernels K1/K2" if device.type == "cuda"
-                        else "plain torch on " + device.type, d, block))
+        print("qoc_tpu_torch: propagation path = {}, {} ({}, {}, no step "
+              "costs; d={}, block={}).".format(
+                  route, "CUDA kernels " + kernels if device.type == "cuda"
+                  else "plain torch on " + device.type,
+                  type(hamiltonian).__name__, pstate.magnus_policy, d,
+                  block))
 
     def loss(controls):
         states = initial_states
         for start in range(0, n_steps, block):
-            t_block = times[start:start + block]
-            if controls is None:
-                w = torch.ones((t_block.shape[0], 1), dtype=dtype,
-                               device=device)
-            else:
-                w = fused_weights(controls, t_block, cet, dt)
-            states = chain(w) @ states
+            states = propagate(controls, times[start:start + block]) @ states
         error = torch.zeros((), dtype=dtype, device=device)
         for cost in costs:
             error = error + cost.cost(controls, states, final_step)
@@ -131,7 +206,9 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
     total cost.
 
     API parity: reference schroedingerdiscrete.py:28-103, plus ``device``
-    and ``dtype`` (default: the CPU in float64; CUDA runs float32).
+    and ``dtype`` (default: the current CUDA device in float32, raising
+    ``RuntimeError`` where there is none; ``device="cpu"`` runs float64).
+    ``hamiltonian`` follows the port's contract (module docstring).
     Returns an ``EvolveSchroedingerResult`` with ``error`` and
     ``final_states`` (host numpy)."""
     if mesh is not None:
@@ -175,9 +252,11 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
     """Optimize time-discrete controls for Schrödinger evolution (GRAPE).
 
     API parity: reference schroedingerdiscrete.py:106-252 and ``qoc_tpu``'s
-    signature, plus ``device`` and ``dtype`` (default: the CPU in float64;
-    CUDA runs float32). ``optimizer=None`` is a fresh ``Adam()``. The loop
-    runs on the device (core/graperunner.py). Returns a
+    signature, plus ``device`` and ``dtype`` (default: the current CUDA
+    device in float32, raising ``RuntimeError`` where there is none;
+    ``device="cpu"`` runs float64). ``hamiltonian`` follows the port's
+    contract (module docstring). ``optimizer=None`` is a fresh ``Adam()``.
+    The loop runs on the device (core/graperunner.py). Returns a
     ``GrapeSchroedingerResult`` with the best-seen controls, error, final
     states and iteration (host numpy)."""
     if impose_control_conditions is not None:

@@ -1,5 +1,10 @@
-// Shared device code of the fused expm-product chain kernels (K1 forward in
-// chain_fwd.cu, K2 adjoint in chain_bwd.cu).
+// Shared device code of the expm-product chain kernels: K1 forward
+// (chain_fwd.cu) and K2 adjoint (chain_bwd.cu) of the basis chain, K5
+// forward (plane_fwd.cu) and adjoint (plane_bwd.cu) of the plane chain. The
+// four differ only in where a step's generator comes from (a weighted sum
+// of a resident basis, or a plane streamed from device memory); the tile
+// map, the products, the Taylor ladder, its dual-number form and the chain
+// and adjoint steps are here.
 //
 // Layout. One thread block advances one segment chain; 256 threads each own
 // a fixed 16-element tile of every DP x DP complex matrix: rows
@@ -41,6 +46,12 @@ constexpr int MAX_SQUARINGS = 60;
 // column sums and one broadcast slot.
 constexpr int RED_FLOATS = 9 * DP + 1;
 constexpr size_t RED_BYTES = RED_FLOATS * sizeof(float);
+// Dynamic shared memory of the forward kernels (P, M, M2, M3, M4, X) and of
+// the adjoint kernels (T, U^H / value, tangent and the dual powers).
+constexpr size_t FWD_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
+constexpr size_t BWD_SMEM = 7 * MAT * sizeof(float2) + RED_BYTES;
+// Per-block device-memory stash of the adjoint: M, dM, M2, dM2, M3, dM3.
+constexpr int STASH_SLOTS = 6;
 
 // 1/k!, k = 0..19, rounded to float as the TPU kernels use them.
 static __constant__ float kC[20] = {
@@ -178,6 +189,26 @@ __device__ __forceinline__ void build_generator(float2* M,
   store(M, v);
 }
 
+// M = X for a DP x DP matrix X in device memory, on the calling thread's
+// tile (coalesced reads).
+__device__ __forceinline__ void load(float2* M,
+                                     const float2* __restrict__ X) {
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) M[own(e)] = __ldg(X + own(e));
+}
+
+// M = X^H: X is read coalesced and stored conjugate-transposed, so every
+// thread writes outside its own tile; the caller's barrier publishes M.
+__device__ __forceinline__ void load_adjoint(float2* M,
+                                             const float2* __restrict__ X) {
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int i = own(e);
+    const float2 x = __ldg(X + i);
+    M[(i % DP) * DP + i / DP] = make_float2(x.x, -x.y);
+  }
+}
+
 // Squaring count of M (shared memory) from its complex 1-norm:
 // s = clip(ceil(log2(max(||M||_1 / 1.0, 1))), 0, 60), as _scaling_count.
 // Ends with a barrier; every thread gets the same s.
@@ -209,6 +240,394 @@ __device__ __forceinline__ int scaling_count(const float2* M, float* red) {
   }
   __syncthreads();
   return (int)red[9 * DP];
+}
+
+
+// ---------------------------------------------------------------------------
+// Forward: exp(M) by the ladder (K1, K5 forward)
+// ---------------------------------------------------------------------------
+
+// chunk(k) = c_k I + c_{k+1} M + c_{k+2} M2 + c_{k+3} M3 on element e.
+__device__ __forceinline__ float2 chunk(int k, int e, const float2* M,
+                                        const float2* M2, const float2* M3) {
+  const int i = own(e);
+  float2 v = caxpy(kC[k + 1], M[i], make_float2(kC[k] * eye(e), 0.0f));
+  v = caxpy(kC[k + 2], M2[i], v);
+  return caxpy(kC[k + 3], M3[i], v);
+}
+
+// M2 = M M, M3 = M2 M, M4 = M2 M2. Expects M written; ends with a barrier.
+__device__ __forceinline__ void powers(const float2* M, float2* M2,
+                                       float2* M3, float2* M4) {
+  float2 acc[EPT];
+  mm(M, M, acc);
+  store(M2, acc);
+  __syncthreads();
+  mm(M2, M, acc);
+  store(M3, acc);
+  mm(M2, M2, acc);
+  store(M4, acc);
+  __syncthreads();
+}
+
+// Paterson-Stockmeyer degree 19 into X (powers already formed).
+__device__ __forceinline__ void taylor19(const float2* M, const float2* M2,
+                                         const float2* M3, const float2* M4,
+                                         float2* X) {
+  float2 acc[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) X[own(e)] = chunk(16, e, M, M2, M3);
+  __syncthreads();
+  for (int k = 12; k >= 0; k -= 4) {
+    mm(X, M4, acc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e)
+      X[own(e)] = cadd(acc[e], chunk(k, e, M, M2, M3));
+    __syncthreads();
+  }
+}
+
+// exp(M) for the generator M in shared memory (written, behind a barrier).
+// Returns the buffer that holds the result; ends with a barrier.
+static __device__ float2* expm(float2* M, float2* M2, float2* M3,
+                               float2* M4, float2* X, int level, float* red) {
+  float2 acc[EPT];
+  if (level == 0) {
+    // Degree 4: M2 = M M; U = c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
+    mm(M, M, acc);
+    store(M2, acc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      M3[i] = caxpy(kC[4], M2[i], cscale(kC[3], M[i]));
+    }
+    __syncthreads();
+    mm(M2, M3, acc);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      float2 v = caxpy(kC[1], M[i], make_float2(kC[0] * eye(e), 0.0f));
+      X[i] = cadd(caxpy(kC[2], M2[i], v), acc[e]);
+    }
+    __syncthreads();
+    return X;
+  }
+  if (level == 1) {
+    // Degree 8 in 3 products (_D8X).
+    mm(M, M, acc);
+    store(M2, acc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      M3[i] = caxpy(kD8[1], M2[i], cscale(kD8[0], M[i]));
+    }
+    __syncthreads();
+    mm(M2, M3, acc);  // A4
+    store(M4, acc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      const float2 m = M[i], m2 = M2[i], m4 = M4[i];
+      const float id = eye(e);
+      M3[i] = caxpy(kD8[2], m2, m4);  // left factor x3 A2 + A4
+      float2 r = caxpy(kD8[4], m, make_float2(kD8[3] * id, 0.0f));
+      r = caxpy(kD8[5], m2, r);
+      X[i] = caxpy(kD8[6], m4, r);  // right factor
+      float2 b = caxpy(kD8[8], m, make_float2(kD8[7] * id, 0.0f));
+      M2[i] = caxpy(kD8[9], m2, b);  // y0 I + y1 M + y2 A2
+    }
+    __syncthreads();
+    mm(M3, X, acc);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      M[i] = cadd(M2[i], acc[e]);
+    }
+    __syncthreads();
+    return M;
+  }
+  if (level == 2) {
+    // Degree 12, Paterson-Stockmeyer (5 products).
+    powers(M, M2, M3, M4);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e)
+      X[own(e)] = caxpy(kC[12], M4[own(e)], chunk(8, e, M, M2, M3));
+    __syncthreads();
+    for (int k = 4; k >= 0; k -= 4) {
+      mm(M4, X, acc);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EPT; ++e)
+        X[own(e)] = cadd(chunk(k, e, M, M2, M3), acc[e]);
+      __syncthreads();
+    }
+    return X;
+  }
+  int s = 0;
+  if (level == 4) {
+    // Per-matrix scaling to theta = 1, then T19 and s squarings.
+    s = scaling_count(M, red);
+    const float scale = exp2f(-(float)s);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) M[own(e)] = cscale(scale, M[own(e)]);
+    __syncthreads();
+  }
+  powers(M, M2, M3, M4);
+  taylor19(M, M2, M3, M4, X);
+  for (int j = 0; j < s; ++j) {
+    mm(X, X, acc);
+    __syncthreads();
+    store(X, acc);
+    __syncthreads();
+  }
+  return X;
+}
+
+// ---------------------------------------------------------------------------
+// Adjoint: dual-number exp (K2, K5 backward)
+// ---------------------------------------------------------------------------
+
+// Thread-private slot of the per-block stash: element e of this thread.
+__device__ __forceinline__ float2& stash_at(float2* st, int slot, int e) {
+  return st[(size_t)slot * MAT + e * NT + threadIdx.x];
+}
+
+// Dual chunk(k) from the stash: value c_k I + c_{k+1} M + c_{k+2} M2 +
+// c_{k+3} M3 and tangent c_{k+1} dM + c_{k+2} dM2 + c_{k+3} dM3.
+__device__ __forceinline__ void chunk_dual(int k, int e, float2* st,
+                                           float2& v, float2& dv) {
+  v = caxpy(kC[k + 1], stash_at(st, 0, e), make_float2(kC[k] * eye(e), 0.0f));
+  v = caxpy(kC[k + 2], stash_at(st, 2, e), v);
+  v = caxpy(kC[k + 3], stash_at(st, 4, e), v);
+  dv = cscale(kC[k + 1], stash_at(st, 1, e));
+  dv = caxpy(kC[k + 2], stash_at(st, 3, e), dv);
+  dv = caxpy(kC[k + 3], stash_at(st, 5, e), dv);
+}
+
+// Dual powers for the Paterson-Stockmeyer degrees: (M2, dM2) -> b3, b4,
+// (M3, dM3) -> stash, (M4, dM4) -> b5, b6, then M, dM, M2, dM2 -> stash.
+// Ends with a barrier; b1..b4 are free afterwards.
+__device__ __forceinline__ void dual_powers(float2* const* b, float2* st) {
+  float2 acc[EPT], dacc[EPT];
+  mm_dual(b[1], b[2], b[1], b[2], acc, dacc);
+  store(b[3], acc);
+  store(b[4], dacc);
+  __syncthreads();
+  mm_dual(b[3], b[4], b[1], b[2], acc, dacc);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    stash_at(st, 4, e) = acc[e];
+    stash_at(st, 5, e) = dacc[e];
+  }
+  mm_dual(b[3], b[4], b[3], b[4], acc, dacc);
+  store(b[5], acc);
+  store(b[6], dacc);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int i = own(e);
+    stash_at(st, 0, e) = b[1][i];
+    stash_at(st, 1, e) = b[2][i];
+    stash_at(st, 2, e) = b[3][i];
+    stash_at(st, 3, e) = b[4][i];
+  }
+  __syncthreads();
+}
+
+// Dual exp at (M, dM) = (b1, b2), both written behind a barrier. Leaves
+// (exp(M), L(M, dM)) in (b1, b2); b3..b6 are scratch. Ends with a barrier.
+static __device__ void expm_dual(float2* const* b, int level, float2* st,
+                                 float* red) {
+  float2 acc[EPT], dacc[EPT];
+  if (level == 0) {
+    // Degree 4.
+    mm_dual(b[1], b[2], b[1], b[2], acc, dacc);
+    store(b[3], acc);
+    store(b[4], dacc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      b[5][i] = caxpy(kC[4], b[3][i], cscale(kC[3], b[1][i]));
+      b[6][i] = caxpy(kC[4], b[4][i], cscale(kC[3], b[2][i]));
+    }
+    __syncthreads();
+    mm_dual(b[3], b[4], b[5], b[6], acc, dacc);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      float2 v = caxpy(kC[1], b[1][i], make_float2(kC[0] * eye(e), 0.0f));
+      v = caxpy(kC[2], b[3][i], v);
+      float2 dv = caxpy(kC[2], b[4][i], cscale(kC[1], b[2][i]));
+      b[1][i] = cadd(v, acc[e]);
+      b[2][i] = cadd(dv, dacc[e]);
+    }
+    __syncthreads();
+    return;
+  }
+  if (level == 1) {
+    // Degree 8 in 3 dual products (_D8X).
+    mm_dual(b[1], b[2], b[1], b[2], acc, dacc);
+    store(b[3], acc);
+    store(b[4], dacc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      b[5][i] = caxpy(kD8[1], b[3][i], cscale(kD8[0], b[1][i]));
+      b[6][i] = caxpy(kD8[1], b[4][i], cscale(kD8[0], b[2][i]));
+    }
+    __syncthreads();
+    mm_dual(b[3], b[4], b[5], b[6], acc, dacc);  // A4
+    __syncthreads();
+    store(b[5], acc);
+    store(b[6], dacc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      const float2 m = b[1][i], dm = b[2][i], m2 = b[3][i], dm2 = b[4][i];
+      const float2 m4 = b[5][i], dm4 = b[6][i];
+      const float id = eye(e);
+      b[3][i] = caxpy(kD8[2], m2, m4);
+      b[4][i] = caxpy(kD8[2], dm2, dm4);
+      float2 r = caxpy(kD8[4], m, make_float2(kD8[3] * id, 0.0f));
+      r = caxpy(kD8[5], m2, r);
+      b[5][i] = caxpy(kD8[6], m4, r);
+      float2 dr = cscale(kD8[4], dm);
+      dr = caxpy(kD8[5], dm2, dr);
+      b[6][i] = caxpy(kD8[6], dm4, dr);
+      float2 v = caxpy(kD8[8], m, make_float2(kD8[7] * id, 0.0f));
+      b[1][i] = caxpy(kD8[9], m2, v);
+      b[2][i] = caxpy(kD8[9], dm2, cscale(kD8[8], dm));
+    }
+    __syncthreads();
+    mm_dual(b[3], b[4], b[5], b[6], acc, dacc);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      b[1][i] = cadd(b[1][i], acc[e]);
+      b[2][i] = cadd(b[2][i], dacc[e]);
+    }
+    __syncthreads();
+    return;
+  }
+  if (level == 2) {
+    // Degree 12, Paterson-Stockmeyer: x2 = chunk(8) + c12 M4,
+    // x1 = chunk(4) + M4 x2, T12 = chunk(0) + M4 x1.
+    dual_powers(b, st);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      float2 v, dv;
+      chunk_dual(8, e, st, v, dv);
+      b[1][i] = caxpy(kC[12], b[5][i], v);
+      b[2][i] = caxpy(kC[12], b[6][i], dv);
+    }
+    __syncthreads();
+    for (int k = 4; k >= 0; k -= 4) {
+      mm_dual(b[5], b[6], b[1], b[2], acc, dacc);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int i = own(e);
+        float2 v, dv;
+        chunk_dual(k, e, st, v, dv);
+        b[1][i] = cadd(v, acc[e]);
+        b[2][i] = cadd(dv, dacc[e]);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  int s = 0;
+  if (level == 4) {
+    // Per-matrix scaling of the value's 1-norm to theta = 1 (the tangent
+    // scales with it), then dual T19 and s dual squarings.
+    s = scaling_count(b[1], red);
+    const float scale = exp2f(-(float)s);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      b[1][i] = cscale(scale, b[1][i]);
+      b[2][i] = cscale(scale, b[2][i]);
+    }
+    __syncthreads();
+  }
+  // Degree 19, Paterson-Stockmeyer: p = chunk(16); p = p M4 + chunk(k).
+  dual_powers(b, st);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int i = own(e);
+    float2 v, dv;
+    chunk_dual(16, e, st, v, dv);
+    b[1][i] = v;
+    b[2][i] = dv;
+  }
+  __syncthreads();
+  for (int k = 12; k >= 0; k -= 4) {
+    mm_dual(b[1], b[2], b[5], b[6], acc, dacc);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = own(e);
+      float2 v, dv;
+      chunk_dual(k, e, st, v, dv);
+      b[1][i] = cadd(acc[e], v);
+      b[2][i] = cadd(dacc[e], dv);
+    }
+    __syncthreads();
+  }
+  for (int j = 0; j < s; ++j) {
+    mm_dual(b[1], b[2], b[1], b[2], acc, dacc);
+    __syncthreads();
+    store(b[1], acc);
+    store(b[2], dacc);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Chain and adjoint steps
+// ---------------------------------------------------------------------------
+
+// P <- U P, also written to the prefix slot ``out`` in device memory. U and
+// P are in shared memory; ends with a barrier.
+__device__ __forceinline__ void advance(float2* P, const float2* U,
+                                        float2* __restrict__ out) {
+  float2 acc[EPT];
+  mm(U, P, acc);
+  __syncthreads();
+  store(P, acc);
+  store(out, acc);
+  __syncthreads();
+}
+
+// First half of adjoint step t of a segment chain, in the buffers of
+// expm_dual (b0 = T, b1 = U_{t+1}^H from the previous step):
+//   T_t  = seed (last step) or U_{t+1}^H T_{t+1},
+//   gU_t = T_t P_{t-1}^H into b2, with P_{t-1} = prev (device memory).
+// b1 and b3..b6 are free afterwards: the caller writes A_t^H into b1 and
+// sets a barrier before expm_dual.
+__device__ __forceinline__ void adjoint_gu(float2* const* b,
+                                           const float2* __restrict__ seed,
+                                           const float2* __restrict__ prev,
+                                           bool last) {
+  float2 acc[EPT];
+  if (last) {
+    load(b[0], seed);
+  } else {
+    mm(b[1], b[0], acc);
+    __syncthreads();
+    store(b[0], acc);
+  }
+  load_adjoint(b[3], prev);
+  __syncthreads();
+  mm(b[0], b[3], acc);
+  store(b[2], acc);
 }
 
 }  // namespace qoc

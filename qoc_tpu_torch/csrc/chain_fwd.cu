@@ -28,148 +28,6 @@
 namespace qoc {
 namespace {
 
-constexpr size_t FWD_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
-
-// chunk(k) = c_k I + c_{k+1} M + c_{k+2} M2 + c_{k+3} M3 on element e.
-__device__ __forceinline__ float2 chunk(int k, int e, const float2* M,
-                                        const float2* M2, const float2* M3) {
-  const int i = own(e);
-  float2 v = caxpy(kC[k + 1], M[i], make_float2(kC[k] * eye(e), 0.0f));
-  v = caxpy(kC[k + 2], M2[i], v);
-  return caxpy(kC[k + 3], M3[i], v);
-}
-
-// M2 = M M, M3 = M2 M, M4 = M2 M2. Expects M written; ends with a barrier.
-__device__ __forceinline__ void powers(const float2* M, float2* M2,
-                                       float2* M3, float2* M4) {
-  float2 acc[EPT];
-  mm(M, M, acc);
-  store(M2, acc);
-  __syncthreads();
-  mm(M2, M, acc);
-  store(M3, acc);
-  mm(M2, M2, acc);
-  store(M4, acc);
-  __syncthreads();
-}
-
-// Paterson-Stockmeyer degree 19 into X (powers already formed).
-__device__ __forceinline__ void taylor19(const float2* M, const float2* M2,
-                                         const float2* M3, const float2* M4,
-                                         float2* X) {
-  float2 acc[EPT];
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) X[own(e)] = chunk(16, e, M, M2, M3);
-  __syncthreads();
-  for (int k = 12; k >= 0; k -= 4) {
-    mm(X, M4, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      X[own(e)] = cadd(acc[e], chunk(k, e, M, M2, M3));
-    __syncthreads();
-  }
-}
-
-// exp(M) for the generator M in shared memory (written, behind a barrier).
-// Returns the buffer that holds the result; ends with a barrier.
-__device__ float2* expm(float2* M, float2* M2, float2* M3, float2* M4,
-                        float2* X, int level, float* red) {
-  float2 acc[EPT];
-  if (level == 0) {
-    // Degree 4: M2 = M M; U = c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
-    mm(M, M, acc);
-    store(M2, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M3[i] = caxpy(kC[4], M2[i], cscale(kC[3], M[i]));
-    }
-    __syncthreads();
-    mm(M2, M3, acc);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      float2 v = caxpy(kC[1], M[i], make_float2(kC[0] * eye(e), 0.0f));
-      X[i] = cadd(caxpy(kC[2], M2[i], v), acc[e]);
-    }
-    __syncthreads();
-    return X;
-  }
-  if (level == 1) {
-    // Degree 8 in 3 products (_D8X).
-    mm(M, M, acc);
-    store(M2, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M3[i] = caxpy(kD8[1], M2[i], cscale(kD8[0], M[i]));
-    }
-    __syncthreads();
-    mm(M2, M3, acc);  // A4
-    store(M4, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      const float2 m = M[i], m2 = M2[i], m4 = M4[i];
-      const float id = eye(e);
-      M3[i] = caxpy(kD8[2], m2, m4);  // left factor x3 A2 + A4
-      float2 r = caxpy(kD8[4], m, make_float2(kD8[3] * id, 0.0f));
-      r = caxpy(kD8[5], m2, r);
-      X[i] = caxpy(kD8[6], m4, r);  // right factor
-      float2 b = caxpy(kD8[8], m, make_float2(kD8[7] * id, 0.0f));
-      M2[i] = caxpy(kD8[9], m2, b);  // y0 I + y1 M + y2 A2
-    }
-    __syncthreads();
-    mm(M3, X, acc);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M[i] = cadd(M2[i], acc[e]);
-    }
-    __syncthreads();
-    return M;
-  }
-  if (level == 2) {
-    // Degree 12, Paterson-Stockmeyer (5 products).
-    powers(M, M2, M3, M4);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      X[own(e)] = caxpy(kC[12], M4[own(e)], chunk(8, e, M, M2, M3));
-    __syncthreads();
-    for (int k = 4; k >= 0; k -= 4) {
-      mm(M4, X, acc);
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < EPT; ++e)
-        X[own(e)] = cadd(chunk(k, e, M, M2, M3), acc[e]);
-      __syncthreads();
-    }
-    return X;
-  }
-  int s = 0;
-  if (level == 4) {
-    // Per-matrix scaling to theta = 1, then T19 and s squarings.
-    s = scaling_count(M, red);
-    const float scale = exp2f(-(float)s);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) M[own(e)] = cscale(scale, M[own(e)]);
-    __syncthreads();
-  }
-  powers(M, M2, M3, M4);
-  taylor19(M, M2, M3, M4, X);
-  for (int j = 0; j < s; ++j) {
-    mm(X, X, acc);
-    __syncthreads();
-    store(X, acc);
-    __syncthreads();
-  }
-  return X;
-}
-
 __global__ void __launch_bounds__(NT, 1)
     chain_fwd_kernel(const float* __restrict__ w,
                      const float2* __restrict__ basis,
@@ -194,13 +52,8 @@ __global__ void __launch_bounds__(NT, 1)
   for (int t = 0; t < L; ++t) {
     build_generator(M, wseg + (size_t)t * n_b, basis, n_b);
     __syncthreads();
-    const float2* U = expm(M, M2, M3, M4, X, level, red);
-    float2 acc[EPT];
-    mm(U, P, acc);
-    __syncthreads();
-    store(P, acc);
-    store(pseg + (size_t)(t + 1) * MAT, acc);
-    __syncthreads();
+    advance(P, expm(M, M2, M3, M4, X, level, red),
+            pseg + (size_t)(t + 1) * MAT);
   }
 }
 

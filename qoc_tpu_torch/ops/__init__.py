@@ -1,19 +1,31 @@
 """qoc_tpu_torch.ops - interpolation, Magnus, linear algebra and the fused
-expm-product chain op with its CUDA kernels."""
+expm-product chain ops with their CUDA kernels."""
 
-from qoc_tpu_torch.ops.chain import ChainExpmPropagate, chain_bwd, chain_fwd
+from qoc_tpu_torch.ops.chain import (ChainExpmPropagate, PlaneChainPropagate,
+                                     chain_bwd, chain_fwd,
+                                     plane_chain_propagate, plane_bwd,
+                                     plane_fwd)
 from qoc_tpu_torch.ops.interpolate import (interpolate_linear_points,
                                            interpolate_linear_set)
-from qoc_tpu_torch.ops.linalg import conjugate_transpose, mul
-from qoc_tpu_torch.ops.magnus import magnus_m2
+from qoc_tpu_torch.ops.linalg import (commutator, conjugate_transpose, mul,
+                                      one_norm)
+from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
 
 __all__ = [
     "ChainExpmPropagate",
+    "PlaneChainPropagate",
     "chain_bwd",
     "chain_fwd",
+    "commutator",
     "conjugate_transpose",
     "interpolate_linear_points",
     "interpolate_linear_set",
     "magnus_m2",
+    "magnus_m4",
+    "magnus_m6",
     "mul",
+    "one_norm",
+    "plane_bwd",
+    "plane_chain_propagate",
+    "plane_fwd",
 ]

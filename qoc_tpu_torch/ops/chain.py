@@ -1,17 +1,21 @@
-"""Fused expm-product chain: the propagation hot loop of Schrödinger GRAPE.
+"""Fused expm-product chains: the propagation hot loop of Schrödinger GRAPE.
 
-Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (basis-resident regime, no
-per-step prefixes). For a *linear* control Hamiltonian under Magnus-M2 the
-propagator of a time block is
+Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (no per-step prefixes, one
+chain). Two ops compute an ordered product of step exponentials
 
-    A_j = Σ_k W_jk G_k,   U_j = exp(A_j),   P = U_{B-1} ··· U_1 U_0,
+    U_j = exp(A_j),   P = U_{B-1} ··· U_1 U_0,
 
-with real weight rows W (from the controls) and a constant complex
-generator basis G. The steps are split into S contiguous *segments*,
-independent chains that run in parallel (one CUDA block each) and are
-merged by S-1 matrix products; S is picked to fill the card's SMs.
+and its exact gradient. :class:`ChainExpmPropagate` takes a *linear*
+control Hamiltonian under Magnus-M2, A_j = Σ_k W_jk G_k, as real weight
+rows W against a constant complex generator basis G.
+:class:`PlaneChainPropagate` takes the generators themselves as complex
+planes A (B, d, d), built by the caller from any Hamiltonian and Magnus
+order; its gradient flows to the planes. The steps are split into S
+contiguous *segments*, independent chains that run in parallel (one CUDA
+block each) and are merged by S-1 matrix products; S is picked to fill the
+card's SMs.
 
-Two kernels carry the op on CUDA tensors, each beside its plain PyTorch
+Four kernels carry the ops on CUDA tensors, each beside its plain PyTorch
 version of the same math:
 
 - K1, :func:`chain_fwd` (``csrc/chain_fwd.cu``): every segment's prefixes
@@ -20,17 +24,22 @@ version of the same math:
   T_t = U_{t+1}^H T_{t+1}, gU_t = T_t P_{t-1}^H and the dual-number Taylor
   at (A_t^H, gU_t), which gives U_t^H and gA_t = L(A_t^H, gU_t). Plain
   version :func:`chain_bwd_plain`.
+- K5, :func:`plane_fwd` (``csrc/plane_fwd.cu``) and :func:`plane_bwd`
+  (``csrc/plane_bwd.cu``): K1 and K2 with the generator read from its
+  plane instead of built from the basis. Plain versions
+  :func:`plane_fwd_plain` and :func:`plane_bwd_plain`.
 
 A wrapper takes its plain version only for a tensor on the CPU; for a CUDA
-tensor it launches its kernel or raises. The kernels are f32: on CUDA the op
-runs in float32/complex64. On the CPU it runs in the caller's dtype
+tensor it launches its kernel or raises. The kernels are f32: on CUDA the ops
+run in float32/complex64. On the CPU they run in the caller's dtype
 (float64 for parity with ``qoc_tpu``), with the same f32-calibrated ladder.
 
 Gradient convention: PyTorch's ``grad`` of a complex tensor is
-dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX op therefore
-seeds its adjoint with ``conj(gbar)`` and carries a conjugated recursion;
+dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX ops therefore
+seed their adjoint with ``conj(gbar)`` and carry a conjugated recursion;
 here the same recursion is the plain gradient one: the segment seeds are
-Sf_s^H g C_{s-1}^H and the weight gradient is Re Σ conj(G_k) ∘ gA.
+Sf_s^H g C_{s-1}^H, gA is the planes' gradient as it stands, and the
+weight gradient is Re Σ conj(G_k) ∘ gA.
 """
 
 import ctypes
@@ -46,9 +55,11 @@ import torch
 
 from qoc_tpu_torch.config import complex_dtype
 
-__all__ = ["ChainExpmPropagate", "chain_block_plan", "chain_bwd",
-           "chain_bwd_plain", "chain_fwd", "chain_fwd_plain",
-           "ladder_level", "load_kernels", "segment_plan", "KERNEL_DP"]
+__all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
+           "chain_bwd", "chain_bwd_plain", "chain_fwd", "chain_fwd_plain",
+           "ladder_level", "load_kernels", "plane_bwd", "plane_bwd_plain",
+           "plane_chain_propagate", "plane_fwd", "plane_fwd_plain",
+           "segment_plan", "KERNEL_DP"]
 
 # The kernels' matrix dimension (csrc/chain_common.cuh DP): smaller d is
 # zero-padded to it (exact), larger d is refused.
@@ -71,8 +82,8 @@ _D8X = (-0.2791515105738877, -0.06978787764347194, 1.9965103670821102,
 _MIN_SEGMENT_STEPS = 8
 _MAX_SEGMENTS = 128
 
-# Time-block plan: residual bytes one block may hold (its prefixes plus
-# the backward's per-step gradient planes).
+# Time-block plan: bytes one block may hold per step for the backward
+# (see chain_block_plan).
 _BLOCK_BYTES = 2 * 1024 ** 3
 
 
@@ -82,11 +93,12 @@ _BLOCK_BYTES = 2 * 1024 ** 3
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("chain_fwd.cu", "chain_bwd.cu")
+_SOURCES = ("chain_fwd.cu", "chain_bwd.cu", "plane_fwd.cu", "plane_bwd.cu")
 _HEADERS = ("chain_common.cuh",)
 _BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
 
 
 def _nvcc():
@@ -95,6 +107,38 @@ def _nvcc():
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
                            "toolkit that builds the chain kernels.")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _build(out_dir, lib_path):
+    """One nvcc per source, all started together, then one link. The
+    compilers' output (ptxas register/spill report) goes to build.log."""
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [out_dir / "{}.{}.o".format(name, tag) for name in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(_CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for name, obj in zip(_SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out_dir / "libqoc_chain.{}.so".format(tag)
+    failed = [name for name, proc in zip(_SOURCES, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append("link")
+    (out_dir / "build.log").write_text("".join(
+        "== {}\n{}".format(name, log)
+        for name, log in zip((*_SOURCES, "link"), logs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("building the chain kernels failed ({}):\n{}"
+                           .format(", ".join(failed), "".join(logs)))
+    os.replace(tmp, lib_path)
 
 
 @functools.cache
@@ -111,48 +155,62 @@ def load_kernels():
     lib_path = out_dir / "libqoc_chain.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / "libqoc_chain.{}.so".format(os.getpid())
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(_CSRC / name) for name in _SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("building the chain kernels failed:\n"
-                               + proc.stderr)
-        os.replace(tmp, lib_path)
+        _build(out_dir, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
-    lib.qoc_chain_fwd.restype = cint
     lib.qoc_chain_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, cint,
                                   cint, cint, ptr]
-    lib.qoc_chain_bwd.restype = cint
-    lib.qoc_chain_dp.restype = cint
-    lib.qoc_chain_stash_slots.restype = cint
+    lib.qoc_plane_fwd.argtypes = [ptr, ptr, ptr, cint, cint, ptr]
+    lib.qoc_plane_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
+                                  ptr]
+    for fn in (lib.qoc_chain_fwd, lib.qoc_chain_bwd, lib.qoc_plane_fwd,
+               lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots):
+        fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(
             lib.qoc_chain_dp(), KERNEL_DP))
     return lib
 
 
-def _check_cuda_args(w, norm, *mats):
-    dev = w.device
-    if w.dtype != torch.float32 or norm.dtype != torch.float32:
-        raise TypeError("the chain kernels take float32 weights and norms")
-    if norm.numel() != 1 or norm.device != dev:
-        raise ValueError("norm must be one float32 value on the weights' "
-                         "device")
-    if w.dim() != 3 or not w.is_contiguous():
-        raise ValueError("weights must be a contiguous (S, L, n_b) tensor")
+def _check_norm(norm, dev):
+    if (norm.dtype != torch.float32 or norm.numel() != 1
+            or norm.device != dev):
+        raise ValueError("norm must be one float32 value on the kernel "
+                         "inputs' device")
+
+
+def _check_mats(dev, *mats):
     for m in mats:
         if (m.dtype != torch.complex64 or m.device != dev
                 or not m.is_contiguous()
                 or m.shape[-2:] != (KERNEL_DP, KERNEL_DP)):
             raise ValueError(
                 "chain kernel matrices must be contiguous complex64 "
-                "(..., {0}, {0}) tensors on the weights' device".format(
-                    KERNEL_DP))
+                "(..., {0}, {0}) tensors on one device".format(KERNEL_DP))
+
+
+def _check_weights(w, norm, *mats):
+    if w.dtype != torch.float32:
+        raise TypeError("the chain kernels take float32 weights")
+    if w.dim() != 3 or not w.is_contiguous():
+        raise ValueError("weights must be a contiguous (S, L, n_b) tensor")
+    _check_norm(norm, w.device)
+    _check_mats(w.device, *mats)
+
+
+def _check_planes(a, norm, *mats):
+    if a.dim() != 4:
+        raise ValueError("planes must be an (S, L, {0}, {0}) tensor".format(
+            KERNEL_DP))
+    _check_mats(a.device, a, *mats)
+    _check_norm(norm, a.device)
+
+
+def _check_device(x, name):
+    if x.device.type != "cuda":
+        raise ValueError("{} runs on cpu or cuda tensors, got {}".format(
+            name, x.device))
 
 
 def _stream(device):
@@ -274,22 +332,42 @@ def _generators(w_t, basis):
         -1, dp, dp)
 
 
+def _prefixes(generator, s_count, length, dp, level, like):
+    """The forward recursion: prefpad (S, L+1, dp, dp) with slot 0 = I and
+    slot t+1 = exp(generator(t)) ··· exp(generator(0)) of each segment."""
+    out = torch.empty((s_count, length + 1, dp, dp), dtype=like.dtype,
+                      device=like.device)
+    p = torch.eye(dp, dtype=like.dtype, device=like.device).expand(
+        s_count, dp, dp)
+    out[:, 0] = p
+    for t in range(length):
+        p = _expm_ladder(generator(t), level) @ p
+        out[:, t + 1] = p
+    return out
+
+
+def _adjoint(generator_h, length, level, prefpad, seeds):
+    """The adjoint recursion: gA (S, L, dp, dp) from the generators' conjugate
+    transposes ``generator_h(t)``, the forward's prefpad and the seeds."""
+    out = torch.empty((seeds.shape[0], length) + seeds.shape[1:],
+                      dtype=seeds.dtype, device=seeds.device)
+    t_cur, uh = seeds, None
+    for t in range(length - 1, -1, -1):
+        if uh is not None:
+            t_cur = uh @ t_cur
+        gu = t_cur @ prefpad[:, t].mH
+        dual = _expm_ladder(_Dual(generator_h(t), gu), level)
+        uh = dual.v
+        out[:, t] = dual.dv
+    return out
+
+
 def chain_fwd_plain(w, basis, norm):
     """Plain version of K1: ``w`` (S, L, n_b) real, ``basis`` (n_b, dp, dp)
     complex, ``norm`` the batch-max 1-norm of the generators. Returns
     prefpad (S, L+1, dp, dp): slot 0 = I, slot t+1 = P_t of each segment."""
-    s_count, length = w.shape[:2]
-    dp = basis.shape[-1]
-    level = ladder_level(norm)
-    out = torch.empty((s_count, length + 1, dp, dp), dtype=basis.dtype,
-                      device=w.device)
-    p = torch.eye(dp, dtype=basis.dtype, device=w.device).expand(
-        s_count, dp, dp)
-    out[:, 0] = p
-    for t in range(length):
-        p = _expm_ladder(_generators(w[:, t], basis), level) @ p
-        out[:, t + 1] = p
-    return out
+    return _prefixes(lambda t: _generators(w[:, t], basis), w.shape[0],
+                     w.shape[1], basis.shape[-1], ladder_level(norm), basis)
 
 
 def chain_bwd_plain(w, basis_h, norm, prefpad, seeds):
@@ -298,25 +376,43 @@ def chain_bwd_plain(w, basis_h, norm, prefpad, seeds):
     comes from K1 and ``seeds`` (S, dp, dp) is each segment's gradient at
     its last prefix. Returns gA (S, L, dp, dp), the gradient of every
     step's generator."""
-    s_count, length = w.shape[:2]
-    dp = basis_h.shape[-1]
-    level = ladder_level(norm)
-    out = torch.empty((s_count, length, dp, dp), dtype=basis_h.dtype,
-                      device=w.device)
-    t_cur, uh = seeds, None
-    for t in range(length - 1, -1, -1):
-        if uh is not None:
-            t_cur = uh @ t_cur
-        gu = t_cur @ prefpad[:, t].mH
-        dual = _expm_ladder(_Dual(_generators(w[:, t], basis_h), gu), level)
-        uh = dual.v
-        out[:, t] = dual.dv
-    return out
+    return _adjoint(lambda t: _generators(w[:, t], basis_h), w.shape[1],
+                    ladder_level(norm), prefpad, seeds)
+
+
+def plane_fwd_plain(a_seg, norm):
+    """Plain version of K5 forward: ``a_seg`` (S, L, dp, dp) complex
+    generator planes, ``norm`` their batch-max 1-norm. Returns prefpad as
+    :func:`chain_fwd_plain`."""
+    return _prefixes(lambda t: a_seg[:, t], a_seg.shape[0], a_seg.shape[1],
+                     a_seg.shape[-1], ladder_level(norm), a_seg)
+
+
+def plane_bwd_plain(a_seg, norm, prefpad, seeds):
+    """Plain version of K5 backward: ``a_seg`` the forward's planes (the
+    recursion runs on their conjugate transposes A^H), ``norm`` their
+    batch-max inf-norm (the 1-norm of A^H), ``prefpad`` and ``seeds`` as
+    :func:`chain_bwd_plain`. Returns gA (S, L, dp, dp), the planes'
+    gradient."""
+    return _adjoint(lambda t: a_seg[:, t].mH, a_seg.shape[1],
+                    ladder_level(norm), prefpad, seeds)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def _prefpad_out(s_count, length, device):
+    out = torch.empty((s_count, length + 1, KERNEL_DP, KERNEL_DP),
+                      dtype=torch.complex64, device=device)
+    out[:, 0] = torch.eye(KERNEL_DP, dtype=torch.complex64, device=device)
+    return out
+
+
+def _stash(lib, s_count, device):
+    return torch.empty((s_count, lib.qoc_chain_stash_slots(), KERNEL_DP,
+                        KERNEL_DP), dtype=torch.complex64, device=device)
 
 
 def chain_fwd(w, basis, norm):
@@ -325,17 +421,13 @@ def chain_fwd(w, basis, norm):
     (float32, dp = :data:`KERNEL_DP`) or raises."""
     if w.device.type == "cpu":
         return chain_fwd_plain(w, basis, norm)
-    if w.device.type != "cuda":
-        raise ValueError("chain_fwd runs on cpu or cuda tensors, got "
-                         + str(w.device))
-    _check_cuda_args(w, norm, basis)
+    _check_device(w, "chain_fwd")
+    _check_weights(w, norm, basis)
     s_count, length, n_b = w.shape
     if basis.shape[0] != n_b:
         raise ValueError("basis has {} terms, weights {}".format(
             basis.shape[0], n_b))
-    out = torch.empty((s_count, length + 1, KERNEL_DP, KERNEL_DP),
-                      dtype=torch.complex64, device=w.device)
-    out[:, 0] = torch.eye(KERNEL_DP, dtype=torch.complex64, device=w.device)
+    out = _prefpad_out(s_count, length, w.device)
     with torch.cuda.device(w.device):
         err = load_kernels().qoc_chain_fwd(
             w.data_ptr(), basis.data_ptr(), norm.data_ptr(), out.data_ptr(),
@@ -356,10 +448,8 @@ def chain_bwd(w, basis_h, norm, prefpad, seeds):
     or raises."""
     if w.device.type == "cpu":
         return chain_bwd_plain(w, basis_h, norm, prefpad, seeds)
-    if w.device.type != "cuda":
-        raise ValueError("chain_bwd runs on cpu or cuda tensors, got "
-                         + str(w.device))
-    _check_cuda_args(w, norm, basis_h, prefpad, seeds)
+    _check_device(w, "chain_bwd")
+    _check_weights(w, norm, basis_h, prefpad, seeds)
     s_count, length, n_b = w.shape
     if (prefpad.shape[:2] != (s_count, length + 1)
             or seeds.shape[0] != s_count or basis_h.shape[0] != n_b):
@@ -370,8 +460,7 @@ def chain_bwd(w, basis_h, norm, prefpad, seeds):
     lib = load_kernels()
     out = torch.empty((s_count, length, KERNEL_DP, KERNEL_DP),
                       dtype=torch.complex64, device=w.device)
-    stash = torch.empty((s_count, lib.qoc_chain_stash_slots(), KERNEL_DP,
-                         KERNEL_DP), dtype=torch.complex64, device=w.device)
+    stash = _stash(lib, s_count, w.device)
     with torch.cuda.device(w.device):
         err = lib.qoc_chain_bwd(
             w.data_ptr(), basis_h.data_ptr(), norm.data_ptr(),
@@ -387,6 +476,63 @@ def chain_bwd(w, basis_h, norm, prefpad, seeds):
 chain_bwd.launches = 0
 
 
+def plane_fwd(a_seg, norm):
+    """K5 forward: same contract as :func:`plane_fwd_plain`. On a CPU tensor
+    it is the plain version; on a CUDA tensor it launches
+    ``csrc/plane_fwd.cu`` (complex64, dp = :data:`KERNEL_DP`) or raises."""
+    if a_seg.device.type == "cpu":
+        return plane_fwd_plain(a_seg, norm)
+    _check_device(a_seg, "plane_fwd")
+    _check_planes(a_seg, norm)
+    s_count, length = a_seg.shape[:2]
+    out = _prefpad_out(s_count, length, a_seg.device)
+    with torch.cuda.device(a_seg.device):
+        err = load_kernels().qoc_plane_fwd(
+            a_seg.data_ptr(), norm.data_ptr(), out.data_ptr(), s_count,
+            length, _stream(a_seg.device))
+    if err != 0:
+        raise RuntimeError("plane forward kernel launch failed: CUDA error "
+                           "{}".format(err))
+    plane_fwd.launches += 1
+    return out
+
+
+plane_fwd.launches = 0
+
+
+def plane_bwd(a_seg, norm, prefpad, seeds):
+    """K5 backward: same contract as :func:`plane_bwd_plain`. On a CPU
+    tensor it is the plain version; on a CUDA tensor it launches
+    ``csrc/plane_bwd.cu`` or raises."""
+    if a_seg.device.type == "cpu":
+        return plane_bwd_plain(a_seg, norm, prefpad, seeds)
+    _check_device(a_seg, "plane_bwd")
+    _check_planes(a_seg, norm, prefpad, seeds)
+    s_count, length = a_seg.shape[:2]
+    if (prefpad.shape[:2] != (s_count, length + 1)
+            or seeds.shape[0] != s_count):
+        raise ValueError("plane_bwd: prefpad {}, seeds {} do not match "
+                         "planes {}".format(tuple(prefpad.shape),
+                                            tuple(seeds.shape),
+                                            tuple(a_seg.shape)))
+    lib = load_kernels()
+    out = torch.empty_like(a_seg)
+    stash = _stash(lib, s_count, a_seg.device)
+    with torch.cuda.device(a_seg.device):
+        err = lib.qoc_plane_bwd(
+            a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
+            seeds.data_ptr(), out.data_ptr(), stash.data_ptr(), s_count,
+            length, _stream(a_seg.device))
+    if err != 0:
+        raise RuntimeError("plane backward kernel launch failed: CUDA error "
+                           "{}".format(err))
+    plane_bwd.launches += 1
+    return out
+
+
+plane_bwd.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Glue (plain torch): plans, norms, segment merge, seeds, projection
 # ---------------------------------------------------------------------------
@@ -400,15 +546,18 @@ def segment_plan(n_steps):
     return -(-n_steps // length), length
 
 
-def chain_block_plan(d, n_steps, itemsize=8):
-    """Steps per time block of the loss. A block holds its prefixes as
-    residuals and, in the backward, one gradient plane per step: about
-    2 * dp^2 * itemsize bytes a step, capped at 2 GiB a block. One block
-    (the whole chain, most segments in flight) whenever that fits; the
-    Table-3 headline (d = 64, 10^4 steps, complex64) holds ~330 MB of
-    prefixes. Blocks hold their residuals until the backward (no remat)."""
+def chain_block_plan(d, n_steps, itemsize=8, planes_per_step=2):
+    """Steps per time block of the loss: as many as keep the block's
+    per-step backward state under 2 GiB, ``planes_per_step`` padded
+    (dp, dp) matrices of ``itemsize`` bytes a step. The basis route keeps
+    2 (its prefix, and the gradient plane the backward writes); the plane
+    route adds its input plane and the plane build's autograd graph
+    (``core/schroedinger.py``). One block (the whole chain, most segments
+    in flight) whenever that fits; the Table-3 headline (d = 64, 10^4
+    steps, complex64) holds ~660 MB. Blocks hold their residuals until the
+    backward (no remat)."""
     dp = max(d, KERNEL_DP)
-    step_bytes = 2 * dp * dp * itemsize
+    step_bytes = planes_per_step * dp * dp * itemsize
     return max(1, min(n_steps, _BLOCK_BYTES // step_bytes))
 
 
@@ -418,6 +567,13 @@ def _norm_max(w, basis_ri, d):
     forward's Taylor degree, the inf-norm (= 1-norm of A^H) the backward's."""
     a = (w @ basis_ri).reshape(-1, d, d, 2)
     absa = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1])
+    return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+
+
+def _plane_norm_max(a):
+    """(max_j ||A_j||_1, max_j ||A_j||_inf) of complex planes, exactly, on
+    the device (chain_pallas.py _plane_fwd)."""
+    absa = a.abs()
     return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
 
 
@@ -438,6 +594,26 @@ def _suffix_products(prods):
         prods = torch.cat((prods[off:] @ prods[:-off], prods[-off:]))
         off *= 2
     return prods
+
+
+def _merge(prefpad, d):
+    """Segment totals (S, d, d) and their inclusive prefix products: the
+    chain's total is the last of these."""
+    prods = prefpad[:, -1, :d, :d]
+    return _prefix_products(prods), prods
+
+
+def _segment_seeds(grad_total, cums, prods, dp):
+    """Each segment's gradient at its last prefix, Sf_s^H g C_{s-1}^H
+    (after and before the segment), zero-padded to (S, dp, dp)."""
+    d = prods.shape[-1]
+    eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
+    before = torch.cat((eye, cums[:-1]))                 # C_{s-1}
+    after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
+    seeds = torch.zeros((prods.shape[0], dp, dp), dtype=prods.dtype,
+                        device=prods.device)
+    seeds[:, :d, :d] = after.mH @ grad_total.to(prods.dtype) @ before.mH
+    return seeds
 
 
 class _ChainExpm(torch.autograd.Function):
@@ -477,8 +653,8 @@ class ChainExpmPropagate:
             if d > KERNEL_DP:
                 raise ValueError(
                     "the chain kernels take d <= {} (got d = {}); larger "
-                    "Hilbert spaces need the generic route (ROADMAP slice "
-                    "2).".format(KERNEL_DP, d))
+                    "Hilbert spaces need K6, the streamed chain (ROADMAP "
+                    "slice 5).".format(KERNEL_DP, d))
             dp = KERNEL_DP
         else:
             dp = d
@@ -508,22 +684,70 @@ class ChainExpmPropagate:
         # Segment s owns steps [s L, (s+1) L): a reshape, no transpose.
         w_seg = w_seg.reshape(s_count, length, self.n_b)
         prefpad = self._fwd(w_seg, self.basis, n1)
-        d = self.d
-        prods = prefpad[:, length, :d, :d]
-        cums = _prefix_products(prods)
+        cums, prods = _merge(prefpad, self.d)
         return cums[-1].clone(), (w_seg, prefpad, cums, prods, ninf)
 
     def _backward(self, grad_total, w_seg, prefpad, cums, prods, ninf):
         s_count, length, _ = w_seg.shape
-        d, dp = self.d, self.dp
-        eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
-        before = torch.cat((eye, cums[:-1]))                 # C_{s-1}
-        after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
-        seeds = torch.zeros((s_count, dp, dp), dtype=prods.dtype,
-                            device=prods.device)
-        seeds[:, :d, :d] = after.mH @ grad_total.to(prods.dtype) @ before.mH
+        d = self.d
+        seeds = _segment_seeds(grad_total, cums, prods, self.dp)
         grad_a = self._bwd(w_seg, self.basis_h, ninf, prefpad, seeds)
         grad_a = torch.view_as_real(grad_a[..., :d, :d]).reshape(
             s_count * length, 2 * d * d)
         return grad_a @ self.basis_ri.T
 
+
+class PlaneChainPropagate(torch.autograd.Function):
+    """P(A) = exp(A_{B-1}) ··· exp(A_1) exp(A_0) for complex generator
+    planes ``a`` (B, d, d), with the exact gradient to the planes
+    (``chain_pallas.py`` plane_chain_propagate). Compose it with ordinary
+    autograd through any differentiable plane build: Magnus M4/M6 terms,
+    any Hamiltonian callable.
+
+    ``PlaneChainPropagate.apply(a, plain=False)``: on CUDA ``a`` must be
+    complex64 with d <= :data:`KERNEL_DP` (padded to it) and the op runs
+    K5; on the CPU it runs the plain versions in ``a``'s dtype at any d.
+    ``plain=True`` runs the plain versions on any device: the reference the
+    kernels are compared with. Propagation never sets it."""
+
+    @staticmethod
+    def forward(ctx, a, plain=False):
+        n_steps, d = a.shape[0], a.shape[-1]
+        if a.device.type == "cuda":
+            if a.dtype != torch.complex64:
+                raise TypeError("the plane kernels take complex64 planes; "
+                                "got " + str(a.dtype))
+            if d > KERNEL_DP:
+                raise ValueError(
+                    "the plane kernels take d <= {} (got d = {}); larger "
+                    "Hilbert spaces need K6, the streamed chain (ROADMAP "
+                    "slice 5).".format(KERNEL_DP, d))
+            dp = KERNEL_DP
+        else:
+            dp = d
+        s_count, length = segment_plan(n_steps)
+        n1, ninf = _plane_norm_max(a)
+        # Zero planes pad d and the steps: exp(0) = I exactly.
+        a_seg = a.new_zeros((s_count * length, dp, dp))
+        a_seg[:n_steps, :d, :d] = a
+        a_seg = a_seg.reshape(s_count, length, dp, dp)
+        prefpad = (plane_fwd_plain if plain else plane_fwd)(a_seg, n1)
+        cums, prods = _merge(prefpad, d)
+        ctx.save_for_backward(a_seg, prefpad, cums, prods, ninf)
+        ctx.plain, ctx.n_steps = plain, n_steps
+        return cums[-1].clone()
+
+    @staticmethod
+    def backward(ctx, grad_total):
+        a_seg, prefpad, cums, prods, ninf = ctx.saved_tensors
+        s_count, length, dp = a_seg.shape[:3]
+        d = prods.shape[-1]
+        seeds = _segment_seeds(grad_total, cums, prods, dp)
+        grad_a = (plane_bwd_plain if ctx.plain else plane_bwd)(
+            a_seg, ninf, prefpad, seeds)
+        return grad_a.reshape(s_count * length, dp, dp)[
+            :ctx.n_steps, :d, :d], None
+
+
+# The functional form, under qoc_tpu's name: plane_chain_propagate(a, plain).
+plane_chain_propagate = PlaneChainPropagate.apply

@@ -1,4 +1,5 @@
-"""K1/K2 on the card against their plain PyTorch versions (float32).
+"""K1/K2 and K5 on the card against their plain PyTorch versions (float32),
+and the routes that launch them.
 
 Marked ``cuda``: each test skips when no CUDA device is present, so on a
 CPU-only machine they count as skipped. Run them on a GPU machine with
@@ -132,3 +133,148 @@ def test_iteration_has_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(params).all())
+
+
+def _unit_planes(rng, n_steps, d):
+    planes = anti_hermitian_basis(rng, n_steps, d)
+    return planes / np.abs(planes).sum(-2).max()
+
+
+@pytest.mark.parametrize("d,n_steps", ((4, 3), (16, 37), (64, 203)))
+@pytest.mark.parametrize("target_norm", (0.03, 0.3, 1.0, 2.5, 7.0))
+def test_plane_kernels_match_plain_versions(cuda_device, d, n_steps,
+                                            target_norm):
+    """The plane op's total and plane gradient, K5 against its plain
+    versions on every ladder level."""
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate
+    rng = np.random.default_rng(11)
+    planes = (_unit_planes(rng, n_steps, d) * target_norm).astype(
+        np.complex64)
+    tgt = torch.as_tensor(rng.normal(size=(d, d)).astype(np.complex64),
+                          device=cuda_device)
+    outs = []
+    for plain in (False, True):
+        a = torch.as_tensor(planes, device=cuda_device).requires_grad_(True)
+        total = plane_chain_propagate(a, plain)
+        grad, = torch.autograd.grad(
+            torch.sum(torch.abs(total - tgt) ** 2), a)
+        outs.append((total.detach(), grad))
+    torch.cuda.synchronize()
+    (total_k, grad_k), (total_p, grad_p) = outs
+    assert float((total_k - total_p).abs().max()
+                 / total_p.abs().max()) < FWD_RTOL
+    assert float((grad_k - grad_p).abs().max()
+                 / grad_p.abs().max()) < GRAD_RTOL
+
+
+@pytest.mark.parametrize("d", (4, 16))
+def test_plane_kernel_padding_stays_identity(cuda_device, d):
+    """Zero-padded rows and columns of every prefix, and the padded steps
+    after the last real one, stay exactly the identity."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(12)
+    n_steps = 37                    # 5 segments of 8: 3 padded steps
+    s_count, length = chain.segment_plan(n_steps)
+    a = torch.zeros((s_count * length, chain.KERNEL_DP, chain.KERNEL_DP),
+                    dtype=torch.complex64, device=cuda_device)
+    a[:n_steps, :d, :d] = torch.as_tensor(
+        _unit_planes(rng, n_steps, d).astype(np.complex64),
+        device=cuda_device)
+    a = a.reshape(s_count, length, chain.KERNEL_DP, chain.KERNEL_DP)
+    pref = chain.plane_fwd(a, chain._plane_norm_max(a)[0])
+    torch.cuda.synchronize()
+    eye = torch.eye(chain.KERNEL_DP - d, dtype=torch.complex64,
+                    device=cuda_device)
+    assert torch.equal(pref[..., d:, d:], eye.expand_as(pref[..., d:, d:]))
+    assert not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+    last = n_steps - (s_count - 1) * length        # real steps, last segment
+    tail = pref[-1, last:]
+    assert torch.equal(tail, tail[:1].expand_as(tail))
+
+
+def _plane_grape_problem(d=8, n_c=2, n=64):
+    rng = np.random.default_rng(2)
+    h0 = rng.normal(size=(d, d))
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+    return h0 + h0.T, 0.3 * np.ones((n_c, d, d)), initial, target
+
+
+def test_plane_grape_launches_k5_only(cuda_device):
+    """An M4 GRAPE with a torch callable takes the plane route: K5 forward
+    and backward once an iteration, K1/K2 never."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.models import MagnusPolicy
+    from qoc_tpu_torch.ops import chain
+    h0, ops, initial, target = _plane_grape_problem()
+    h0_t = torch.as_tensor(h0 + 0j, dtype=torch.complex64,
+                           device=cuda_device)
+    ops_t = torch.as_tensor(ops + 0j, dtype=torch.complex64,
+                            device=cuda_device)
+
+    def hamiltonian(c, t):
+        drive = torch.einsum("i,iab->ab", c, ops_t.to(c.dtype))
+        return torch.cos(t) * h0_t + drive + drive.mH
+
+    counters = (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
+                chain.plane_bwd)
+    before = [fn.launches for fn in counters]
+    result = qoc_tpu_torch.grape_schroedinger_discrete(
+        2, 64, [qoc_tpu_torch.TargetStateInfidelity(target)], 1.0,
+        hamiltonian, initial, 64, complex_controls=True, iteration_count=4,
+        log_iteration_step=0, magnus_policy=MagnusPolicy.M4,
+        device=cuda_device)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [0, 0, 4, 4]
+    assert result.errors[-1] < result.errors[0]
+
+
+def test_plane_route_matches_fused_route(cuda_device):
+    """The same M2 chain at d = 64 and 203 steps through K1/K2 (a
+    LinearHamiltonian) and through K5 (the same Hamiltonian as a torch
+    callable): loss and control gradient."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
+                                      InterpolationPolicy, MagnusPolicy)
+    from torch_parity import random_hermitian
+    d, n_c, n = 64, 3, 203
+    rng = np.random.default_rng(3)
+    h0 = random_hermitian(rng, d)
+    ops = 0.5 * (rng.normal(size=(n_c, d, d))
+                 + 1j * rng.normal(size=(n_c, d, d)))
+    controls = 0.05 * (rng.normal(size=(n, n_c))
+                       + 1j * rng.normal(size=(n, n_c)))
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+    h0_t = torch.as_tensor(h0, dtype=torch.complex64, device=cuda_device)
+    ops_t = torch.as_tensor(ops, dtype=torch.complex64, device=cuda_device)
+
+    def callable_hamiltonian(c, t):
+        drive = torch.einsum("i,iab->ab", c, ops_t)
+        return h0_t + drive + drive.mH
+
+    flat = strip_controls(True, controls)
+    results = []
+    for hamiltonian in (qoc_tpu_torch.LinearHamiltonian(h0, ops),
+                        callable_hamiltonian):
+        pstate = GrapeSchroedingerDiscreteState(
+            True, n_c, n, 1, [qoc_tpu_torch.TargetStateInfidelity(target)],
+            2.0, hamiltonian, None, controls, initial,
+            InterpolationPolicy.LINEAR, 1, 0, [10.0] * n_c, MagnusPolicy.M2,
+            0, qoc_tpu_torch.Adam(), None, False, 0, n)
+        loss = build_schroedinger_loss(pstate, cuda_device, torch.float32)
+        flat_t = torch.as_tensor(flat, dtype=torch.float32,
+                                 device=cuda_device).requires_grad_(True)
+        error, _ = loss(slap_controls_torch(True, flat_t, (n, n_c)))
+        grad, = torch.autograd.grad(error, flat_t)
+        results.append((float(error.detach()), grad))
+    (fused, g_fused), (plane, g_plane) = results
+    assert abs(plane - fused) / abs(fused) < FWD_RTOL
+    assert float((g_plane - g_fused).abs().max()
+                 / g_fused.abs().max()) < GRAD_RTOL

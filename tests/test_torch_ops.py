@@ -1,6 +1,6 @@
 """The port's small modules against their qoc_tpu counterparts (float64,
-CPU): interpolation, Magnus-M2, LinearHamiltonian, TargetStateInfidelity,
-strip/slap/clip and Adam."""
+CPU): interpolation, Magnus M2/M4/M6, commutator and 1-norm,
+LinearHamiltonian, TargetStateInfidelity, strip/slap/clip and Adam."""
 
 import numpy as np
 import pytest
@@ -75,6 +75,47 @@ def test_linear_hamiltonian_and_magnus_m2_match_jax():
     want = np.asarray(jax_magnus_m2(jax_gen, 0.05, 0.7))
     got = magnus_m2(gen, 0.05, 0.7).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("order", ("m4", "m6"))
+def test_magnus_m4_m6_match_jax(order):
+    """A batched, time-dependent generator: the step times form a vector
+    and the terms a stack (qoc_tpu's corrected M6 coefficient 1/12)."""
+    from qoc_tpu.ops import magnus as jax_magnus
+    from qoc_tpu_torch.ops import magnus
+    rng = np.random.default_rng(7)
+    d = 4
+    h0 = random_hermitian(rng, d)
+    h1 = random_hermitian(rng, d)
+    times = np.array([0.0, 0.3, 1.1])
+
+    def jax_gen(t):
+        return -1j * (h0 + jnp.sin(t)[..., None, None] * h1)
+
+    def gen(t):
+        return -1j * (_t(h0) + torch.sin(t)[..., None, None] * _t(h1))
+
+    fn = "magnus_" + order
+    want = np.asarray(getattr(jax_magnus, fn)(jax_gen, 0.07,
+                                              jnp.asarray(times)))
+    got = getattr(magnus, fn)(gen, 0.07, _t(times)).numpy()
+    assert got.shape == (3, d, d)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_commutator_and_one_norm_match_jax():
+    from qoc_tpu.ops import linalg as jax_linalg
+    from qoc_tpu_torch.ops import linalg
+    rng = np.random.default_rng(8)
+    a, b = (rng.normal(size=(2, 3, 3)) + 1j * rng.normal(size=(2, 3, 3))
+            for _ in range(2))
+    np.testing.assert_allclose(
+        linalg.commutator(_t(a), _t(b)).numpy(),
+        np.asarray(jax_linalg.commutator(jnp.asarray(a), jnp.asarray(b))),
+        rtol=0, atol=1e-13)
+    np.testing.assert_allclose(
+        linalg.one_norm(_t(a)).numpy(),
+        np.asarray(jax_linalg.one_norm(jnp.asarray(a))), rtol=1e-14, atol=0)
 
 
 @pytest.mark.parametrize("kwargs", ({}, {"neglect_relative_phase": True},

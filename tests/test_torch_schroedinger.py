@@ -1,6 +1,7 @@
 """The port's Schrödinger path against qoc_tpu (float64, CPU): the loss and
 its gradient, a short Adam GRAPE trajectory, evolve, the refusals of what
-is not ported yet, and a run with JAX made unimportable.
+is not ported yet, the default device, and a run with JAX made
+unimportable.
 
 Tolerances: relative 1e-6 on the loss and 1e-5 on the gradient (the port's
 f32-calibrated Taylor ladder against JAX x64's f64 expm), 1e-6 on
@@ -121,7 +122,7 @@ def test_evolve_matches_jax(with_controls):
     got = qoc_tpu_torch.evolve_schroedinger_discrete(
         problem.evolution_time, problem.torch_hamiltonian,
         problem.torch_initial, problem.n_steps, controls=controls,
-        costs=problem.torch_costs)
+        costs=problem.torch_costs, device="cpu")
     np.testing.assert_allclose(got.final_states,
                                np.asarray(want.final_states), rtol=0,
                                atol=1e-8)
@@ -133,10 +134,7 @@ class _StepCost:
 
 
 def _refusals():
-    from qoc_tpu_torch.models import MagnusPolicy
     return {
-        "magnus M4": dict(magnus_policy=MagnusPolicy.M4),
-        "callable hamiltonian": dict(hamiltonian=lambda c, t: None),
         "step cost": dict(costs=[_StepCost()]),
         "save_file_path": dict(save_file_path="run.h5"),
         "save_iteration_step": dict(save_iteration_step=5),
@@ -161,17 +159,29 @@ def test_unported_features_raise_not_implemented(case):
             problem.n_c, problem.n_steps, kwargs.pop("costs"),
             problem.evolution_time, kwargs.pop("hamiltonian"),
             problem.torch_initial, problem.n_steps, complex_controls=True,
-            iteration_count=1, log_iteration_step=0, **kwargs)
+            iteration_count=1, log_iteration_step=0, device="cpu", **kwargs)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """device=None is the card; without one the call raises and names the
+    CPU option instead of running there."""
+    from qoc_tpu_torch.config import resolve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve()
+    assert resolve("cpu") == (torch.device("cpu"), torch.float64)
 
 
 def test_grape_runs_without_jax():
     """With ``jax``, ``h5py`` and ``filelock`` made unimportable, the port
-    imports and runs a 3-iteration GRAPE: none is a dependency of it."""
+    imports and runs a 3-iteration GRAPE on the fused route and one with
+    an M4 torch callable on the plane route: none is a dependency of it."""
     script = textwrap.dedent("""
         import sys
         for name in ("jax", "h5py", "filelock"):
             sys.modules[name] = None
         import numpy as np
+        import torch
         import qoc_tpu_torch
         d, n_c, n = 3, 1, 12
         rng = np.random.default_rng(0)
@@ -179,14 +189,25 @@ def test_grape_runs_without_jax():
         ham = qoc_tpu_torch.LinearHamiltonian(h0, 0.5 * np.ones((n_c, d, d)))
         initial = np.zeros((1, d, 1)); initial[0, 0] = 1
         target = np.zeros((1, d, 1)); target[0, -1] = 1
+        costs = [qoc_tpu_torch.TargetStateInfidelity(target)]
         result = qoc_tpu_torch.grape_schroedinger_discrete(
-            n_c, n, [qoc_tpu_torch.TargetStateInfidelity(target)], 1.0, ham,
-            initial, n, iteration_count=3, log_iteration_step=1)
+            n_c, n, costs, 1.0, ham, initial, n, iteration_count=3,
+            log_iteration_step=1, device="cpu")
         assert result.iteration_count_ran == 3
         assert np.all(np.isfinite(result.errors))
+        h0_t = torch.as_tensor(h0 + 0j)
+        op = torch.full((d, d), 0.5 + 0j).triu()
+        def callable_ham(c, t):
+            return torch.cos(t) * h0_t + c[0] * op + c[0].conj() * op.mH
+        m4 = qoc_tpu_torch.grape_schroedinger_discrete(
+            n_c, n, costs, 1.0, callable_ham, initial, n, iteration_count=3,
+            log_iteration_step=1,
+            magnus_policy=qoc_tpu_torch.models.MagnusPolicy.M4, device="cpu")
+        assert m4.iteration_count_ran == 3
+        assert np.all(np.isfinite(m4.errors))
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
-        print("ran without jax", result.best_error)
+        print("ran without jax", result.best_error, m4.best_error)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=_REPO,
                           capture_output=True, text=True, timeout=120,
@@ -194,3 +215,4 @@ def test_grape_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert "ran without jax" in proc.stdout
     assert "propagation path = fused chain" in proc.stdout
+    assert "propagation path = plane chain" in proc.stdout

@@ -44,6 +44,7 @@ class Problem:
         initial[0, 0] = 1
         target = np.zeros((1, d, 1), dtype=complex)
         target[0, -1] = 1
+        self.h0, self.ops = h0, ops
         self.d, self.n_c, self.n_steps = d, n_c, n_steps
         self.evolution_time = evolution_time
         self.controls = 0.3 * (rng.normal(size=(n_steps, n_c))
@@ -61,7 +62,35 @@ class Problem:
         self.torch_max_control_norms = convert.max_control_norms(
             self.max_control_norms)
 
-    def jax_pstate(self, iteration_count=1):
+    def use_callables(self):
+        """Replace the LinearHamiltonians by one time-dependent Hamiltonian
+        written twice, in ``jax.numpy`` and in ``torch``:
+        H(c, t) = cos(t) h0 + Σ_i c_i A_i + conj(c_i) A_i^H."""
+        import jax.numpy as jnp
+        import torch
+        h0, ops = self.h0, self.ops
+
+        def jax_hamiltonian(controls, t):
+            h = jnp.cos(t) * h0
+            if controls is None:
+                return h
+            drive = jnp.einsum("i,iab->ab", controls, ops)
+            return h + drive + jnp.conjugate(drive.T)
+
+        h0_t, ops_t = torch.as_tensor(h0), torch.as_tensor(ops)
+
+        def torch_hamiltonian(controls, t):
+            h = torch.cos(t) * h0_t
+            if controls is None:
+                return h
+            drive = torch.einsum("i,iab->ab", controls, ops_t)
+            return h + drive + drive.mH
+
+        self.jax_hamiltonian = jax_hamiltonian
+        self.torch_hamiltonian = torch_hamiltonian
+        return self
+
+    def jax_pstate(self, iteration_count=1, magnus="M2"):
         from qoc_tpu.models import (GrapeSchroedingerDiscreteState,
                                     InterpolationPolicy, MagnusPolicy)
         from qoc_tpu.optim import Adam
@@ -69,10 +98,10 @@ class Problem:
             True, self.n_c, self.n_steps, 1, self.jax_costs,
             self.evolution_time, self.jax_hamiltonian, None, self.controls,
             self.initial, InterpolationPolicy.LINEAR, iteration_count, 0,
-            self.max_control_norms, MagnusPolicy.M2, 0, Adam(), None, False,
-            0, self.n_steps)
+            self.max_control_norms, MagnusPolicy[magnus], 0, Adam(), None,
+            False, 0, self.n_steps)
 
-    def torch_pstate(self, iteration_count=1):
+    def torch_pstate(self, iteration_count=1, magnus="M2"):
         from qoc_tpu_torch import Adam
         from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
                                           InterpolationPolicy, MagnusPolicy)
@@ -81,5 +110,5 @@ class Problem:
             self.evolution_time, self.torch_hamiltonian, None,
             self.torch_controls, self.torch_initial,
             InterpolationPolicy.LINEAR, iteration_count, 0,
-            self.torch_max_control_norms, MagnusPolicy.M2, 0, Adam(), None,
-            False, 0, self.n_steps)
+            self.torch_max_control_norms, MagnusPolicy[magnus], 0, Adam(),
+            None, False, 0, self.n_steps)
