@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA card and the CUDA toolkit
 
 Phases, one line each:
 1. the device (name and power limit as nvidia-smi reports them);
-2. build the chain kernels from qoc_tpu_torch/csrc with nvcc;
+2. build the kernels (K1/K2/K5/K3/K4) from qoc_tpu_torch/csrc with nvcc;
 3. K1 (forward) and K2 (adjoint) against their plain PyTorch versions in
    float32, at d = 64 and 21 basis terms, at weights scaled onto every
    Taylor ladder level (degree 4/8/12/19 and the squaring branch), at step
@@ -36,7 +36,24 @@ Phases, one line each:
    steps, M2 callable), 20 iterations;
 10. K5 times at the M4 shapes beside their plain versions, their bounds,
    torch.linalg.matrix_exp of the same planes (exps only, no chain) and the
-   conjugate transpose of the planes that the adjoint kernel does on load.
+   conjugate transpose of the planes that the adjoint kernel does on load;
+11. K3 (expm) and K4 (its Fréchet derivative) against their plain versions
+   in float32 on every ladder level, at d = 16, 64, 96, 128 and 256 and
+   batches 1, 37 and 2000, the padded rows exact, and against float64
+   torch.linalg.matrix_exp and its autograd;
+12. the slice at full width: grape_schroedinger_discrete on the d = 2^7
+   problem (bench.py's construction at d = 128, 10 complex controls, 2001
+   points, T = 20, M2: the blocked route), 2 warm-up + 10 timed
+   iterations, counters read around the run (K3 and K4 launched every
+   iteration, K1/K2/K5 never);
+13. the M4 problem through the blocked route (allow_plane_chain=False,
+   K3/K4) against the plane route (K5): loss, gradient and time;
+14. the Table-1 d = 2^10 single-step backprop (the blocked route on
+   torch.matmul), 20 timed iterations, K3/K4 counters at 0, the gradient
+   against a float64 run of the same route;
+15. K3 and K4 times at the d = 128 GRAPE's planes and at the M4 planes,
+   beside their plain versions, their bounds and torch.linalg.matrix_exp's
+   forward and backward on the same inputs.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -71,6 +88,20 @@ TIMED_ITERATIONS = 10
 M4_STEPS = 2001
 M4_EVOLUTION_TIME = 20.0
 ISWAP_ITERATIONS = 20
+# The d = 2^7 configuration (the reference's expm benchmark dimension,
+# BASELINE.md): bench.py's _bench_problem at d = 128, 10 complex controls,
+# 2001 points, T = 20, M2.
+D128 = 128
+D128_STEPS = 2001
+D128_EVOLUTION_TIME = 20.0
+# The Table-1 configuration (bench.py:156-174 of the JAX package): d = 2^10,
+# one step, timed over 20 iterations after 2 warm-up ones.
+D1024 = 1024
+BACKPROP_ITERATIONS = 20
+# K3/K4 against their plain versions: these d (padded to 64, 128, 128, 128,
+# 256) and batches, on every ladder level.
+EXPM_DIMS = (16, 64, 96, 128, 256)
+EXPM_BATCHES = (1, 37, 2000)
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth.
@@ -91,11 +122,10 @@ def _random_hermitian(rng, d):
     return ((h + h.conj().T) / 2).astype(np.complex64)
 
 
-def table3_problem(iteration_count, system_eval_count=SYSTEM_EVAL_COUNT,
-                   evolution_time=EVOLUTION_TIME, magnus="M2"):
-    """The headline problem, built like the JAX package's bench.py with
-    seed 0: (pstate, hamiltonian, costs). With 2001 steps, T = 20 and M4 it
-    is bench_m4's problem."""
+def bench_problem(d, control_count, control_eval_count, system_eval_count,
+                  evolution_time, magnus="M2", iteration_count=1):
+    """The JAX package's bench.py _bench_problem (:82-109) with seed 0:
+    (pstate, hamiltonian, costs)."""
     from qoc_tpu_torch.core.common import initialize_controls
     from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
                                       InterpolationPolicy, LinearHamiltonian,
@@ -103,27 +133,49 @@ def table3_problem(iteration_count, system_eval_count=SYSTEM_EVAL_COUNT,
     from qoc_tpu_torch import Adam, TargetStateInfidelity
 
     rng = np.random.default_rng(0)
-    h0 = _random_hermitian(rng, D)
+    h0 = _random_hermitian(rng, d)
     control_ops = np.stack(
-        [_random_hermitian(rng, D) for _ in range(CONTROL_COUNT)])
+        [_random_hermitian(rng, d) for _ in range(control_count)])
     hamiltonian = LinearHamiltonian(h0, control_ops)
-    initial = np.zeros((1, D, 1))
+    initial = np.zeros((1, d, 1))
     initial[0, 0] = 1
-    target = np.zeros((1, D, 1))
+    target = np.zeros((1, d, 1))
     target[0, -1] = 1
     costs = [TargetStateInfidelity(target)]
     initial_controls, max_norms = initialize_controls(
-        True, CONTROL_COUNT, system_eval_count, evolution_time, None, None)
+        True, control_count, control_eval_count, evolution_time, None, None)
     pstate = GrapeSchroedingerDiscreteState(
-        True, CONTROL_COUNT, system_eval_count, 1, costs, evolution_time,
+        True, control_count, control_eval_count, 1, costs, evolution_time,
         hamiltonian, None, initial_controls, initial,
         InterpolationPolicy.LINEAR, iteration_count, 0, max_norms,
         MagnusPolicy[magnus], 0, Adam(), None, False, 0, system_eval_count)
     return pstate, hamiltonian, costs
 
 
+def table3_problem(iteration_count, system_eval_count=SYSTEM_EVAL_COUNT,
+                   evolution_time=EVOLUTION_TIME, magnus="M2"):
+    """The headline problem (d = 64, 10 controls). With 2001 steps, T = 20
+    and M4 it is bench_m4's problem."""
+    return bench_problem(D, CONTROL_COUNT, system_eval_count,
+                         system_eval_count, evolution_time, magnus,
+                         iteration_count)
+
+
 def m4_problem(iteration_count):
     return table3_problem(iteration_count, M4_STEPS, M4_EVOLUTION_TIME, "M4")
+
+
+def d128_problem():
+    """The d = 2^7 problem: bench_problem at d = 128 over 2001 points,
+    T = 20, M2 (the blocked route, K3/K4)."""
+    return bench_problem(D128, CONTROL_COUNT, D128_STEPS, D128_STEPS,
+                         D128_EVOLUTION_TIME)
+
+
+def d1024_problem():
+    """The Table-1 problem: bench.py's bench_d1024_backprop (:156-174),
+    d = 2^10, one step (the blocked route on torch.matmul)."""
+    return bench_problem(D1024, CONTROL_COUNT, 2, 2, 0.05)
 
 
 def torch_callable(hamiltonian, dev):
@@ -140,10 +192,14 @@ def torch_callable(hamiltonian, dev):
 
 
 def m4_planes(dev):
-    """The M4 problem's generator planes (2001, 64, 64) at its initial
-    controls, built as its loss builds them."""
+    """The M4 problem's generator planes (2000, 64, 64)."""
+    return initial_planes(*m4_problem(1)[:2], dev)
+
+
+def initial_planes(pstate, hamiltonian, dev):
+    """A problem's generator planes, one a step, at its initial controls,
+    built as its loss builds them."""
     from qoc_tpu_torch.core.schroedinger import plane_builder
-    pstate, hamiltonian, _ = m4_problem(1)
     dt = float(pstate.dt)
     cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
                           device=dev)
@@ -156,40 +212,46 @@ def m4_planes(dev):
         return planes(controls, times).to(torch.complex64)
 
 
-def kernel_bound(step_norms, level, dual, tensors):
-    """(bound ms, what bounds it, GFLOP) of one chain-kernel call: the
-    larger of its complex products over the FP32 peak and the bytes of its
+def kernel_bound(step_norms, level, dual, tensors, dp=D, chain=True):
+    """(bound ms, what bounds it, GFLOP) of one kernel call: the larger of
+    its complex dp^3 products over the FP32 peak and the bytes of its
     inputs and outputs (``tensors``, each once) over the HBM rate.
     ``step_norms`` are the 1-norms of the matrices the ladder exponentiates
-    (A_t forward, A_t^H adjoint), one per step the kernel walks: at the
-    squaring level they give this run's squarings. Elementwise work is not
+    (A_t forward, A_t^H adjoint), one per step or matrix: at the squaring
+    level they give this run's squarings. ``chain``: a chain kernel, which
+    also multiplies each step into its prefix (forward) or does the T update
+    and gU (adjoint); else K3/K4, exps only. Elementwise work is not
     counted."""
     n = step_norms.shape[0]
     ladder = LADDER_PRODUCTS[level] * n
     if level == len(LADDER_PRODUCTS) - 1:
         ladder += int(torch.clamp(torch.ceil(torch.log2(
             torch.clamp(step_norms, min=1.0))), 0, 60).sum())
-    # The adjoint: dual products (3 each), T update and gU; the forward U P.
-    products = 3 * ladder + 2 * n if dual else ladder + n
-    flops = products * 8 * D ** 3
+    # Dual products are 3 complex products each.
+    products = 3 * ladder if dual else ladder
+    if chain:
+        products += 2 * n if dual else n
+    flops = products * 8 * dp ** 3
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
 
 
+def _wrappers():
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    return {"K1": chain.chain_fwd, "K2": chain.chain_bwd,
+            "K5 fwd": chain.plane_fwd, "K5 bwd": chain.plane_bwd,
+            "K3": expm_cuda.expm_fwd, "K4": expm_cuda.expm_frechet_fwd}
+
+
 def reset_launches():
-    from qoc_tpu_torch.ops import chain
-    for fn in (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
-               chain.plane_bwd):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_launches():
-    from qoc_tpu_torch.ops import chain
-    return {"K1": chain.chain_fwd.launches, "K2": chain.chain_bwd.launches,
-            "K5 fwd": chain.plane_fwd.launches,
-            "K5 bwd": chain.plane_bwd.launches}
+    return {key: fn.launches for key, fn in _wrappers().items()}
 
 
 def headline_weights(pstate, dev):
@@ -244,7 +306,7 @@ def phase_build():
     start = time.perf_counter()
     chain.load_kernels()
     seconds = time.perf_counter() - start
-    print("phase 2 build: chain kernels ready in {:.1f} s (nvcc sm_90a, "
+    print("phase 2 build: K1/K2/K5/K3/K4 ready in {:.1f} s (nvcc sm_90a, "
           "qoc_tpu_torch/csrc)".format(seconds), flush=True)
     return seconds
 
@@ -766,13 +828,299 @@ def phase_plane_timing(dev):
     return ms, bounds
 
 
-def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound):
+def _random_planes(gen, batch, d, target_norm, dev):
+    """(batch, d, d) anti-Hermitian complex64 matrices (unitary exps) with
+    batch-max 1-norm ``target_norm``, drawn on the card from ``gen``."""
+    h = torch.randn((batch, d, d), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    a = -0.5j * (h + h.mH)
+    return a * (target_norm / a.abs().sum(-2).amax())
+
+
+def _compare_expm_kernels(a, b, g):
+    """K3 at a and K4 at (b, g) against their plain versions: (rel K3,
+    rel K4, max |err| K3, max |err| K4, ladder levels of a and b)."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    k3, p3 = expm_cuda.expm_fwd(a), expm_cuda.expm_fwd_plain(a)
+    k4 = expm_cuda.expm_frechet_fwd(b, g)
+    p4 = expm_cuda.expm_frechet_plain(b, g)
+    torch.cuda.synchronize()
+    for name, x in (("K3", k3), ("K4", k4)):
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(name + " produced non-finite values")
+    levels = tuple(chain.ladder_level(expm_cuda._norm_max(x)) for x in (a, b))
+    return (_rel(k3, p3), _rel(k4, p4), float((k3 - p3).abs().max()),
+            float((k4 - p4).abs().max()), levels)
+
+
+def _check_expm_padding(a):
+    """K3's padded rows and columns exactly the identity's and K4's exactly
+    zero, read from the kernels' padded outputs."""
+    from qoc_tpu_torch.ops import expm_cuda
+    d = a.shape[-1]
+    dp = expm_cuda.kernel_dp(d)
+    x = expm_cuda._padded(a, dp)
+    norm = expm_cuda._norm_max(x)
+    u = expm_cuda._launch(False, dp, norm, x)
+    dl = expm_cuda._launch(True, dp, norm, x, expm_cuda._padded(a, dp))
+    eye = torch.eye(dp - d, dtype=u.dtype, device=u.device).expand(
+        u.shape[0], dp - d, dp - d)
+    if not (torch.equal(u[:, d:, d:], eye)
+            and not bool(u[:, :d, d:].any() or u[:, d:, :d].any())
+            and not bool(dl[:, d:].any() or dl[:, :, d:].any())):
+        raise RuntimeError("K3/K4 padding is not exact (d = {})".format(d))
+
+
+def phase_expm_kernels(dev):
+    """K3/K4 against their plain versions on every ladder level, at each d
+    of EXPM_DIMS and each batch of EXPM_BATCHES; padding exact; and, at
+    batch 37, against float64 matrix_exp and its autograd."""
+    from qoc_tpu_torch.ops import expm_cuda
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for d in EXPM_DIMS:
+        for batch in EXPM_BATCHES:
+            g = torch.randn((batch, d, d), dtype=torch.complex64, device=dev,
+                            generator=gen)
+            rows = []
+            for target in LEVEL_NORMS:
+                a = _random_planes(gen, batch, d, target, dev)
+                rel3, rel4, _, _, (level, _) = _compare_expm_kernels(a, a, g)
+                rows.append("{} {:.1e} {:.1e}".format(level, rel3, rel4))
+                if rel3 > FWD_RTOL or rel4 > GRAD_RTOL:
+                    raise RuntimeError(
+                        "K3/K4 disagree with their plain versions (d = {}, "
+                        "batch {}, level {})".format(d, batch, level))
+                if batch == 37:
+                    _check_expm_padding(a)
+                    a64 = a.to(torch.complex128).requires_grad_(True)
+                    u64 = torch.linalg.matrix_exp(a64)
+                    grad64, = torch.autograd.grad(u64, a64,
+                                                  g.to(torch.complex128))
+                    rel_u = _rel(expm_cuda.expm_fwd(a).to(torch.complex128),
+                                 u64.detach())
+                    rel_g = _rel(expm_cuda.expm_frechet_fwd(a.mH, g).to(
+                        torch.complex128), grad64)
+                    rows[-1] += " f64 {:.1e} {:.1e}".format(rel_u, rel_g)
+                    if rel_u > FWD_RTOL or rel_g > GRAD_RTOL:
+                        raise RuntimeError(
+                            "K3/K4 disagree with float64 matrix_exp (d = {}, "
+                            "level {})".format(d, level))
+            print("phase 11 expm kernels: d={} (padded {}) batch={} (level, "
+                  "rel K3, K4 vs plain[, vs float64 matrix_exp]): {}{}"
+                  "".format(d, expm_cuda.kernel_dp(d), batch,
+                            "; ".join(rows),
+                            "; padding exact" if batch == 37 else ""),
+                  flush=True)
+
+
+def phase_d128_grape(dev):
+    """The slice at full width: the d = 2^7 GRAPE through the blocked route,
+    K3 and K4 launched every iteration, K1/K2/K5 never."""
+    from qoc_tpu_torch import grape_schroedinger_discrete
+    pstate, hamiltonian, costs = d128_problem()
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    reset_launches()
+    result = grape_schroedinger_discrete(
+        CONTROL_COUNT, D128_STEPS, costs, D128_EVOLUTION_TIME, hamiltonian,
+        pstate.initial_states, D128_STEPS, complex_controls=True,
+        initial_controls=pstate.initial_controls,
+        iteration_count=iterations, log_iteration_step=0,
+        max_control_norms=pstate.max_control_norms,
+        fused_chunk=WARMUP_ITERATIONS, device=dev)
+    launches = read_launches()
+    errors = np.asarray(result.errors)
+    print("phase 12 d=128 grape (10 complex controls, {} points, M2, blocked "
+          "route): {} iterations, {:.2f} it/s steady ({} timed after {} "
+          "warm-up), error {:.6f} -> {:.6f}, launches {}".format(
+              D128_STEPS, result.iteration_count_ran,
+              result.iterations_per_s, TIMED_ITERATIONS, WARMUP_ITERATIONS,
+              errors[0], errors[-1], launches), flush=True)
+    if result.iteration_count_ran != iterations:
+        raise RuntimeError("d = 128 GRAPE stopped early")
+    if not (np.all(np.isfinite(errors))
+            and np.all(np.isfinite(result.best_final_states))):
+        raise RuntimeError("non-finite d = 128 GRAPE result")
+    if not errors[-1] < errors[0]:
+        raise RuntimeError("d = 128 GRAPE error did not fall")
+    if launches["K3"] != iterations or launches["K4"] != iterations:
+        raise RuntimeError("the d = 128 GRAPE did not launch K3 and K4 "
+                           "every iteration")
+    if any(launches[k] for k in ("K1", "K2", "K5 fwd", "K5 bwd")):
+        raise RuntimeError("the d = 128 GRAPE launched a chain kernel")
+    return launches, result.iterations_per_s
+
+
+def _loss_grad(loss, pstate, dev, dtype=torch.float32):
+    """(loss, gradient) of ``loss`` at the problem's initial controls."""
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    flat = torch.as_tensor(strip_controls(True, pstate.initial_controls),
+                           dtype=dtype, device=dev).requires_grad_(True)
+    error, _ = loss(slap_controls_torch(True, flat, pstate.controls_shape))
+    grad, = torch.autograd.grad(error, flat)
+    return error.detach(), grad
+
+
+def phase_blocked_vs_plane(dev):
+    """The M4 problem through the blocked route (allow_plane_chain=False:
+    K3/K4) and the plane route (K5): loss, gradient, time and launches."""
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    pstate, _, _ = m4_problem(1)
+    out, ms = {}, {}
+    for route, allow in (("blocked", False), ("plane", True)):
+        loss = build_schroedinger_loss(pstate, dev, torch.float32,
+                                       allow_plane_chain=allow)
+        reset_launches()
+        error, grad = _loss_grad(loss, pstate, dev)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if not (bool(torch.isfinite(error)) and
+                bool(torch.isfinite(grad).all())):
+            raise RuntimeError("non-finite {} loss or gradient".format(route))
+        out[route] = (error, grad, launches)
+        ms[route] = cuda_ms(lambda: _loss_grad(loss, pstate, dev), 5)
+    (e_b, g_b, l_b), (e_p, g_p, l_p) = out["blocked"], out["plane"]
+    rel_err = float(abs(e_b - e_p) / abs(e_p))
+    rel_grad = _rel(g_b, g_p)
+    print("phase 13 blocked vs plane (M4, {} steps): blocked K3/K4 {:.8f} "
+          "plane K5 {:.8f} rel {:.2e}; gradient rel {:.2e}; loss+gradient "
+          "blocked {:.3f} ms, plane {:.3f} ms; launches blocked {} plane {}"
+          "".format(pstate.system_eval_count - 1, float(e_b), float(e_p),
+                    rel_err, rel_grad, ms["blocked"], ms["plane"], l_b, l_p),
+          flush=True)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the blocked route disagrees with the plane route")
+    if not (l_b["K3"] == 1 and l_b["K4"] == 1 and l_p["K5 fwd"] == 1
+            and l_p["K5 bwd"] == 1 and not l_b["K5 fwd"] and not l_p["K3"]):
+        raise RuntimeError("a route did not run its own kernels")
+    return ms
+
+
+def make_iteration(pstate, dev):
+    """One GRAPE iteration of core/graperunner.py on ``pstate`` (clip,
+    loss, gradient, Adam update); returns the error."""
+    from qoc_tpu_torch.core.common import (clip_control_norms_torch,
+                                           slap_controls_torch,
+                                           strip_controls_torch)
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    shape = pstate.controls_shape
+    loss = build_schroedinger_loss(pstate, dev, torch.float32)
+    mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
+                          device=dev)
+    adam = pstate.optimizer
+    params = strip_controls_torch(True, torch.as_tensor(
+        pstate.initial_controls, dtype=torch.complex64, device=dev))
+    state = {"params": params, "opt": adam.init_state(params)}
+
+    def iteration():
+        controls = clip_control_norms_torch(
+            slap_controls_torch(True, state["params"], shape), mcn)
+        flat = strip_controls_torch(True, controls).detach()
+        flat.requires_grad_(True)
+        error, _ = loss(slap_controls_torch(True, flat, shape))
+        grads, = torch.autograd.grad(error, flat)
+        state["opt"], state["params"] = adam.update(state["opt"], grads,
+                                                    state["params"])
+        return error
+    return iteration
+
+
+def phase_d1024_backprop(dev):
+    """The Table-1 d = 2^10 single-step backprop through the blocked route
+    on torch.matmul (no kernel): 20 timed GRAPE iterations (clip, loss,
+    gradient, Adam) after 2 warm-up ones, K3/K4 never launched, and the
+    gradient against a float64 run of the same route on the card."""
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+
+    pstate, _, _ = d1024_problem()
+    iteration = make_iteration(pstate, dev)
+    reset_launches()
+    for _ in range(WARMUP_ITERATIONS):
+        iteration()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(BACKPROP_ITERATIONS):
+        error = iteration()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3 / BACKPROP_ITERATIONS
+    launches = read_launches()
+    results = [_loss_grad(build_schroedinger_loss(pstate, dev, dtype), pstate,
+                          dev, dtype)
+               for dtype in (torch.float32, torch.float64)]
+    torch.cuda.synchronize()
+    (e32, g32), (e64, g64) = results
+    rel_err = float(abs(e32.double() - e64) / abs(e64))
+    rel_grad = _rel(g32.double(), g64)
+    print("phase 14 d=1024 backprop (1 step, blocked route, torch.matmul "
+          "Taylor): {:.3f} ms/iteration over {} iterations ({:.2f} it/s), "
+          "error {:.6f}; float32 vs float64 loss rel {:.2e}, gradient rel "
+          "{:.2e}; launches {}".format(
+              ms, BACKPROP_ITERATIONS, 1e3 / ms, float(error.detach()),
+              rel_err, rel_grad, launches), flush=True)
+    if not bool(torch.isfinite(error)):
+        raise RuntimeError("non-finite d = 1024 loss")
+    if any(launches.values()):
+        raise RuntimeError("the d = 1024 route launched a kernel")
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the d = 1024 gradient disagrees with float64")
+    return ms
+
+
+def phase_expm_timing(dev):
+    """K3 and K4 as the blocked route calls them (K3 at the planes A, K4 at
+    (A^H, G)), at the d = 128 GRAPE's planes and at the M4 planes: kernel
+    and plain times, bounds, and torch.linalg.matrix_exp forward and
+    backward on the same inputs (the library yardstick, only timed here)."""
+    from qoc_tpu_torch.ops import expm_cuda
+    out = {}
+    for label, a in (("d=128", initial_planes(*d128_problem()[:2], dev)),
+                     ("M4", m4_planes(dev))):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        g = torch.randn(a.shape, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        ah = a.mH.contiguous()
+        rel3, rel4, err3, err4, (lv3, lv4) = _compare_expm_kernels(a, ah, g)
+        if rel3 > FWD_RTOL or rel4 > GRAD_RTOL:
+            raise RuntimeError("K3/K4 disagree with their plain versions at "
+                               "the {} planes".format(label))
+        a_req = a.clone().requires_grad_(True)
+        u = torch.linalg.matrix_exp(a_req)
+        ms = {
+            "K3": cuda_ms(lambda: expm_cuda.expm_fwd(a), 10),
+            "K3 plain": cuda_ms(lambda: expm_cuda.expm_fwd_plain(a), 3),
+            "K3 library": cuda_ms(lambda: torch.linalg.matrix_exp(a), 5),
+            "K4": cuda_ms(lambda: expm_cuda.expm_frechet_fwd(ah, g), 10),
+            "K4 plain": cuda_ms(
+                lambda: expm_cuda.expm_frechet_plain(ah, g), 3),
+            "K4 library": cuda_ms(lambda: torch.autograd.grad(
+                u, a_req, g, retain_graph=True), 3),
+        }
+        dp = expm_cuda.kernel_dp(a.shape[-1])
+        bounds = {
+            "K3": kernel_bound(a.abs().sum(-2).amax(-1), lv3, False, [a, a],
+                               dp, chain=False),
+            "K4": kernel_bound(ah.abs().sum(-2).amax(-1), lv4, True,
+                               [ah, g, g], dp, chain=False),
+        }
+        print("phase 15 expm timing ({} planes {}, levels K3/K4 {}/{}, rel "
+              "vs plain {:.1e}/{:.1e}): ".format(
+                  label, tuple(a.shape), lv3, lv4, rel3, rel4)
+              + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+              + "; " + ", ".join(
+                  "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its "
+                  "time".format(k, b[0], b[1], b[2], b[0] / ms[k])
+                  for k, b in bounds.items()), flush=True)
+        out[label] = (ms, bounds, {"K3": err3, "K4": err4})
+    return out["d=128"]
+
+
+def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound,
+                library_ms=None):
     return {"name": name, "route": "cuda",
             "source": "qoc_tpu_torch/csrc/" + source,
-            "replaces": "qoc_tpu/ops/chain_pallas.py:" + replaces,
+            "replaces": "qoc_tpu/ops/" + replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def main():
@@ -795,16 +1143,32 @@ def main():
     launches.update({k: m4_launches[k] for k in ("K5 fwd", "K5 bwd")})
     ms.update(plane_ms)
     bounds.update(plane_bounds)
+    phase_expm_kernels(dev)
+    d128_launches, d128_it_s = phase_d128_grape(dev)
+    launches.update({k: d128_launches[k] for k in ("K3", "K4")})
+    route_ms = phase_blocked_vs_plane(dev)
+    backprop_ms = phase_d1024_backprop(dev)
+    expm_ms, expm_bounds, expm_err = phase_expm_timing(dev)
+    ms.update(expm_ms)
+    bounds.update(expm_bounds)
+    worst.update(expm_err)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
-                    ms[key], ms[key + " plain"], bounds[key])
+                    ms[key], ms[key + " plain"], bounds[key],
+                    ms.get(key + " library"))
         for name, source, replaces, key in (
-            ("chain_fwd", "chain_fwd.cu", "236", "K1"),
-            ("chain_bwd", "chain_bwd.cu", "262", "K2"),
-            ("plane_fwd", "plane_fwd.cu", "695", "K5 fwd"),
-            ("plane_bwd", "plane_bwd.cu", "718", "K5 bwd"))]
+            ("chain_fwd", "chain_fwd.cu", "chain_pallas.py:236", "K1"),
+            ("chain_bwd", "chain_bwd.cu", "chain_pallas.py:262", "K2"),
+            ("plane_fwd", "plane_fwd.cu", "chain_pallas.py:695", "K5 fwd"),
+            ("plane_bwd", "plane_bwd.cu", "chain_pallas.py:718", "K5 bwd"),
+            ("expm_fwd", "expm_fwd.cu", "expm_pallas.py:264", "K3"),
+            ("expm_frechet", "expm_frechet.cu", "expm_pallas.py:397",
+             "K4"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
-          "M4 GRAPE {:.2f} it/s".format(card, build_s, it_s, m4_it_s))
+          "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
+          "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms"
+          "".format(card, build_s, it_s, m4_it_s, d128_it_s,
+                    route_ms["blocked"], route_ms["plane"], backprop_ms))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

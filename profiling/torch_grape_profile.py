@@ -4,16 +4,18 @@ Run from the root of a checkout, with one NVIDIA GPU and nvcc:
 
     python3 profiling/torch_grape_profile.py [--json PATH]
 
-For the Table-3 headline (LinearHamiltonian, M2: the fused route, K1/K2)
-and the Magnus-M4 problem of the JAX package's bench_m4 (the plane route,
-K5), both built as chip_smoke.py builds them, it runs one GRAPE iteration
-the way core/graperunner.py does (clip, loss, gradient, Adam update):
-2 warm-up iterations, then 10 timed without the profiler (host clock, one
-synchronise at the end), then 5 under torch.profiler. It prints the card's
-name and power limit, the unprofiled ms per iteration, the device time of
-each kernel class per iteration, the device's busy and idle share of the
-profiled window and the peak device memory; ``--json PATH`` also writes
-them to PATH as JSON.
+For the Table-3 headline (LinearHamiltonian, M2: the fused route, K1/K2),
+the Magnus-M4 problem of the JAX package's bench_m4 (the plane route, K5),
+the d = 2^7 problem (d = 128, 2001 points, M2: the blocked route, K3/K4)
+and the Table-1 d = 2^10 single-step backprop (the blocked route on
+torch.matmul, no kernel), all built as chip_smoke.py builds them, it runs
+one GRAPE iteration the way core/graperunner.py does (clip, loss, gradient,
+Adam update; chip_smoke.make_iteration): 2 warm-up iterations, then 10
+timed without the profiler (host clock, one synchronise at the end), then
+5 under torch.profiler. It prints the card's name and power limit, the
+unprofiled ms per iteration, the device time of each kernel class per
+iteration, the device's busy and idle share of the profiled window and the
+peak device memory; ``--json PATH`` also writes them to PATH as JSON.
 """
 
 import argparse
@@ -32,13 +34,16 @@ import chip_smoke  # noqa: E402  (problem builders; imports no JAX)
 
 WARMUP, TIMED, PROFILED = 2, 10, 5
 KERNELS = (("chain_fwd_kernel", "K1"), ("chain_bwd_kernel", "K2"),
-           ("plane_fwd_kernel", "K5 fwd"), ("plane_bwd_kernel", "K5 bwd"))
+           ("plane_fwd_kernel", "K5 fwd"), ("plane_bwd_kernel", "K5 bwd"),
+           ("expm_resident_kernel", "K3"), ("frechet_resident_kernel", "K4"))
 
 
 def _class(name):
     for key, label in KERNELS:
         if key in name:
             return label
+    if "expm_tiled_kernel" in name:    # <T, false> is K3, <T, true> K4
+        return "K4" if "true>" in name else "K3"
     lower = name.lower()
     if "gemm" in lower or "cutlass" in lower:
         return "glue matmuls (cuBLAS)"
@@ -47,36 +52,8 @@ def _class(name):
     return "glue elementwise/reductions"
 
 
-def make_iteration(pstate, dev):
-    """One GRAPE iteration of core/graperunner.py on ``pstate``."""
-    from qoc_tpu_torch.core.common import (clip_control_norms_torch,
-                                           slap_controls_torch,
-                                           strip_controls_torch)
-    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
-    shape = pstate.controls_shape
-    loss = build_schroedinger_loss(pstate, dev, torch.float32)
-    mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
-                          device=dev)
-    adam = pstate.optimizer
-    params = strip_controls_torch(True, torch.as_tensor(
-        pstate.initial_controls, dtype=torch.complex64, device=dev))
-    state = {"params": params, "opt": adam.init_state(params)}
-
-    def iteration():
-        controls = clip_control_norms_torch(
-            slap_controls_torch(True, state["params"], shape), mcn)
-        flat = strip_controls_torch(True, controls).detach()
-        flat.requires_grad_(True)
-        error, _ = loss(slap_controls_torch(True, flat, shape))
-        grads, = torch.autograd.grad(error, flat)
-        state["opt"], state["params"] = adam.update(state["opt"], grads,
-                                                    state["params"])
-        return error
-    return iteration
-
-
 def profile_cell(name, pstate, dev):
-    iteration = make_iteration(pstate, dev)
+    iteration = chip_smoke.make_iteration(pstate, dev)
     for _ in range(WARMUP):
         iteration()
     torch.cuda.synchronize()
@@ -160,7 +137,11 @@ def main():
     results = [profile_cell("headline M2 (fused, K1/K2)",
                             chip_smoke.table3_problem(1)[0], dev),
                profile_cell("bench_m4 M4 (plane, K5)",
-                            chip_smoke.m4_problem(1)[0], dev)]
+                            chip_smoke.m4_problem(1)[0], dev),
+               profile_cell("d=128 M2 (blocked, K3/K4)",
+                            chip_smoke.d128_problem()[0], dev),
+               profile_cell("d=1024 backprop (blocked, torch.matmul)",
+                            chip_smoke.d1024_problem()[0], dev)]
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "cells": results},

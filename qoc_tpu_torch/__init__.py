@@ -6,7 +6,9 @@ module mirrors its ``qoc_tpu`` counterpart by path. Ported so far: the
 Schrödinger path with a ``LinearHamiltonian`` or any torch Hamiltonian
 callable, Magnus M2/M4/M6, ``TargetStateInfidelity`` and Adam, whose
 propagation runs through the fused expm-product chain kernels
-(``ops/chain.py``, ``csrc/``). Every entry point takes ``device`` and
+(``ops/chain.py``, d <= 64) or the batched expm kernels and a tree product
+(``ops/expm.py``; up to padded d = 256 on the card, ``torch.matmul``
+above 512), all in ``csrc/``. Every entry point takes ``device`` and
 ``dtype``: by default the current CUDA device in float32 (the kernels'
 type), raising ``RuntimeError`` where there is none; ``device="cpu"`` runs
 float64 (parity with ``qoc_tpu``).
@@ -17,6 +19,8 @@ from qoc_tpu_torch.core import (evolve_schroedinger_discrete,
                                 grape_schroedinger_discrete)
 from qoc_tpu_torch.costs import TargetStateInfidelity
 from qoc_tpu_torch.models import LinearHamiltonian
+from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
+                                    expm_taylor)
 from qoc_tpu_torch.optim import Adam
 
 __version__ = "0.1.0"
@@ -26,5 +30,10 @@ __all__ = [
     "LinearHamiltonian",
     "TargetStateInfidelity",
     "evolve_schroedinger_discrete",
+    "expm",
+    "expm_eigh",
+    "expm_frechet",
+    "expm_pade",
+    "expm_taylor",
     "grape_schroedinger_discrete",
 ]

@@ -3,17 +3,24 @@
 Counterpart of ``qoc_tpu/core/schroedinger.py``. Steps run in time blocks
 (``chain_block_plan``; the Table-3 headline is one block) composed by a
 Python loop, and autograd chains the blocks' exact gradients. A block
-propagates through one of two chain ops (``ops/chain.py``), chosen in
-``qoc_tpu``'s order:
+propagates by one of three routes, chosen by the problem alone, so the
+CPU walks the route the card takes:
 
 - the fused route, for a ``LinearHamiltonian`` under Magnus-M2 with
-  controls: weight rows against a constant generator basis, carried on CUDA
-  by the kernels K1/K2;
-- the plane route, for everything else: any Hamiltonian callable under
-  Magnus M2, M4 or M6, with or without controls, and a ``LinearHamiltonian``
-  under M4 or M6. Each step's Magnus term is built as a complex plane by
-  plain torch operations (differentiated by autograd) and the planes go
-  through the plane chain op, carried on CUDA by the kernels K5.
+  controls at d <= 64: weight rows against a constant generator basis
+  through the chain op (``ops/chain.py``), carried on CUDA by K1/K2;
+- the plane route, for everything else at d <= 64: any Hamiltonian
+  callable under Magnus M2, M4 or M6, with or without controls, and a
+  ``LinearHamiltonian`` under M4 or M6. Each step's Magnus term is built as
+  a complex plane by plain torch operations (differentiated by autograd)
+  and the planes go through the plane chain op, carried on CUDA by K5;
+- the blocked route, for 64 < padded d <= 256, for d above 512, and for
+  d <= 64 with ``allow_plane_chain=False`` where the fused route does not
+  apply (``qoc_tpu``'s generic route): the block's planes, built as on the
+  plane route, go through the batched ``ops/expm.py`` expm (K3/K4 up to
+  padded d = 256, ``expm_taylor`` on ``torch.matmul`` above) and a
+  log-depth pairwise tree product. For 64 < d <= 256 ``qoc_tpu`` takes its
+  chain kernels instead; the numbers agree.
 
 The Hamiltonian contract of the port: a callable written with ``torch``
 operations, ``(controls (C,) complex tensor or None, t 0-dim real tensor)
@@ -24,10 +31,10 @@ Constants it closes over may be numpy arrays or tensors of any complex
 dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: d > 64 on CUDA (K6, slice 5), step costs and intermediate
-states (the per-step-seed chain, slice 2), ``impose_control_conditions``
-(the host loop, slice 3), save files and resume (slice 4) and ``mesh``
-(slice 6).
+ROADMAP slice: 256 < padded d <= 512 (K6, slice 5), step costs and
+intermediate states (the per-step-seed chain, slice 2),
+``impose_control_conditions`` (the host loop, slice 3), save files and
+resume (slice 4) and ``mesh`` (slice 6).
 """
 
 import numpy as np
@@ -44,6 +51,8 @@ from qoc_tpu_torch.models import (EvolveSchroedingerDiscreteState,
                                   MagnusPolicy)
 from qoc_tpu_torch.ops.chain import (KERNEL_DP, ChainExpmPropagate,
                                      chain_block_plan, plane_chain_propagate)
+from qoc_tpu_torch.ops.expm import expm
+from qoc_tpu_torch.ops.expm_cuda import KERNEL_MAX_DP, kernel_dp
 from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
 from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
 from qoc_tpu_torch.optim import Adam
@@ -66,6 +75,11 @@ _MAGNUS = {
 # What the plane op keeps a step besides the build: its padded input
 # plane, the prefix and the gradient plane its backward writes.
 _PLANE_OP_PLANES = 3
+# What the blocked route keeps a step besides the build: the expm input
+# (saved for K4), U and about one tree product.
+_BLOCKED_PLANES = 3
+# Padded d up to which the streamed chain K6 serves qoc_tpu: not ported.
+_STREAM_MAX_DP = 512
 
 
 def _not_ported(what, roadmap_slice):
@@ -118,15 +132,44 @@ def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
     return planes
 
 
+def _tree_product(us):
+    """us[B-1] ··· us[1] us[0] of a (B, d, d) stack by a log-depth pairwise
+    reduction, an odd level padded with the identity (qoc_tpu
+    schroedinger.py:349-357)."""
+    d = us.shape[-1]
+    while us.shape[0] > 1:
+        if us.shape[0] % 2:
+            eye = torch.eye(d, dtype=us.dtype, device=us.device)
+            us = torch.cat((us, eye[None]))
+        pairs = us.reshape(us.shape[0] // 2, 2, d, d)
+        us = pairs[:, 1] @ pairs[:, 0]
+    return us[0]
+
+
+def _route(d, fused_ok, allow_plane_chain):
+    """'fused', 'plane' or 'blocked' for a problem of dimension d (module
+    docstring); raises for 256 < padded d <= 512."""
+    dp = kernel_dp(d)
+    if KERNEL_MAX_DP < dp <= _STREAM_MAX_DP:
+        raise _not_ported("padded d = {} in (256, 512] (K6, the streamed "
+                          "chain)".format(dp), 5)
+    if d > KERNEL_DP:
+        return "blocked"
+    if fused_ok:
+        return "fused"
+    return "plane" if allow_plane_chain else "blocked"
+
+
 def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
-                            log_path=False):
+                            log_path=False, allow_plane_chain=True):
     """The loss: controls (a (E, C) tensor, or None) -> (error,
     final_states), differentiable w.r.t. the controls.
 
     Mirrors ``qoc_tpu``'s build_schroedinger_loss (reference
     _evaluate_schroedinger_discrete, schroedingerdiscrete.py:356-438,
-    without step costs): the fused route for a ``LinearHamiltonian`` under
-    M2 with controls, the plane route otherwise (module docstring)."""
+    without step costs): the fused, plane or blocked route by the problem
+    (module docstring). ``allow_plane_chain=False`` sends what would take
+    the plane route to the blocked route, as in ``qoc_tpu``."""
     if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
         raise NotImplementedError(
             "The interpolation policy {} is not yet supported for this "
@@ -145,41 +188,49 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     final_step = pstate.final_system_eval_step
     costs = pstate.costs
     d = initial_states.shape[-2]
-    if device.type == "cuda" and d > KERNEL_DP:
-        raise _not_ported("d = {} > {} on CUDA (K6, the streamed chain)"
-                          .format(d, KERNEL_DP), 5)
     hamiltonian = pstate.hamiltonian
     times = torch.arange(n_steps, dtype=dtype, device=device) * dt
     cet = (torch.as_tensor(pstate.control_eval_times, dtype=dtype,
                            device=device)
            if pstate.control_eval_times is not None else None)
-    fused = (isinstance(hamiltonian, LinearHamiltonian)
-             and pstate.magnus_policy == MagnusPolicy.M2 and cet is not None)
-    if fused:
+    route = _route(d, isinstance(hamiltonian, LinearHamiltonian)
+                   and pstate.magnus_policy == MagnusPolicy.M2
+                   and cet is not None, allow_plane_chain)
+    build_planes = _MAGNUS[pstate.magnus_policy][1]
+    if route == "fused":
         chain = ChainExpmPropagate(hamiltonian.generator_basis(dt), device,
                                    dtype)
         planes_per_step = 2
 
         def propagate(controls, t_block):
             return chain(fused_weights(controls, t_block, cet, dt))
-        route, kernels = "fused chain", "K1/K2"
-    else:
+        path, kernels = "fused chain", "CUDA kernels K1/K2"
+    elif route == "plane":
         planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
-        planes_per_step = _PLANE_OP_PLANES + _MAGNUS[pstate.magnus_policy][1]
+        planes_per_step = _PLANE_OP_PLANES + build_planes
 
         def propagate(controls, t_block):
             return plane_chain_propagate(planes(controls, t_block).to(cdtype))
-        route, kernels = "plane chain", "K5"
+        path, kernels = "plane chain", "CUDA kernels K5"
+    else:
+        planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
+        planes_per_step = _BLOCKED_PLANES + build_planes
+
+        def propagate(controls, t_block):
+            return _tree_product(expm(planes(controls, t_block).to(cdtype)))
+        path, kernels = "blocked expm + tree product", "CUDA kernels K3/K4"
+    if route == "blocked" and kernel_dp(d) > KERNEL_MAX_DP:
+        kernels = "torch.matmul Taylor (d > 256)"
+    elif device.type != "cuda":
+        kernels = "plain torch on " + device.type
     block = int(time_block_size
                 or chain_block_plan(d, n_steps, cdtype.itemsize,
                                     planes_per_step))
     if log_path:
         print("qoc_tpu_torch: propagation path = {}, {} ({}, {}, no step "
               "costs; d={}, block={}).".format(
-                  route, "CUDA kernels " + kernels if device.type == "cuda"
-                  else "plain torch on " + device.type,
-                  type(hamiltonian).__name__, pstate.magnus_policy, d,
-                  block))
+                  path, kernels, type(hamiltonian).__name__,
+                  pstate.magnus_policy, d, block))
 
     def loss(controls):
         states = initial_states

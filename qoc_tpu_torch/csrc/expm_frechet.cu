@@ -1,0 +1,119 @@
+// K4: batched Fréchet derivative of the matrix exponential, L(B, G) =
+// d/dt exp(B + t G) at t = 0, written by hand for Hopper (sm_90a).
+//
+// Replaces qoc_tpu/ops/expm_pallas.py:_fast_frechet_kernel and
+// :_frechet_kernel, which expm_frechet_pallas picks between by the
+// batch-max 1-norm of B. The same ladder as K3 (expm_common.cuh) evaluated
+// on dual numbers (V, dV)(W, dW) = (V W, dV W + V dW), starting from
+// (B, G), through the scaling (both scaled by 2^-s), the Taylor polynomial
+// and the squarings: exact for any norm. The tangent is written out.
+//
+// ops/expm.py's expm calls it with B = A^H and G the gradient of exp(A) in
+// PyTorch's convention (dL/dRe + i dL/dIm): L(A^H, G) is then the gradient
+// of A. (qoc_tpu calls its kernel with B = A^T and JAX's cotangent, the
+// conjugate of PyTorch's gradient; the two agree: conj L(A^T, conj G) =
+// L(A^H, G).)
+//
+// What bounds it on the card: FP32 arithmetic, three complex D^3 products
+// a dual product: 6/9/15/21 at degree 4/8/12/19, against two matrices read
+// and one written.
+//
+// What the design does about it: K3's, with the tangents beside the values.
+// At D = 64 the dual ladder is chain_common.cuh's expm_dual, six resident
+// matrices and the per-block stash of the dual powers (K2's step without
+// the recursion); above, twelve workspace matrices a block and four staged
+// tiles a k-step (X, dX, Y, dY), two register accumulators.
+
+#include "expm_common.cuh"
+
+namespace qoc {
+namespace {
+
+// D = 64: (value, tangent) and four dual-power scratch matrices resident,
+// + the 1-norm scratch.
+constexpr size_t RESIDENT_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
+
+__global__ void __launch_bounds__(NT, 1)
+    frechet_resident_kernel(const float2* __restrict__ b,
+                            const float2* __restrict__ g,
+                            const float* __restrict__ norm,
+                            float2* __restrict__ out, float2* stash, int B) {
+  extern __shared__ float4 smem4[];
+  float2* sm = reinterpret_cast<float2*>(smem4);
+  // expm_dual's buffers b1..b6 (b0, the adjoint's T, is not used here).
+  float2* buf[7];
+  buf[0] = nullptr;
+#pragma unroll
+  for (int j = 1; j < 7; ++j) buf[j] = sm + (j - 1) * MAT;
+  float* red = reinterpret_cast<float*>(sm + 6 * MAT);
+  float2* st = stash + (size_t)blockIdx.x * STASH_SLOTS * MAT;
+  const int level = ladder_level(__ldg(norm));
+  for (int m = blockIdx.x; m < B; m += gridDim.x) {
+    load(buf[1], b + (size_t)m * MAT);
+    load(buf[2], g + (size_t)m * MAT);
+    __syncthreads();
+    expm_dual(buf, level, st, red);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e)
+      out[(size_t)m * MAT + own(e)] = buf[2][own(e)];
+    __syncthreads();
+  }
+}
+
+template <int T>
+int tiled(const void* b, const void* g, const void* norm, void* out,
+          void* ws, int B, int grid, void* stream) {
+  return ex::launch(ex::expm_tiled_kernel<T, true>, ex::tiled_smem<true>(),
+                    grid, stream, static_cast<const float2*>(b),
+                    static_cast<const float2*>(g),
+                    static_cast<const float*>(norm),
+                    static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+}  // namespace
+}  // namespace qoc
+
+// b, g (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max
+// 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
+// qoc_expm_frechet_plan (the dual powers' stash at dp = 64). dp is 64, 128,
+// 192 or 256. Returns the CUDA error.
+extern "C" int qoc_expm_frechet(const void* b, const void* g,
+                                const void* norm, void* out, void* ws, int B,
+                                int dp, int grid, void* stream) {
+  using namespace qoc;
+  switch (dp) {
+    case 64:
+      return ex::launch(frechet_resident_kernel, RESIDENT_SMEM, grid, stream,
+                        static_cast<const float2*>(b),
+                        static_cast<const float2*>(g),
+                        static_cast<const float*>(norm),
+                        static_cast<float2*>(out), static_cast<float2*>(ws),
+                        B);
+    case 128: return tiled<2>(b, g, norm, out, ws, B, grid, stream);
+    case 192: return tiled<3>(b, g, norm, out, ws, B, grid, stream);
+    case 256: return tiled<4>(b, g, norm, out, ws, B, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The grid of qoc_expm_frechet at dp and the workspace matrices each block
+// needs. Returns the CUDA error.
+extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots) {
+  using namespace qoc;
+  *slots = dp == 64 ? STASH_SLOTS : 2 * ex::NV;
+  switch (dp) {
+    case 64:
+      return ex::resident_blocks(frechet_resident_kernel, RESIDENT_SMEM,
+                                 blocks);
+    case 128:
+      return ex::resident_blocks(ex::expm_tiled_kernel<2, true>,
+                                 ex::tiled_smem<true>(), blocks);
+    case 192:
+      return ex::resident_blocks(ex::expm_tiled_kernel<3, true>,
+                                 ex::tiled_smem<true>(), blocks);
+    case 256:
+      return ex::resident_blocks(ex::expm_tiled_kernel<4, true>,
+                                 ex::tiled_smem<true>(), blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,109 @@
+// K3: batched matrix exponential exp(A), written by hand for Hopper
+// (sm_90a).
+//
+// Replaces qoc_tpu/ops/expm_pallas.py:_fast_expm_kernel (the straight-line
+// Taylor of one ladder degree) and :_expm_kernel (per-matrix scaling, Taylor
+// and squarings), the two TPU kernels that expm_taylor_pallas picks between
+// with a lax.switch on the batch-max 1-norm. Here one kernel reads the norm
+// by pointer and branches on the ladder level inside (expm_common.cuh).
+// It is the forward of ops/expm.py's expm on the blocked route of
+// Schrödinger GRAPE: one exp per time step, B steps a call.
+//
+// What bounds it on the card: FP32 arithmetic. A matrix costs 2/3/5/7
+// complex D^3 products at degree 4/8/12/19 (8 D^3 FLOP each) against one
+// read of A and one write of exp(A): at D = 128 and degree 12, 84 MFLOP
+// for 256 KB, about 320 FLOP a byte, far above the card's FP32 balance
+// point of 20.
+//
+// What the design does about it: one block per matrix at a time, persistent
+// blocks walking the batch, FP32 SIMT FMAs on register tiles. At D = 64 the
+// whole ladder stays in shared memory (chain_common.cuh's expm, K1's step).
+// Above, the ladder's six matrices live in a per-block device workspace and
+// each product streams 64 x 64 tiles through shared memory; the workspace
+// traffic (about 6 matrices a product) is the design's cost, not yet
+// hidden behind the FMAs (no double buffering).
+
+#include "expm_common.cuh"
+
+namespace qoc {
+namespace {
+
+// D = 64: M, M2, M3, M4, X resident + the 1-norm scratch.
+constexpr size_t RESIDENT_SMEM = 5 * MAT * sizeof(float2) + RED_BYTES;
+
+__global__ void __launch_bounds__(NT, 1)
+    expm_resident_kernel(const float2* __restrict__ a,
+                         const float* __restrict__ norm,
+                         float2* __restrict__ out, int B) {
+  extern __shared__ float4 smem4[];
+  float2* sm = reinterpret_cast<float2*>(smem4);
+  float2* M = sm;
+  float2* M2 = sm + MAT;
+  float2* M3 = sm + 2 * MAT;
+  float2* M4 = sm + 3 * MAT;
+  float2* X = sm + 4 * MAT;
+  float* red = reinterpret_cast<float*>(sm + 5 * MAT);
+  const int level = ladder_level(__ldg(norm));
+  for (int m = blockIdx.x; m < B; m += gridDim.x) {
+    load(M, a + (size_t)m * MAT);
+    __syncthreads();
+    const float2* r = expm(M, M2, M3, M4, X, level, red);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) out[(size_t)m * MAT + own(e)] = r[own(e)];
+    __syncthreads();
+  }
+}
+
+template <int T>
+int tiled(const void* a, const void* norm, void* out, void* ws, int B,
+          int grid, void* stream) {
+  return ex::launch(ex::expm_tiled_kernel<T, false>, ex::tiled_smem<false>(),
+                    grid, stream, static_cast<const float2*>(a),
+                    static_cast<const float2*>(nullptr),
+                    static_cast<const float*>(norm),
+                    static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+}  // namespace
+}  // namespace qoc
+
+// a (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max 1-norm
+// of a; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
+// qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256. Returns
+// the CUDA error.
+extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
+                            void* ws, int B, int dp, int grid, void* stream) {
+  using namespace qoc;
+  switch (dp) {
+    case 64:
+      return ex::launch(expm_resident_kernel, RESIDENT_SMEM, grid, stream,
+                        static_cast<const float2*>(a),
+                        static_cast<const float*>(norm),
+                        static_cast<float2*>(out), B);
+    case 128: return tiled<2>(a, norm, out, ws, B, grid, stream);
+    case 192: return tiled<3>(a, norm, out, ws, B, grid, stream);
+    case 256: return tiled<4>(a, norm, out, ws, B, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The grid of qoc_expm_fwd at dp (resident blocks on the current device)
+// and the workspace matrices each block needs. Returns the CUDA error.
+extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots) {
+  using namespace qoc;
+  *slots = dp == 64 ? 0 : ex::NV;
+  switch (dp) {
+    case 64:
+      return ex::resident_blocks(expm_resident_kernel, RESIDENT_SMEM, blocks);
+    case 128:
+      return ex::resident_blocks(ex::expm_tiled_kernel<2, false>,
+                                 ex::tiled_smem<false>(), blocks);
+    case 192:
+      return ex::resident_blocks(ex::expm_tiled_kernel<3, false>,
+                                 ex::tiled_smem<false>(), blocks);
+    case 256:
+      return ex::resident_blocks(ex::expm_tiled_kernel<4, false>,
+                                 ex::tiled_smem<false>(), blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -41,6 +41,18 @@ class LinearHamiltonian:
         if self.h0.shape != self.operators.shape[1:]:
             raise ValueError("h0 {} and operators {} dimension mismatch."
                              .format(self.h0.shape, self.operators.shape))
+        # (h0, operators) as tensors by (dtype, device), made at the first
+        # call there: the planes are built every iteration, and uploading
+        # the d x d matrices each time is a large share of a large-d one.
+        self._tensors = {}
+
+    def _as_tensors(self, dtype, device):
+        key = (dtype, device)
+        if key not in self._tensors:
+            self._tensors[key] = tuple(
+                torch.as_tensor(x, dtype=dtype, device=device)
+                for x in (self.h0, self.operators))
+        return self._tensors[key]
 
     @property
     def control_count(self):
@@ -53,10 +65,7 @@ class LinearHamiltonian:
         there are no controls)."""
         if controls is None:
             return torch.as_tensor(self.h0, dtype=torch.complex128)
-        ops = torch.as_tensor(self.operators, dtype=controls.dtype,
-                              device=controls.device)
-        h0 = torch.as_tensor(self.h0, dtype=controls.dtype,
-                             device=controls.device)
+        h0, ops = self._as_tensors(controls.dtype, controls.device)
         drive = torch.einsum("...i,iab->...ab", controls, ops)
         return h0 + drive + drive.mH
 

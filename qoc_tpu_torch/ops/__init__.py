@@ -1,10 +1,14 @@
-"""qoc_tpu_torch.ops - interpolation, Magnus, linear algebra and the fused
-expm-product chain ops with their CUDA kernels."""
+"""qoc_tpu_torch.ops - interpolation, Magnus, linear algebra, the matrix
+exponential and the fused expm-product chain ops, with their CUDA
+kernels."""
 
 from qoc_tpu_torch.ops.chain import (ChainExpmPropagate, PlaneChainPropagate,
                                      chain_bwd, chain_fwd,
                                      plane_chain_propagate, plane_bwd,
                                      plane_fwd)
+from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
+                                    expm_taylor)
+from qoc_tpu_torch.ops.expm_cuda import expm_frechet_fwd, expm_fwd
 from qoc_tpu_torch.ops.interpolate import (interpolate_linear_points,
                                            interpolate_linear_set)
 from qoc_tpu_torch.ops.linalg import (commutator, conjugate_transpose, mul,
@@ -18,6 +22,13 @@ __all__ = [
     "chain_fwd",
     "commutator",
     "conjugate_transpose",
+    "expm",
+    "expm_eigh",
+    "expm_frechet",
+    "expm_frechet_fwd",
+    "expm_fwd",
+    "expm_pade",
+    "expm_taylor",
     "interpolate_linear_points",
     "interpolate_linear_set",
     "magnus_m2",

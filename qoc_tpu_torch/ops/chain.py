@@ -93,8 +93,9 @@ _BLOCK_BYTES = 2 * 1024 ** 3
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("chain_fwd.cu", "chain_bwd.cu", "plane_fwd.cu", "plane_bwd.cu")
-_HEADERS = ("chain_common.cuh",)
+_SOURCES = ("chain_fwd.cu", "chain_bwd.cu", "plane_fwd.cu", "plane_bwd.cu",
+            "expm_fwd.cu", "expm_frechet.cu")
+_HEADERS = ("chain_common.cuh", "expm_common.cuh")
 _BUILD_DIR = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -136,15 +137,16 @@ def _build(out_dir, lib_path):
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("building the chain kernels failed ({}):\n{}"
+        raise RuntimeError("building the CUDA kernels failed ({}):\n{}"
                            .format(", ".join(failed), "".join(logs)))
     os.replace(tmp, lib_path)
 
 
 @functools.cache
 def load_kernels():
-    """Build the chain kernels' shared library (once per source hash, into
-    ``qoc_tpu_torch/_build/<hash>/``) and load it with ctypes.
+    """Build the kernels' shared library, K1/K2/K5 here and K3/K4 of
+    ``ops/expm_cuda.py`` (once per source hash, into
+    ``qoc_tpu_torch/_build/<hash>/``), and load it with ctypes.
 
     The compiler's register/spill report is kept beside the library as
     ``build.log``."""
@@ -164,8 +166,16 @@ def load_kernels():
     lib.qoc_plane_fwd.argtypes = [ptr, ptr, ptr, cint, cint, ptr]
     lib.qoc_plane_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
                                   ptr]
+    lib.qoc_expm_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    lib.qoc_expm_frechet.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
+                                     cint, ptr]
+    cint_p = ctypes.POINTER(cint)
+    lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p]
+    lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p]
     for fn in (lib.qoc_chain_fwd, lib.qoc_chain_bwd, lib.qoc_plane_fwd,
-               lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots):
+               lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots,
+               lib.qoc_expm_fwd, lib.qoc_expm_frechet, lib.qoc_expm_fwd_plan,
+               lib.qoc_expm_frechet_plan):
         fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(
@@ -307,22 +317,39 @@ def ladder_level(norm):
     return len(_F32_LADDER)
 
 
-def _expm_ladder(m, level):
-    """exp of a batch of matrices m (a tensor, or a _Dual for the Fréchet
-    derivative) at ladder ``level``."""
+def _squaring_count(v, theta):
+    """Per-matrix squaring count s >= 0 with ||v / 2^s||_1 <= theta, as a
+    float tensor (qoc_tpu expm.py _squaring_count). fmax, as the kernels'
+    fmaxf: a NaN norm gives 0 squarings."""
+    norm1 = torch.abs(v).sum(dim=-2).amax(dim=-1)
+    s = torch.ceil(torch.log2(torch.fmax(norm1 / theta,
+                                         torch.ones_like(norm1))))
+    return torch.clamp(s, 0, _MAX_SQUARINGS)
+
+
+def _scale_and_square(m, approximant, theta=_THETA, max_squarings=None):
+    """exp of a batch m (a tensor, or a _Dual for the Fréchet derivative) by
+    per-matrix scaling to ``theta``, ``approximant(scaled, eye)`` and masked
+    squarings: max(s) of them (a host read), or ``max_squarings``."""
     v = m.v if isinstance(m, _Dual) else m
     eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
-    if level < len(_TAYLOR):
-        return _TAYLOR[level](m, eye)
-    norm1 = torch.abs(v).sum(dim=-2).amax(dim=-1)
-    # fmax, as the kernels' fmaxf: a NaN norm gives 0 squarings.
-    s = torch.ceil(torch.log2(torch.fmax(norm1 / _THETA,
-                                         torch.ones_like(norm1))))
-    s = torch.clamp(s, 0, _MAX_SQUARINGS)
-    p = _taylor19(m * torch.exp2(-s)[..., None, None], eye)
-    for j in range(int(s.max())):
+    s = _squaring_count(v, theta)
+    p = approximant(m * torch.exp2(-s)[..., None, None], eye)
+    n = int(s.max()) if max_squarings is None else max_squarings
+    for j in range(n):
         p = _where((j < s)[..., None, None], p @ p, p)
     return p
+
+
+def _expm_ladder(m, level):
+    """exp of a batch of matrices m (a tensor, or a _Dual for the Fréchet
+    derivative) at ladder ``level``. The last level scales each matrix to
+    theta = 1 and always takes T19 (the kernels' rule too)."""
+    if level < len(_TAYLOR):
+        v = m.v if isinstance(m, _Dual) else m
+        return _TAYLOR[level](m, torch.eye(v.shape[-1], dtype=v.dtype,
+                                           device=v.device))
+    return _scale_and_square(m, _taylor19)
 
 
 def _generators(w_t, basis):
@@ -653,8 +680,8 @@ class ChainExpmPropagate:
             if d > KERNEL_DP:
                 raise ValueError(
                     "the chain kernels take d <= {} (got d = {}); larger "
-                    "Hilbert spaces need K6, the streamed chain (ROADMAP "
-                    "slice 5).".format(KERNEL_DP, d))
+                    "Hilbert spaces take the blocked route (ops/expm.py, "
+                    "K3/K4 up to padded d = 256).".format(KERNEL_DP, d))
             dp = KERNEL_DP
         else:
             dp = d
@@ -720,8 +747,8 @@ class PlaneChainPropagate(torch.autograd.Function):
             if d > KERNEL_DP:
                 raise ValueError(
                     "the plane kernels take d <= {} (got d = {}); larger "
-                    "Hilbert spaces need K6, the streamed chain (ROADMAP "
-                    "slice 5).".format(KERNEL_DP, d))
+                    "Hilbert spaces take the blocked route (ops/expm.py, "
+                    "K3/K4 up to padded d = 256).".format(KERNEL_DP, d))
             dp = KERNEL_DP
         else:
             dp = d

@@ -1,0 +1,144 @@
+"""Matrix exponential with an exact Fréchet-derivative gradient.
+
+Counterpart of ``qoc_tpu/ops/expm.py``. :func:`expm` is a
+``torch.autograd.Function``: the gradient of exp at A is the Fréchet
+derivative L(A^H, G) of the output's gradient G (PyTorch's convention,
+dL/dRe + i dL/dIm), evaluated directly instead of differentiating through
+the algorithm. It dispatches as ``qoc_tpu`` does (``_use_pallas``,
+``_pallas_size_ok``), by size only:
+
+- padded d <= 256: the kernels K3 (forward) and K4 (gradient) of
+  ``ops/expm_cuda.py``: on CUDA they launch or raise, on the CPU they are
+  their plain versions, in the caller's dtype;
+- larger d: :func:`expm_taylor` on ``torch.matmul``, with the gradient
+  chosen as ``qoc_tpu``'s ``_expm_bwd`` chooses: without squarings the
+  gradient of the polynomial, else the dual-number Taylor chain
+  (``_frechet_dual_taylor``).
+
+:func:`expm_pade` (Padé-13 with ``torch.linalg.solve``) and
+:func:`expm_eigh` are the oracles and alternatives, as in ``qoc_tpu``.
+The port never calls ``torch.linalg.matrix_exp``. All functions batch over
+leading axes.
+"""
+
+import torch
+
+from qoc_tpu_torch.ops.chain import (_Dual, _scale_and_square,
+                                     _squaring_count, _taylor8, _taylor19)
+from qoc_tpu_torch.ops.expm_cuda import (KERNEL_MAX_DP, expm_frechet_fwd,
+                                         expm_fwd, kernel_dp)
+
+__all__ = ["expm", "expm_eigh", "expm_frechet", "expm_pade", "expm_taylor"]
+
+# Padé-13 numerator coefficients b_0..b_13 (Higham 2005, Table 10.4).
+_B = (64764752532480000.0, 32382376266240000.0, 7771770303897600.0,
+      1187353796428800.0, 129060195264000.0, 10559470521600.0,
+      670442572800.0, 33522128640.0, 1323241920.0, 40840800.0, 960960.0,
+      16380.0, 182.0, 1.0)
+# Largest 1-norm at which Padé-13 meets double rounding (Higham 2005).
+_THETA_13 = 5.371920351148152
+# Taylor scaling threshold and the degree-8 short cut, f64-calibrated
+# (qoc_tpu expm.py _THETA_TAYLOR, _THETA_TAYLOR_8).
+_THETA_TAYLOR = 1.0
+_THETA_TAYLOR_8 = 0.25
+
+
+def _uses_kernels(d):
+    """True where expm runs K3/K4: padded d <= 256."""
+    return kernel_dp(d) <= KERNEL_MAX_DP
+
+
+def _taylor_poly(m, eye):
+    """Degree 8 when the whole (scaled) batch has 1-norm <= 0.25, else
+    degree 19 (qoc_tpu expm.py _taylor_poly); ``m`` a tensor or a _Dual, the
+    degree read from its value on the host. Degree 8 is the 3-product
+    scheme of the same polynomial (ops/chain.py _taylor8)."""
+    v = m.v if isinstance(m, _Dual) else m
+    small = bool(torch.abs(v).sum(dim=-2).amax() <= _THETA_TAYLOR_8)
+    return (_taylor8 if small else _taylor19)(m, eye)
+
+
+def _pade13(m, eye):
+    """The order-13 Padé approximant r = (V - U)^-1 (V + U)."""
+    m2 = m @ m
+    m4 = m2 @ m2
+    m6 = m2 @ m4
+    u = m @ (m6 @ (_B[13] * m6 + _B[11] * m4 + _B[9] * m2)
+             + _B[7] * m6 + _B[5] * m4 + _B[3] * m2 + _B[1] * eye)
+    v = (m6 @ (_B[12] * m6 + _B[10] * m4 + _B[8] * m2)
+         + _B[6] * m6 + _B[4] * m4 + _B[2] * m2 + _B[0] * eye)
+    return torch.linalg.solve(v - u, v + u)
+
+
+def expm_taylor(a, max_squarings=None):
+    """Solve-free Taylor scaling and squaring (qoc_tpu expm_taylor): every
+    matrix scaled to 1-norm <= 1, degree 8 or 19 (:func:`_taylor_poly`),
+    then its own number of squarings, masked: max(s) of them (read on the
+    host), or ``max_squarings``. Differentiable by autograd through the
+    algorithm."""
+    return _scale_and_square(a, _taylor_poly, _THETA_TAYLOR, max_squarings)
+
+
+def expm_pade(a, max_squarings=16):
+    """Padé-13 scaling and squaring with ``max_squarings`` masked squarings
+    (qoc_tpu expm_pade): the oracle, differentiable by autograd through the
+    algorithm."""
+    return _scale_and_square(a, _pade13, _THETA_13, max_squarings)
+
+
+def _frechet_dual_taylor(b, g):
+    """L(b, g) by the dual-number Taylor scaling-squaring chain (qoc_tpu
+    expm.py _frechet_dual_taylor): exact for any norm."""
+    return _scale_and_square(_Dual(b, g), _taylor_poly, _THETA_TAYLOR).dv
+
+
+def _taylor_grad(a, g):
+    """The gradient of :func:`expm_taylor` at a for the output gradient g
+    (qoc_tpu expm.py _expm_bwd, Taylor method): without squarings anywhere
+    in the batch, the gradient of the polynomial; else L(a^H, g) by the dual
+    chain."""
+    if not bool(_squaring_count(a, _THETA_TAYLOR).any()):
+        with torch.enable_grad():
+            x = a.detach().requires_grad_(True)
+            eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+            return torch.autograd.grad(_taylor_poly(x, eye), x, g)[0]
+    return _frechet_dual_taylor(a.mH, g)
+
+
+class _Expm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        if _uses_kernels(a.shape[-1]):
+            return expm_fwd(a)
+        return expm_taylor(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, = ctx.saved_tensors
+        if _uses_kernels(a.shape[-1]):
+            return expm_frechet_fwd(a.mH, g)
+        return _taylor_grad(a, g)
+
+
+def expm(a):
+    """exp(a) for complex a (..., d, d), with the exact Fréchet gradient
+    (module docstring)."""
+    return _Expm.apply(a)
+
+
+def expm_frechet(a, e):
+    """The Fréchet derivative L(a, e) = d/dt exp(a + t e) at t = 0, by the
+    block identity exp([[a, e], [0, a]]) = [[exp(a), L(a, e)], [0, exp(a)]]
+    (qoc_tpu expm_frechet)."""
+    d = a.shape[-1]
+    top = torch.cat((a, e), dim=-1)
+    bottom = torch.cat((torch.zeros_like(a), a), dim=-1)
+    return expm(torch.cat((top, bottom), dim=-2))[..., :d, d:]
+
+
+def expm_eigh(h):
+    """exp(-1j h) for Hermitian h by its eigendecomposition (qoc_tpu
+    expm_eigh), differentiable through ``torch.linalg.eigh``."""
+    w, p = torch.linalg.eigh(h)
+    return (p * torch.exp(-1j * w)[..., None, :]) @ p.mH

@@ -1,0 +1,187 @@
+"""Batched matrix exponential and its Fréchet derivative: the kernels K3/K4.
+
+Counterpart of ``qoc_tpu/ops/expm_pallas.py``. Two kernels, each beside its
+plain PyTorch version of the same math:
+
+- K3, :func:`expm_fwd` (``csrc/expm_fwd.cu``): exp(A) for a batch of
+  matrices. Plain version :func:`expm_fwd_plain`.
+- K4, :func:`expm_frechet_fwd` (``csrc/expm_frechet.cu``): L(B, G) =
+  d/dt exp(B + t G) at t = 0, by the same ladder on dual numbers. Plain
+  version :func:`expm_frechet_plain`.
+
+Both follow the chain kernels' f32 Taylor ladder (``ops/chain.py``): the
+batch-max 1-norm of A (of B for K4) picks degree 4/8/12/19, and above the
+last threshold every matrix is scaled to theta = 1 and takes T19 and its
+squarings (the TPU kernel's general branch takes T8 where the scaled norm
+is at most 0.25; both are f32-accurate there). The wrappers compute that
+norm on the device and pass it by pointer, so picking the degree costs the
+host no synchronisation. They zero-pad d up to the kernels' dp, a multiple
+of 64 up to :data:`KERNEL_MAX_DP` (exact: exp of a block-diagonal matrix is
+block-diagonal). A wrapper takes its plain version only for a tensor on the
+CPU, in the caller's dtype at any d; for a CUDA tensor it launches its
+kernel (complex64, padded d <= 256) or raises.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from qoc_tpu_torch.ops.chain import (_Dual, _expm_ladder, _stream,
+                                     ladder_level, load_kernels)
+
+__all__ = ["KERNEL_MAX_DP", "expm_frechet_fwd", "expm_frechet_plain",
+           "expm_fwd", "expm_fwd_plain", "kernel_dp"]
+
+# Padded dimensions the kernels take: multiples of 64 up to 256
+# (qoc_tpu/ops/expm.py _pallas_size_ok).
+_ALIGN = 64
+KERNEL_MAX_DP = 256
+
+
+def kernel_dp(d):
+    """The kernels' padded dimension for d: d rounded up to a multiple of
+    64."""
+    return -(-d // _ALIGN) * _ALIGN
+
+
+def _norm_max(a):
+    """Batch-max 1-norm of a (..., d, d), on its device."""
+    return a.abs().sum(dim=-2).amax()
+
+
+def expm_fwd_plain(a):
+    """Plain version of K3: exp(a) for complex a (..., d, d) by the f32
+    ladder, at the level of a's batch-max 1-norm."""
+    return _expm_ladder(a, ladder_level(_norm_max(a)))
+
+
+def expm_frechet_plain(b, g):
+    """Plain version of K4: the Fréchet derivative L(b, g) of exp at b in
+    direction g, both complex (..., d, d), by the dual-number ladder at the
+    level of b's batch-max 1-norm."""
+    return _expm_ladder(_Dual(b, g), ladder_level(_norm_max(b))).dv
+
+
+def _padded(x, dp):
+    """x (..., d, d) as a contiguous (B, dp, dp), zero-padded."""
+    d = x.shape[-1]
+    x = x.reshape(-1, d, d)
+    if d == dp:
+        return x.contiguous()
+    out = x.new_zeros((x.shape[0], dp, dp))
+    out[:, :d, :d] = x
+    return out
+
+
+def _check(name, *xs):
+    """The wrapper's inputs: CUDA complex64 (..., d, d) tensors of one
+    shape and device, with padded d <= KERNEL_MAX_DP."""
+    x0 = xs[0]
+    if x0.device.type != "cuda":
+        raise ValueError("{} runs on cpu or cuda tensors, got {}".format(
+            name, x0.device))
+    for x in xs:
+        if x.dtype != torch.complex64:
+            raise TypeError("{} takes complex64 on CUDA, got {}".format(
+                name, x.dtype))
+        if x.dim() < 2 or x.shape[-1] != x.shape[-2]:
+            raise ValueError("{} takes (..., d, d) matrices, got {}".format(
+                name, tuple(x.shape)))
+        if x.shape != x0.shape or x.device != x0.device:
+            raise ValueError("{}: inputs differ in shape or device".format(
+                name))
+    dp = kernel_dp(x0.shape[-1])
+    if dp > KERNEL_MAX_DP:
+        raise ValueError(
+            "{} takes padded d <= {} (got d = {}); larger matrices take "
+            "ops/expm.py's expm_taylor".format(name, KERNEL_MAX_DP,
+                                               x0.shape[-1]))
+    return dp
+
+
+def _check_kernel_inputs(dp, norm, *mats):
+    for m in mats:
+        if (m.dtype != torch.complex64 or not m.is_contiguous()
+                or m.dim() != 3 or m.shape[1:] != (dp, dp)
+                or m.device != norm.device):
+            raise ValueError("K3/K4 inputs must be contiguous complex64 "
+                             "(B, {0}, {0}) tensors on one device".format(dp))
+    if norm.dtype != torch.float32 or norm.numel() != 1:
+        raise ValueError("norm must be one float32 value")
+
+
+@functools.cache
+def _plan(dual, dp, device_index):
+    """(grid, workspace matrices a block) of K3 or K4 at dp on a device."""
+    lib = load_kernels()
+    blocks, slots = ctypes.c_int(), ctypes.c_int()
+    fn = lib.qoc_expm_frechet_plan if dual else lib.qoc_expm_fwd_plan
+    with torch.cuda.device(device_index):
+        err = fn(dp, ctypes.byref(blocks), ctypes.byref(slots))
+    if err != 0:
+        raise RuntimeError("K{} launch plan failed: CUDA error {}".format(
+            4 if dual else 3, err))
+    return blocks.value, slots.value
+
+
+def _launch(dual, dp, norm, *mats):
+    """Launch K3 (mats = a) or K4 (mats = b, g) on padded (B, dp, dp)
+    inputs; returns the padded (B, dp, dp) output."""
+    _check_kernel_inputs(dp, norm, *mats)
+    x = mats[0]
+    batch, dev = x.shape[0], x.device
+    blocks, slots = _plan(dual, dp, dev.index)
+    grid = min(batch, blocks)
+    out = torch.empty_like(x)
+    ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
+                     device=dev)
+    lib = load_kernels()
+    ptrs = [m.data_ptr() for m in mats]
+    with torch.cuda.device(dev):
+        if dual:
+            err = lib.qoc_expm_frechet(*ptrs, norm.data_ptr(), out.data_ptr(),
+                                       ws.data_ptr(), batch, dp, grid,
+                                       _stream(dev))
+        else:
+            err = lib.qoc_expm_fwd(*ptrs, norm.data_ptr(), out.data_ptr(),
+                                   ws.data_ptr(), batch, dp, grid,
+                                   _stream(dev))
+    if err != 0:
+        raise RuntimeError("K{} launch failed: CUDA error {}".format(
+            4 if dual else 3, err))
+    return out
+
+
+def expm_fwd(a):
+    """K3: exp(a) for a (..., d, d). On a CPU tensor it is the plain
+    version; on a CUDA tensor (complex64, padded d <= 256) it launches
+    ``csrc/expm_fwd.cu`` or raises."""
+    if a.device.type == "cpu":
+        return expm_fwd_plain(a)
+    dp = _check("expm_fwd", a)
+    d = a.shape[-1]
+    x = _padded(a, dp)
+    out = _launch(False, dp, _norm_max(x), x)
+    expm_fwd.launches += 1
+    return out[:, :d, :d].reshape(a.shape)
+
+
+expm_fwd.launches = 0
+
+
+def expm_frechet_fwd(b, g):
+    """K4: L(b, g) for b, g (..., d, d). On CPU tensors it is the plain
+    version; on CUDA tensors (complex64, padded d <= 256) it launches
+    ``csrc/expm_frechet.cu`` or raises."""
+    if b.device.type == "cpu":
+        return expm_frechet_plain(b, g)
+    dp = _check("expm_frechet_fwd", b, g)
+    d = b.shape[-1]
+    x, y = _padded(b, dp), _padded(g, dp)
+    out = _launch(True, dp, _norm_max(x), x, y)
+    expm_frechet_fwd.launches += 1
+    return out[:, :d, :d].reshape(b.shape)
+
+
+expm_frechet_fwd.launches = 0

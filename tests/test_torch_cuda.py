@@ -1,5 +1,5 @@
-"""K1/K2 and K5 on the card against their plain PyTorch versions (float32),
-and the routes that launch them.
+"""K1/K2, K5 and K3/K4 on the card against their plain PyTorch versions
+(float32), and the routes that launch them.
 
 Marked ``cuda``: each test skips when no CUDA device is present, so on a
 CPU-only machine they count as skipped. Run them on a GPU machine with
@@ -278,3 +278,106 @@ def test_plane_route_matches_fused_route(cuda_device):
     assert abs(plane - fused) / abs(fused) < FWD_RTOL
     assert float((g_plane - g_fused).abs().max()
                  / g_fused.abs().max()) < GRAD_RTOL
+
+
+@pytest.mark.parametrize("d", (16, 64, 128, 256))
+@pytest.mark.parametrize("target_norm", (0.03, 0.3, 1.0, 2.5, 7.0))
+def test_expm_kernels_match_plain_versions(cuda_device, d, target_norm):
+    """K3 and K4 against their plain versions on every ladder level, at the
+    resident (d <= 64) and the tiled (d > 64) design; the padded rows and
+    columns of K3's output are exactly the identity's."""
+    from qoc_tpu_torch.ops import expm_cuda
+    rng = np.random.default_rng(13)
+    a = torch.as_tensor((_unit_planes(rng, 37, d) * target_norm).astype(
+        np.complex64), device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=(37, d, d)).astype(np.complex64),
+                        device=cuda_device)
+    k3, p3 = expm_cuda.expm_fwd(a), expm_cuda.expm_fwd_plain(a)
+    k4 = expm_cuda.expm_frechet_fwd(a, g)
+    p4 = expm_cuda.expm_frechet_plain(a, g)
+    dp = expm_cuda.kernel_dp(d)
+    x = expm_cuda._padded(a, dp)
+    padded = expm_cuda._launch(False, dp, expm_cuda._norm_max(x), x)
+    torch.cuda.synchronize()
+    assert float((k3 - p3).abs().max() / p3.abs().max()) < FWD_RTOL
+    assert float((k4 - p4).abs().max() / p4.abs().max()) < GRAD_RTOL
+    eye = torch.eye(dp - d, dtype=torch.complex64, device=cuda_device)
+    assert torch.equal(padded[:, d:, d:], eye.expand(37, dp - d, dp - d))
+    assert not bool(padded[:, :d, d:].any() or padded[:, d:, :d].any())
+
+
+def test_d128_grape_launches_k3_k4_only(cuda_device):
+    """A d = 128 GRAPE takes the blocked route: K3 and K4 once an
+    iteration, K1/K2/K5 never."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    from torch_parity import random_hermitian
+    d, n_c, n = 128, 2, 40
+    rng = np.random.default_rng(4)
+    ops = 0.05 * (rng.normal(size=(n_c, d, d))
+                  + 1j * rng.normal(size=(n_c, d, d)))
+    ham = qoc_tpu_torch.LinearHamiltonian(random_hermitian(rng, d), ops)
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+    counters = (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
+                chain.plane_bwd, expm_cuda.expm_fwd,
+                expm_cuda.expm_frechet_fwd)
+    before = [fn.launches for fn in counters]
+    result = qoc_tpu_torch.grape_schroedinger_discrete(
+        n_c, n, [qoc_tpu_torch.TargetStateInfidelity(target)], 1.0, ham,
+        initial, n, complex_controls=True, iteration_count=4,
+        log_iteration_step=0, device=cuda_device)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [0, 0, 0, 0, 4, 4]
+    assert result.errors[-1] < result.errors[0]
+
+
+def test_blocked_route_matches_plane_route(cuda_device):
+    """An M4 callable at d = 16 and 203 steps through the blocked route
+    (K3/K4, allow_plane_chain=False) and the plane route (K5): loss and
+    control gradient."""
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
+                                      InterpolationPolicy, MagnusPolicy)
+    import qoc_tpu_torch
+    from torch_parity import random_hermitian
+    d, n_c, n = 16, 2, 203
+    rng = np.random.default_rng(5)
+    h0 = torch.as_tensor(random_hermitian(rng, d), dtype=torch.complex64,
+                         device=cuda_device)
+    ops = torch.as_tensor(0.5 * (rng.normal(size=(n_c, d, d))
+                                 + 1j * rng.normal(size=(n_c, d, d))),
+                          dtype=torch.complex64, device=cuda_device)
+    controls = 0.05 * (rng.normal(size=(n, n_c))
+                       + 1j * rng.normal(size=(n, n_c)))
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+
+    def hamiltonian(c, t):
+        drive = torch.einsum("i,iab->ab", c, ops)
+        return torch.cos(t) * h0 + drive + drive.mH
+
+    pstate = GrapeSchroedingerDiscreteState(
+        True, n_c, n, 1, [qoc_tpu_torch.TargetStateInfidelity(target)], 2.0,
+        hamiltonian, None, controls, initial, InterpolationPolicy.LINEAR, 1,
+        0, [10.0] * n_c, MagnusPolicy.M4, 0, qoc_tpu_torch.Adam(), None,
+        False, 0, n)
+    flat = strip_controls(True, controls)
+    results = []
+    for allow in (False, True):
+        loss = build_schroedinger_loss(pstate, cuda_device, torch.float32,
+                                       allow_plane_chain=allow)
+        flat_t = torch.as_tensor(flat, dtype=torch.float32,
+                                 device=cuda_device).requires_grad_(True)
+        error, _ = loss(slap_controls_torch(True, flat_t, (n, n_c)))
+        grad, = torch.autograd.grad(error, flat_t)
+        results.append((float(error.detach()), grad))
+    (blocked, g_blocked), (plane, g_plane) = results
+    assert abs(blocked - plane) / abs(plane) < FWD_RTOL
+    assert float((g_blocked - g_plane).abs().max()
+                 / g_plane.abs().max()) < GRAD_RTOL

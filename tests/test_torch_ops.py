@@ -77,6 +77,26 @@ def test_linear_hamiltonian_and_magnus_m2_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
 
 
+def test_linear_hamiltonian_converts_its_matrices_once():
+    """h0 and the operators become tensors once per dtype and device, not
+    on every call (the planes are built every iteration)."""
+    from qoc_tpu_torch import LinearHamiltonian
+    rng = np.random.default_rng(3)
+    d, n_c = 4, 2
+    ham = LinearHamiltonian(random_hermitian(rng, d),
+                            rng.normal(size=(n_c, d, d)) + 0j)
+    controls = _t(rng.normal(size=n_c) + 1j * rng.normal(size=n_c))
+    first = ham(controls, 0.0)
+    tensors = ham._as_tensors(controls.dtype, controls.device)
+    assert torch.equal(ham(controls, 0.0), first)
+    assert all(a is b for a, b in zip(
+        ham._as_tensors(controls.dtype, controls.device), tensors))
+    low = ham(controls.to(torch.complex64), 0.0)
+    assert low.dtype == torch.complex64
+    assert len(ham._tensors) == 2
+    np.testing.assert_allclose(low.numpy(), first.numpy(), rtol=1e-6)
+
+
 @pytest.mark.parametrize("order", ("m4", "m6"))
 def test_magnus_m4_m6_match_jax(order):
     """A batched, time-dependent generator: the step times form a vector

@@ -216,3 +216,82 @@ def test_grape_runs_without_jax():
     assert "ran without jax" in proc.stdout
     assert "propagation path = fused chain" in proc.stdout
     assert "propagation path = plane chain" in proc.stdout
+
+
+def _loss_and_gradient_both(problem, magnus, **port_kwargs):
+    """qoc_tpu's loss and control gradient on its default route, and the
+    port's with ``port_kwargs`` (CPU, float64)."""
+    from qoc_tpu.core.common import slap_controls_jax
+    from qoc_tpu.core.schroedinger import (
+        build_schroedinger_loss as jax_build_loss)
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+
+    shape = (problem.n_steps, problem.n_c)
+    flat = strip_controls(True, problem.controls)
+    jax_loss = jax_build_loss(problem.jax_pstate(magnus=magnus))
+    (want, _), g_want = jax.value_and_grad(
+        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
+        has_aux=True)(jnp.asarray(flat))
+    loss = build_schroedinger_loss(problem.torch_pstate(magnus=magnus),
+                                   torch.device("cpu"), torch.float64,
+                                   log_path=True, **port_kwargs)
+    flat_t = torch.tensor(flat, requires_grad=True)
+    got, _ = loss(slap_controls_torch(True, flat_t, shape))
+    g_got, = torch.autograd.grad(got, flat_t)
+    return float(got.detach()), float(want), g_got.numpy(), np.asarray(g_want)
+
+
+@pytest.mark.parametrize("case", ("d8 M4 callable", "d72 M2 linear"))
+def test_blocked_route_matches_jax(case, capsys):
+    """The blocked route (expm + tree product) on loss and control
+    gradient: a d = 8 torch callable under M4 with the plane route turned
+    off, and a d = 72 LinearHamiltonian, which takes it by its size."""
+    if case == "d8 M4 callable":
+        problem, magnus = Problem(d=8, n_steps=13).use_callables(), "M4"
+        kwargs = dict(allow_plane_chain=False, time_block_size=5)
+    else:
+        problem, magnus, kwargs = Problem(d=72, n_steps=6), "M2", {}
+    got, want, g_got, g_want = _loss_and_gradient_both(problem, magnus,
+                                                       **kwargs)
+    assert "propagation path = blocked expm" in capsys.readouterr().out
+    assert got == pytest.approx(want, rel=1e-6)
+    assert np.abs(g_got - g_want).max() / np.abs(g_want).max() < 1e-5
+
+
+def test_blocked_route_grape_trajectory_matches_jax():
+    """3 Adam iterations at d = 72 (the port's blocked route, qoc_tpu's
+    default one): per-iteration errors and the best iterate agree."""
+    problem = Problem(d=72, n_steps=6)
+    want, got = _grape_both(problem, 3, 0.0)
+    assert got.iteration_count_ran == want.iteration_count_ran == 3
+    np.testing.assert_allclose(got.errors, want.errors, rtol=0, atol=1e-6)
+    assert got.best_iteration == want.best_iteration
+    np.testing.assert_allclose(got.best_controls, want.best_controls,
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,magnus,allow_plane_chain,path", (
+    (8, "M2", True, "fused chain, plain torch on cpu"),
+    (8, "M4", True, "plane chain, plain torch on cpu"),
+    (8, "M4", False, "blocked expm + tree product, plain torch on cpu"),
+    (72, "M2", True, "blocked expm + tree product, plain torch on cpu"),
+    (300, "M2", True, None),
+    (600, "M2", True, "blocked expm + tree product, torch.matmul Taylor "
+                      "(d > 256)"),
+))
+def test_route_table(d, magnus, allow_plane_chain, path, capsys):
+    """The route by the problem alone (core/schroedinger.py): the loss is
+    built, nothing propagated. 256 < padded d <= 512 is refused, naming
+    K6."""
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    pstate = Problem(d=d, n_c=1, n_steps=3).torch_pstate(magnus=magnus)
+    build = lambda: build_schroedinger_loss(  # noqa: E731
+        pstate, torch.device("cpu"), torch.float64, log_path=True,
+        allow_plane_chain=allow_plane_chain)
+    if path is None:
+        with pytest.raises(NotImplementedError, match="K6"):
+            build()
+    else:
+        build()
+        assert "propagation path = " + path in capsys.readouterr().out
