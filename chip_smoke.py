@@ -5,9 +5,10 @@ Run from the root of a checkout, with one CUDA card and the CUDA toolkit
 
     python3 chip_smoke.py
 
-Phases, one line each:
+(``--phases 16,20`` runs only the listed phases that stand alone, after the
+build, for a quick check of a kernel.) Phases, one line each:
 1. the device (name and power limit as nvidia-smi reports them);
-2. build the kernels (K1/K2/K5/K3/K4) from qoc_tpu_torch/csrc with nvcc;
+2. build the kernels (K1/K2/K5/K3/K4/K6) from qoc_tpu_torch/csrc with nvcc;
 3. K1 (forward) and K2 (adjoint) against their plain PyTorch versions in
    float32, at d = 64 and 21 basis terms, at weights scaled onto every
    Taylor ladder level (degree 4/8/12/19 and the squaring branch), at step
@@ -53,12 +54,34 @@ Phases, one line each:
    against a float64 run of the same route;
 15. K3 and K4 times at the d = 128 GRAPE's planes and at the M4 planes,
    beside their plain versions, their bounds and torch.linalg.matrix_exp's
-   forward and backward on the same inputs.
+   forward and backward on the same inputs;
+16. K6 (forward and adjoint of the streamed chain) against its plain
+   versions in float32 at d = 260, 400 and 512 (padded 320, 448, 512),
+   decaying non-normal planes on every ladder level, 1, 3, 37 and 100
+   steps, the padded rows and steps exactly the identity, and the op's
+   total against a float64 matrix_exp product;
+17. Schrödinger through K6: the Table-1 construction at d = 2^9 (one step)
+   against the same loss over the plain op, and a d = 300 problem of 21
+   steps through a LinearHamiltonian and a torch callable under M2 and M4,
+   K6 alone launched;
+18. the slice at full width: grape_lindblad_discrete on the JAX package's
+   bench_lindblad_d20 configuration (d = 20, superoperator 400, 1 complex
+   control, 101 points, T = 10, T1 rate 1e-3, MAGNUS_EXPM: the streamed
+   route), 2 warm-up + 10 timed iterations, counters read around the run
+   (K6 launched every iteration, K1-K5 never), and the loss and gradient
+   against a float64 run of the same route over the plain versions;
+19. Lindblad on the other routes: example 1 (d = 2, T1 = 1000, 11 control
+   points, 20 steps) through K1/K2 and a d = 12 problem (superoperator
+   144) through K3/K4, with counters and final densities against float64;
+20. K6 times at the d = 20 cell's planes and at d = 2^9, beside their plain
+   versions and bounds, with the grid (clusters and SMs) and the segment
+   merge's device time.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -102,6 +125,20 @@ BACKPROP_ITERATIONS = 20
 # 256) and batches, on every ladder level.
 EXPM_DIMS = (16, 64, 96, 128, 256)
 EXPM_BATCHES = (1, 37, 2000)
+# K6 against its plain versions: these d (padded 320, 448, 512) and steps,
+# on every ladder level.
+STREAM_DIMS = (260, 400, 512)
+STREAM_STEPS = (1, 3, 37, 100)
+# Schrödinger through K6: the Table-1 construction at d = 2^9 (one step),
+# and a d = 300 problem of 21 steps.
+D512 = 512
+D300 = 300
+D300_STEPS = 21
+# The Lindblad d = 20 cell (bench.py bench_lindblad_d20 of the JAX
+# package): superoperator 400, 101 points (100 steps), T = 10.
+D20 = 20
+D20_POINTS = 101
+D20_EVOLUTION_TIME = 10.0
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth.
@@ -242,7 +279,8 @@ def _wrappers():
     from qoc_tpu_torch.ops import chain, expm_cuda
     return {"K1": chain.chain_fwd, "K2": chain.chain_bwd,
             "K5 fwd": chain.plane_fwd, "K5 bwd": chain.plane_bwd,
-            "K3": expm_cuda.expm_fwd, "K4": expm_cuda.expm_frechet_fwd}
+            "K3": expm_cuda.expm_fwd, "K4": expm_cuda.expm_frechet_fwd,
+            "K6 fwd": chain.stream_fwd, "K6 bwd": chain.stream_bwd}
 
 
 def reset_launches():
@@ -306,7 +344,7 @@ def phase_build():
     start = time.perf_counter()
     chain.load_kernels()
     seconds = time.perf_counter() - start
-    print("phase 2 build: K1/K2/K5/K3/K4 ready in {:.1f} s (nvcc sm_90a, "
+    print("phase 2 build: K1/K2/K5/K3/K4/K6 ready in {:.1f} s (nvcc sm_90a, "
           "qoc_tpu_torch/csrc)".format(seconds), flush=True)
     return seconds
 
@@ -607,7 +645,7 @@ def _check_padding(pref, d, n_steps):
     if not (torch.equal(pref[..., d:, d:], eye.expand_as(pref[..., d:, d:]))
             and not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
             and torch.equal(tail, tail[:1].expand_as(tail))):
-        raise RuntimeError("K5 padding is not exactly the identity "
+        raise RuntimeError("chain padding is not exactly the identity "
                            "(d = {}, {} steps)".format(d, n_steps))
 
 
@@ -995,15 +1033,18 @@ def phase_blocked_vs_plane(dev):
     return ms
 
 
-def make_iteration(pstate, dev):
+def make_iteration(pstate, dev, build_loss=None):
     """One GRAPE iteration of core/graperunner.py on ``pstate`` (clip,
-    loss, gradient, Adam update); returns the error."""
+    loss, gradient, Adam update); returns the error. ``build_loss``:
+    build_schroedinger_loss, or build_lindblad_loss for a Lindblad
+    state."""
     from qoc_tpu_torch.core.common import (clip_control_norms_torch,
                                            slap_controls_torch,
                                            strip_controls_torch)
     from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
     shape = pstate.controls_shape
-    loss = build_schroedinger_loss(pstate, dev, torch.float32)
+    loss = (build_loss or build_schroedinger_loss)(pstate, dev,
+                                                   torch.float32)
     mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
                           device=dev)
     adam = pstate.optimizer
@@ -1113,6 +1154,466 @@ def phase_expm_timing(dev):
     return out["d=128"]
 
 
+def _stream_planes(gen, n_steps, d, target_norm, dev):
+    """(n_steps, d, d) complex64 planes K + D, drawn on the card: K
+    anti-Hermitian, D = -N N^H Hermitian negative semidefinite at a tenth of
+    K's 1-norm (a decaying, non-normal step, as a Lindblad generator is;
+    exp(A)^H is not its inverse), scaled to batch-max 1-norm
+    ``target_norm``."""
+    h = torch.randn((n_steps, d, d), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    n = torch.randn((n_steps, d, d), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    k = -0.5j * (h + h.mH)
+    nn = n @ n.mH
+    scale = k.abs().sum(-2).amax(-1) / nn.abs().sum(-2).amax(-1)
+    a = k - 0.1 * scale[:, None, None] * nn
+    return a * (target_norm / a.abs().sum(-2).amax())
+
+
+def _stream_inputs(a):
+    """The plane op's K6 inputs for planes ``a`` (B, d, d): a_seg (S, L, dp,
+    dp) zero-padded on K6's segment plan, and the batch-max 1- and
+    inf-norms."""
+    from qoc_tpu_torch.ops import chain
+    n_steps, d = a.shape[0], a.shape[-1]
+    dp = chain.kernel_dp(d)
+    s_count, length = chain.stream_segment_plan(n_steps)
+    a_seg = torch.zeros((s_count * length, dp, dp), dtype=torch.complex64,
+                        device=a.device)
+    a_seg[:n_steps, :d, :d] = a
+    n1, ninf = chain._plane_norm_max(a)
+    return a_seg.reshape(s_count, length, dp, dp), n1, ninf
+
+
+def _compare_stream_kernels(a):
+    """K6 forward and adjoint against their plain versions on the same
+    inputs: (rel fwd, rel bwd, max |err| fwd, max |err| bwd, levels, kernel
+    prefixes)."""
+    from qoc_tpu_torch.ops import chain
+    a_seg, n1, ninf = _stream_inputs(a)
+    pref_k = chain.stream_fwd(a_seg, n1)
+    pref_p = chain.stream_fwd_plain(a_seg, n1)
+    gen = torch.Generator(device=a.device).manual_seed(1)
+    seeds = torch.randn((a_seg.shape[0],) + a_seg.shape[2:],
+                        dtype=torch.complex64, device=a.device, generator=gen)
+    ga_k = chain.stream_bwd(a_seg, ninf, pref_p, seeds)
+    ga_p = chain.stream_bwd_plain(a_seg, ninf, pref_p, seeds)
+    torch.cuda.synchronize()
+    for name, x in (("K6 fwd", pref_k), ("K6 bwd", ga_k)):
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(name + " produced non-finite values")
+    return (_rel(pref_k, pref_p), _rel(ga_k, ga_p),
+            float((pref_k - pref_p).abs().max()),
+            float((ga_k - ga_p).abs().max()),
+            (chain.ladder_level(n1), chain.ladder_level(ninf)), pref_k)
+
+
+def phase_stream_kernels(dev):
+    """K6 against its plain versions in float32 at d = 260, 400 and 512
+    (padded 320, 448, 512), planes on every ladder level, 1, 3, 37 and 100
+    steps; padded rows and steps exactly the identity; the op's total and
+    plane gradient against the plain op, and against a float64
+    matrix_exp product."""
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = {"K6 fwd": 0.0, "K6 bwd": 0.0}
+    for d in STREAM_DIMS:
+        for n_steps in STREAM_STEPS:
+            rows = []
+            for target in LEVEL_NORMS:
+                a = _stream_planes(gen, n_steps, d, target, dev)
+                rel1, rel2, err1, err2, levels, pref = \
+                    _compare_stream_kernels(a)
+                if d < pref.shape[-1]:
+                    _check_padding(pref, d, n_steps)
+                tgt = torch.randn((d, d), dtype=torch.complex64, device=dev,
+                                  generator=gen)
+                outs = []
+                for plain in (False, True):
+                    at = a.clone().requires_grad_(True)
+                    total = plane_chain_propagate(at, plain)
+                    loss = torch.sum(torch.abs(total - tgt) ** 2)
+                    grad, = torch.autograd.grad(loss, at)
+                    outs.append((total.detach(), grad))
+                torch.cuda.synchronize()
+                rel_total = _rel(outs[0][0], outs[1][0])
+                rel_grad = _rel(outs[0][1], outs[1][1])
+                rows.append("{}/{} {:.1e} {:.1e} {:.1e} {:.1e}".format(
+                    *levels, rel1, rel2, rel_total, rel_grad))
+                if max(rel1, rel_total) > FWD_RTOL or \
+                        max(rel2, rel_grad) > GRAD_RTOL:
+                    raise RuntimeError(
+                        "K6 disagrees with its plain version (d = {}, {} "
+                        "steps, levels {}): {}".format(d, n_steps, levels,
+                                                       rows[-1]))
+                worst["K6 fwd"] = max(worst["K6 fwd"], err1)
+                worst["K6 bwd"] = max(worst["K6 bwd"], err2)
+            print("phase 16 stream kernels: d={} (padded {}) steps={} S x L "
+                  "= {} x {} (levels fwd/bwd, rel fwd, bwd, op total, op "
+                  "grad): {}; padding exact".format(
+                      d, chain.kernel_dp(d), n_steps,
+                      *chain.stream_segment_plan(n_steps), "; ".join(rows)),
+                  flush=True)
+    # Independent reference: a float64 matrix_exp product at d = 260.
+    a = _stream_planes(gen, 37, STREAM_DIMS[0], 1.0, dev)
+    total = plane_chain_propagate(a)
+    want = torch.eye(a.shape[-1], dtype=torch.complex128, device=dev)
+    for u in torch.linalg.matrix_exp(a.to(torch.complex128)):
+        want = u @ want
+    rel = _rel(total.to(torch.complex128), want)
+    print("phase 16 stream kernels: d={} 37 steps vs float64 matrix_exp "
+          "product rel {:.2e}; worst max|err| fwd {:.3e} bwd {:.3e}".format(
+              STREAM_DIMS[0], rel, worst["K6 fwd"], worst["K6 bwd"]),
+          flush=True)
+    if rel > FWD_RTOL:
+        raise RuntimeError("the K6 plane op disagrees with the matrix_exp "
+                           "product")
+    return worst
+
+
+def d512_problem():
+    """bench.py's Table-1 construction at d = 2^9: _bench_problem(512, 10,
+    2, 2, 0.05), one step (the streamed route, K6 at padded 512)."""
+    return bench_problem(D512, CONTROL_COUNT, 2, 2, 0.05)
+
+
+def _stream_launches(launches):
+    """True where only K6 launched (forward and adjoint both)."""
+    return (launches["K6 fwd"] >= 1 and launches["K6 bwd"] >= 1
+            and not any(v for k, v in launches.items()
+                        if not k.startswith("K6")))
+
+
+def phase_stream_schroedinger(dev):
+    """Schrödinger through K6: the d = 2^9 single step against the same
+    loss over the plain plane op, and a d = 300 problem (21 steps) through
+    its four ways in (LinearHamiltonian or torch callable, M2 or M4), each
+    pair of one Magnus order against each other. Only K6 launches."""
+    from qoc_tpu_torch.core.schroedinger import (build_schroedinger_loss,
+                                                 fused_weights)
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate
+    pstate, hamiltonian, costs = d512_problem()
+    dt = float(pstate.dt)
+    reset_launches()
+    kernel = _loss_grad(build_schroedinger_loss(pstate, dev, torch.float32),
+                        pstate, dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    basis = torch.as_tensor(hamiltonian.generator_basis(dt),
+                            dtype=torch.complex64, device=dev)
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
+                          device=dev)
+    times = torch.zeros(1, dtype=torch.float32, device=dev)
+    initial = torch.as_tensor(pstate.initial_states, dtype=torch.complex64,
+                              device=dev)
+
+    def plain_loss(controls):
+        w = fused_weights(controls, times, cet, dt).to(torch.complex64)
+        a = torch.einsum("jk,kab->jab", w, basis)
+        states = plane_chain_propagate(a, True) @ initial
+        return costs[0].cost(controls, states, 1), states
+
+    plain = _loss_grad(plain_loss, pstate, dev)
+    rel_err = float(abs(kernel[0] - plain[0]) / abs(plain[0]))
+    rel_grad = _rel(kernel[1], plain[1])
+    print("phase 17 stream Schroedinger: d={} one step, kernel {:.8f} plain "
+          "{:.8f} rel {:.2e}; gradient rel {:.2e}; launches {}".format(
+              D512, float(kernel[0]), float(plain[0]), rel_err, rel_grad,
+              launches), flush=True)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the d = 512 K6 route disagrees with the plain op")
+    if not _stream_launches(launches):
+        raise RuntimeError("the d = 512 route did not run K6 alone")
+    out = {}
+    for magnus in ("M2", "M4"):
+        pstate, hamiltonian, _ = bench_problem(D300, 2, D300_STEPS + 1,
+                                               D300_STEPS + 1, 1.0, magnus)
+        for way, ham in (("linear", hamiltonian),
+                         ("callable", torch_callable(hamiltonian, dev))):
+            pstate.hamiltonian = ham
+            reset_launches()
+            error, grad = _loss_grad(build_schroedinger_loss(
+                pstate, dev, torch.float32), pstate, dev)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if not (bool(torch.isfinite(error)) and
+                    bool(torch.isfinite(grad).all())):
+                raise RuntimeError("non-finite d = 300 loss or gradient")
+            if not _stream_launches(launches):
+                raise RuntimeError("the d = 300 {} {} route did not run K6 "
+                                   "alone: {}".format(way, magnus, launches))
+            out[magnus, way] = (error, grad)
+        (e_l, g_l), (e_c, g_c) = out[magnus, "linear"], out[magnus,
+                                                            "callable"]
+        rel_err = float(abs(e_l - e_c) / abs(e_c))
+        rel_grad = _rel(g_l, g_c)
+        print("phase 17 stream Schroedinger: d={} {} steps {}: "
+              "LinearHamiltonian {:.8f} callable {:.8f} rel {:.2e}; "
+              "gradient rel {:.2e}".format(D300, D300_STEPS, magnus,
+                                           float(e_l), float(e_c), rel_err,
+                                           rel_grad), flush=True)
+        if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+            raise RuntimeError("the d = 300 ways in disagree under " + magnus)
+
+
+def lindblad_problem(d, control_eval_count, system_eval_count,
+                     evolution_time):
+    """bench.py's bench_lindblad_d20 construction (:294-349) at Hilbert d:
+    H = 0.1 n + c a + c* a^H (one complex control), T1 rate 1e-3 on a,
+    TargetDensityInfidelity from |0><0| to |1><1|, flat initial controls
+    (deterministic: the seed draws nothing). Returns the keyword arguments
+    of grape_lindblad_discrete."""
+    from qoc_tpu_torch import (ConstantLindblad, LinearHamiltonian,
+                               TargetDensityInfidelity)
+    from qoc_tpu_torch.core.common import initialize_controls
+    from qoc_tpu_torch.models import LindbladMethod
+    a = np.diag(np.sqrt(np.arange(1, d)), 1).astype(np.complex64)
+    n_op = (a.conj().T @ a).astype(np.complex64)
+    initial = np.zeros((1, d, d), dtype=complex)
+    initial[0, 0, 0] = 1
+    target = np.zeros((1, d, d), dtype=complex)
+    target[0, 1, 1] = 1
+    controls, norms = initialize_controls(True, 1, control_eval_count,
+                                          evolution_time, None, None)
+    return dict(control_count=1, control_eval_count=control_eval_count,
+                costs=[TargetDensityInfidelity(target)],
+                evolution_time=evolution_time, initial_densities=initial,
+                system_eval_count=system_eval_count, complex_controls=True,
+                hamiltonian=LinearHamiltonian(0.1 * n_op, np.stack((a,))),
+                initial_controls=controls, max_control_norms=norms,
+                lindblad_data=ConstantLindblad(np.array([1e-3]),
+                                               np.stack((a,))),
+                method=LindbladMethod.MAGNUS_EXPM)
+
+
+def lindblad_d20_problem():
+    """The d = 20 cell: 1 complex control, 101 points (100 steps), T = 10."""
+    return lindblad_problem(D20, D20_POINTS, D20_POINTS, D20_EVOLUTION_TIME)
+
+
+def lindblad_d20_pstate():
+    """The d = 20 cell as a GrapeLindbladDiscreteState (MAGNUS_EXPM, Adam),
+    for build_lindblad_loss."""
+    from qoc_tpu_torch import Adam
+    from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
+                                      InterpolationPolicy)
+    kw = lindblad_d20_problem()
+    pstate = GrapeLindbladDiscreteState(
+        True, 1, kw["control_eval_count"], 1, kw["costs"],
+        kw["evolution_time"], kw["hamiltonian"], None, kw["initial_controls"],
+        kw["initial_densities"], InterpolationPolicy.LINEAR, 1,
+        kw["lindblad_data"], 0, kw["max_control_norms"], 0, Adam(), None,
+        False, 0, kw["system_eval_count"])
+    pstate.method_ = kw["method"]
+    return pstate
+
+
+def lindblad_d20_planes(dev, dtype=torch.float32):
+    """The d = 20 cell's superoperator planes (100, 400, 400) at its initial
+    controls, built as the streamed route builds them, and the cell's loss
+    over the plain plane op in ``dtype`` (the float64 reference)."""
+    from qoc_tpu_torch.config import complex_dtype
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate
+    kw = lindblad_d20_problem()
+    cdtype = complex_dtype(dtype)
+    n_steps = kw["system_eval_count"] - 1
+    dt = kw["evolution_time"] / n_steps
+    rates, ops = kw["lindblad_data"](0.0)
+    basis = torch.as_tensor(kw["hamiltonian"].superoperator_basis(
+        dt, rates, ops), dtype=cdtype, device=dev)
+    cet = torch.as_tensor(np.linspace(0, kw["evolution_time"],
+                                      kw["control_eval_count"]),
+                          dtype=dtype, device=dev)
+    times = torch.arange(n_steps, dtype=dtype, device=dev) * dt
+    vec0 = torch.as_tensor(kw["initial_densities"], dtype=cdtype,
+                           device=dev).reshape(1, -1)
+
+    def planes(controls):
+        w = fused_weights(controls, times, cet, dt).to(cdtype)
+        return torch.einsum("jk,kab->jab", w, basis)
+
+    def plain_loss(controls):
+        vec = vec0 @ plane_chain_propagate(planes(controls), True).mT
+        densities = vec.reshape(1, D20, D20)
+        return kw["costs"][0].cost(controls, densities, n_steps), densities
+
+    controls = torch.as_tensor(kw["initial_controls"], dtype=cdtype,
+                               device=dev)
+    with torch.no_grad():
+        a = planes(controls)
+    return a, plain_loss
+
+
+def phase_lindblad_d20(dev):
+    """The slice at full width: grape_lindblad_discrete on the d = 20 cell
+    (MAGNUS_EXPM, the streamed route), 2 warm-up + 10 timed Adam
+    iterations, K6 launched every iteration and K1-K5 never; then the
+    loss and gradient at the initial controls against a float64 run of the
+    same route over the plain versions on the card."""
+    from qoc_tpu_torch import grape_lindblad_discrete
+    from qoc_tpu_torch.core.lindblad import build_lindblad_loss
+    kw = lindblad_d20_problem()
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    reset_launches()
+    result = grape_lindblad_discrete(
+        iteration_count=iterations, log_iteration_step=0,
+        fused_chunk=WARMUP_ITERATIONS, device=dev, **kw)
+    launches = read_launches()
+    errors = np.asarray(result.errors)
+    print("phase 18 Lindblad d=20 grape (superoperator 400, padded 448, 100 "
+          "steps, MAGNUS_EXPM, streamed route): {} iterations, {:.2f} it/s "
+          "steady ({} timed after {} warm-up), error {:.6f} -> {:.6f}, "
+          "launches {}".format(
+              result.iteration_count_ran, result.iterations_per_s,
+              TIMED_ITERATIONS, WARMUP_ITERATIONS, errors[0], errors[-1],
+              launches), flush=True)
+    if result.iteration_count_ran != iterations:
+        raise RuntimeError("d = 20 Lindblad GRAPE stopped early")
+    if not (np.all(np.isfinite(errors))
+            and np.all(np.isfinite(result.best_final_densities))):
+        raise RuntimeError("non-finite d = 20 Lindblad GRAPE result")
+    if not errors[-1] < errors[0]:
+        raise RuntimeError("d = 20 Lindblad GRAPE error did not fall")
+    if launches["K6 fwd"] != iterations or launches["K6 bwd"] != iterations:
+        raise RuntimeError("the d = 20 GRAPE did not launch K6 every "
+                           "iteration")
+    if any(v for k, v in launches.items() if not k.startswith("K6")):
+        raise RuntimeError("the d = 20 GRAPE launched another kernel")
+    pstate = lindblad_d20_pstate()
+    e32, g32 = _loss_grad(build_lindblad_loss(pstate, dev, torch.float32),
+                          pstate, dev)
+    _, plain_loss = lindblad_d20_planes(dev, torch.float64)
+    e64, g64 = _loss_grad(plain_loss, pstate, dev, torch.float64)
+    torch.cuda.synchronize()
+    rel_err = float(abs(e32.double() - e64) / abs(e64))
+    rel_grad = _rel(g32.double(), g64)
+    print("phase 18 Lindblad d=20: float32 kernel route vs float64 plain "
+          "route loss {:.8f} / {:.8f} rel {:.2e}, gradient rel {:.2e}".format(
+              float(e32), float(e64), rel_err, rel_grad), flush=True)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the d = 20 loss or gradient disagrees with its "
+                           "float64 run")
+    return launches, result.iterations_per_s
+
+
+def phase_lindblad_routes(dev):
+    """Lindblad on the other routes: example 1 (d = 2, T1 = 1000, 11 control
+    points, 20 steps) through K1/K2, and the d = 12 problem (superoperator
+    144) through K3/K4, each a short GRAPE with its launch counters and its
+    best final densities against float64 (the same controls evolved on the
+    CPU)."""
+    from qoc_tpu_torch import (ConstantLindblad, LinearHamiltonian,
+                               evolve_lindblad_discrete,
+                               grape_lindblad_discrete)
+    a2 = np.array([[0, 1], [0, 0]], dtype=complex)
+    example1 = lindblad_problem(2, 11, 21, 10.0)
+    example1.update(
+        hamiltonian=LinearHamiltonian(np.diag([0.5, -0.5]) + 0j, a2[None]),
+        lindblad_data=ConstantLindblad(np.array([1e-3]), a2[None]),
+        max_control_norms=np.array([5.0]))
+    for label, kw, kernels in (
+            ("example 1 (d=2)", example1, ("K1", "K2")),
+            ("d=12", lindblad_problem(12, 21, 21, 2.0), ("K3", "K4"))):
+        iterations = 10
+        reset_launches()
+        result = grape_lindblad_discrete(iteration_count=iterations,
+                                         log_iteration_step=0, device=dev,
+                                         **kw)
+        launches = read_launches()
+        errors = np.asarray(result.errors)
+        evolve_kw = {k: kw[k] for k in ("evolution_time",
+                                        "initial_densities",
+                                        "system_eval_count", "costs",
+                                        "hamiltonian", "lindblad_data",
+                                        "method")}
+        want = evolve_lindblad_discrete(controls=result.best_controls,
+                                        device="cpu", **evolve_kw)
+        err = float(np.abs(result.best_final_densities
+                           - want.final_densities).max())
+        print("phase 19 Lindblad {}: {} iterations, error {:.6f} -> {:.6f}, "
+              "launches {}; best final densities vs float64 max|err| {:.2e}"
+              "".format(label, iterations, errors[0], errors[-1], launches,
+                        err), flush=True)
+        if not (np.all(np.isfinite(errors)) and errors[-1] < errors[0]):
+            raise RuntimeError("Lindblad {} GRAPE error did not fall".format(
+                label))
+        if any(launches[k] != iterations for k in kernels) or any(
+                v for k, v in launches.items() if k not in kernels):
+            raise RuntimeError("Lindblad {} did not run {} alone: {}".format(
+                label, "/".join(kernels), launches))
+        if err > FWD_RTOL:
+            raise RuntimeError("Lindblad {} final densities disagree with "
+                               "float64".format(label))
+
+
+def _time_stream(label, a, launches):
+    """K6 forward and adjoint on the plane op's inputs for planes ``a``:
+    kernel and plain times, bounds, grid, and the merge's device time."""
+    from qoc_tpu_torch.ops import chain
+    a_seg, n1, ninf = _stream_inputs(a)
+    s_count, length, dp = a_seg.shape[:3]
+    d = a.shape[-1]
+    pref = chain.stream_fwd(a_seg, n1)
+    gen = torch.Generator(device=a.device).manual_seed(2)
+    seeds = torch.randn((s_count, dp, dp), dtype=torch.complex64,
+                        device=a.device, generator=gen)
+    rel1, rel2, err1, err2, levels, _ = _compare_stream_kernels(a)
+    if rel1 > FWD_RTOL or rel2 > GRAD_RTOL:
+        raise RuntimeError("K6 disagrees with its plain version at the {} "
+                           "planes".format(label))
+    cums, prods = chain._merge(pref, d)
+    grad_total = torch.randn((d, d), dtype=torch.complex64, device=a.device,
+                             generator=gen)
+    ms = {
+        "K6 fwd": cuda_ms(lambda: chain.stream_fwd(a_seg, n1), 5),
+        "K6 fwd plain": cuda_ms(lambda: chain.stream_fwd_plain(a_seg, n1), 2),
+        "K6 bwd": cuda_ms(lambda: chain.stream_bwd(a_seg, ninf, pref, seeds),
+                          5),
+        "K6 bwd plain": cuda_ms(lambda: chain.stream_bwd_plain(
+            a_seg, ninf, pref, seeds), 2),
+        "merge": cuda_ms(lambda: chain._merge(pref, d), 5),
+        "seeds": cuda_ms(lambda: chain._segment_seeds(grad_total, cums,
+                                                      prods, dp), 5),
+    }
+    absa = a.abs()
+    bounds = {
+        "K6 fwd": kernel_bound(absa.sum(-2).amax(-1), levels[0], False,
+                               [a_seg, n1, pref], dp),
+        "K6 bwd": kernel_bound(absa.sum(-1).amax(-1), levels[1], True,
+                               [a_seg, ninf, pref, seeds, pref[:, 1:]], dp),
+    }
+    grids = {key: chain.stream_grid(dual, dp, s_count, a.device)[0]
+             for key, dual in (("K6 fwd", False), ("K6 bwd", True))}
+    resident = chain._stream_plan(False, dp, a.device.index)[:2]
+    print("phase 20 stream timing ({} planes {}, padded {}, S x L = {} x {}, "
+          "levels {}/{}; grid fwd {} / bwd {} clusters of {} blocks, {} "
+          "resident: {} of 132 SMs busy): ".format(
+              label, tuple(a.shape), dp, s_count, length, *levels,
+              grids["K6 fwd"], grids["K6 bwd"], resident[1], resident[0],
+              grids["K6 fwd"] * resident[1])
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time; "
+              "launches {} an iteration".format(k, b[0], b[1], b[2],
+                                                b[0] / ms[k], launches)
+              for k, b in bounds.items()), flush=True)
+    return ms, bounds, {"K6 fwd": err1, "K6 bwd": err2}
+
+
+def phase_stream_timing(dev):
+    """K6 times at the d = 20 cell's planes (one launch each an iteration)
+    and at the d = 2^9 single step, beside their plain versions and bounds;
+    no single PyTorch call computes an ordered exp chain (library: none)."""
+    a20, _ = lindblad_d20_planes(dev)
+    out = _time_stream("d=20 Lindblad", a20, 1)
+    pstate, hamiltonian, _ = d512_problem()
+    _time_stream("d=512", initial_planes(pstate, hamiltonian, dev), 1)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound,
                 library_ms=None):
     return {"name": name, "route": "cuda",
@@ -1124,12 +1625,22 @@ def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound,
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", help="comma-separated phases that stand alone to run "
+        "after the build ({}), for a quick check of a kernel; prints no "
+        "summary".format(", ".join(map(str, sorted(STANDALONE)))))
+    args = parser.parse_args()
     card = phase_device()
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     build_s = phase_build()
+    if args.phases:
+        for phase in args.phases.split(","):
+            STANDALONE[int(phase)](dev)
+        return
     pstate, _, _ = table3_problem(1)
     headline_w = headline_weights(pstate, dev)
     worst = phase_kernels(dev, headline_w)
@@ -1152,6 +1663,15 @@ def main():
     ms.update(expm_ms)
     bounds.update(expm_bounds)
     worst.update(expm_err)
+    phase_stream_kernels(dev)
+    phase_stream_schroedinger(dev)
+    d20_launches, d20_it_s = phase_lindblad_d20(dev)
+    launches.update({k: d20_launches[k] for k in ("K6 fwd", "K6 bwd")})
+    phase_lindblad_routes(dev)
+    stream_ms, stream_bounds, stream_err = phase_stream_timing(dev)
+    ms.update(stream_ms)
+    bounds.update(stream_bounds)
+    worst.update(stream_err)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -1163,16 +1683,26 @@ def main():
             ("plane_bwd", "plane_bwd.cu", "chain_pallas.py:718", "K5 bwd"),
             ("expm_fwd", "expm_fwd.cu", "expm_pallas.py:264", "K3"),
             ("expm_frechet", "expm_frechet.cu", "expm_pallas.py:397",
-             "K4"))]
+             "K4"),
+            ("stream_fwd", "stream_fwd.cu", "chain_pallas.py:442", "K6 fwd"),
+            ("stream_bwd", "stream_bwd.cu", "chain_pallas.py:463",
+             "K6 bwd"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
-          "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms"
-          "".format(card, build_s, it_s, m4_it_s, d128_it_s,
-                    route_ms["blocked"], route_ms["plane"], backprop_ms))
+          "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
+          "Lindblad d=20 GRAPE {:.2f} it/s".format(
+              card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
+              route_ms["plane"], backprop_ms, d20_it_s))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# Phases that need nothing from an earlier one (--phases).
+STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
+              17: phase_stream_schroedinger, 18: phase_lindblad_d20,
+              19: phase_lindblad_routes, 20: phase_stream_timing}
 
 
 if __name__ == "__main__":

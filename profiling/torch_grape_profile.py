@@ -6,9 +6,11 @@ Run from the root of a checkout, with one NVIDIA GPU and nvcc:
 
 For the Table-3 headline (LinearHamiltonian, M2: the fused route, K1/K2),
 the Magnus-M4 problem of the JAX package's bench_m4 (the plane route, K5),
-the d = 2^7 problem (d = 128, 2001 points, M2: the blocked route, K3/K4)
-and the Table-1 d = 2^10 single-step backprop (the blocked route on
-torch.matmul, no kernel), all built as chip_smoke.py builds them, it runs
+the d = 2^7 problem (d = 128, 2001 points, M2: the blocked route, K3/K4),
+the Table-1 d = 2^10 single-step backprop (the blocked route on
+torch.matmul, no kernel) and the Lindblad d = 20 cell (superoperator 400,
+100 steps, MAGNUS_EXPM: the streamed route, K6), all built as
+chip_smoke.py builds them, it runs
 one GRAPE iteration the way core/graperunner.py does (clip, loss, gradient,
 Adam update; chip_smoke.make_iteration): 2 warm-up iterations, then 10
 timed without the profiler (host clock, one synchronise at the end), then
@@ -31,11 +33,13 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (problem builders; imports no JAX)
+from qoc_tpu_torch.core.lindblad import build_lindblad_loss  # noqa: E402
 
 WARMUP, TIMED, PROFILED = 2, 10, 5
 KERNELS = (("chain_fwd_kernel", "K1"), ("chain_bwd_kernel", "K2"),
            ("plane_fwd_kernel", "K5 fwd"), ("plane_bwd_kernel", "K5 bwd"),
-           ("expm_resident_kernel", "K3"), ("frechet_resident_kernel", "K4"))
+           ("expm_resident_kernel", "K3"), ("frechet_resident_kernel", "K4"),
+           ("stream_fwd_kernel", "K6 fwd"), ("stream_bwd_kernel", "K6 bwd"))
 
 
 def _class(name):
@@ -52,8 +56,8 @@ def _class(name):
     return "glue elementwise/reductions"
 
 
-def profile_cell(name, pstate, dev):
-    iteration = chip_smoke.make_iteration(pstate, dev)
+def profile_cell(name, pstate, dev, build_loss=None):
+    iteration = chip_smoke.make_iteration(pstate, dev, build_loss)
     for _ in range(WARMUP):
         iteration()
     torch.cuda.synchronize()
@@ -141,7 +145,10 @@ def main():
                profile_cell("d=128 M2 (blocked, K3/K4)",
                             chip_smoke.d128_problem()[0], dev),
                profile_cell("d=1024 backprop (blocked, torch.matmul)",
-                            chip_smoke.d1024_problem()[0], dev)]
+                            chip_smoke.d1024_problem()[0], dev),
+               profile_cell("Lindblad d=20 (streamed, K6)",
+                            chip_smoke.lindblad_d20_pstate(), dev,
+                            build_lindblad_loss)]
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "cells": results},

@@ -11,11 +11,12 @@ tensors on the requested device.
 import numpy as np
 import torch
 
-from qoc_tpu_torch.costs import TargetStateInfidelity
-from qoc_tpu_torch.models import LinearHamiltonian
+from qoc_tpu_torch.costs import TargetDensityInfidelity, TargetStateInfidelity
+from qoc_tpu_torch.models import ConstantLindblad, LinearHamiltonian
 
-__all__ = ["adam_state", "controls", "linear_hamiltonian",
-           "max_control_norms", "states", "target_state_infidelity"]
+__all__ = ["adam_state", "constant_lindblad", "controls", "densities",
+           "linear_hamiltonian", "max_control_norms", "states",
+           "target_density_infidelity", "target_state_infidelity"]
 
 
 def linear_hamiltonian(hamiltonian):
@@ -29,6 +30,21 @@ def linear_hamiltonian(hamiltonian):
 def states(array):
     """Initial or target states (K, d, 1) as complex128 numpy."""
     return np.asarray(array, dtype=np.complex128)
+
+
+def densities(array):
+    """Initial or target densities (K, d, d) as complex128 numpy."""
+    return np.asarray(array, dtype=np.complex128)
+
+
+def constant_lindblad(lindblad_data):
+    """A port ``ConstantLindblad`` with the same rates (float64) and
+    collapse operators (complex128)."""
+    rates, operators = lindblad_data.dissipators, lindblad_data.operators
+    return ConstantLindblad(
+        None if rates is None else np.asarray(rates, dtype=np.float64),
+        None if operators is None
+        else np.asarray(operators, dtype=np.complex128))
 
 
 def controls(array):
@@ -52,6 +68,16 @@ def target_state_infidelity(cost):
     return TargetStateInfidelity(
         targets, cost_multiplier=cost.cost_multiplier,
         neglect_relative_phase=cost.neglect_relative_phase)
+
+
+def target_density_infidelity(cost):
+    """A port ``TargetDensityInfidelity`` with the same targets and
+    multiplier (recovered from ``qoc_tpu``'s stored conjugate
+    transposes)."""
+    dagger = np.asarray(cost.target_densities_dagger)
+    return TargetDensityInfidelity(
+        np.conjugate(np.swapaxes(dagger, -1, -2)),
+        cost_multiplier=cost.cost_multiplier)
 
 
 def adam_state(state, device="cpu", dtype=torch.float64):

@@ -35,11 +35,14 @@ __all__ = ["run_grape"]
 _DEFAULT_CHUNK = 200
 
 
-def run_grape(pstate, result, loss_flat, device, dtype):
+def run_grape(pstate, result, loss_flat, device, dtype, evolved="states"):
     """Run the optimization described by ``pstate`` and fill ``result``.
 
     ``loss_flat`` maps flat real params (already clipped; a tensor that
-    requires grad) to (error, final_states)."""
+    requires grad) to (error, final evolved): the final states, or with
+    ``evolved="densities"`` the final densities, which go to
+    ``result.best_final_<evolved>`` (``qoc_tpu``'s runner takes the field
+    names; its Lindblad entry point passes ``best_final_densities``)."""
     if pstate.impose_control_conditions is not None:
         raise NotImplementedError(
             "impose_control_conditions needs the host optimization loop, "
@@ -49,10 +52,10 @@ def run_grape(pstate, result, loss_flat, device, dtype):
             "{} needs the host optimization loop, which is ROADMAP slice 3 "
             "of qoc_tpu_torch; use Adam.".format(
                 type(pstate.optimizer).__name__))
-    _run_fused(pstate, result, loss_flat, device, dtype)
+    _run_fused(pstate, result, loss_flat, device, dtype, evolved)
 
 
-def _run_fused(pstate, result, loss_flat, device, dtype):
+def _run_fused(pstate, result, loss_flat, device, dtype, evolved):
     cc = pstate.complex_controls
     shape = pstate.controls_shape
     mcn = torch.as_tensor(np.asarray(pstate.max_control_norms),
@@ -76,7 +79,7 @@ def _run_fused(pstate, result, loss_flat, device, dtype):
     params = torch.as_tensor(x0, dtype=dtype, device=device)
     opt_state = optimizer.init_state(params)
     done = torch.zeros((), dtype=torch.bool, device=device)
-    states_shape = np.asarray(pstate.initial_states).shape
+    states_shape = np.asarray(getattr(pstate, "initial_" + evolved)).shape
     best = {
         "error": torch.tensor(torch.finfo(dtype).max, dtype=dtype,
                               device=device),
@@ -149,7 +152,7 @@ def _run_fused(pstate, result, loss_flat, device, dtype):
         result.best_controls = slap_controls(
             cc, clipped0.cpu().numpy(), shape)
         result.best_error = float(error0)
-        result.best_final_states = states0.cpu().numpy()
+        setattr(result, "best_final_" + evolved, states0.cpu().numpy())
         result.best_iteration = 0
         result.iteration_count_ran = 0
         result.iterations_per_s = 0.0
@@ -159,7 +162,8 @@ def _run_fused(pstate, result, loss_flat, device, dtype):
     result.best_controls = slap_controls(
         cc, best["controls_flat"].cpu().numpy(), shape)
     result.best_error = float(best["error"])
-    result.best_final_states = best["final_states"].cpu().numpy()
+    setattr(result, "best_final_" + evolved,
+            best["final_states"].cpu().numpy())
     result.best_iteration = int(best["iteration"])
     result.iteration_count_ran = global_iter
     result.iterations_per_s = meter.steady_rate

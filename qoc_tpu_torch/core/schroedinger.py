@@ -9,18 +9,27 @@ CPU walks the route the card takes:
 - the fused route, for a ``LinearHamiltonian`` under Magnus-M2 with
   controls at d <= 64: weight rows against a constant generator basis
   through the chain op (``ops/chain.py``), carried on CUDA by K1/K2;
-- the plane route, for everything else at d <= 64: any Hamiltonian
-  callable under Magnus M2, M4 or M6, with or without controls, and a
-  ``LinearHamiltonian`` under M4 or M6. Each step's Magnus term is built as
-  a complex plane by plain torch operations (differentiated by autograd)
-  and the planes go through the plane chain op, carried on CUDA by K5;
-- the blocked route, for 64 < padded d <= 256, for d above 512, and for
-  d <= 64 with ``allow_plane_chain=False`` where the fused route does not
-  apply (``qoc_tpu``'s generic route): the block's planes, built as on the
-  plane route, go through the batched ``ops/expm.py`` expm (K3/K4 up to
-  padded d = 256, ``expm_taylor`` on ``torch.matmul`` above) and a
-  log-depth pairwise tree product. For 64 < d <= 256 ``qoc_tpu`` takes its
-  chain kernels instead; the numbers agree.
+- the streamed route, for the same problems at 256 < padded d <= 512: the
+  weight rows times the basis give the step planes (a plain product, as
+  ``qoc_tpu``'s ``_stream_planes``; autograd through it gives the weight
+  gradient), and the planes go through the plane chain op, carried on
+  CUDA by K6;
+- the plane route, for everything else at d <= 64 and at 256 < padded
+  d <= 512: any Hamiltonian callable under Magnus M2, M4 or M6, with or
+  without controls, and a ``LinearHamiltonian`` under M4 or M6. Each
+  step's Magnus term is built as a complex plane by plain torch operations
+  (differentiated by autograd) and the planes go through the plane chain
+  op, carried on CUDA by K5 (d <= 64) or K6;
+- the blocked route, for 64 < padded d <= 256, for d above 512, and where
+  the plane route would apply with ``allow_plane_chain=False``
+  (``qoc_tpu``'s generic route): the block's planes, built as on the plane
+  route, go through the batched ``ops/expm.py`` expm (K3/K4 up to padded
+  d = 256, ``expm_taylor`` on ``torch.matmul`` above) and a log-depth
+  pairwise tree product. For 64 < d <= 256 ``qoc_tpu`` takes its chain
+  kernels instead; the numbers agree.
+
+The Lindblad entry points (``core/lindblad.py``) take the same routes by
+the superoperator's dimension d².
 
 The Hamiltonian contract of the port: a callable written with ``torch``
 operations, ``(controls (C,) complex tensor or None, t 0-dim real tensor)
@@ -31,8 +40,8 @@ Constants it closes over may be numpy arrays or tensors of any complex
 dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: 256 < padded d <= 512 (K6, slice 5), step costs and
-intermediate states (the per-step-seed chain, slice 2),
+ROADMAP slice: step costs and intermediate states (the per-step-seed
+chain, slice 2),
 ``impose_control_conditions`` (the host loop, slice 3), save files and
 resume (slice 4) and ``mesh`` (slice 6).
 """
@@ -50,15 +59,17 @@ from qoc_tpu_torch.models import (EvolveSchroedingerDiscreteState,
                                   InterpolationPolicy, LinearHamiltonian,
                                   MagnusPolicy)
 from qoc_tpu_torch.ops.chain import (KERNEL_DP, ChainExpmPropagate,
-                                     chain_block_plan, plane_chain_propagate)
+                                     chain_block_plan, kernel_dp,
+                                     plane_chain_propagate, uses_stream)
 from qoc_tpu_torch.ops.expm import expm
-from qoc_tpu_torch.ops.expm_cuda import KERNEL_MAX_DP, kernel_dp
+from qoc_tpu_torch.ops.expm_cuda import KERNEL_MAX_DP
 from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
 from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
 from qoc_tpu_torch.optim import Adam
 
 __all__ = ["build_schroedinger_loss", "evolve_schroedinger_discrete",
-           "fused_weights", "grape_schroedinger_discrete", "plane_builder"]
+           "fused_weights", "grape_schroedinger_discrete",
+           "hamiltonian_sampler", "make_propagator", "plane_builder"]
 
 
 # Magnus term of each policy, and the (d, d) planes a step's build holds at
@@ -78,8 +89,6 @@ _PLANE_OP_PLANES = 3
 # What the blocked route keeps a step besides the build: the expm input
 # (saved for K4), U and about one tree product.
 _BLOCKED_PLANES = 3
-# Padded d up to which the streamed chain K6 serves qoc_tpu: not ported.
-_STREAM_MAX_DP = 512
 
 
 def _not_ported(what, roadmap_slice):
@@ -103,11 +112,10 @@ def fused_weights(controls, times, control_eval_times, dt):
     return torch.cat((ones, ri), dim=-1)
 
 
-def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
-    """planes(controls, times) -> (B, d, d): the Magnus term of each step
-    [t, t + dt] for the step start times ``times`` (B,), in the dtype the
-    Hamiltonian gives (``qoc_tpu`` schroedinger.py magnus_term_at)."""
-    magnus = _MAGNUS[magnus_policy][0]
+def hamiltonian_sampler(hamiltonian, control_eval_times):
+    """hamiltonian_at(controls, t) -> (B, d, d): H at the node times ``t``
+    (B,), the controls interpolated there; a callable is evaluated under
+    ``torch.func.vmap`` (module docstring)."""
 
     def hamiltonian_at(controls, t):
         """H at the node times ``t`` (B,), controls interpolated there."""
@@ -125,6 +133,16 @@ def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
             h = torch.func.vmap(hamiltonian)(c_t, t)
         h = h.to(t.device)
         return torch.broadcast_to(h, t.shape + h.shape[-2:])
+
+    return hamiltonian_at
+
+
+def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
+    """planes(controls, times) -> (B, d, d): the Magnus term of each step
+    [t, t + dt] for the step start times ``times`` (B,), in the dtype the
+    Hamiltonian gives (``qoc_tpu`` schroedinger.py magnus_term_at)."""
+    magnus = _MAGNUS[magnus_policy][0]
+    hamiltonian_at = hamiltonian_sampler(hamiltonian, control_eval_times)
 
     def planes(controls, times):
         return magnus(lambda t: -1j * hamiltonian_at(controls, t), dt, times)
@@ -147,17 +165,62 @@ def _tree_product(us):
 
 
 def _route(d, fused_ok, allow_plane_chain):
-    """'fused', 'plane' or 'blocked' for a problem of dimension d (module
-    docstring); raises for 256 < padded d <= 512."""
-    dp = kernel_dp(d)
-    if KERNEL_MAX_DP < dp <= _STREAM_MAX_DP:
-        raise _not_ported("padded d = {} in (256, 512] (K6, the streamed "
-                          "chain)".format(dp), 5)
-    if d > KERNEL_DP:
-        return "blocked"
-    if fused_ok:
-        return "fused"
-    return "plane" if allow_plane_chain else "blocked"
+    """'fused', 'stream', 'plane' or 'blocked' for a problem of dimension d
+    (module docstring): ``fused_ok`` where the chain of weight rows against
+    a basis applies."""
+    chain = d <= KERNEL_DP or uses_stream(d)
+    if chain and fused_ok:
+        return "fused" if d <= KERNEL_DP else "stream"
+    return "plane" if chain and allow_plane_chain else "blocked"
+
+
+def _route_names(route, d, device):
+    """(path, what carries it) for the one-time path log line."""
+    if route == "blocked":
+        path = "blocked expm + tree product"
+        kernels = ("CUDA kernels K3/K4" if kernel_dp(d) <= KERNEL_MAX_DP
+                   else "torch.matmul Taylor (d > 256)")
+    else:
+        path = {"fused": "fused chain", "stream": "streamed chain",
+                "plane": "plane chain"}[route]
+        kernels = ("CUDA kernels K1/K2" if route == "fused"
+                   else "CUDA kernels K5" if d <= KERNEL_DP
+                   else "CUDA kernels K6")
+    if device.type != "cuda" and not kernels.startswith("torch"):
+        kernels = "plain torch on " + device.type
+    return path, kernels
+
+
+def make_propagator(route, magnus_policy, device, dtype, basis=None,
+                    weights=None, planes=None):
+    """(propagate(controls, t_block) -> the block's ordered product of step
+    exponentials, planes a step holds for chain_block_plan) on ``route``:
+    ``basis`` (numpy (n_b, n, n)) and ``weights(controls, t_block)`` ->
+    (B, n_b) rows on the fused and streamed routes, ``planes(controls,
+    t_block)`` -> (B, n, n) Magnus planes on the plane and blocked routes.
+    The Lindblad loss shares it (core/lindblad.py)."""
+    cdtype = complex_dtype(dtype)
+    build_planes = _MAGNUS[magnus_policy][1]
+    if route == "fused":
+        chain = ChainExpmPropagate(basis, device, dtype)
+        return (lambda controls, t_block: chain(weights(controls, t_block)),
+                2)
+    if route == "stream":
+        n_b, n = basis.shape[0], basis.shape[-1]
+        flat_basis = torch.as_tensor(basis, dtype=cdtype,
+                                     device=device).reshape(n_b, n * n)
+
+        def propagate(controls, t_block):
+            a = weights(controls, t_block).to(cdtype) @ flat_basis
+            return plane_chain_propagate(a.reshape(-1, n, n))
+        return propagate, _PLANE_OP_PLANES + 1
+    if route == "plane":
+        return (lambda controls, t_block: plane_chain_propagate(
+            planes(controls, t_block).to(cdtype)),
+            _PLANE_OP_PLANES + build_planes)
+    return (lambda controls, t_block: _tree_product(expm(
+        planes(controls, t_block).to(cdtype))),
+        _BLOCKED_PLANES + build_planes)
 
 
 def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
@@ -196,33 +259,17 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     route = _route(d, isinstance(hamiltonian, LinearHamiltonian)
                    and pstate.magnus_policy == MagnusPolicy.M2
                    and cet is not None, allow_plane_chain)
-    build_planes = _MAGNUS[pstate.magnus_policy][1]
-    if route == "fused":
-        chain = ChainExpmPropagate(hamiltonian.generator_basis(dt), device,
-                                   dtype)
-        planes_per_step = 2
-
-        def propagate(controls, t_block):
-            return chain(fused_weights(controls, t_block, cet, dt))
-        path, kernels = "fused chain", "CUDA kernels K1/K2"
-    elif route == "plane":
-        planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
-        planes_per_step = _PLANE_OP_PLANES + build_planes
-
-        def propagate(controls, t_block):
-            return plane_chain_propagate(planes(controls, t_block).to(cdtype))
-        path, kernels = "plane chain", "CUDA kernels K5"
+    if route in ("fused", "stream"):
+        propagate, planes_per_step = make_propagator(
+            route, pstate.magnus_policy, device, dtype,
+            basis=hamiltonian.generator_basis(dt),
+            weights=lambda controls, t_block: fused_weights(
+                controls, t_block, cet, dt))
     else:
-        planes = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
-        planes_per_step = _BLOCKED_PLANES + build_planes
-
-        def propagate(controls, t_block):
-            return _tree_product(expm(planes(controls, t_block).to(cdtype)))
-        path, kernels = "blocked expm + tree product", "CUDA kernels K3/K4"
-    if route == "blocked" and kernel_dp(d) > KERNEL_MAX_DP:
-        kernels = "torch.matmul Taylor (d > 256)"
-    elif device.type != "cuda":
-        kernels = "plain torch on " + device.type
+        propagate, planes_per_step = make_propagator(
+            route, pstate.magnus_policy, device, dtype,
+            planes=plane_builder(hamiltonian, pstate.magnus_policy, cet, dt))
+    path, kernels = _route_names(route, d, device)
     block = int(time_block_size
                 or chain_block_plan(d, n_steps, cdtype.itemsize,
                                     planes_per_step))

@@ -1,5 +1,7 @@
-"""qoc_tpu_torch.costs - cost functions (TargetStateInfidelity so far)."""
+"""qoc_tpu_torch.costs - cost functions (TargetStateInfidelity and
+TargetDensityInfidelity so far)."""
 
+from qoc_tpu_torch.costs.density_costs import TargetDensityInfidelity
 from qoc_tpu_torch.costs.state_costs import TargetStateInfidelity
 
-__all__ = ["TargetStateInfidelity"]
+__all__ = ["TargetDensityInfidelity", "TargetStateInfidelity"]

@@ -1,30 +1,38 @@
 """qoc_tpu_torch.models - data models, policies, results."""
 
 from qoc_tpu_torch.models.cost import Cost, validate_cost_dimensions
-from qoc_tpu_torch.models.hamiltonian import LinearHamiltonian
+from qoc_tpu_torch.models.hamiltonian import (ConstantLindblad,
+                                              LinearHamiltonian)
 from qoc_tpu_torch.models.policies import (
     InterpolationPolicy,
+    LindbladMethod,
     MagnusPolicy,
     OperationPolicy,
     PerformancePolicy,
     ProgramType,
 )
 from qoc_tpu_torch.models.programstate import (
+    EvolveLindbladDiscreteState,
     EvolveSchroedingerDiscreteState,
+    GrapeLindbladDiscreteState,
     GrapeSchroedingerDiscreteState,
     GrapeState,
     ProgramState,
 )
 from qoc_tpu_torch.models.results import (
+    EvolveLindbladResult,
     EvolveSchroedingerResult,
+    GrapeLindbladResult,
     GrapeSchroedingerResult,
 )
 
 __all__ = [
     "Cost",
     "validate_cost_dimensions",
+    "ConstantLindblad",
     "LinearHamiltonian",
     "InterpolationPolicy",
+    "LindbladMethod",
     "MagnusPolicy",
     "OperationPolicy",
     "PerformancePolicy",
@@ -33,6 +41,10 @@ __all__ = [
     "GrapeState",
     "EvolveSchroedingerDiscreteState",
     "GrapeSchroedingerDiscreteState",
+    "EvolveLindbladDiscreteState",
+    "GrapeLindbladDiscreteState",
     "EvolveSchroedingerResult",
     "GrapeSchroedingerResult",
+    "EvolveLindbladResult",
+    "GrapeLindbladResult",
 ]

@@ -1,20 +1,22 @@
 """Structured Hamiltonians.
 
 Counterpart of ``qoc_tpu/models/hamiltonian.py`` (``LinearHamiltonian``
-only; the ensemble Hamiltonian and ``ConstantLindblad`` are later slices of
-the port). ``LinearHamiltonian`` declares the linear control structure
+and ``ConstantLindblad``; the ensemble Hamiltonian is a later slice of the
+port). ``LinearHamiltonian`` declares the linear control structure
 
     H(c, t) = H0 + Σᵢ cᵢ Aᵢ + conj(cᵢ) Aᵢ^H
 
 as data. It stays callable with the reference contract, and it is what the
-fused chain route of ``grape_schroedinger_discrete`` /
-``evolve_schroedinger_discrete`` propagates through the CUDA chain kernels.
+fused chain routes of the Schrödinger and Lindblad entry points propagate
+through the CUDA chain kernels. ``ConstantLindblad`` declares
+time-independent dissipation, which with a ``LinearHamiltonian`` keeps the
+Lindblad superoperator affine in the controls.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["LinearHamiltonian"]
+__all__ = ["ConstantLindblad", "LinearHamiltonian"]
 
 
 class LinearHamiltonian:
@@ -85,3 +87,54 @@ class LinearHamiltonian:
         A_step = Σ_k W_k G_k with W = [1, Re c_1, Im c_1, ...] evaluated at
         the step midpoint."""
         return -1j * dt * self.hermitian_basis()
+
+    def superoperator_basis(self, dt, dissipators=None, operators=None):
+        """Magnus-M2 Lindblad-superoperator generator basis (numpy complex
+        (1+2n, d², d²)): S_step = Σ_k W_k basis_k with the weight layout of
+        :meth:`generator_basis`, where S vec(ρ) = vec(L(ρ)) in row-major
+        vec (``ops/lindblad.py`` lindblad_superoperator). The constant
+        dissipator part folds into the k = 0 term (``qoc_tpu``
+        hamiltonian.py:82-111)."""
+        d = self.h0.shape[-1]
+        eye = np.eye(d)
+
+        def s_h(x):
+            # -i (X rho - rho X) -> -i (X kron I - I kron X^T), row-major.
+            return -1j * (np.kron(x, eye) - np.kron(eye, x.T))
+
+        s0 = s_h(self.h0).astype(complex)
+        if dissipators is not None and operators is not None:
+            for g, l_op in zip(np.asarray(dissipators),
+                               np.asarray(operators)):
+                p = np.conjugate(l_op.T) @ l_op
+                s0 = s0 + g * (np.kron(l_op, np.conjugate(l_op))
+                               - 0.5 * np.kron(p, eye)
+                               - 0.5 * np.kron(eye, p.T))
+        parts = [s0]
+        for a in self.operators:
+            ah = np.conjugate(a.T)
+            parts.append(s_h(a + ah))
+            parts.append(s_h(1j * (a - ah)))
+        return dt * np.stack(parts)
+
+
+class ConstantLindblad:
+    """Time-independent Lindblad data: callable with the reference contract
+    ``(time) -> (dissipation_rates, operators)`` (reference
+    lindbladdiscrete.py:76-79), declaring constancy as structure: with a
+    ``LinearHamiltonian`` under ``LindbladMethod.MAGNUS_EXPM`` it takes the
+    fused chain routes.
+
+    Arguments:
+    dissipators :: numpy (n_ops,) - rates g_i.
+    operators :: numpy (n_ops, d, d) - collapse operators L_i.
+    """
+
+    def __init__(self, dissipators, operators):
+        self.dissipators = (None if dissipators is None
+                            else np.asarray(dissipators))
+        self.operators = (None if operators is None
+                          else np.asarray(operators))
+
+    def __call__(self, time):
+        return self.dissipators, self.operators

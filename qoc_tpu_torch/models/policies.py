@@ -16,6 +16,7 @@ __all__ = [
     "OperationPolicy",
     "PerformancePolicy",
     "ProgramType",
+    "LindbladMethod",
 ]
 
 
@@ -65,3 +66,18 @@ class ProgramType(Enum):
     def __str__(self):
         return self.value
 
+
+class LindbladMethod(Enum):
+    """Integration strategy for the Lindblad path (a ``qoc_tpu`` extension).
+
+    RKDP5: adaptive Dormand-Prince, reference-parity semantics (restarted per
+    system_eval interval, accuracy set by atol); not ported yet.
+    MAGNUS_EXPM: vectorize the density, build the Lindblad superoperator, and
+    propagate with Magnus + expm on the d^2-dimensional space through the
+    Schrödinger path's kernels.
+    """
+    RKDP5 = 1
+    MAGNUS_EXPM = 2
+
+    def __str__(self):
+        return self.name.lower()

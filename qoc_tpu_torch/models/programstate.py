@@ -1,10 +1,11 @@
-"""Program-state containers for the Schrödinger entry points.
+"""Program-state containers for the Schrödinger and Lindblad entry points.
 
 Counterpart of ``qoc_tpu/models/programstate.py`` (reference
-qoc/models/{programstate,schroedingermodels}.py): static configuration that
-the loss closes over. Saving to H5 files is ROADMAP slice 4 of the port, so
-``save_file_path``, ``save_iteration_step`` and ``save_intermediate_states``
-raise ``NotImplementedError`` here; nothing imports h5py.
+qoc/models/{programstate,schroedingermodels,lindbladmodels}.py): static
+configuration that the loss closes over. Saving to H5 files is ROADMAP
+slice 4 of the port, so ``save_file_path``, ``save_iteration_step`` and
+``save_intermediate_states`` / ``save_intermediate_densities`` raise
+``NotImplementedError`` here; nothing imports h5py.
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ __all__ = [
     "GrapeState",
     "EvolveSchroedingerDiscreteState",
     "GrapeSchroedingerDiscreteState",
+    "EvolveLindbladDiscreteState",
+    "GrapeLindbladDiscreteState",
 ]
 
 _H5_SLICE = ("{} is not ported yet: H5 save files are ROADMAP slice 4 of "
@@ -24,14 +27,14 @@ _H5_SLICE = ("{} is not ported yet: H5 save files are ROADMAP slice 4 of "
 
 
 def _refuse_saving(save_file_path, save_iteration_step=0,
-                   save_intermediate_states=False):
+                   save_intermediate_states=False,
+                   intermediate_name="save_intermediate_states"):
     if save_file_path is not None:
         raise NotImplementedError(_H5_SLICE.format("save_file_path"))
     if save_iteration_step:
         raise NotImplementedError(_H5_SLICE.format("save_iteration_step"))
     if save_intermediate_states:
-        raise NotImplementedError(
-            _H5_SLICE.format("save_intermediate_states"))
+        raise NotImplementedError(_H5_SLICE.format(intermediate_name))
 
 
 class ProgramState:
@@ -139,3 +142,53 @@ class GrapeSchroedingerDiscreteState(GrapeState):
         self.initial_states = initial_states
         validate_cost_dimensions(costs, np.asarray(initial_states).shape[-2])
         self.magnus_policy = magnus_policy
+
+
+class EvolveLindbladDiscreteState(ProgramState):
+    """Reference lindbladmodels.py:14-103."""
+    method = "evolve_lindblad_discrete"
+
+    def __init__(self, control_eval_count, cost_eval_step, costs,
+                 evolution_time, hamiltonian, initial_densities,
+                 interpolation_policy, lindblad_data, save_file_path,
+                 save_intermediate_densities_, system_eval_count):
+        _refuse_saving(save_file_path,
+                       save_intermediate_states=save_intermediate_densities_,
+                       intermediate_name="save_intermediate_densities")
+        super().__init__(control_eval_count, cost_eval_step, costs,
+                         evolution_time, hamiltonian, interpolation_policy,
+                         ProgramType.EVOLVE, save_file_path,
+                         system_eval_count)
+        self.initial_densities = initial_densities
+        validate_cost_dimensions(costs,
+                                 np.asarray(initial_densities).shape[-1])
+        self.lindblad_data = lindblad_data
+
+
+class GrapeLindbladDiscreteState(GrapeState):
+    """Reference lindbladmodels.py:125-339."""
+    method = "grape_lindblad_discrete"
+
+    def __init__(self, complex_controls, control_count, control_eval_count,
+                 cost_eval_step, costs, evolution_time, hamiltonian,
+                 impose_control_conditions, initial_controls,
+                 initial_densities, interpolation_policy, iteration_count,
+                 lindblad_data, log_iteration_step, max_control_norms,
+                 min_error, optimizer, save_file_path,
+                 save_intermediate_densities_, save_iteration_step,
+                 system_eval_count):
+        _refuse_saving(save_file_path, save_iteration_step,
+                       save_intermediate_densities_,
+                       intermediate_name="save_intermediate_densities")
+        super().__init__(complex_controls, control_count, control_eval_count,
+                         cost_eval_step, costs, evolution_time, hamiltonian,
+                         impose_control_conditions, initial_controls,
+                         interpolation_policy, iteration_count,
+                         log_iteration_step, max_control_norms, min_error,
+                         optimizer, save_file_path, save_iteration_step,
+                         system_eval_count)
+        self.hilbert_size = initial_densities[0].shape[0]
+        self.initial_densities = initial_densities
+        validate_cost_dimensions(costs,
+                                 np.asarray(initial_densities).shape[-1])
+        self.lindblad_data = lindblad_data

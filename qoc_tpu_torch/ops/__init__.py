@@ -1,16 +1,18 @@
-"""qoc_tpu_torch.ops - interpolation, Magnus, linear algebra, the matrix
-exponential and the fused expm-product chain ops, with their CUDA
-kernels."""
+"""qoc_tpu_torch.ops - interpolation, Magnus, linear algebra, the Lindblad
+superoperator, the matrix exponential and the fused expm-product chain ops,
+with their CUDA kernels."""
 
 from qoc_tpu_torch.ops.chain import (ChainExpmPropagate, PlaneChainPropagate,
                                      chain_bwd, chain_fwd,
                                      plane_chain_propagate, plane_bwd,
-                                     plane_fwd)
+                                     plane_fwd, stream_bwd, stream_fwd)
 from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
                                     expm_taylor)
 from qoc_tpu_torch.ops.expm_cuda import expm_frechet_fwd, expm_fwd
 from qoc_tpu_torch.ops.interpolate import (interpolate_linear_points,
                                            interpolate_linear_set)
+from qoc_tpu_torch.ops.lindblad import (get_lindbladian,
+                                        lindblad_superoperator)
 from qoc_tpu_torch.ops.linalg import (commutator, conjugate_transpose, mul,
                                       one_norm)
 from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
@@ -29,8 +31,10 @@ __all__ = [
     "expm_fwd",
     "expm_pade",
     "expm_taylor",
+    "get_lindbladian",
     "interpolate_linear_points",
     "interpolate_linear_set",
+    "lindblad_superoperator",
     "magnus_m2",
     "magnus_m4",
     "magnus_m6",
@@ -39,4 +43,6 @@ __all__ = [
     "plane_bwd",
     "plane_chain_propagate",
     "plane_fwd",
+    "stream_bwd",
+    "stream_fwd",
 ]

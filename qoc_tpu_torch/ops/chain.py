@@ -10,12 +10,13 @@ control Hamiltonian under Magnus-M2, A_j = Σ_k W_jk G_k, as real weight
 rows W against a constant complex generator basis G.
 :class:`PlaneChainPropagate` takes the generators themselves as complex
 planes A (B, d, d), built by the caller from any Hamiltonian and Magnus
-order; its gradient flows to the planes. The steps are split into S
-contiguous *segments*, independent chains that run in parallel (one CUDA
-block each) and are merged by S-1 matrix products; S is picked to fill the
-card's SMs.
+order (or as weights x basis, ``qoc_tpu``'s ``_stream_planes``); its
+gradient flows to the planes. The steps are split into S contiguous
+*segments*, independent chains that run in parallel (one CUDA block each,
+or one thread-block cluster each for K6) and are merged by log-depth scans
+of matrix products; S is picked to fill the card's SMs.
 
-Four kernels carry the ops on CUDA tensors, each beside its plain PyTorch
+Six kernels carry the ops on CUDA tensors, each beside its plain PyTorch
 version of the same math:
 
 - K1, :func:`chain_fwd` (``csrc/chain_fwd.cu``): every segment's prefixes
@@ -28,8 +29,15 @@ version of the same math:
   (``csrc/plane_bwd.cu``): K1 and K2 with the generator read from its
   plane instead of built from the basis. Plain versions
   :func:`plane_fwd_plain` and :func:`plane_bwd_plain`.
+- K6, :func:`stream_fwd` (``csrc/stream_fwd.cu``) and :func:`stream_bwd`
+  (``csrc/stream_bwd.cu``): K5's math at 256 < padded d <= 512, where one
+  matrix no longer fits a block: the ladder in a device workspace, each
+  segment advanced by the 8 blocks of a cluster. Its plain versions are
+  K5's (:data:`stream_fwd_plain` and :data:`stream_bwd_plain` name them).
 
-A wrapper takes its plain version only for a tensor on the CPU; for a CUDA
+The plane op takes K5 at padded d <= 64 and K6 at 256 < padded d <= 512;
+between those the caller takes the blocked route (``ops/expm.py``). A
+wrapper takes its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel or raises. The kernels are f32: on CUDA the ops
 run in float32/complex64. On the CPU they run in the caller's dtype
 (float64 for parity with ``qoc_tpu``), with the same f32-calibrated ladder.
@@ -57,13 +65,21 @@ from qoc_tpu_torch.config import complex_dtype
 
 __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
            "chain_bwd", "chain_bwd_plain", "chain_fwd", "chain_fwd_plain",
-           "ladder_level", "load_kernels", "plane_bwd", "plane_bwd_plain",
-           "plane_chain_propagate", "plane_fwd", "plane_fwd_plain",
-           "segment_plan", "KERNEL_DP"]
+           "kernel_dp", "ladder_level", "load_kernels", "plane_bwd",
+           "plane_bwd_plain", "plane_chain_propagate", "plane_fwd",
+           "plane_fwd_plain", "segment_plan", "stream_bwd",
+           "stream_bwd_plain", "stream_fwd", "stream_fwd_plain",
+           "stream_grid", "stream_segment_plan", "uses_stream", "KERNEL_DP",
+           "STREAM_MAX_DP", "STREAM_MIN_DP"]
 
-# The kernels' matrix dimension (csrc/chain_common.cuh DP): smaller d is
+# K1/K2/K5's matrix dimension (csrc/chain_common.cuh DP): smaller d is
 # zero-padded to it (exact), larger d is refused.
 KERNEL_DP = 64
+# K6's padded dimensions: multiples of 64 in (256, 512]
+# (qoc_tpu/ops/chain_pallas.py _STREAM_MAX).
+_ALIGN = 64
+STREAM_MIN_DP = 320
+STREAM_MAX_DP = 512
 
 # f32-calibrated Taylor degree ladder (qoc_tpu/ops/expm_pallas.py
 # _F32_LADDER): (degree, batch-max norm threshold). Above the last
@@ -81,6 +97,11 @@ _D8X = (-0.2791515105738877, -0.06978787764347194, 1.9965103670821102,
 # segments (about one per SM of an H100, which has 132).
 _MIN_SEGMENT_STEPS = 8
 _MAX_SEGMENTS = 128
+# K6's segment plan: at most this many segments, one per cluster of 8 blocks
+# that an H100 keeps resident (16 x 8 = 128 of its 132 SMs).
+_STREAM_SEGMENTS = 16
+# Share of the free device memory K6's workspace may take.
+_STREAM_WORKSPACE_SHARE = 0.5
 
 # Time-block plan: bytes one block may hold per step for the backward
 # (see chain_block_plan).
@@ -94,7 +115,8 @@ _BLOCK_BYTES = 2 * 1024 ** 3
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("chain_fwd.cu", "chain_bwd.cu", "plane_fwd.cu", "plane_bwd.cu",
-            "expm_fwd.cu", "expm_frechet.cu")
+            "expm_fwd.cu", "expm_frechet.cu", "stream_fwd.cu",
+            "stream_bwd.cu")
 _HEADERS = ("chain_common.cuh", "expm_common.cuh")
 _BUILD_DIR = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -144,7 +166,7 @@ def _build(out_dir, lib_path):
 
 @functools.cache
 def load_kernels():
-    """Build the kernels' shared library, K1/K2/K5 here and K3/K4 of
+    """Build the kernels' shared library, K1/K2/K5/K6 here and K3/K4 of
     ``ops/expm_cuda.py`` (once per source hash, into
     ``qoc_tpu_torch/_build/<hash>/``), and load it with ctypes.
 
@@ -169,13 +191,21 @@ def load_kernels():
     lib.qoc_expm_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.qoc_expm_frechet.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                                      cint, ptr]
+    lib.qoc_stream_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
+                                   cint, ptr]
+    lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
+                                   cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p]
+    lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
+    lib.qoc_stream_bwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     for fn in (lib.qoc_chain_fwd, lib.qoc_chain_bwd, lib.qoc_plane_fwd,
                lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots,
                lib.qoc_expm_fwd, lib.qoc_expm_frechet, lib.qoc_expm_fwd_plan,
-               lib.qoc_expm_frechet_plan):
+               lib.qoc_expm_frechet_plan, lib.qoc_stream_fwd,
+               lib.qoc_stream_bwd, lib.qoc_stream_fwd_plan,
+               lib.qoc_stream_bwd_plan):
         fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(
@@ -190,14 +220,13 @@ def _check_norm(norm, dev):
                          "inputs' device")
 
 
-def _check_mats(dev, *mats):
+def _check_mats(dev, *mats, dp=KERNEL_DP):
     for m in mats:
         if (m.dtype != torch.complex64 or m.device != dev
-                or not m.is_contiguous()
-                or m.shape[-2:] != (KERNEL_DP, KERNEL_DP)):
+                or not m.is_contiguous() or m.shape[-2:] != (dp, dp)):
             raise ValueError(
                 "chain kernel matrices must be contiguous complex64 "
-                "(..., {0}, {0}) tensors on one device".format(KERNEL_DP))
+                "(..., {0}, {0}) tensors on one device".format(dp))
 
 
 def _check_weights(w, norm, *mats):
@@ -209,11 +238,11 @@ def _check_weights(w, norm, *mats):
     _check_mats(w.device, *mats)
 
 
-def _check_planes(a, norm, *mats):
+def _check_planes(a, norm, *mats, dp=KERNEL_DP):
     if a.dim() != 4:
         raise ValueError("planes must be an (S, L, {0}, {0}) tensor".format(
-            KERNEL_DP))
-    _check_mats(a.device, a, *mats)
+            dp))
+    _check_mats(a.device, a, *mats, dp=dp)
     _check_norm(norm, a.device)
 
 
@@ -225,6 +254,17 @@ def _check_device(x, name):
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def kernel_dp(d):
+    """The kernels' padded dimension for d: d rounded up to a multiple of
+    64."""
+    return -(-d // _ALIGN) * _ALIGN
+
+
+def uses_stream(d):
+    """True where the plane op runs K6: 256 < padded d <= 512."""
+    return STREAM_MIN_DP <= kernel_dp(d) <= STREAM_MAX_DP
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +600,117 @@ def plane_bwd(a_seg, norm, prefpad, seeds):
 plane_bwd.launches = 0
 
 
+# K6's plain versions are K5's: the same recursion at any d.
+stream_fwd_plain = plane_fwd_plain
+stream_bwd_plain = plane_bwd_plain
+
+
+@functools.cache
+def _stream_plan(dual, dp, device_index):
+    """(clusters the card keeps resident, blocks a cluster, workspace
+    matrices a cluster) of K6's forward or adjoint at dp on a device."""
+    lib = load_kernels()
+    clusters, blocks, slots = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = lib.qoc_stream_bwd_plan if dual else lib.qoc_stream_fwd_plan
+    with torch.cuda.device(device_index):
+        err = fn(dp, ctypes.byref(clusters), ctypes.byref(blocks),
+                 ctypes.byref(slots))
+    if err != 0:
+        raise RuntimeError("K6 launch plan failed: CUDA error {}".format(err))
+    return clusters.value, blocks.value, slots.value
+
+
+def stream_grid(dual, dp, s_count, device):
+    """(clusters, workspace matrices a cluster) of one K6 launch: one cluster
+    a segment, at most as many as the card keeps resident and as many
+    workspaces as half the free device memory holds (the caching
+    allocator's free blocks counted as free)."""
+    clusters, _, slots = _stream_plan(dual, dp, device.index)
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    by_memory = int(free * _STREAM_WORKSPACE_SHARE) // (slots * dp * dp * 8)
+    if by_memory < 1:
+        raise RuntimeError("K6 needs {} MB of device workspace; {} MB are "
+                           "free".format(slots * dp * dp * 8 >> 20,
+                                         free >> 20))
+    return min(s_count, clusters, by_memory), slots
+
+
+def _check_stream(name, a_seg, norm, *mats):
+    _check_device(a_seg, name)
+    dp = a_seg.shape[-1]
+    if not (STREAM_MIN_DP <= dp <= STREAM_MAX_DP and dp % _ALIGN == 0):
+        raise ValueError("{} takes padded d in {}..{}, a multiple of 64 "
+                         "(got {})".format(name, STREAM_MIN_DP,
+                                           STREAM_MAX_DP, dp))
+    _check_planes(a_seg, norm, *mats, dp=dp)
+    return dp
+
+
+def stream_fwd(a_seg, norm):
+    """K6 forward: same contract as :func:`plane_fwd_plain`. On a CPU tensor
+    it is the plain version; on a CUDA tensor (complex64, dp in
+    320..512) it launches ``csrc/stream_fwd.cu`` or raises."""
+    if a_seg.device.type == "cpu":
+        return stream_fwd_plain(a_seg, norm)
+    dp = _check_stream("stream_fwd", a_seg, norm)
+    s_count, length = a_seg.shape[:2]
+    dev = a_seg.device
+    out = torch.empty((s_count, length + 1, dp, dp), dtype=torch.complex64,
+                      device=dev)
+    out[:, 0] = torch.eye(dp, dtype=torch.complex64, device=dev)
+    grid, slots = stream_grid(False, dp, s_count, dev)
+    ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
+                     device=dev)
+    with torch.cuda.device(dev):
+        err = load_kernels().qoc_stream_fwd(
+            a_seg.data_ptr(), norm.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            s_count, length, dp, grid, _stream(dev))
+    if err != 0:
+        raise RuntimeError("K6 forward launch failed: CUDA error {}".format(
+            err))
+    stream_fwd.launches += 1
+    return out
+
+
+stream_fwd.launches = 0
+
+
+def stream_bwd(a_seg, norm, prefpad, seeds):
+    """K6 adjoint: same contract as :func:`plane_bwd_plain`. On a CPU tensor
+    it is the plain version; on a CUDA tensor it launches
+    ``csrc/stream_bwd.cu`` or raises."""
+    if a_seg.device.type == "cpu":
+        return stream_bwd_plain(a_seg, norm, prefpad, seeds)
+    dp = _check_stream("stream_bwd", a_seg, norm, prefpad, seeds)
+    s_count, length = a_seg.shape[:2]
+    if (prefpad.shape[:2] != (s_count, length + 1)
+            or seeds.shape[0] != s_count):
+        raise ValueError("stream_bwd: prefpad {}, seeds {} do not match "
+                         "planes {}".format(tuple(prefpad.shape),
+                                            tuple(seeds.shape),
+                                            tuple(a_seg.shape)))
+    dev = a_seg.device
+    out = torch.empty_like(a_seg)
+    grid, slots = stream_grid(True, dp, s_count, dev)
+    ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
+                     device=dev)
+    with torch.cuda.device(dev):
+        err = load_kernels().qoc_stream_bwd(
+            a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
+            seeds.data_ptr(), out.data_ptr(), ws.data_ptr(), s_count, length,
+            dp, grid, _stream(dev))
+    if err != 0:
+        raise RuntimeError("K6 adjoint launch failed: CUDA error {}".format(
+            err))
+    stream_bwd.launches += 1
+    return out
+
+
+stream_bwd.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Glue (plain torch): plans, norms, segment merge, seeds, projection
 # ---------------------------------------------------------------------------
@@ -573,17 +724,28 @@ def segment_plan(n_steps):
     return -(-n_steps // length), length
 
 
+def stream_segment_plan(n_steps):
+    """K6's (segments S, steps per segment L): at most 16 segments, one a
+    cluster of 8 blocks, so the card's SMs are busy from 16 steps up and
+    the merge stays at about 4 S products. The S*L - n_steps padded steps
+    carry zero planes (U = I exactly)."""
+    length = -(-n_steps // min(n_steps, _STREAM_SEGMENTS))
+    return -(-n_steps // length), length
+
+
 def chain_block_plan(d, n_steps, itemsize=8, planes_per_step=2):
     """Steps per time block of the loss: as many as keep the block's
     per-step backward state under 2 GiB, ``planes_per_step`` padded
     (dp, dp) matrices of ``itemsize`` bytes a step. The basis route keeps
     2 (its prefix, and the gradient plane the backward writes); the plane
     route adds its input plane and the plane build's autograd graph
-    (``core/schroedinger.py``). One block (the whole chain, most segments
-    in flight) whenever that fits; the Table-3 headline (d = 64, 10^4
-    steps, complex64) holds ~660 MB. Blocks hold their residuals until the
-    backward (no remat)."""
-    dp = max(d, KERNEL_DP)
+    (``core/schroedinger.py``). Planes count at the padded dimension of the
+    kernel that serves the block (multiples of 64 up to 512; d itself
+    above, where ``torch.matmul`` pads nothing). One block (the whole
+    chain, most segments in flight) whenever that fits; the Table-3
+    headline (d = 64, 10^4 steps, complex64) holds ~660 MB. Blocks hold
+    their residuals until the backward (no remat)."""
+    dp = kernel_dp(d) if kernel_dp(d) <= STREAM_MAX_DP else d
     step_bytes = planes_per_step * dp * dp * itemsize
     return max(1, min(n_steps, _BLOCK_BYTES // step_bytes))
 
@@ -724,44 +886,62 @@ class ChainExpmPropagate:
         return grad_a @ self.basis_ri.T
 
 
+def _plane_route(d, device, plain):
+    """(padded d, segment plan, forward, adjoint) of the plane op at d on
+    ``device``: K5 at padded d <= 64, K6 at 256 < padded d <= 512 (on the
+    CPU the plain versions, unpadded, on the same segment plan)."""
+    stream = uses_stream(d)
+    plan = stream_segment_plan if stream else segment_plan
+    if plain:
+        fns = (plane_fwd_plain, plane_bwd_plain)
+    else:
+        fns = (stream_fwd, stream_bwd) if stream else (plane_fwd, plane_bwd)
+    if device.type != "cuda":
+        return d, plan, *fns
+    if stream:
+        return kernel_dp(d), plan, *fns
+    if d > KERNEL_DP:
+        raise ValueError(
+            "the plane kernels take d <= {} (K5) or padded d in {}..{} (K6); "
+            "got d = {}: take the blocked route (ops/expm.py, K3/K4 up to "
+            "padded d = 256).".format(KERNEL_DP, STREAM_MIN_DP,
+                                      STREAM_MAX_DP, d))
+    return KERNEL_DP, plan, *fns
+
+
 class PlaneChainPropagate(torch.autograd.Function):
     """P(A) = exp(A_{B-1}) ··· exp(A_1) exp(A_0) for complex generator
     planes ``a`` (B, d, d), with the exact gradient to the planes
     (``chain_pallas.py`` plane_chain_propagate). Compose it with ordinary
     autograd through any differentiable plane build: Magnus M4/M6 terms,
-    any Hamiltonian callable.
+    any Hamiltonian callable, weights x basis.
 
     ``PlaneChainPropagate.apply(a, plain=False)``: on CUDA ``a`` must be
-    complex64 with d <= :data:`KERNEL_DP` (padded to it) and the op runs
-    K5; on the CPU it runs the plain versions in ``a``'s dtype at any d.
+    complex64 (any complex dtype with ``plain``), and the op runs K5 at d <= :data:`KERNEL_DP` (padded to it)
+    and K6 at 256 < padded d <= 512 (padded to a multiple of 64), and
+    raises between; on the CPU it runs the plain versions in ``a``'s dtype
+    at any d, on the segment plan of the kernel the card would run.
     ``plain=True`` runs the plain versions on any device: the reference the
     kernels are compared with. Propagation never sets it."""
 
     @staticmethod
     def forward(ctx, a, plain=False):
         n_steps, d = a.shape[0], a.shape[-1]
-        if a.device.type == "cuda":
-            if a.dtype != torch.complex64:
-                raise TypeError("the plane kernels take complex64 planes; "
-                                "got " + str(a.dtype))
-            if d > KERNEL_DP:
-                raise ValueError(
-                    "the plane kernels take d <= {} (got d = {}); larger "
-                    "Hilbert spaces take the blocked route (ops/expm.py, "
-                    "K3/K4 up to padded d = 256).".format(KERNEL_DP, d))
-            dp = KERNEL_DP
-        else:
-            dp = d
-        s_count, length = segment_plan(n_steps)
+        if (a.device.type == "cuda" and not plain
+                and a.dtype != torch.complex64):
+            raise TypeError("the plane kernels take complex64 planes; got "
+                            + str(a.dtype))
+        dp, plan, fwd, bwd = _plane_route(d, a.device, plain)
+        s_count, length = plan(n_steps)
         n1, ninf = _plane_norm_max(a)
         # Zero planes pad d and the steps: exp(0) = I exactly.
         a_seg = a.new_zeros((s_count * length, dp, dp))
         a_seg[:n_steps, :d, :d] = a
         a_seg = a_seg.reshape(s_count, length, dp, dp)
-        prefpad = (plane_fwd_plain if plain else plane_fwd)(a_seg, n1)
+        prefpad = fwd(a_seg, n1)
         cums, prods = _merge(prefpad, d)
         ctx.save_for_backward(a_seg, prefpad, cums, prods, ninf)
-        ctx.plain, ctx.n_steps = plain, n_steps
+        ctx.bwd, ctx.n_steps = bwd, n_steps
         return cums[-1].clone()
 
     @staticmethod
@@ -770,8 +950,7 @@ class PlaneChainPropagate(torch.autograd.Function):
         s_count, length, dp = a_seg.shape[:3]
         d = prods.shape[-1]
         seeds = _segment_seeds(grad_total, cums, prods, dp)
-        grad_a = (plane_bwd_plain if ctx.plain else plane_bwd)(
-            a_seg, ninf, prefpad, seeds)
+        grad_a = ctx.bwd(a_seg, ninf, prefpad, seeds)
         return grad_a.reshape(s_count * length, dp, dp)[
             :ctx.n_steps, :d, :d], None
 

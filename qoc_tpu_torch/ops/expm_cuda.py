@@ -28,21 +28,14 @@ import functools
 import torch
 
 from qoc_tpu_torch.ops.chain import (_Dual, _expm_ladder, _stream,
-                                     ladder_level, load_kernels)
+                                     kernel_dp, ladder_level, load_kernels)
 
 __all__ = ["KERNEL_MAX_DP", "expm_frechet_fwd", "expm_frechet_plain",
            "expm_fwd", "expm_fwd_plain", "kernel_dp"]
 
-# Padded dimensions the kernels take: multiples of 64 up to 256
-# (qoc_tpu/ops/expm.py _pallas_size_ok).
-_ALIGN = 64
+# Padded dimensions the kernels take: multiples of 64 (ops/chain.py
+# kernel_dp) up to 256 (qoc_tpu/ops/expm.py _pallas_size_ok).
 KERNEL_MAX_DP = 256
-
-
-def kernel_dp(d):
-    """The kernels' padded dimension for d: d rounded up to a multiple of
-    64."""
-    return -(-d // _ALIGN) * _ALIGN
 
 
 def _norm_max(a):

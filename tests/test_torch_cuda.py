@@ -1,4 +1,4 @@
-"""K1/K2, K5 and K3/K4 on the card against their plain PyTorch versions
+"""K1/K2, K5, K3/K4 and K6 on the card against their plain PyTorch versions
 (float32), and the routes that launch them.
 
 Marked ``cuda``: each test skips when no CUDA device is present, so on a
@@ -381,3 +381,88 @@ def test_blocked_route_matches_plane_route(cuda_device):
     assert abs(blocked - plane) / abs(plane) < FWD_RTOL
     assert float((g_blocked - g_plane).abs().max()
                  / g_plane.abs().max()) < GRAD_RTOL
+
+
+@pytest.mark.parametrize("d,n_steps", ((260, 5), (400, 19)))
+@pytest.mark.parametrize("target_norm", (0.3, 2.5, 7.0))
+def test_stream_kernels_match_plain_versions(cuda_device, d, n_steps,
+                                             target_norm):
+    """The plane op's total and plane gradient at 256 < padded d <= 512,
+    K6 against its plain versions, on decaying non-normal planes (U^H is
+    not U^-1)."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(14)
+    k = _unit_planes(rng, n_steps, d)
+    n = rng.normal(size=(n_steps, d, d)) + 1j * rng.normal(
+        size=(n_steps, d, d))
+    nn = n @ np.conj(np.swapaxes(n, -1, -2))
+    planes = k - 0.1 * nn / np.abs(nn).sum(-2).max()
+    planes = (planes * target_norm / np.abs(planes).sum(-2).max()).astype(
+        np.complex64)
+    tgt = torch.as_tensor(rng.normal(size=(d, d)).astype(np.complex64),
+                          device=cuda_device)
+    before = (chain.stream_fwd.launches, chain.stream_bwd.launches)
+    outs = []
+    for plain in (False, True):
+        a = torch.as_tensor(planes, device=cuda_device).requires_grad_(True)
+        total = chain.plane_chain_propagate(a, plain)
+        grad, = torch.autograd.grad(
+            torch.sum(torch.abs(total - tgt) ** 2), a)
+        outs.append((total.detach(), grad))
+    torch.cuda.synchronize()
+    assert (chain.stream_fwd.launches - before[0],
+            chain.stream_bwd.launches - before[1]) == (1, 1)
+    (total_k, grad_k), (total_p, grad_p) = outs
+    assert float((total_k - total_p).abs().max()
+                 / total_p.abs().max()) < FWD_RTOL
+    assert float((grad_k - grad_p).abs().max()
+                 / grad_p.abs().max()) < GRAD_RTOL
+
+
+def _lindblad_d20():
+    """The d = 20 Lindblad cell of chip_smoke.py (superoperator 400, 100
+    steps): the keyword arguments of grape_lindblad_discrete."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke.lindblad_d20_problem()
+
+
+def test_lindblad_d20_grape_launches_k6_only(cuda_device):
+    """grape_lindblad_discrete at d = 20 takes the streamed route: K6
+    forward and adjoint once an iteration, K1-K5 never."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    counters = (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
+                chain.plane_bwd, expm_cuda.expm_fwd,
+                expm_cuda.expm_frechet_fwd, chain.stream_fwd,
+                chain.stream_bwd)
+    before = [fn.launches for fn in counters]
+    result = qoc_tpu_torch.grape_lindblad_discrete(
+        iteration_count=3, log_iteration_step=0, device=cuda_device,
+        **_lindblad_d20())
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [0, 0, 0, 0, 0, 0, 3, 3]
+    assert result.errors[-1] < result.errors[0]
+    assert np.all(np.isfinite(result.best_final_densities))
+
+
+def test_lindblad_iteration_has_no_host_sync(cuda_device):
+    """One d = 20 Lindblad GRAPE iteration (clip, loss, gradient, Adam)
+    through K6 with CUDA's synchronizing calls turned into errors."""
+    import chip_smoke
+    from qoc_tpu_torch.core.lindblad import build_lindblad_loss
+    _lindblad_d20()                         # chip_smoke importable
+    iteration = chip_smoke.make_iteration(chip_smoke.lindblad_d20_pstate(),
+                                          cuda_device, build_lindblad_loss)
+    iteration()                             # builds and caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            error = iteration()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(error))

@@ -276,22 +276,18 @@ def test_blocked_route_grape_trajectory_matches_jax():
     (8, "M4", True, "plane chain, plain torch on cpu"),
     (8, "M4", False, "blocked expm + tree product, plain torch on cpu"),
     (72, "M2", True, "blocked expm + tree product, plain torch on cpu"),
-    (300, "M2", True, None),
+    (300, "M2", True, "streamed chain, plain torch on cpu"),
     (600, "M2", True, "blocked expm + tree product, torch.matmul Taylor "
                       "(d > 256)"),
 ))
 def test_route_table(d, magnus, allow_plane_chain, path, capsys):
     """The route by the problem alone (core/schroedinger.py): the loss is
-    built, nothing propagated. 256 < padded d <= 512 is refused, naming
-    K6."""
+    built, nothing propagated. 256 < padded d <= 512 takes K6's streamed
+    route."""
     from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
     pstate = Problem(d=d, n_c=1, n_steps=3).torch_pstate(magnus=magnus)
     build = lambda: build_schroedinger_loss(  # noqa: E731
         pstate, torch.device("cpu"), torch.float64, log_path=True,
         allow_plane_chain=allow_plane_chain)
-    if path is None:
-        with pytest.raises(NotImplementedError, match="K6"):
-            build()
-    else:
-        build()
-        assert "propagation path = " + path in capsys.readouterr().out
+    build()
+    assert "propagation path = " + path in capsys.readouterr().out
