@@ -8,7 +8,8 @@ Run from the root of a checkout, with one CUDA card and the CUDA toolkit
 (``--phases 16,20`` runs only the listed phases that stand alone, after the
 build, for a quick check of a kernel.) Phases, one line each:
 1. the device (name and power limit as nvidia-smi reports them);
-2. build the kernels (K1/K2/K5/K3/K4/K6) from qoc_tpu_torch/csrc with nvcc;
+2. build the kernels (K1/K2/K5/K3/K4/K6, K2/K5/K6 with their per-step-seed
+   mode) from qoc_tpu_torch/csrc with nvcc;
 3. K1 (forward) and K2 (adjoint) against their plain PyTorch versions in
    float32, at d = 64 and 21 basis terms, at weights scaled onto every
    Taylor ladder level (degree 4/8/12/19 and the squaring branch), at step
@@ -75,7 +76,33 @@ build, for a quick check of a kernel.) Phases, one line each:
    144) through K3/K4, with counters and final densities against float64;
 20. K6 times at the d = 20 cell's planes and at d = 2^9, beside their plain
    versions and bounds, with the grid (clusters and SMs) and the segment
-   merge's device time.
+   merge's device time;
+21. K2, K5 and K6 in their per-step-seed mode (the trajectory form, where
+   every prefix carries a gradient) against their plain versions in
+   float32 on every ladder level: K2 and K5 at d = 64 and 16 over 3, 37
+   and 2001 steps, K6 at d = 260, 400 and 512 over 1, 3 and 37 steps; the
+   adjoint alone, and the trajectory op's total, prefixes and gradient;
+   with seeds zero but at the last step each equals its last-step mode
+   bitwise;
+22. the slice at full width: grape_schroedinger_discrete on the step-cost
+   headline (the JAX package's bench_stepcost, bench.py:251-273: the
+   Table-3 problem with ForbidStates of |1> at multiplier 0.1), 2 warm-up
+   + 10 timed iterations, counters read around the run (K1 and K2 in its
+   per-step mode once an iteration, nothing else), then with
+   cost_eval_step 10; loss and gradient against the float64 plain route on
+   the card, with the final cost and for the step cost alone;
+23. step costs on the other routes: the M4 problem as a torch callable with
+   TargetStateInfidelityTime, a GRAPE through K5 (per-step mode) with
+   counters, and the d = 2^7 step-cost loss through K3/K4 and the prefix
+   scan with counters, each against float64;
+24. the d = 20 Lindblad cell with ForbidDensities and
+   TargetDensityInfidelityTime: a GRAPE through K6 (per-step mode) with
+   counters and a float64 check, and evolve_lindblad_discrete with
+   intermediate densities against float64;
+25. the per-step modes' times at their main paths' shapes (K2 at the
+   step-cost headline, K5 at the M4 planes, K6 at the d = 20 planes)
+   beside their plain versions, the last-step mode and their bounds, and
+   the trajectory glue's device times at the headline.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -139,6 +166,16 @@ D300_STEPS = 21
 D20 = 20
 D20_POINTS = 101
 D20_EVOLUTION_TIME = 10.0
+# The step-cost headline (bench.py:251-273 of the JAX package): ForbidStates
+# of |1> at multiplier 0.1 on the Table-3 problem, at every step, and
+# thinned to every 10th.
+STEP_COST_MULTIPLIER = 0.1
+THINNED_COST_EVAL_STEP = 10
+# The per-step-seed modes against their plain versions, on every ladder
+# level: K2/K5 at these d and steps, K6 at STREAM_DIMS and these steps.
+STEP_DIMS = (D, 16)
+STEP_STEPS = (3, 37, M4_STEPS)
+STREAM_STEP_STEPS = (1, 3, 37)
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth.
@@ -160,9 +197,10 @@ def _random_hermitian(rng, d):
 
 
 def bench_problem(d, control_count, control_eval_count, system_eval_count,
-                  evolution_time, magnus="M2", iteration_count=1):
+                  evolution_time, magnus="M2", iteration_count=1,
+                  step_costs=(), cost_eval_step=1):
     """The JAX package's bench.py _bench_problem (:82-109) with seed 0:
-    (pstate, hamiltonian, costs)."""
+    (pstate, hamiltonian, costs), ``step_costs`` after its final cost."""
     from qoc_tpu_torch.core.common import initialize_controls
     from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
                                       InterpolationPolicy, LinearHamiltonian,
@@ -178,11 +216,12 @@ def bench_problem(d, control_count, control_eval_count, system_eval_count,
     initial[0, 0] = 1
     target = np.zeros((1, d, 1))
     target[0, -1] = 1
-    costs = [TargetStateInfidelity(target)]
+    costs = [TargetStateInfidelity(target)] + list(step_costs)
     initial_controls, max_norms = initialize_controls(
         True, control_count, control_eval_count, evolution_time, None, None)
     pstate = GrapeSchroedingerDiscreteState(
-        True, control_count, control_eval_count, 1, costs, evolution_time,
+        True, control_count, control_eval_count, cost_eval_step, costs,
+        evolution_time,
         hamiltonian, None, initial_controls, initial,
         InterpolationPolicy.LINEAR, iteration_count, 0, max_norms,
         MagnusPolicy[magnus], 0, Adam(), None, False, 0, system_eval_count)
@@ -215,12 +254,11 @@ def d1024_problem():
     return bench_problem(D1024, CONTROL_COUNT, 2, 2, 0.05)
 
 
-def torch_callable(hamiltonian, dev):
+def torch_callable(hamiltonian, dev, cdtype=torch.complex64):
     """The LinearHamiltonian's H(c, t) = h0 + Σ c_i A_i + conj(c_i) A_i^H
     written as a plain torch callable: it takes the plane route."""
-    h0 = torch.as_tensor(hamiltonian.h0, dtype=torch.complex64, device=dev)
-    ops = torch.as_tensor(hamiltonian.operators, dtype=torch.complex64,
-                          device=dev)
+    h0 = torch.as_tensor(hamiltonian.h0, dtype=cdtype, device=dev)
+    ops = torch.as_tensor(hamiltonian.operators, dtype=cdtype, device=dev)
 
     def h(controls, t):
         drive = torch.einsum("i,iab->ab", controls, ops)
@@ -283,13 +321,25 @@ def _wrappers():
             "K6 fwd": chain.stream_fwd, "K6 bwd": chain.stream_bwd}
 
 
+# The adjoint wrappers also count their launches in the per-step-seed mode
+# (``step_launches``, a part of ``launches``), read as "<key> step".
+STEP_MODES = ("K2", "K5 bwd", "K6 bwd")
+
+
 def reset_launches():
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    for key in STEP_MODES:
+        wrappers[key].step_launches = 0
 
 
 def read_launches():
-    return {key: fn.launches for key, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    launches.update({key + " step": wrappers[key].step_launches
+                     for key in STEP_MODES})
+    return launches
 
 
 def headline_weights(pstate, dev):
@@ -533,6 +583,8 @@ def phase_grape(dev):
         raise RuntimeError("the GRAPE run did not launch both kernels")
     if launches["K5 fwd"] or launches["K5 bwd"]:
         raise RuntimeError("the fused route launched the plane kernels")
+    if launches["K2 step"]:
+        raise RuntimeError("the final cost alone ran K2's per-step mode")
     return launches, result.iterations_per_s
 
 
@@ -993,7 +1045,7 @@ def _loss_grad(loss, pstate, dev, dtype=torch.float32):
     from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
     flat = torch.as_tensor(strip_controls(True, pstate.initial_controls),
                            dtype=dtype, device=dev).requires_grad_(True)
-    error, _ = loss(slap_controls_torch(True, flat, pstate.controls_shape))
+    error = loss(slap_controls_torch(True, flat, pstate.controls_shape))[0]
     grad, = torch.autograd.grad(error, flat)
     return error.detach(), grad
 
@@ -1359,12 +1411,12 @@ def phase_stream_schroedinger(dev):
 
 
 def lindblad_problem(d, control_eval_count, system_eval_count,
-                     evolution_time):
+                     evolution_time, step_costs=()):
     """bench.py's bench_lindblad_d20 construction (:294-349) at Hilbert d:
     H = 0.1 n + c a + c* a^H (one complex control), T1 rate 1e-3 on a,
-    TargetDensityInfidelity from |0><0| to |1><1|, flat initial controls
-    (deterministic: the seed draws nothing). Returns the keyword arguments
-    of grape_lindblad_discrete."""
+    TargetDensityInfidelity from |0><0| to |1><1| (``step_costs`` after
+    it), flat initial controls (deterministic: the seed draws nothing).
+    Returns the keyword arguments of grape_lindblad_discrete."""
     from qoc_tpu_torch import (ConstantLindblad, LinearHamiltonian,
                                TargetDensityInfidelity)
     from qoc_tpu_torch.core.common import initialize_controls
@@ -1378,7 +1430,7 @@ def lindblad_problem(d, control_eval_count, system_eval_count,
     controls, norms = initialize_controls(True, 1, control_eval_count,
                                           evolution_time, None, None)
     return dict(control_count=1, control_eval_count=control_eval_count,
-                costs=[TargetDensityInfidelity(target)],
+                costs=[TargetDensityInfidelity(target)] + list(step_costs),
                 evolution_time=evolution_time, initial_densities=initial,
                 system_eval_count=system_eval_count, complex_controls=True,
                 hamiltonian=LinearHamiltonian(0.1 * n_op, np.stack((a,))),
@@ -1388,18 +1440,19 @@ def lindblad_problem(d, control_eval_count, system_eval_count,
                 method=LindbladMethod.MAGNUS_EXPM)
 
 
-def lindblad_d20_problem():
+def lindblad_d20_problem(step_costs=()):
     """The d = 20 cell: 1 complex control, 101 points (100 steps), T = 10."""
-    return lindblad_problem(D20, D20_POINTS, D20_POINTS, D20_EVOLUTION_TIME)
+    return lindblad_problem(D20, D20_POINTS, D20_POINTS, D20_EVOLUTION_TIME,
+                            step_costs)
 
 
-def lindblad_d20_pstate():
+def lindblad_d20_pstate(step_costs=()):
     """The d = 20 cell as a GrapeLindbladDiscreteState (MAGNUS_EXPM, Adam),
     for build_lindblad_loss."""
     from qoc_tpu_torch import Adam
     from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
                                       InterpolationPolicy)
-    kw = lindblad_d20_problem()
+    kw = lindblad_d20_problem(step_costs)
     pstate = GrapeLindbladDiscreteState(
         True, 1, kw["control_eval_count"], 1, kw["costs"],
         kw["evolution_time"], kw["hamiltonian"], None, kw["initial_controls"],
@@ -1410,14 +1463,17 @@ def lindblad_d20_pstate():
     return pstate
 
 
-def lindblad_d20_planes(dev, dtype=torch.float32):
+def lindblad_d20_planes(dev, dtype=torch.float32, step_costs=()):
     """The d = 20 cell's superoperator planes (100, 400, 400) at its initial
     controls, built as the streamed route builds them, and the cell's loss
-    over the plain plane op in ``dtype`` (the float64 reference)."""
+    over the plain plane op in ``dtype`` (the float64 reference): with
+    ``step_costs`` (on every step) through its trajectory form, the loss
+    returning the densities after every step as well."""
     from qoc_tpu_torch.config import complex_dtype
-    from qoc_tpu_torch.core.schroedinger import fused_weights
-    from qoc_tpu_torch.ops.chain import plane_chain_propagate
-    kw = lindblad_d20_problem()
+    from qoc_tpu_torch.core.schroedinger import fused_weights, step_cost_sum
+    from qoc_tpu_torch.ops.chain import (plane_chain_propagate,
+                                         plane_chain_propagate_prefixes)
+    kw = lindblad_d20_problem(step_costs)
     cdtype = complex_dtype(dtype)
     n_steps = kw["system_eval_count"] - 1
     dt = kw["evolution_time"] / n_steps
@@ -1436,9 +1492,20 @@ def lindblad_d20_planes(dev, dtype=torch.float32):
         return torch.einsum("jk,kab->jab", w, basis)
 
     def plain_loss(controls):
-        vec = vec0 @ plane_chain_propagate(planes(controls), True).mT
-        densities = vec.reshape(1, D20, D20)
-        return kw["costs"][0].cost(controls, densities, n_steps), densities
+        if not step_costs:
+            vec = vec0 @ plane_chain_propagate(planes(controls), True).mT
+            densities = vec.reshape(1, D20, D20)
+            return kw["costs"][0].cost(controls, densities, n_steps), \
+                densities
+        total, prefixes = plane_chain_propagate_prefixes(planes(controls),
+                                                         True)
+        every = (vec0 @ prefixes.mT).reshape(n_steps, 1, D20, D20)
+        densities = (vec0 @ total.mT).reshape(1, D20, D20)
+        error = kw["costs"][0].cost(controls, densities, n_steps)
+        error = error + step_cost_sum(list(step_costs), controls,
+                                      lambda sel: every[sel], 0, n_steps, 1,
+                                      dev)
+        return error, densities, every
 
     controls = torch.as_tensor(kw["initial_controls"], dtype=cdtype,
                                device=dev)
@@ -1575,8 +1642,8 @@ def _time_stream(label, a, launches):
         "K6 bwd plain": cuda_ms(lambda: chain.stream_bwd_plain(
             a_seg, ninf, pref, seeds), 2),
         "merge": cuda_ms(lambda: chain._merge(pref, d), 5),
-        "seeds": cuda_ms(lambda: chain._segment_seeds(grad_total, cums,
-                                                      prods, dp), 5),
+        "seeds": cuda_ms(lambda: chain._segment_seeds(pref, cums, prods, dp,
+                                                      grad_total), 5),
     }
     absa = a.abs()
     bounds = {
@@ -1612,6 +1679,566 @@ def phase_stream_timing(dev):
     pstate, hamiltonian, _ = d512_problem()
     _time_stream("d=512", initial_planes(pstate, hamiltonian, dev), 1)
     return out
+
+
+def _last_level(d, density=False):
+    """|d-1> as (1, d, 1), or |1><1| as (1, d, d): the targets of
+    bench_problem and lindblad_problem."""
+    if density:
+        target = np.zeros((1, d, d), dtype=complex)
+        target[0, 1, 1] = 1
+    else:
+        target = np.zeros((1, d, 1), dtype=complex)
+        target[0, -1] = 1
+    return target
+
+
+def forbid_level(d, system_eval_count, level=1, cost_eval_step=1):
+    """bench_stepcost's step cost (bench.py:251-273 of the JAX package):
+    ForbidStates of |level>, multiplier 0.1."""
+    from qoc_tpu_torch import ForbidStates
+    forbidden = np.zeros((1, 1, d, 1), dtype=complex)
+    forbidden[0, 0, level] = 1
+    return ForbidStates(forbidden, system_eval_count, cost_eval_step,
+                        cost_multiplier=STEP_COST_MULTIPLIER)
+
+
+def stepcost_problem(cost_eval_step=1, final_cost=True):
+    """The step-cost headline (bench_stepcost): the Table-3 problem with
+    ForbidStates of |1> (multiplier 0.1) at every ``cost_eval_step``-th
+    step; ``final_cost=False`` drops the final TargetStateInfidelity, so
+    every gradient flows through the per-step prefixes."""
+    pstate, hamiltonian, costs = bench_problem(
+        D, CONTROL_COUNT, SYSTEM_EVAL_COUNT, SYSTEM_EVAL_COUNT,
+        EVOLUTION_TIME, step_costs=[forbid_level(
+            D, SYSTEM_EVAL_COUNT, cost_eval_step=cost_eval_step)],
+        cost_eval_step=cost_eval_step)
+    if not final_cost:
+        pstate.costs = costs = costs[1:]
+    return pstate, hamiltonian, costs
+
+
+def d20_step_costs():
+    """The d = 20 cell's step costs: ForbidDensities of |2><2| (the level
+    above the target; multiplier 0.1) and TargetDensityInfidelityTime of the
+    target, at every step."""
+    from qoc_tpu_torch import ForbidDensities, TargetDensityInfidelityTime
+    leak = np.zeros((1, 1, D20, D20), dtype=complex)
+    leak[0, 0, 2, 2] = 1
+    return [ForbidDensities(leak, D20_POINTS,
+                            cost_multiplier=STEP_COST_MULTIPLIER),
+            TargetDensityInfidelityTime(D20_POINTS,
+                                        _last_level(D20, density=True))]
+
+
+def float64_planes(pstate, hamiltonian, dev):
+    """controls -> a Schrödinger problem's step generators (B, d, d) in
+    complex128 on the card: weight rows times the generator basis for a
+    LinearHamiltonian under M2 (the steps of the fused route), else the
+    Magnus terms of ``plane_builder`` (``hamiltonian`` a complex128
+    callable)."""
+    from qoc_tpu_torch.core.schroedinger import fused_weights, plane_builder
+    from qoc_tpu_torch.models import LinearHamiltonian, MagnusPolicy
+    dt = float(pstate.dt)
+    times = torch.arange(pstate.system_eval_count - 1, dtype=torch.float64,
+                         device=dev) * dt
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float64,
+                          device=dev)
+    if (isinstance(hamiltonian, LinearHamiltonian)
+            and pstate.magnus_policy == MagnusPolicy.M2):
+        basis = torch.as_tensor(hamiltonian.generator_basis(dt),
+                                dtype=torch.complex128, device=dev)
+        return lambda controls: torch.einsum(
+            "jk,kab->jab", fused_weights(controls, times, cet, dt).to(
+                torch.complex128), basis)
+    build = plane_builder(hamiltonian, pstate.magnus_policy, cet, dt)
+    return lambda controls: build(controls, times).to(torch.complex128)
+
+
+def schroedinger_reference(pstate, dev, planes):
+    """A Schrödinger problem's loss in float64 on the card, apart from the
+    kernels: its generators (``planes``, float64_planes) through the plain
+    plane op's trajectory form (d <= 64: K5's plain versions) or
+    torch.linalg.matrix_exp and an inclusive prefix scan (d = 128), the
+    step costs at their cost steps, the final costs after the last step."""
+    from qoc_tpu_torch.core.schroedinger import step_cost_sum
+    from qoc_tpu_torch.ops import chain
+    n_steps = pstate.system_eval_count - 1
+    initial = torch.as_tensor(pstate.initial_states, dtype=torch.complex128,
+                              device=dev)
+    final_costs = [cost for cost in pstate.costs
+                   if not cost.requires_step_evaluation]
+
+    def loss(controls):
+        a = planes(controls)
+        if a.shape[-1] <= chain.KERNEL_DP:
+            total, prefixes = chain.plane_chain_propagate_prefixes(a, True)
+        else:
+            prefixes = chain._prefix_products(torch.linalg.matrix_exp(a))
+            total = prefixes[-1]
+        error = step_cost_sum(pstate.step_costs, controls,
+                              lambda sel: prefixes[sel, None] @ initial, 0,
+                              n_steps, pstate.cost_eval_step, dev)
+        states = total @ initial
+        for cost in final_costs:
+            error = error + cost.cost(controls, states, n_steps)
+        return error, states
+
+    return loss
+
+
+def _against_float64(label, loss, reference, pstate, dev):
+    """(loss, gradient) of the float32 kernel route ``loss`` and the float64
+    ``reference`` at the initial controls; raises past 1e-4 / 1e-3."""
+    e32, g32 = _loss_grad(loss, pstate, dev)
+    e64, g64 = _loss_grad(reference, pstate, dev, torch.float64)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(e32)) and bool(torch.isfinite(g32).all())):
+        raise RuntimeError("non-finite {} loss or gradient".format(label))
+    rel_err = float(abs(e32.double() - e64) / abs(e64))
+    rel_grad = _rel(g32.double(), g64)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("{}: the kernel route disagrees with float64: "
+                           "loss rel {:.2e}, gradient rel {:.2e}".format(
+                               label, rel_err, rel_grad))
+    return "{} {:.8f} / {:.8f} rel {:.2e}, gradient rel {:.2e}".format(
+        label, float(e32), float(e64), rel_err, rel_grad)
+
+
+def _compare_trajectory(run, x, gen):
+    """The trajectory form ``run(x, plain)`` -> (total, prefixes) over the
+    kernels against the plain versions, for random gradients on both
+    outputs: the relative errors of the total, the prefixes and the
+    gradient to x."""
+    outs, cotangents = [], None
+    for plain in (False, True):
+        xt = x.clone().requires_grad_(True)
+        total, prefixes = run(xt, plain)
+        if cotangents is None:
+            cotangents = [torch.randn(y.shape, dtype=y.dtype,
+                                      device=y.device, generator=gen)
+                          for y in (total, prefixes)]
+        grad, = torch.autograd.grad((total, prefixes), xt, cotangents)
+        outs.append((total.detach(), prefixes.detach(), grad))
+    torch.cuda.synchronize()
+    return [_rel(k, p) for k, p in zip(*outs)]
+
+
+def _check_step_mode(bwd, bwd_plain, args, dp, gen):
+    """An adjoint kernel ``bwd(*args, seeds)`` in its per-step-seed mode
+    against its plain version on random per-step seeds (S, L, dp, dp):
+    (relative error, max |err|, the seeds). With every seed zero but each
+    segment's last, it must equal the last-step mode bitwise."""
+    prefpad = args[-1]
+    seeds = torch.randn((prefpad.shape[0], prefpad.shape[1] - 1, dp, dp),
+                        dtype=torch.complex64, device=prefpad.device,
+                        generator=gen)
+    got, want = bwd(*args, seeds), bwd_plain(*args, seeds)
+    last = seeds[:, -1].contiguous()
+    only_last = torch.zeros_like(seeds)
+    only_last[:, -1] = last
+    same = torch.equal(bwd(*args, only_last), bwd(*args, last))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(got)).all()):
+        raise RuntimeError(bwd.__name__ + " (per-step seeds) produced "
+                           "non-finite values")
+    if not same:
+        raise RuntimeError(bwd.__name__ + ": per-step seeds zero but the "
+                           "last differ from the last-step mode")
+    return _rel(got, want), float((got - want).abs().max()), seeds
+
+
+def _step_row(level, rel_kernel, rels, name):
+    """One ladder level's line of phase 21, raising past the tolerances."""
+    rel_total, rel_pref, rel_grad = rels
+    if max(rel_total, rel_pref) > FWD_RTOL or \
+            max(rel_kernel, rel_grad) > GRAD_RTOL:
+        raise RuntimeError("{} per-step mode disagrees with its plain "
+                           "version at level {}: kernel {:.1e}, total {:.1e}, "
+                           "prefixes {:.1e}, gradient {:.1e}".format(
+                               name, level, rel_kernel, *rels))
+    return "{} {:.1e} {:.1e} {:.1e} {:.1e}".format(level, rel_kernel, *rels)
+
+
+def phase_step_kernels(dev):
+    """K2, K5 and K6 in their per-step-seed mode against their plain
+    versions in float32 on every ladder level: K2 (the chain op's trajectory
+    form) and K5 (the plane op's) at d = 64 and 16 over 3, 37 and 2001
+    steps, K6 (the plane op's) at d = 260, 400 and 512 over 1, 3 and 37;
+    each adjoint alone on random per-step seeds, and the op's total,
+    prefixes and input gradient for random gradients on both outputs; and
+    each mode with seeds zero but at the last step bitwise the last-step
+    mode."""
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.ops.chain import (ChainExpmPropagate,
+                                         plane_chain_propagate_prefixes)
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n_b = 1 + 2 * CONTROL_COUNT
+    for d in STEP_DIMS:
+        for n_steps in STEP_STEPS:
+            w = torch.as_tensor(rng.normal(size=(n_steps, n_b)).astype(
+                np.float32), device=dev)
+            base = _unit_planes(rng, n_steps, d)
+            rows = {"K2": [], "K5 bwd": []}
+            for target in LEVEL_NORMS:
+                basis = _scaled_basis(rng, d, n_b, w.cpu().numpy(), target)
+                ops = {plain: ChainExpmPropagate(basis, dev, torch.float32,
+                                                 plain=plain,
+                                                 return_prefixes=True)
+                       for plain in (False, True)}
+                rels = _compare_trajectory(lambda x, plain: ops[plain](x), w,
+                                           gen)
+                op = ops[False]
+                s_count, length = chain.segment_plan(n_steps)
+                w_seg = torch.zeros((s_count * length, n_b), device=dev)
+                w_seg[:n_steps] = w
+                w_seg = w_seg.reshape(s_count, length, n_b)
+                n1, ninf = chain._norm_max(w, op.basis_ri, op.d)
+                pref = chain.chain_fwd_plain(w_seg, op.basis, n1)
+                rel, _, _ = _check_step_mode(
+                    chain.chain_bwd, chain.chain_bwd_plain,
+                    (w_seg, op.basis_h, ninf, pref), op.dp, gen)
+                rows["K2"].append(_step_row(chain.ladder_level(ninf), rel,
+                                            rels, "K2"))
+                a = torch.as_tensor((base * target).astype(np.complex64),
+                                    device=dev)
+                rels = _compare_trajectory(plane_chain_propagate_prefixes, a,
+                                           gen)
+                a_seg, n1, ninf = _segment_planes(a)
+                pref = chain.plane_fwd_plain(a_seg, n1)
+                rel, _, _ = _check_step_mode(
+                    chain.plane_bwd, chain.plane_bwd_plain,
+                    (a_seg, ninf, pref), chain.KERNEL_DP, gen)
+                rows["K5 bwd"].append(_step_row(chain.ladder_level(ninf),
+                                                rel, rels, "K5"))
+            for key, lines in rows.items():
+                print("phase 21 per-step {}: d={} steps={} S x L = {} x {} "
+                      "(level, rel adjoint, op total, prefixes, gradient): "
+                      "{}; last seeds only = last-step mode bitwise".format(
+                          key, d, n_steps, *chain.segment_plan(n_steps),
+                          "; ".join(lines)), flush=True)
+    for d in STREAM_DIMS:
+        for n_steps in STREAM_STEP_STEPS:
+            rows = []
+            for target in LEVEL_NORMS:
+                a = _stream_planes(gen, n_steps, d, target, dev)
+                rels = _compare_trajectory(plane_chain_propagate_prefixes, a,
+                                           gen)
+                a_seg, n1, ninf = _stream_inputs(a)
+                pref = chain.stream_fwd_plain(a_seg, n1)
+                rel, _, _ = _check_step_mode(
+                    chain.stream_bwd, chain.stream_bwd_plain,
+                    (a_seg, ninf, pref), a_seg.shape[-1], gen)
+                rows.append(_step_row(chain.ladder_level(ninf), rel, rels,
+                                      "K6"))
+            print("phase 21 per-step K6 bwd: d={} (padded {}) steps={} S x L "
+                  "= {} x {} (level, rel adjoint, op total, prefixes, "
+                  "gradient): {}; last seeds only = last-step mode bitwise"
+                  "".format(d, chain.kernel_dp(d), n_steps,
+                            *chain.stream_segment_plan(n_steps),
+                            "; ".join(rows)), flush=True)
+
+
+def _grape_launches(label, result, launches, kernels, iterations):
+    """Checks of a GRAPE run of ``iterations``: ran them all, finite, its
+    error fell, and launched each of ``kernels`` (read_launches keys) once
+    an iteration and nothing else."""
+    errors = np.asarray(result.errors)
+    if result.iteration_count_ran != iterations:
+        raise RuntimeError(label + " GRAPE stopped early")
+    evolved = getattr(result, "best_final_states", None)
+    if evolved is None:
+        evolved = result.best_final_densities
+    if not (np.all(np.isfinite(errors)) and np.all(np.isfinite(evolved))):
+        raise RuntimeError("non-finite {} GRAPE result".format(label))
+    if not errors[-1] < errors[0]:
+        raise RuntimeError(label + " GRAPE error did not fall")
+    if any(n != (iterations if key in kernels else 0)
+           for key, n in launches.items()):
+        raise RuntimeError("{} GRAPE did not launch {} once an iteration "
+                           "and nothing else: {}".format(label, kernels,
+                                                         launches))
+    return errors
+
+
+def phase_stepcost_grape(dev):
+    """The slice at full width: grape_schroedinger_discrete on the step-cost
+    headline (bench.py:251-273 of the JAX package: the Table-3 problem with
+    ForbidStates of |1>, multiplier 0.1, cost_eval_step 1), 2 warm-up + 10
+    timed Adam iterations, counters read around the run (K1, and K2 in its
+    per-step-seed mode, once an iteration; nothing else); the same with
+    cost_eval_step 10; then loss and gradient against the float64 plain
+    route on the card, with the final cost and for the step cost alone."""
+    from qoc_tpu_torch import grape_schroedinger_discrete
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    out = {}
+    for ces in (1, THINNED_COST_EVAL_STEP):
+        pstate, hamiltonian, costs = stepcost_problem(ces)
+        reset_launches()
+        result = grape_schroedinger_discrete(
+            CONTROL_COUNT, CONTROL_EVAL_COUNT, costs, EVOLUTION_TIME,
+            hamiltonian, pstate.initial_states, SYSTEM_EVAL_COUNT,
+            complex_controls=True, cost_eval_step=ces,
+            initial_controls=pstate.initial_controls,
+            iteration_count=iterations, log_iteration_step=0,
+            max_control_norms=pstate.max_control_norms,
+            fused_chunk=WARMUP_ITERATIONS, device=dev)
+        launches = read_launches()
+        errors = _grape_launches("the step-cost headline", result, launches,
+                                 ("K1", "K2", "K2 step"), iterations)
+        print("phase 22 step-cost grape (ForbidStates |1> x 0.1, "
+              "cost_eval_step {}): {} iterations, {:.2f} it/s steady ({} "
+              "timed after {} warm-up), error {:.6f} -> {:.6f}, launches {}"
+              "".format(ces, result.iteration_count_ran,
+                        result.iterations_per_s, TIMED_ITERATIONS,
+                        WARMUP_ITERATIONS, errors[0], errors[-1], launches),
+              flush=True)
+        out[ces] = (launches, result.iterations_per_s)
+    lines = []
+    for label, final in (("bench_stepcost loss", True),
+                         ("step cost alone", False)):
+        pstate, hamiltonian, _ = stepcost_problem(1, final)
+        lines.append(_against_float64(
+            label, build_schroedinger_loss(pstate, dev, torch.float32),
+            schroedinger_reference(pstate, dev, float64_planes(
+                pstate, hamiltonian, dev)), pstate, dev))
+    print("phase 22 step-cost headline, float32 kernel route vs float64 "
+          "plain route (K5's plain trajectory form): " + "; ".join(lines),
+          flush=True)
+    return out
+
+
+def phase_stepcost_routes(dev):
+    """Step costs on the other Schrödinger routes: the M4 problem (bench_m4)
+    as a torch callable with TargetStateInfidelityTime, a 12-iteration GRAPE
+    through K5 (per-step mode) with counters; and the d = 2^7 problem with
+    ForbidStates and TargetStateInfidelityTime, one loss and gradient
+    through K3/K4 and the prefix scan, with counters; each against float64
+    on the card."""
+    from qoc_tpu_torch import (TargetStateInfidelityTime,
+                               grape_schroedinger_discrete)
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    from qoc_tpu_torch.models import MagnusPolicy
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    pstate, hamiltonian, costs = bench_problem(
+        D, CONTROL_COUNT, M4_STEPS, M4_STEPS, M4_EVOLUTION_TIME, "M4",
+        step_costs=[TargetStateInfidelityTime(M4_STEPS, _last_level(D))])
+    reset_launches()
+    result = grape_schroedinger_discrete(
+        CONTROL_COUNT, M4_STEPS, costs, M4_EVOLUTION_TIME,
+        torch_callable(hamiltonian, dev), pstate.initial_states, M4_STEPS,
+        complex_controls=True, initial_controls=pstate.initial_controls,
+        iteration_count=iterations, log_iteration_step=0,
+        magnus_policy=MagnusPolicy.M4,
+        max_control_norms=pstate.max_control_norms,
+        fused_chunk=WARMUP_ITERATIONS, device=dev)
+    launches = read_launches()
+    errors = _grape_launches("the M4 step-cost", result, launches,
+                             ("K5 fwd", "K5 bwd", "K5 bwd step"), iterations)
+    pstate.hamiltonian = torch_callable(hamiltonian, dev)
+    check = _against_float64(
+        "loss", build_schroedinger_loss(pstate, dev, torch.float32),
+        schroedinger_reference(pstate, dev, float64_planes(
+            pstate, torch_callable(hamiltonian, dev, torch.complex128),
+            dev)), pstate, dev)
+    print("phase 23 M4 step-cost grape (torch callable, "
+          "TargetStateInfidelityTime, {} steps, plane route): {} iterations, "
+          "{:.2f} it/s steady, error {:.6f} -> {:.6f}, launches {}; vs "
+          "float64: {}".format(M4_STEPS - 1, result.iteration_count_ran,
+                               result.iterations_per_s, errors[0],
+                               errors[-1], launches, check), flush=True)
+    pstate, hamiltonian, _ = bench_problem(
+        D128, CONTROL_COUNT, D128_STEPS, D128_STEPS, D128_EVOLUTION_TIME,
+        step_costs=[forbid_level(D128, D128_STEPS),
+                    TargetStateInfidelityTime(D128_STEPS,
+                                              _last_level(D128))])
+    loss = build_schroedinger_loss(pstate, dev, torch.float32)
+    reset_launches()
+    _loss_grad(loss, pstate, dev)
+    torch.cuda.synchronize()
+    d128_launches = read_launches()
+    # One K3 and one K4 launch a time block (chain_block_plan: the
+    # trajectory's prefix scan keeps more a step, so it takes several).
+    blocks = d128_launches["K3"]
+    if blocks < 1 or any(n != (blocks if key in ("K3", "K4") else 0)
+                         for key, n in d128_launches.items()):
+        raise RuntimeError("the d = 128 step-cost loss did not run K3 and K4 "
+                           "alone, once a block: {}".format(d128_launches))
+    check = _against_float64(
+        "loss", loss, schroedinger_reference(pstate, dev, float64_planes(
+            pstate, hamiltonian, dev)), pstate, dev)
+    ms = cuda_ms(lambda: _loss_grad(loss, pstate, dev), 3)
+    print("phase 23 d=128 step-cost loss (ForbidStates + "
+          "TargetStateInfidelityTime, {} steps, blocked route + prefix "
+          "scan, {} time blocks): loss and gradient {:.3f} ms, launches {}; "
+          "vs float64 (matrix_exp and a prefix scan): {}".format(
+              D128_STEPS - 1, blocks, ms, d128_launches, check), flush=True)
+    return launches, result.iterations_per_s
+
+
+def phase_stepcost_lindblad(dev):
+    """The d = 20 Lindblad cell with step costs (d20_step_costs): a
+    12-iteration GRAPE through K6 (per-step mode) with counters, loss and
+    gradient against the float64 plain route, and
+    evolve_lindblad_discrete(save_intermediate_densities=True) on the card
+    (K6 forward alone) against the float64 densities after every step."""
+    from qoc_tpu_torch import evolve_lindblad_discrete, grape_lindblad_discrete
+    from qoc_tpu_torch.core.lindblad import build_lindblad_loss
+    step_costs = d20_step_costs()
+    kw = lindblad_d20_problem(step_costs)
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    reset_launches()
+    result = grape_lindblad_discrete(
+        iteration_count=iterations, log_iteration_step=0,
+        fused_chunk=WARMUP_ITERATIONS, device=dev, **kw)
+    launches = read_launches()
+    errors = _grape_launches("the d = 20 step-cost Lindblad", result,
+                             launches, ("K6 fwd", "K6 bwd", "K6 bwd step"),
+                             iterations)
+    pstate = lindblad_d20_pstate(step_costs)
+    _, reference = lindblad_d20_planes(dev, torch.float64, step_costs)
+    check = _against_float64(
+        "loss", build_lindblad_loss(pstate, dev, torch.float32), reference,
+        pstate, dev)
+    reset_launches()
+    evolved = evolve_lindblad_discrete(
+        kw["evolution_time"], kw["initial_densities"],
+        kw["system_eval_count"], controls=kw["initial_controls"],
+        costs=kw["costs"], hamiltonian=kw["hamiltonian"],
+        lindblad_data=kw["lindblad_data"], method=kw["method"],
+        save_intermediate_densities=True, device=dev)
+    evolve_launches = read_launches()
+    with torch.no_grad():
+        error64, _, every64 = reference(torch.as_tensor(
+            kw["initial_controls"], dtype=torch.complex128, device=dev))
+    got = evolved.intermediate_densities
+    want = np.concatenate((kw["initial_densities"][None],
+                           every64.cpu().numpy()))
+    err = float(np.abs(got - want).max())
+    rel_error = abs(evolved.error - float(error64)) / abs(float(error64))
+    print("phase 24 Lindblad d=20 step-cost grape (ForbidDensities |2><2| x "
+          "0.1 + TargetDensityInfidelityTime, streamed route): {} "
+          "iterations, {:.2f} it/s steady, error {:.6f} -> {:.6f}, launches "
+          "{}; vs float64: {}; evolve with intermediate densities {} "
+          "max|err| {:.2e} vs float64, error rel {:.2e}, launches {}".format(
+              result.iteration_count_ran, result.iterations_per_s, errors[0],
+              errors[-1], launches, check, got.shape, err, rel_error,
+              evolve_launches), flush=True)
+    # The last intermediate is the last prefix applied, the final densities
+    # the merged total: the same product, rounded in another order.
+    if got.shape != (D20_POINTS, 1, D20, D20) or np.abs(
+            got[-1] - evolved.final_densities).max() > FWD_RTOL:
+        raise RuntimeError("evolve's intermediate densities are not the "
+                           "(101, 1, 20, 20) stack ending at the final ones")
+    if err > FWD_RTOL or rel_error > FWD_RTOL:
+        raise RuntimeError("evolve's intermediate densities or error "
+                           "disagree with float64")
+    if any(n != (1 if key == "K6 fwd" else 0)
+           for key, n in evolve_launches.items()):
+        raise RuntimeError("the d = 20 evolve did not run K6's forward "
+                           "alone: {}".format(evolve_launches))
+    return launches, result.iterations_per_s
+
+
+def _time_step_mode(key, bwd, bwd_plain, args, dp, step_norms, level,
+                    gen, repeats):
+    """An adjoint kernel in its per-step-seed mode at a main path's shapes
+    (``args`` its inputs but the seeds, prefpad last): kernel and plain
+    times on random per-step seeds, the last-step mode's time in the same
+    call, the bound, and max |err| against the plain version."""
+    rel, err, seeds = _check_step_mode(bwd, bwd_plain, args, dp, gen)
+    if rel > GRAD_RTOL:
+        raise RuntimeError("{} per-step mode disagrees with its plain "
+                           "version at the main path's shapes".format(key))
+    last = seeds[:, -1].contiguous()
+    ms = {key + " step": cuda_ms(lambda: bwd(*args, seeds), repeats),
+          key + " step plain": cuda_ms(lambda: bwd_plain(*args, seeds), 2),
+          key + " last-step": cuda_ms(lambda: bwd(*args, last), repeats)}
+    bound = kernel_bound(step_norms, level, True,
+                         list(args) + [seeds, args[-1][:, 1:]], dp)
+    return ms, bound, err
+
+
+def phase_step_timing(dev, headline_w=None):
+    """The per-step modes at their main paths' shapes: K2 at the step-cost
+    headline's (10^4 steps, d = 64), K5 at the M4 planes, K6 at the d = 20
+    cell's planes; kernel, plain and last-step-mode times and the bounds
+    (the per-step seeds are one more input); and the trajectory glue at the
+    headline: the per-step seeds (_segment_seeds), the prefix composition,
+    and the chain op's forward and backward with and without prefixes."""
+    from qoc_tpu_torch.ops import chain
+    gen = torch.Generator(device=dev).manual_seed(25)
+    if headline_w is None:
+        headline_w = headline_weights(table3_problem(1)[0], dev)
+    op = chain.ChainExpmPropagate(table3_basis(), dev, torch.float32)
+    n_steps = headline_w.shape[0]
+    s_count, length = chain.segment_plan(n_steps)
+    w_seg = torch.zeros((s_count * length, op.n_b), device=dev)
+    w_seg[:n_steps] = headline_w
+    w_seg = w_seg.reshape(s_count, length, op.n_b)
+    n1, ninf = chain._norm_max(headline_w, op.basis_ri, op.d)
+    pref = chain.chain_fwd(w_seg, op.basis, n1)
+    a = torch.einsum("jk,kab->jab", w_seg.reshape(-1, op.n_b).to(
+        torch.complex64), op.basis)
+    ms, bound, err = _time_step_mode(
+        "K2", chain.chain_bwd, chain.chain_bwd_plain,
+        (w_seg, op.basis_h, ninf, pref), op.dp,
+        a.abs().sum(-1).amax(-1), chain.ladder_level(ninf), gen, 10)
+    bounds, errs = {"K2 step": bound}, {"K2 step": err}
+    # The trajectory glue at the headline.
+    cums, prods = chain._merge(pref, op.d)
+    g_total = torch.randn((op.d, op.d), dtype=torch.complex64, device=dev,
+                          generator=gen)
+    g_pref = torch.randn((n_steps, op.d, op.d), dtype=torch.complex64,
+                         device=dev, generator=gen)
+    traj = chain.ChainExpmPropagate(table3_basis(), dev, torch.float32,
+                                    return_prefixes=True)
+
+    def fwd_bwd(the_op, trajectory):
+        w = headline_w.detach().requires_grad_(True)
+        if trajectory:
+            total, prefixes = the_op(w)
+            torch.autograd.grad((total, prefixes), w, (g_total, g_pref))
+        else:
+            torch.autograd.grad(the_op(w), w, g_total)
+
+    ms.update({
+        "seeds per-step": cuda_ms(lambda: chain._segment_seeds(
+            pref, cums, prods, op.dp, g_total, g_pref), 5),
+        "seeds last-step": cuda_ms(lambda: chain._segment_seeds(
+            pref, cums, prods, op.dp, g_total), 5),
+        "compose prefixes": cuda_ms(lambda: chain._compose_prefixes(
+            pref, cums, n_steps), 5),
+        "op fwd+bwd": cuda_ms(lambda: fwd_bwd(op, False), 5),
+        "op fwd+bwd trajectory": cuda_ms(lambda: fwd_bwd(traj, True), 5),
+    })
+    # K5 at the M4 planes, K6 at the d = 20 cell's.
+    for key, planes, inputs, bwd, bwd_plain, fwd in (
+            ("K5 bwd", m4_planes(dev), _segment_planes, chain.plane_bwd,
+             chain.plane_bwd_plain, chain.plane_fwd),
+            ("K6 bwd", lindblad_d20_planes(dev)[0], _stream_inputs,
+             chain.stream_bwd, chain.stream_bwd_plain, chain.stream_fwd)):
+        a_seg, n1, ninf = inputs(planes)
+        pref = fwd(a_seg, n1)
+        step_ms, bound, err = _time_step_mode(
+            key, bwd, bwd_plain, (a_seg, ninf, pref), a_seg.shape[-1],
+            planes.abs().sum(-1).amax(-1), chain.ladder_level(ninf), gen,
+            10 if key == "K5 bwd" else 5)
+        ms.update(step_ms)
+        bounds[key + " step"] = bound
+        errs[key + " step"] = err
+    print("phase 25 per-step timing (K2 at the step-cost headline, S x L = "
+          "{} x {}; K5 at the M4 planes; K6 at the d = 20 planes): ".format(
+              s_count, length)
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time, "
+              "max|err| {:.2e}".format(k, b[0], b[1], b[2], b[0] / ms[k],
+                                       errs[k])
+              for k, b in bounds.items()), flush=True)
+    return ms, bounds, errs
 
 
 def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound,
@@ -1672,6 +2299,17 @@ def main():
     ms.update(stream_ms)
     bounds.update(stream_bounds)
     worst.update(stream_err)
+    phase_step_kernels(dev)
+    stepcost = phase_stepcost_grape(dev)
+    launches["K2 step"] = stepcost[1][0]["K2 step"]
+    m4_step_launches, m4_step_it_s = phase_stepcost_routes(dev)
+    launches["K5 bwd step"] = m4_step_launches["K5 bwd step"]
+    d20_step_launches, d20_step_it_s = phase_stepcost_lindblad(dev)
+    launches["K6 bwd step"] = d20_step_launches["K6 bwd step"]
+    step_ms, step_bounds, step_err = phase_step_timing(dev, headline_w)
+    ms.update(step_ms)
+    bounds.update(step_bounds)
+    worst.update(step_err)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -1686,13 +2324,23 @@ def main():
              "K4"),
             ("stream_fwd", "stream_fwd.cu", "chain_pallas.py:442", "K6 fwd"),
             ("stream_bwd", "stream_bwd.cu", "chain_pallas.py:463",
-             "K6 bwd"))]
+             "K6 bwd"),
+            ("chain_bwd (per-step seeds)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 step"),
+            ("plane_bwd (per-step seeds)", "plane_bwd.cu",
+             "chain_pallas.py:718", "K5 bwd step"),
+            ("stream_bwd (per-step seeds)", "stream_bwd.cu",
+             "chain_pallas.py:463", "K6 bwd step"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
           "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
-          "Lindblad d=20 GRAPE {:.2f} it/s".format(
+          "Lindblad d=20 GRAPE {:.2f} it/s | step-cost headline GRAPE {:.2f} "
+          "it/s (cost_eval_step {}: {:.2f}) | M4 step-cost GRAPE {:.2f} it/s "
+          "| Lindblad d=20 step-cost GRAPE {:.2f} it/s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
-              route_ms["plane"], backprop_ms, d20_it_s))
+              route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
+              THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
+              m4_step_it_s, d20_step_it_s))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1702,7 +2350,10 @@ def main():
 # Phases that need nothing from an earlier one (--phases).
 STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               17: phase_stream_schroedinger, 18: phase_lindblad_d20,
-              19: phase_lindblad_routes, 20: phase_stream_timing}
+              19: phase_lindblad_routes, 20: phase_stream_timing,
+              21: phase_step_kernels, 22: phase_stepcost_grape,
+              23: phase_stepcost_routes, 24: phase_stepcost_lindblad,
+              25: phase_step_timing}
 
 
 if __name__ == "__main__":

@@ -8,9 +8,12 @@ For the Table-3 headline (LinearHamiltonian, M2: the fused route, K1/K2),
 the Magnus-M4 problem of the JAX package's bench_m4 (the plane route, K5),
 the d = 2^7 problem (d = 128, 2001 points, M2: the blocked route, K3/K4),
 the Table-1 d = 2^10 single-step backprop (the blocked route on
-torch.matmul, no kernel) and the Lindblad d = 20 cell (superoperator 400,
-100 steps, MAGNUS_EXPM: the streamed route, K6), all built as
-chip_smoke.py builds them, it runs
+torch.matmul, no kernel), the Lindblad d = 20 cell (superoperator 400,
+100 steps, MAGNUS_EXPM: the streamed route, K6), and the step-cost cells
+(the headline with the JAX package's bench_stepcost ForbidStates at
+cost_eval_step 1 and 10: K1, K2 in its per-step-seed mode and the
+trajectory glue; the d = 20 cell with its density step costs: K6 in its
+per-step-seed mode), all built as chip_smoke.py builds them, it runs
 one GRAPE iteration the way core/graperunner.py does (clip, loss, gradient,
 Adam update; chip_smoke.make_iteration): 2 warm-up iterations, then 10
 timed without the profiler (host clock, one synchronise at the end), then
@@ -148,6 +151,15 @@ def main():
                             chip_smoke.d1024_problem()[0], dev),
                profile_cell("Lindblad d=20 (streamed, K6)",
                             chip_smoke.lindblad_d20_pstate(), dev,
+                            build_lindblad_loss),
+               profile_cell("step-cost headline (fused, K1/K2 per-step)",
+                            chip_smoke.stepcost_problem()[0], dev),
+               profile_cell("step-cost headline, cost_eval_step 10",
+                            chip_smoke.stepcost_problem(
+                                chip_smoke.THINNED_COST_EVAL_STEP)[0], dev),
+               profile_cell("Lindblad d=20 step costs (streamed, K6 "
+                            "per-step)", chip_smoke.lindblad_d20_pstate(
+                                chip_smoke.d20_step_costs()), dev,
                             build_lindblad_loss)]
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

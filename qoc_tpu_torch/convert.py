@@ -11,12 +11,18 @@ tensors on the requested device.
 import numpy as np
 import torch
 
-from qoc_tpu_torch.costs import TargetDensityInfidelity, TargetStateInfidelity
+from qoc_tpu_torch.costs import (ForbidDensities, ForbidStates,
+                                 TargetDensityInfidelity,
+                                 TargetDensityInfidelityTime,
+                                 TargetStateInfidelity,
+                                 TargetStateInfidelityTime)
 from qoc_tpu_torch.models import ConstantLindblad, LinearHamiltonian
 
 __all__ = ["adam_state", "constant_lindblad", "controls", "densities",
-           "linear_hamiltonian", "max_control_norms", "states",
-           "target_density_infidelity", "target_state_infidelity"]
+           "forbid_densities", "forbid_states", "linear_hamiltonian",
+           "max_control_norms", "states", "target_density_infidelity",
+           "target_density_infidelity_time", "target_state_infidelity",
+           "target_state_infidelity_time"]
 
 
 def linear_hamiltonian(hamiltonian):
@@ -63,10 +69,9 @@ def target_state_infidelity(cost):
     """A port ``TargetStateInfidelity`` with the same targets, phase mode
     and multiplier (the targets are recovered from ``qoc_tpu``'s stored
     conjugate transposes)."""
-    dagger = np.asarray(cost.target_states_dagger)
-    targets = np.conjugate(np.swapaxes(dagger, -1, -2))
     return TargetStateInfidelity(
-        targets, cost_multiplier=cost.cost_multiplier,
+        _undagger(cost.target_states_dagger),
+        cost_multiplier=cost.cost_multiplier,
         neglect_relative_phase=cost.neglect_relative_phase)
 
 
@@ -74,10 +79,55 @@ def target_density_infidelity(cost):
     """A port ``TargetDensityInfidelity`` with the same targets and
     multiplier (recovered from ``qoc_tpu``'s stored conjugate
     transposes)."""
-    dagger = np.asarray(cost.target_densities_dagger)
-    return TargetDensityInfidelity(
-        np.conjugate(np.swapaxes(dagger, -1, -2)),
+    return TargetDensityInfidelity(_undagger(cost.target_densities_dagger),
+                                   cost_multiplier=cost.cost_multiplier)
+
+
+def _undagger(dagger):
+    """Arrays back from their stored conjugate transposes."""
+    return np.conjugate(np.swapaxes(np.asarray(dagger), -1, -2))
+
+
+# The step costs keep their evaluation count, (system_eval_count - 1) //
+# cost_eval_step, and not its two factors: the port's cost is built with
+# system_eval_count = count + 1 and cost_eval_step = 1, which gives the
+# same count.
+
+
+def target_state_infidelity_time(cost):
+    """A port ``TargetStateInfidelityTime`` with the same targets, phase
+    mode, evaluation count and multiplier."""
+    return TargetStateInfidelityTime(
+        int(cost.cost_eval_count) + 1, _undagger(cost.target_states_dagger),
+        cost_multiplier=cost.cost_multiplier,
+        neglect_relative_phase=cost.neglect_relative_phase)
+
+
+def forbid_states(cost):
+    """A port ``ForbidStates`` with the same (possibly ragged) forbidden
+    states per evolving state, evaluation count and multiplier."""
+    forbidden = [_undagger(f) for f in cost.forbidden_states_dagger]
+    count = int(cost.cost_normalization_constant) // len(forbidden)
+    return ForbidStates(forbidden, count + 1,
+                        cost_multiplier=cost.cost_multiplier)
+
+
+def target_density_infidelity_time(cost):
+    """A port ``TargetDensityInfidelityTime`` with the same targets,
+    evaluation count and multiplier."""
+    return TargetDensityInfidelityTime(
+        int(cost.cost_eval_count) + 1,
+        _undagger(cost.target_densities_dagger),
         cost_multiplier=cost.cost_multiplier)
+
+
+def forbid_densities(cost):
+    """A port ``ForbidDensities`` with the same (possibly ragged) forbidden
+    densities per evolving density, evaluation count and multiplier."""
+    forbidden = [_undagger(f) for f in cost.forbidden_densities_dagger]
+    count = int(cost.cost_normalization_constant) // len(forbidden)
+    return ForbidDensities(forbidden, count + 1,
+                           cost_multiplier=cost.cost_multiplier)
 
 
 def adam_state(state, device="cpu", dtype=torch.float64):

@@ -25,10 +25,13 @@ A time-dependent ``lindblad_data`` is a torch callable ``t -> (rates (n,),
 operators (n, d, d))``, evaluated under ``torch.func.vmap`` over the
 Magnus nodes, as Hamiltonian callables are.
 
+Density step costs and intermediate densities take the routes' trajectory
+form, as the Schrödinger path's step costs do: the block's prefixes P_t
+give the vectorized densities after every step, ``vec @ P_t^T``.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 slice: ``LindbladMethod.RKDP5`` (``qoc_tpu``'s default, so a call that
-leaves ``method`` out raises and names ``MAGNUS_EXPM``), step costs
-(per-step-seed chain kernels), intermediate densities and save files (H5),
+leaves ``method`` out raises and names ``MAGNUS_EXPM``), save files (H5),
 ``impose_control_conditions`` (the host loop), resume and ``mesh``.
 """
 
@@ -41,7 +44,7 @@ from qoc_tpu_torch.core.graperunner import run_grape
 from qoc_tpu_torch.core.schroedinger import (_MAGNUS, _not_ported, _route,
                                              _route_names, fused_weights,
                                              hamiltonian_sampler,
-                                             make_propagator)
+                                             make_propagator, step_cost_sum)
 from qoc_tpu_torch.models import (ConstantLindblad, EvolveLindbladDiscreteState,
                                   EvolveLindbladResult,
                                   GrapeLindbladDiscreteState,
@@ -111,16 +114,21 @@ def superoperator_builder(hamiltonian, lindblad_data, magnus_policy,
 
 
 def build_lindblad_loss(pstate, device, dtype, time_block_size=None,
-                        log_path=False, allow_plane_chain=True):
+                        log_path=False, allow_plane_chain=True,
+                        collect_intermediates=False):
     """The loss: controls (a (E, C) tensor, or None) -> (error,
-    final_densities), differentiable w.r.t. the controls.
+    final_densities), differentiable w.r.t. the controls; with
+    ``collect_intermediates`` (error, final_densities,
+    intermediate_densities), the densities at every system step, step 0
+    included (system_eval_count, K, d, d).
 
     Mirrors ``qoc_tpu``'s build_lindblad_loss under
     ``LindbladMethod.MAGNUS_EXPM`` (reference
-    _evaluate_lindblad_discrete, lindbladdiscrete.py:357-441), without step
-    costs or intermediate densities, on the route of the module docstring.
-    ``pstate.method_`` and ``pstate.magnus_policy_`` carry the method and
-    the Magnus order, as in ``qoc_tpu``."""
+    _evaluate_lindblad_discrete, lindbladdiscrete.py:357-441) on the route
+    of the module docstring, in the trajectory form where step costs or
+    intermediate densities need it. ``pstate.method_`` and
+    ``pstate.magnus_policy_`` carry the method and the Magnus order, as in
+    ``qoc_tpu``."""
     _check_method(getattr(pstate, "method_", LindbladMethod.RKDP5))
     magnus_policy = getattr(pstate, "magnus_policy_", MagnusPolicy.M2)
     if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
@@ -130,9 +138,6 @@ def build_lindblad_loss(pstate, device, dtype, time_block_size=None,
     if magnus_policy not in _MAGNUS:
         raise ValueError("Unrecognized magnus policy {}.".format(
             magnus_policy))
-    if pstate.step_costs:
-        raise _not_ported("Lindblad step costs (the per-step-seed chain "
-                          "kernels)", 5)
 
     cdtype = complex_dtype(dtype)
     initial_densities = torch.as_tensor(
@@ -142,6 +147,11 @@ def build_lindblad_loss(pstate, device, dtype, time_block_size=None,
     dt = float(pstate.dt)
     n_steps = pstate.system_eval_count - 1
     final_step = pstate.final_system_eval_step
+    step_costs = pstate.step_costs
+    final_costs = [cost for cost in pstate.costs
+                   if not cost.requires_step_evaluation]
+    cost_eval_step = pstate.cost_eval_step
+    trajectory = bool(step_costs) or collect_intermediates
     hamiltonian = pstate.hamiltonian
     lindblad_data = pstate.lindblad_data
     times = torch.arange(n_steps, dtype=dtype, device=device) * dt
@@ -153,6 +163,7 @@ def build_lindblad_loss(pstate, device, dtype, time_block_size=None,
                                                   type(None)))
                    and magnus_policy == MagnusPolicy.M2
                    and cet is not None, allow_plane_chain)
+    trajectory_steps = n_steps if trajectory else 0
     if route in ("fused", "stream"):
         rates, operators = (lindblad_data(0.0) if lindblad_data is not None
                             else (None, None))
@@ -160,31 +171,54 @@ def build_lindblad_loss(pstate, device, dtype, time_block_size=None,
             route, magnus_policy, device, dtype,
             basis=hamiltonian.superoperator_basis(dt, rates, operators),
             weights=lambda controls, t_block: fused_weights(
-                controls, t_block, cet, dt))
+                controls, t_block, cet, dt),
+            trajectory_steps=trajectory_steps)
     else:
         propagate, planes_per_step = make_propagator(
             route, magnus_policy, device, dtype,
             planes=superoperator_builder(hamiltonian, lindblad_data,
                                          magnus_policy, cet, dt, d, device,
-                                         cdtype))
-    path, kernels = _route_names(route, sop_dim, device)
+                                         cdtype),
+            trajectory_steps=trajectory_steps)
+    path, kernels = _route_names(route, sop_dim, device, trajectory)
     block = int(time_block_size
                 or chain_block_plan(sop_dim, n_steps, cdtype.itemsize,
                                     planes_per_step))
     if log_path:
         print("qoc_tpu_torch: Lindblad propagation path = {}, {} ({}, {}, "
-              "no step costs; d^2={}, block={}).".format(
+              "d^2={}, block={}{}).".format(
                   path, kernels, type(hamiltonian).__name__, magnus_policy,
-                  sop_dim, block))
+                  sop_dim, block,
+                  ", per-step prefixes" if trajectory else ""))
+
+    def densities_at(vec, prefixes):
+        """The densities (B, K, d, d) of vectorized densities ``vec`` (K, d^2)
+        propagated by each of ``prefixes`` (B, d^2, d^2)."""
+        return (vec @ prefixes.mT).reshape(-1, density_count, d, d)
 
     def loss(controls):
         vec = initial_densities.reshape(density_count, sop_dim)
-        for start in range(0, n_steps, block):
-            vec = vec @ propagate(controls, times[start:start + block]).mT
-        densities = vec.reshape(density_count, d, d)
         error = torch.zeros((), dtype=dtype, device=device)
-        for cost in pstate.costs:
+        intermediates = [initial_densities[None]]
+        for start in range(0, n_steps, block):
+            out = propagate(controls, times[start:start + block])
+            if not trajectory:
+                vec = vec @ out.mT
+                continue
+            prod, prefixes = out
+            if step_costs:
+                error = error + step_cost_sum(
+                    step_costs, controls,
+                    lambda sel: densities_at(vec, prefixes[sel]), start,
+                    prefixes.shape[0], cost_eval_step, device)
+            if collect_intermediates:
+                intermediates.append(densities_at(vec, prefixes))
+            vec = vec @ prod.mT
+        densities = vec.reshape(density_count, d, d)
+        for cost in final_costs:
             error = error + cost.cost(controls, densities, final_step)
+        if collect_intermediates:
+            return error, densities, torch.cat(intermediates)
         return error, densities
 
     return loss
@@ -209,7 +243,10 @@ def evolve_lindblad_discrete(evolution_time, initial_densities,
     ``device="cpu"`` runs float64). Only
     ``method=LindbladMethod.MAGNUS_EXPM`` is ported (module docstring).
     Returns an ``EvolveLindbladResult`` with ``error`` and
-    ``final_densities`` (host numpy)."""
+    ``final_densities`` (host numpy), and with
+    ``save_intermediate_densities`` the densities at every system step,
+    step 0 included, ``intermediate_densities`` (system_eval_count, K, d,
+    d), as ``qoc_tpu`` returns them without a save file."""
     _check_method(method)
     if mesh is not None:
         raise _not_ported("mesh (density sharding)", 6)
@@ -222,15 +259,19 @@ def evolve_lindblad_discrete(evolution_time, initial_densities,
         save_file_path, save_intermediate_densities, system_eval_count)
     pstate.method_ = method
     pstate.magnus_policy_ = magnus_policy
-    loss = build_lindblad_loss(pstate, device, dtype)
+    loss = build_lindblad_loss(
+        pstate, device, dtype,
+        collect_intermediates=save_intermediate_densities)
     if controls is not None:
         controls = torch.as_tensor(np.asarray(controls),
                                    dtype=complex_dtype(dtype), device=device)
     with torch.no_grad():
-        error, final_densities = loss(controls)
+        out = loss(controls)
     result = EvolveLindbladResult()
-    result.error = float(error)
-    result.final_densities = final_densities.cpu().numpy()
+    result.error = float(out[0])
+    result.final_densities = out[1].cpu().numpy()
+    if save_intermediate_densities:
+        result.intermediate_densities = out[2].cpu().numpy()
     return result
 
 
@@ -261,8 +302,9 @@ def grape_lindblad_discrete(control_count, control_eval_count, costs,
     :func:`evolve_lindblad_discrete`. Only
     ``method=LindbladMethod.MAGNUS_EXPM`` is ported. ``optimizer=None`` is
     a fresh ``Adam()``; the loop runs on the device (core/graperunner.py).
-    Returns a ``GrapeLindbladResult`` with the best-seen controls, error,
-    final densities and iteration (host numpy)."""
+    Without a save file ``save_intermediate_densities`` is ignored, as in
+    ``qoc_tpu``. Returns a ``GrapeLindbladResult`` with the best-seen
+    controls, error, final densities and iteration (host numpy)."""
     _check_method(method)
     if impose_control_conditions is not None:
         raise _not_ported("impose_control_conditions (the host loop)", 3)

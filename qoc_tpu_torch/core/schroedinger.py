@@ -28,6 +28,13 @@ CPU walks the route the card takes:
   pairwise tree product. For 64 < d <= 256 ``qoc_tpu`` takes its chain
   kernels instead; the numbers agree.
 
+Step costs (``requires_step_evaluation``) and intermediate states need the
+state after every step: then each route runs in its trajectory form, which
+also returns the block's prefixes P_t = U_t ··· U_0 (the chain ops'
+``return_prefixes``, whose backward runs K2, K5 or K6 in the per-step-seed
+mode; on the blocked route a log-depth prefix scan in place of the tree
+product), and the states after each step are ``prefixes @ states``.
+
 The Lindblad entry points (``core/lindblad.py``) take the same routes by
 the superoperator's dimension d².
 
@@ -40,10 +47,8 @@ Constants it closes over may be numpy arrays or tensors of any complex
 dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: step costs and intermediate states (the per-step-seed
-chain, slice 2),
-``impose_control_conditions`` (the host loop, slice 3), save files and
-resume (slice 4) and ``mesh`` (slice 6).
+ROADMAP slice: ``impose_control_conditions`` (the host loop, slice 3),
+save files and resume (slice 4) and ``mesh`` (slice 6).
 """
 
 import numpy as np
@@ -59,8 +64,10 @@ from qoc_tpu_torch.models import (EvolveSchroedingerDiscreteState,
                                   InterpolationPolicy, LinearHamiltonian,
                                   MagnusPolicy)
 from qoc_tpu_torch.ops.chain import (KERNEL_DP, ChainExpmPropagate,
-                                     chain_block_plan, kernel_dp,
-                                     plane_chain_propagate, uses_stream)
+                                     _prefix_products, chain_block_plan,
+                                     kernel_dp, plane_chain_propagate,
+                                     plane_chain_propagate_prefixes,
+                                     uses_stream)
 from qoc_tpu_torch.ops.expm import expm
 from qoc_tpu_torch.ops.expm_cuda import KERNEL_MAX_DP
 from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
@@ -69,7 +76,8 @@ from qoc_tpu_torch.optim import Adam
 
 __all__ = ["build_schroedinger_loss", "evolve_schroedinger_discrete",
            "fused_weights", "grape_schroedinger_discrete",
-           "hamiltonian_sampler", "make_propagator", "plane_builder"]
+           "hamiltonian_sampler", "make_propagator", "plane_builder",
+           "step_cost_sum"]
 
 
 # Magnus term of each policy, and the (d, d) planes a step's build holds at
@@ -89,6 +97,10 @@ _PLANE_OP_PLANES = 3
 # What the blocked route keeps a step besides the build: the expm input
 # (saved for K4), U and about one tree product.
 _BLOCKED_PLANES = 3
+# What the trajectory form keeps a step on top of that: the global prefix,
+# its gradient and the per-step seed (on the blocked route, also one plane
+# a level of the prefix scan).
+_TRAJECTORY_PLANES = 3
 
 
 def _not_ported(what, roadmap_slice):
@@ -174,10 +186,11 @@ def _route(d, fused_ok, allow_plane_chain):
     return "plane" if chain and allow_plane_chain else "blocked"
 
 
-def _route_names(route, d, device):
+def _route_names(route, d, device, trajectory=False):
     """(path, what carries it) for the one-time path log line."""
     if route == "blocked":
-        path = "blocked expm + tree product"
+        path = "blocked expm + " + ("prefix scan" if trajectory
+                                    else "tree product")
         kernels = ("CUDA kernels K3/K4" if kernel_dp(d) <= KERNEL_MAX_DP
                    else "torch.matmul Taylor (d > 256)")
     else:
@@ -192,19 +205,26 @@ def _route_names(route, d, device):
 
 
 def make_propagator(route, magnus_policy, device, dtype, basis=None,
-                    weights=None, planes=None):
+                    weights=None, planes=None, trajectory_steps=0):
     """(propagate(controls, t_block) -> the block's ordered product of step
     exponentials, planes a step holds for chain_block_plan) on ``route``:
     ``basis`` (numpy (n_b, n, n)) and ``weights(controls, t_block)`` ->
     (B, n_b) rows on the fused and streamed routes, ``planes(controls,
     t_block)`` -> (B, n, n) Magnus planes on the plane and blocked routes.
+    ``trajectory_steps`` > 0 gives the trajectory form, for blocks of at
+    most that many steps: propagate returns (product, prefixes (B, n, n)).
     The Lindblad loss shares it (core/lindblad.py)."""
     cdtype = complex_dtype(dtype)
     build_planes = _MAGNUS[magnus_policy][1]
+    trajectory = trajectory_steps > 0
+    kept = _TRAJECTORY_PLANES if trajectory else 0
     if route == "fused":
-        chain = ChainExpmPropagate(basis, device, dtype)
+        chain = ChainExpmPropagate(basis, device, dtype,
+                                   return_prefixes=trajectory)
         return (lambda controls, t_block: chain(weights(controls, t_block)),
-                2)
+                2 + kept)
+    plane_op = (plane_chain_propagate_prefixes if trajectory
+                else plane_chain_propagate)
     if route == "stream":
         n_b, n = basis.shape[0], basis.shape[-1]
         flat_basis = torch.as_tensor(basis, dtype=cdtype,
@@ -212,27 +232,62 @@ def make_propagator(route, magnus_policy, device, dtype, basis=None,
 
         def propagate(controls, t_block):
             a = weights(controls, t_block).to(cdtype) @ flat_basis
-            return plane_chain_propagate(a.reshape(-1, n, n))
-        return propagate, _PLANE_OP_PLANES + 1
+            return plane_op(a.reshape(-1, n, n))
+        return propagate, _PLANE_OP_PLANES + 1 + kept
     if route == "plane":
-        return (lambda controls, t_block: plane_chain_propagate(
+        return (lambda controls, t_block: plane_op(
             planes(controls, t_block).to(cdtype)),
-            _PLANE_OP_PLANES + build_planes)
+            _PLANE_OP_PLANES + build_planes + kept)
+    if trajectory:
+        def propagate(controls, t_block):
+            prefixes = _prefix_products(expm(
+                planes(controls, t_block).to(cdtype)))
+            return prefixes[-1], prefixes
+        return propagate, (_BLOCKED_PLANES + build_planes + kept
+                           + (trajectory_steps - 1).bit_length())
     return (lambda controls, t_block: _tree_product(expm(
         planes(controls, t_block).to(cdtype))),
         _BLOCKED_PLANES + build_planes)
 
 
+def step_cost_sum(step_costs, controls, evolved, start, block_steps,
+                  cost_eval_step, device):
+    """The step costs of one block of ``block_steps`` steps starting after
+    step ``start``: Σ over its cost steps k (global k = start + j + 1 with
+    k % cost_eval_step == 0) of Σ_costs cost(controls, x_k, k), evaluated
+    under ``torch.func.vmap``. ``evolved(sel)`` gives the evolved states or
+    densities at the block's steps ``sel`` (a slice). Only the cost steps
+    are evaluated (``qoc_tpu`` evaluates every step and masks: the values
+    agree). Zero where the block holds no cost step."""
+    sel = slice(-(start + 1) % cost_eval_step, block_steps, cost_eval_step)
+    if not range(block_steps)[sel]:
+        return 0.0
+    ks = torch.arange(start + 1, start + 1 + block_steps, device=device)[sel]
+
+    def one_step(x, k):
+        error = 0.0
+        for cost in step_costs:
+            error = error + cost.cost(controls, x, k)
+        return error
+
+    return torch.func.vmap(one_step)(evolved(sel), ks).sum()
+
+
 def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
-                            log_path=False, allow_plane_chain=True):
+                            log_path=False, allow_plane_chain=True,
+                            collect_intermediates=False):
     """The loss: controls (a (E, C) tensor, or None) -> (error,
-    final_states), differentiable w.r.t. the controls.
+    final_states), differentiable w.r.t. the controls; with
+    ``collect_intermediates`` (error, final_states, intermediate_states),
+    the states at every system step, step 0 included
+    (system_eval_count, K, d, 1).
 
     Mirrors ``qoc_tpu``'s build_schroedinger_loss (reference
-    _evaluate_schroedinger_discrete, schroedingerdiscrete.py:356-438,
-    without step costs): the fused, plane or blocked route by the problem
-    (module docstring). ``allow_plane_chain=False`` sends what would take
-    the plane route to the blocked route, as in ``qoc_tpu``."""
+    _evaluate_schroedinger_discrete, schroedingerdiscrete.py:356-438): the
+    fused, plane or blocked route by the problem (module docstring), in the
+    trajectory form where step costs or intermediate states need it.
+    ``allow_plane_chain=False`` sends what would take the plane route to
+    the blocked route, as in ``qoc_tpu``."""
     if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
         raise NotImplementedError(
             "The interpolation policy {} is not yet supported for this "
@@ -240,8 +295,6 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     if pstate.magnus_policy not in _MAGNUS:
         raise ValueError("Unrecognized magnus policy {}.".format(
             pstate.magnus_policy))
-    if pstate.step_costs:
-        raise _not_ported("Step costs (the per-step-seed chain kernels)", 2)
 
     cdtype = complex_dtype(dtype)
     initial_states = torch.as_tensor(np.asarray(pstate.initial_states),
@@ -249,7 +302,11 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     dt = float(pstate.dt)
     n_steps = pstate.system_eval_count - 1
     final_step = pstate.final_system_eval_step
-    costs = pstate.costs
+    step_costs = pstate.step_costs
+    final_costs = [cost for cost in pstate.costs
+                   if not cost.requires_step_evaluation]
+    cost_eval_step = pstate.cost_eval_step
+    trajectory = bool(step_costs) or collect_intermediates
     d = initial_states.shape[-2]
     hamiltonian = pstate.hamiltonian
     times = torch.arange(n_steps, dtype=dtype, device=device) * dt
@@ -259,33 +316,53 @@ def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,
     route = _route(d, isinstance(hamiltonian, LinearHamiltonian)
                    and pstate.magnus_policy == MagnusPolicy.M2
                    and cet is not None, allow_plane_chain)
+    trajectory_steps = n_steps if trajectory else 0
     if route in ("fused", "stream"):
         propagate, planes_per_step = make_propagator(
             route, pstate.magnus_policy, device, dtype,
             basis=hamiltonian.generator_basis(dt),
             weights=lambda controls, t_block: fused_weights(
-                controls, t_block, cet, dt))
+                controls, t_block, cet, dt),
+            trajectory_steps=trajectory_steps)
     else:
         propagate, planes_per_step = make_propagator(
             route, pstate.magnus_policy, device, dtype,
-            planes=plane_builder(hamiltonian, pstate.magnus_policy, cet, dt))
-    path, kernels = _route_names(route, d, device)
+            planes=plane_builder(hamiltonian, pstate.magnus_policy, cet, dt),
+            trajectory_steps=trajectory_steps)
+    path, kernels = _route_names(route, d, device, trajectory)
     block = int(time_block_size
                 or chain_block_plan(d, n_steps, cdtype.itemsize,
                                     planes_per_step))
     if log_path:
-        print("qoc_tpu_torch: propagation path = {}, {} ({}, {}, no step "
-              "costs; d={}, block={}).".format(
+        print("qoc_tpu_torch: propagation path = {}, {} ({}, {}, d={}, "
+              "block={}{}).".format(
                   path, kernels, type(hamiltonian).__name__,
-                  pstate.magnus_policy, d, block))
+                  pstate.magnus_policy, d, block,
+                  ", per-step prefixes" if trajectory else ""))
 
     def loss(controls):
         states = initial_states
-        for start in range(0, n_steps, block):
-            states = propagate(controls, times[start:start + block]) @ states
         error = torch.zeros((), dtype=dtype, device=device)
-        for cost in costs:
+        intermediates = [initial_states[None]]
+        for start in range(0, n_steps, block):
+            out = propagate(controls, times[start:start + block])
+            if not trajectory:
+                states = out @ states
+                continue
+            # The states after each step of the block: prefixes @ states.
+            prod, prefixes = out
+            if step_costs:
+                error = error + step_cost_sum(
+                    step_costs, controls,
+                    lambda sel: prefixes[sel, None] @ states, start,
+                    prefixes.shape[0], cost_eval_step, device)
+            if collect_intermediates:
+                intermediates.append(prefixes[:, None] @ states)
+            states = prod @ states
+        for cost in final_costs:
             error = error + cost.cost(controls, states, final_step)
+        if collect_intermediates:
+            return error, states, torch.cat(intermediates)
         return error, states
 
     return loss
@@ -308,7 +385,10 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
     ``RuntimeError`` where there is none; ``device="cpu"`` runs float64).
     ``hamiltonian`` follows the port's contract (module docstring).
     Returns an ``EvolveSchroedingerResult`` with ``error`` and
-    ``final_states`` (host numpy)."""
+    ``final_states`` (host numpy), and with ``save_intermediate_states``
+    the states at every system step, step 0 included,
+    ``intermediate_states`` (system_eval_count, K, d, 1), as ``qoc_tpu``
+    returns them without a save file."""
     if mesh is not None:
         raise _not_ported("mesh (state sharding)", 6)
     device, dtype = resolve(device, dtype)
@@ -318,16 +398,19 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
         control_eval_count, cost_eval_step, costs, evolution_time,
         hamiltonian, initial_states, interpolation_policy, magnus_policy,
         save_file_path, save_intermediate_states, system_eval_count)
-    loss = build_schroedinger_loss(pstate, device, dtype,
-                                   time_block_size=time_block_size)
+    loss = build_schroedinger_loss(
+        pstate, device, dtype, time_block_size=time_block_size,
+        collect_intermediates=save_intermediate_states)
     if controls is not None:
         controls = torch.as_tensor(np.asarray(controls),
                                    dtype=complex_dtype(dtype), device=device)
     with torch.no_grad():
-        error, final_states = loss(controls)
+        out = loss(controls)
     result = EvolveSchroedingerResult()
-    result.error = float(error)
-    result.final_states = final_states.cpu().numpy()
+    result.error = float(out[0])
+    result.final_states = out[1].cpu().numpy()
+    if save_intermediate_states:
+        result.intermediate_states = out[2].cpu().numpy()
     return result
 
 
@@ -354,7 +437,8 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
     device in float32, raising ``RuntimeError`` where there is none;
     ``device="cpu"`` runs float64). ``hamiltonian`` follows the port's
     contract (module docstring). ``optimizer=None`` is a fresh ``Adam()``.
-    The loop runs on the device (core/graperunner.py). Returns a
+    The loop runs on the device (core/graperunner.py). Without a save file
+    ``save_intermediate_states`` is ignored, as in ``qoc_tpu``. Returns a
     ``GrapeSchroedingerResult`` with the best-seen controls, error, final
     states and iteration (host numpy)."""
     if impose_control_conditions is not None:

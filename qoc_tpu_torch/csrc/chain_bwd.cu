@@ -2,15 +2,20 @@
 // Hopper (sm_90a).
 //
 // Replaces qoc_tpu/ops/chain_pallas.py:_chain_bwd_kernel (the TPU kernel
-// launched by _bwd_pallas), in its last-step-seed mode. With PyTorch's
+// launched by _bwd_pallas), in both its seed modes. With PyTorch's
 // gradient convention (grad = dL/dRe + i dL/dIm) every quantity below is a
 // plain gradient, and the recursion of the TPU kernel's conjugated adjoint
 // is the natural one here. For each segment chain, walking t = L-1 .. 0:
 //
-//   T_t      = seed                   (t = L-1)
-//            = U_{t+1}^H T_{t+1}      (otherwise)
+//   T_t      = seed_{L-1}                      (t = L-1)
+//            = U_{t+1}^H T_{t+1} [+ seed_t]    (otherwise)
 //   gU_t     = T_t P_{t-1}^H          (P_{-1} = I: slot 0 of prefpad)
 //   (U_t^H, gA_t) = dual Taylor at (A_t^H, gU_t)
+//
+// The last-step-seed mode (the gradient of the chain's total) has one seed
+// a segment; the per-step-seed mode (per_step: the trajectory's prefixes
+// carry gradients too) adds each step's own seed after the product, so
+// with every seed but the last zero the two modes agree bitwise.
 //
 // The value half of the dual evaluation is exp(A_t^H) = U_t^H, carried to
 // the next (earlier) step; the tangent half is the exact Frechet adjoint
@@ -19,7 +24,8 @@
 //
 // What bounds it on the card: FP32 arithmetic, about 3x the forward's: a
 // dual product is 3 complex 64^3 products, so a step costs 2 (T update and
-// gU) + 3 x (2/3/5/7) products for degree 4/8/12/19 (8-23 products).
+// gU) + 3 x (2/3/5/7) products for degree 4/8/12/19 (8-23 products). The
+// per-step mode adds a 32 KB seed read and an elementwise add a step.
 //
 // What the design does about it: as K1, one block per segment chain with
 // its working set in shared memory: T, U^H / value, tangent and the dual
@@ -43,7 +49,7 @@ __global__ void __launch_bounds__(NT, 1)
                      const float2* __restrict__ prefpad,
                      const float2* __restrict__ seeds,
                      float2* __restrict__ gA, float2* __restrict__ stash,
-                     int L, int n_b) {
+                     int L, int n_b, bool per_step) {
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   float2* b[7];
@@ -59,7 +65,8 @@ __global__ void __launch_bounds__(NT, 1)
   float2* st = stash + seg * STASH_SLOTS * MAT;
 
   for (int t = L - 1; t >= 0; --t) {
-    adjoint_gu(b, seeds + seg * MAT, pseg + (size_t)t * MAT, t == L - 1);
+    adjoint_gu(b, step_seed(seeds, seg, t, L, per_step),
+               pseg + (size_t)t * MAT, t == L - 1);
     build_generator(b[1], wseg + (size_t)t * n_b, basis_h, n_b);  // A_t^H
     __syncthreads();
     expm_dual(b, level, st, red);
@@ -74,12 +81,13 @@ __global__ void __launch_bounds__(NT, 1)
 
 // w (S, L, n_b) f32; basis_h (n_b, DP, DP) complex64 holding G_k^H; norm -> 1
 // f32 (batch-max inf-norm of the generators = 1-norm of A^H); prefpad
-// (S, L + 1, DP, DP) from K1; seeds (S, DP, DP); gA (S, L, DP, DP) out;
-// stash (S, 6, DP, DP) scratch. Returns the CUDA error.
+// (S, L + 1, DP, DP) from K1; seeds (S, DP, DP), or (S, L, DP, DP) with
+// per_step != 0; gA (S, L, DP, DP) out; stash (S, 6, DP, DP) scratch.
+// Returns the CUDA error.
 extern "C" int qoc_chain_bwd(const void* w, const void* basis_h,
                              const void* norm, const void* prefpad,
                              const void* seeds, void* gA, void* stash, int S,
-                             int L, int n_b, void* stream) {
+                             int L, int n_b, int per_step, void* stream) {
   using namespace qoc;
   cudaError_t err = cudaFuncSetAttribute(
       chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -89,7 +97,7 @@ extern "C" int qoc_chain_bwd(const void* w, const void* basis_h,
       static_cast<const float*>(w), static_cast<const float2*>(basis_h),
       static_cast<const float*>(norm), static_cast<const float2*>(prefpad),
       static_cast<const float2*>(seeds), static_cast<float2*>(gA),
-      static_cast<float2*>(stash), L, n_b);
+      static_cast<float2*>(stash), L, n_b, per_step != 0);
   return (int)cudaGetLastError();
 }
 

@@ -606,12 +606,25 @@ __device__ __forceinline__ void advance(float2* P, const float2* U,
   __syncthreads();
 }
 
+// The seed that adjoint step t of segment chain seg adds: seeds holds
+// (S, L, n) per-step seeds (per_step), or (S, n) seeds of the last step,
+// each seed n elements; nullptr where the step adds none.
+__device__ __forceinline__ const float2* step_seed(const float2* seeds,
+                                                   size_t seg, int t, int L,
+                                                   bool per_step,
+                                                   size_t n = MAT) {
+  if (per_step) return seeds + (seg * L + t) * n;
+  return t == L - 1 ? seeds + seg * n : nullptr;
+}
+
 // First half of adjoint step t of a segment chain, in the buffers of
 // expm_dual (b0 = T, b1 = U_{t+1}^H from the previous step):
-//   T_t  = seed (last step) or U_{t+1}^H T_{t+1},
+//   T_t  = seed (last step) or U_{t+1}^H T_{t+1} (+ seed, where given),
 //   gU_t = T_t P_{t-1}^H into b2, with P_{t-1} = prev (device memory).
-// b1 and b3..b6 are free afterwards: the caller writes A_t^H into b1 and
-// sets a barrier before expm_dual.
+// ``seed`` is the step's seed in device memory: every step's in the
+// per-step-seed mode, the last step's only (nullptr before it) in the
+// last-step mode. b1 and b3..b6 are free afterwards: the caller writes A_t^H
+// into b1 and sets a barrier before expm_dual.
 __device__ __forceinline__ void adjoint_gu(float2* const* b,
                                            const float2* __restrict__ seed,
                                            const float2* __restrict__ prev,
@@ -621,6 +634,11 @@ __device__ __forceinline__ void adjoint_gu(float2* const* b,
     load(b[0], seed);
   } else {
     mm(b[1], b[0], acc);
+    if (seed != nullptr) {
+#pragma unroll
+      for (int e = 0; e < EPT; ++e)
+        acc[e] = cadd(acc[e], __ldg(seed + own(e)));
+    }
     __syncthreads();
     store(b[0], acc);
   }

@@ -162,6 +162,13 @@ struct Tiled {
     sync();
   }
 
+  // dst += src for workspace dst and an input src; ends with sync().
+  __device__ void add(float2* dst, const float2* __restrict__ src) const {
+    for (int i = first(); i < N; i += STRIDE)
+      dst[i] = cadd(ld(dst + i), __ldg(src + i));
+    sync();
+  }
+
   // The 64 x 64 tile at g (row stride D) into shared memory (row stride 64),
   // 16 bytes a thread and load, coalesced.
   __device__ void stage(float2* s, const float2* g) const {

@@ -2,16 +2,17 @@
 // (sm_90a).
 //
 // Replaces qoc_tpu/ops/chain_pallas.py:_splane_bwd_kernel (the TPU kernel
-// launched by _splane_bwd_pallas), in its last-step-seed mode. K2's
+// launched by _splane_bwd_pallas), in both its seed modes. K2's
 // recursion (chain_bwd.cu) with A_t^H read from the forward's planes in
 // place of the basis build; for each segment chain, t = L-1 .. 0:
 //
-//   T_t      = seed (t = L-1), else U_{t+1}^H T_{t+1}
+//   T_t      = seed_{L-1} (t = L-1), else U_{t+1}^H T_{t+1} [+ seed_t]
 //   gU_t     = T_t P_{t-1}^H
 //   (U_t^H, gA_t) = dual Taylor at (A_t^H, gU_t)
 //
 // gA_t is written out per step. With no basis to project on, it is the
 // planes' gradient in PyTorch's convention (dL/dRe + i dL/dIm) as it stands.
+// The bracketed seed is the per-step-seed mode's (per_step), as in K2.
 //
 // A_t^H: the kernel reads the forward's plane A_t coalesced and stores it
 // conjugate-transposed into shared memory (as K2 stages P_{t-1}^H), so the
@@ -37,7 +38,7 @@ __global__ void __launch_bounds__(NT, 1)
                      const float2* __restrict__ prefpad,
                      const float2* __restrict__ seeds,
                      float2* __restrict__ gA, float2* __restrict__ stash,
-                     int L) {
+                     int L, bool per_step) {
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   float2* b[7];
@@ -53,7 +54,8 @@ __global__ void __launch_bounds__(NT, 1)
   float2* st = stash + seg * STASH_SLOTS * MAT;
 
   for (int t = L - 1; t >= 0; --t) {
-    adjoint_gu(b, seeds + seg * MAT, pseg + (size_t)t * MAT, t == L - 1);
+    adjoint_gu(b, step_seed(seeds, seg, t, L, per_step),
+               pseg + (size_t)t * MAT, t == L - 1);
     load_adjoint(b[1], aseg + (size_t)t * MAT);  // A_t^H
     __syncthreads();
     expm_dual(b, level, st, red);
@@ -68,11 +70,13 @@ __global__ void __launch_bounds__(NT, 1)
 
 // a (S, L, DP, DP) complex64, the forward's planes; norm -> 1 f32 (batch-max
 // inf-norm of the planes = 1-norm of A^H); prefpad (S, L + 1, DP, DP) from
-// the forward; seeds (S, DP, DP); gA (S, L, DP, DP) out; stash
-// (S, STASH_SLOTS, DP, DP) scratch. Returns the CUDA error.
+// the forward; seeds (S, DP, DP), or (S, L, DP, DP) with per_step != 0; gA
+// (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP) scratch. Returns the
+// CUDA error.
 extern "C" int qoc_plane_bwd(const void* a, const void* norm,
                              const void* prefpad, const void* seeds, void* gA,
-                             void* stash, int S, int L, void* stream) {
+                             void* stash, int S, int L, int per_step,
+                             void* stream) {
   using namespace qoc;
   cudaError_t err = cudaFuncSetAttribute(
       plane_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -81,6 +85,7 @@ extern "C" int qoc_plane_bwd(const void* a, const void* norm,
   plane_bwd_kernel<<<S, NT, BWD_SMEM, (cudaStream_t)stream>>>(
       static_cast<const float2*>(a), static_cast<const float*>(norm),
       static_cast<const float2*>(prefpad), static_cast<const float2*>(seeds),
-      static_cast<float2*>(gA), static_cast<float2*>(stash), L);
+      static_cast<float2*>(gA), static_cast<float2*>(stash), L,
+      per_step != 0);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@ precomputed at construction time so the per-iteration work is device math.
 """
 
 import numpy as np
+import torch
 
-__all__ = ["Cost", "validate_cost_dimensions"]
+__all__ = ["Cost", "DeviceCopies", "validate_cost_dimensions"]
 
 
 def validate_cost_dimensions(costs, hilbert_dim):
@@ -37,6 +38,25 @@ def validate_cost_dimensions(costs, hilbert_dim):
                 "{} was constructed for Hilbert dimension {}, but the "
                 "problem's initial states/densities have dimension {}."
                 "".format(type(cost).__name__, d, hilbert_dim))
+
+
+class DeviceCopies:
+    """Device copies of a cost's host arrays (targets, forbidden states),
+    made once per (device, dtype) of the tensors it is evaluated on: a
+    host-to-device copy inside the iteration would wait for the device."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+        self._copies = {}
+
+    def like(self, x):
+        """The arrays as tensors on ``x``'s device in ``x``'s dtype."""
+        key = (x.device, x.dtype)
+        if key not in self._copies:
+            self._copies[key] = [torch.as_tensor(a, dtype=x.dtype,
+                                                 device=x.device)
+                                 for a in self.arrays]
+        return self._copies[key]
 
 
 class Cost:

@@ -3,9 +3,11 @@
 Counterpart of ``qoc_tpu/models/programstate.py`` (reference
 qoc/models/{programstate,schroedingermodels,lindbladmodels}.py): static
 configuration that the loss closes over. Saving to H5 files is ROADMAP
-slice 4 of the port, so ``save_file_path``, ``save_iteration_step`` and
-``save_intermediate_states`` / ``save_intermediate_densities`` raise
-``NotImplementedError`` here; nothing imports h5py.
+slice 4 of the port, so ``save_file_path`` and ``save_iteration_step``
+raise ``NotImplementedError`` here; nothing imports h5py. Without a save
+file ``save_intermediate_states`` / ``save_intermediate_densities`` mean
+what they mean in ``qoc_tpu``: evolve returns the intermediate states or
+densities in its result, GRAPE ignores the flag.
 """
 
 import numpy as np
@@ -26,15 +28,11 @@ _H5_SLICE = ("{} is not ported yet: H5 save files are ROADMAP slice 4 of "
              "qoc_tpu_torch (use qoc_tpu for saved runs).")
 
 
-def _refuse_saving(save_file_path, save_iteration_step=0,
-                   save_intermediate_states=False,
-                   intermediate_name="save_intermediate_states"):
+def _refuse_saving(save_file_path, save_iteration_step=0):
     if save_file_path is not None:
         raise NotImplementedError(_H5_SLICE.format("save_file_path"))
     if save_iteration_step:
         raise NotImplementedError(_H5_SLICE.format("save_iteration_step"))
-    if save_intermediate_states:
-        raise NotImplementedError(_H5_SLICE.format(intermediate_name))
 
 
 class ProgramState:
@@ -107,8 +105,7 @@ class EvolveSchroedingerDiscreteState(ProgramState):
                  evolution_time, hamiltonian, initial_states,
                  interpolation_policy, magnus_policy, save_file_path,
                  save_intermediate_states_, system_eval_count):
-        _refuse_saving(save_file_path,
-                       save_intermediate_states=save_intermediate_states_)
+        _refuse_saving(save_file_path)
         super().__init__(control_eval_count, cost_eval_step, costs,
                          evolution_time, hamiltonian, interpolation_policy,
                          ProgramType.EVOLVE, save_file_path,
@@ -129,8 +126,7 @@ class GrapeSchroedingerDiscreteState(GrapeState):
                  max_control_norms, magnus_policy, min_error, optimizer,
                  save_file_path, save_intermediate_states_,
                  save_iteration_step, system_eval_count):
-        _refuse_saving(save_file_path, save_iteration_step,
-                       save_intermediate_states_)
+        _refuse_saving(save_file_path, save_iteration_step)
         super().__init__(complex_controls, control_count, control_eval_count,
                          cost_eval_step, costs, evolution_time, hamiltonian,
                          impose_control_conditions, initial_controls,
@@ -152,9 +148,7 @@ class EvolveLindbladDiscreteState(ProgramState):
                  evolution_time, hamiltonian, initial_densities,
                  interpolation_policy, lindblad_data, save_file_path,
                  save_intermediate_densities_, system_eval_count):
-        _refuse_saving(save_file_path,
-                       save_intermediate_states=save_intermediate_densities_,
-                       intermediate_name="save_intermediate_densities")
+        _refuse_saving(save_file_path)
         super().__init__(control_eval_count, cost_eval_step, costs,
                          evolution_time, hamiltonian, interpolation_policy,
                          ProgramType.EVOLVE, save_file_path,
@@ -177,9 +171,7 @@ class GrapeLindbladDiscreteState(GrapeState):
                  min_error, optimizer, save_file_path,
                  save_intermediate_densities_, save_iteration_step,
                  system_eval_count):
-        _refuse_saving(save_file_path, save_iteration_step,
-                       save_intermediate_densities_,
-                       intermediate_name="save_intermediate_densities")
+        _refuse_saving(save_file_path, save_iteration_step)
         super().__init__(complex_controls, control_count, control_eval_count,
                          cost_eval_step, costs, evolution_time, hamiltonian,
                          impose_control_conditions, initial_controls,

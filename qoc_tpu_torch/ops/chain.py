@@ -1,11 +1,14 @@
 """Fused expm-product chains: the propagation hot loop of Schrödinger GRAPE.
 
-Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (no per-step prefixes, one
-chain). Two ops compute an ordered product of step exponentials
+Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (one chain; member batches
+are a later slice). Two ops compute an ordered product of step
+exponentials
 
     U_j = exp(A_j),   P = U_{B-1} ··· U_1 U_0,
 
-and its exact gradient. :class:`ChainExpmPropagate` takes a *linear*
+and its exact gradient, and in their trajectory form (``return_prefixes``)
+every prefix P_t = U_t ··· U_0 as well, with the exact gradient through
+both outputs. :class:`ChainExpmPropagate` takes a *linear*
 control Hamiltonian under Magnus-M2, A_j = Σ_k W_jk G_k, as real weight
 rows W against a constant complex generator basis G.
 :class:`PlaneChainPropagate` takes the generators themselves as complex
@@ -22,9 +25,10 @@ version of the same math:
 - K1, :func:`chain_fwd` (``csrc/chain_fwd.cu``): every segment's prefixes
   P_t by the f32 Taylor ladder. Plain version :func:`chain_fwd_plain`.
 - K2, :func:`chain_bwd` (``csrc/chain_bwd.cu``): the exact adjoint,
-  T_t = U_{t+1}^H T_{t+1}, gU_t = T_t P_{t-1}^H and the dual-number Taylor
-  at (A_t^H, gU_t), which gives U_t^H and gA_t = L(A_t^H, gU_t). Plain
-  version :func:`chain_bwd_plain`.
+  T_t = U_{t+1}^H T_{t+1} (+ seed_t in the per-step-seed mode of the
+  trajectory form), gU_t = T_t P_{t-1}^H and the dual-number Taylor at
+  (A_t^H, gU_t), which gives U_t^H and gA_t = L(A_t^H, gU_t). Plain version
+  :func:`chain_bwd_plain`.
 - K5, :func:`plane_fwd` (``csrc/plane_fwd.cu``) and :func:`plane_bwd`
   (``csrc/plane_bwd.cu``): K1 and K2 with the generator read from its
   plane instead of built from the basis. Plain versions
@@ -46,8 +50,8 @@ Gradient convention: PyTorch's ``grad`` of a complex tensor is
 dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX ops therefore
 seed their adjoint with ``conj(gbar)`` and carry a conjugated recursion;
 here the same recursion is the plain gradient one: the segment seeds are
-Sf_s^H g C_{s-1}^H, gA is the planes' gradient as it stands, and the
-weight gradient is Re Σ conj(G_k) ∘ gA.
+Sf_s^H g C_{s-1}^H (per step, :func:`_segment_seeds`), gA is the planes'
+gradient as it stands, and the weight gradient is Re Σ conj(G_k) ∘ gA.
 """
 
 import ctypes
@@ -66,8 +70,9 @@ from qoc_tpu_torch.config import complex_dtype
 __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
            "chain_bwd", "chain_bwd_plain", "chain_fwd", "chain_fwd_plain",
            "kernel_dp", "ladder_level", "load_kernels", "plane_bwd",
-           "plane_bwd_plain", "plane_chain_propagate", "plane_fwd",
-           "plane_fwd_plain", "segment_plan", "stream_bwd",
+           "per_step_seeds", "plane_bwd_plain", "plane_chain_propagate",
+           "plane_chain_propagate_prefixes", "plane_fwd", "plane_fwd_plain",
+           "segment_plan", "stream_bwd",
            "stream_bwd_plain", "stream_fwd", "stream_fwd_plain",
            "stream_grid", "stream_segment_plan", "uses_stream", "KERNEL_DP",
            "STREAM_MAX_DP", "STREAM_MIN_DP"]
@@ -184,17 +189,17 @@ def load_kernels():
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.qoc_chain_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, cint,
-                                  cint, cint, ptr]
+                                  cint, cint, cint, ptr]
     lib.qoc_plane_fwd.argtypes = [ptr, ptr, ptr, cint, cint, ptr]
     lib.qoc_plane_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
-                                  ptr]
+                                  cint, ptr]
     lib.qoc_expm_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.qoc_expm_frechet.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                                      cint, ptr]
     lib.qoc_stream_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
                                    cint, ptr]
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
-                                   cint, cint, ptr]
+                                   cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p]
@@ -413,15 +418,28 @@ def _prefixes(generator, s_count, length, dp, level, like):
     return out
 
 
+def per_step_seeds(seeds):
+    """True for per-step seeds (S, L, dp, dp), false for last-step seeds
+    (S, dp, dp): the one rule that picks the adjoint's mode, in the plain
+    versions and the kernels alike."""
+    return seeds.dim() == 4
+
+
 def _adjoint(generator_h, length, level, prefpad, seeds):
     """The adjoint recursion: gA (S, L, dp, dp) from the generators' conjugate
-    transposes ``generator_h(t)``, the forward's prefpad and the seeds."""
-    out = torch.empty((seeds.shape[0], length) + seeds.shape[1:],
+    transposes ``generator_h(t)``, the forward's prefpad and the seeds: one a
+    segment, at its last step, or one a step (:func:`per_step_seeds`), added
+    after the product, T_t = U_{t+1}^H T_{t+1} + seed_t."""
+    per_step = per_step_seeds(seeds)
+    out = torch.empty((seeds.shape[0], length) + seeds.shape[-2:],
                       dtype=seeds.dtype, device=seeds.device)
-    t_cur, uh = seeds, None
+    t_cur = seeds[:, -1] if per_step else seeds
+    uh = None
     for t in range(length - 1, -1, -1):
         if uh is not None:
             t_cur = uh @ t_cur
+            if per_step:
+                t_cur = t_cur + seeds[:, t]
         gu = t_cur @ prefpad[:, t].mH
         dual = _expm_ladder(_Dual(generator_h(t), gu), level)
         uh = dual.v
@@ -440,9 +458,10 @@ def chain_fwd_plain(w, basis, norm):
 def chain_bwd_plain(w, basis_h, norm, prefpad, seeds):
     """Plain version of K2: ``basis_h`` holds G_k^H, ``norm`` is the
     batch-max inf-norm of the generators (the 1-norm of A^H), ``prefpad``
-    comes from K1 and ``seeds`` (S, dp, dp) is each segment's gradient at
-    its last prefix. Returns gA (S, L, dp, dp), the gradient of every
-    step's generator."""
+    comes from K1 and ``seeds`` is each segment's gradient at its last
+    prefix (S, dp, dp), or at every prefix (S, L, dp, dp): the per-step-seed
+    mode. Returns gA (S, L, dp, dp), the gradient of every step's
+    generator."""
     return _adjoint(lambda t: _generators(w[:, t], basis_h), w.shape[1],
                     ladder_level(norm), prefpad, seeds)
 
@@ -509,21 +528,34 @@ def chain_fwd(w, basis, norm):
 chain_fwd.launches = 0
 
 
+def _seed_mode(name, seeds, prefpad, s_count, length):
+    """1 for per-step seeds, 0 for last-step seeds (:func:`per_step_seeds`),
+    after checking them and prefpad against the segment plan (S, L)."""
+    per_step = per_step_seeds(seeds)
+    want = (s_count, length) if per_step else (s_count,)
+    if (prefpad.shape[:2] != (s_count, length + 1)
+            or tuple(seeds.shape[:-2]) != want):
+        raise ValueError("{}: prefpad {} and seeds {} do not match {} "
+                         "segments of {} steps".format(
+                             name, tuple(prefpad.shape), tuple(seeds.shape),
+                             s_count, length))
+    return int(per_step)
+
+
 def chain_bwd(w, basis_h, norm, prefpad, seeds):
     """K2: same contract as :func:`chain_bwd_plain`. On a CPU tensor it is
     the plain version; on a CUDA tensor it launches ``csrc/chain_bwd.cu``
-    or raises."""
+    in the seeds' mode or raises. ``chain_bwd.launches`` counts every
+    launch, ``chain_bwd.step_launches`` those in the per-step-seed mode."""
     if w.device.type == "cpu":
         return chain_bwd_plain(w, basis_h, norm, prefpad, seeds)
     _check_device(w, "chain_bwd")
     _check_weights(w, norm, basis_h, prefpad, seeds)
     s_count, length, n_b = w.shape
-    if (prefpad.shape[:2] != (s_count, length + 1)
-            or seeds.shape[0] != s_count or basis_h.shape[0] != n_b):
-        raise ValueError("chain_bwd: prefpad {}, seeds {}, basis {} do not "
-                         "match weights {}".format(
-                             tuple(prefpad.shape), tuple(seeds.shape),
-                             tuple(basis_h.shape), tuple(w.shape)))
+    if basis_h.shape[0] != n_b:
+        raise ValueError("basis has {} terms, weights {}".format(
+            basis_h.shape[0], n_b))
+    per_step = _seed_mode("chain_bwd", seeds, prefpad, s_count, length)
     lib = load_kernels()
     out = torch.empty((s_count, length, KERNEL_DP, KERNEL_DP),
                       dtype=torch.complex64, device=w.device)
@@ -532,15 +564,18 @@ def chain_bwd(w, basis_h, norm, prefpad, seeds):
         err = lib.qoc_chain_bwd(
             w.data_ptr(), basis_h.data_ptr(), norm.data_ptr(),
             prefpad.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-            stash.data_ptr(), s_count, length, n_b, _stream(w.device))
+            stash.data_ptr(), s_count, length, n_b, per_step,
+            _stream(w.device))
     if err != 0:
         raise RuntimeError("chain backward kernel launch failed: CUDA error "
                            "{}".format(err))
     chain_bwd.launches += 1
+    chain_bwd.step_launches += per_step
     return out
 
 
 chain_bwd.launches = 0
+chain_bwd.step_launches = 0
 
 
 def plane_fwd(a_seg, norm):
@@ -570,18 +605,14 @@ plane_fwd.launches = 0
 def plane_bwd(a_seg, norm, prefpad, seeds):
     """K5 backward: same contract as :func:`plane_bwd_plain`. On a CPU
     tensor it is the plain version; on a CUDA tensor it launches
-    ``csrc/plane_bwd.cu`` or raises."""
+    ``csrc/plane_bwd.cu`` in the seeds' mode or raises. Counted as
+    :func:`chain_bwd`."""
     if a_seg.device.type == "cpu":
         return plane_bwd_plain(a_seg, norm, prefpad, seeds)
     _check_device(a_seg, "plane_bwd")
     _check_planes(a_seg, norm, prefpad, seeds)
     s_count, length = a_seg.shape[:2]
-    if (prefpad.shape[:2] != (s_count, length + 1)
-            or seeds.shape[0] != s_count):
-        raise ValueError("plane_bwd: prefpad {}, seeds {} do not match "
-                         "planes {}".format(tuple(prefpad.shape),
-                                            tuple(seeds.shape),
-                                            tuple(a_seg.shape)))
+    per_step = _seed_mode("plane_bwd", seeds, prefpad, s_count, length)
     lib = load_kernels()
     out = torch.empty_like(a_seg)
     stash = _stash(lib, s_count, a_seg.device)
@@ -589,15 +620,17 @@ def plane_bwd(a_seg, norm, prefpad, seeds):
         err = lib.qoc_plane_bwd(
             a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
             seeds.data_ptr(), out.data_ptr(), stash.data_ptr(), s_count,
-            length, _stream(a_seg.device))
+            length, per_step, _stream(a_seg.device))
     if err != 0:
         raise RuntimeError("plane backward kernel launch failed: CUDA error "
                            "{}".format(err))
     plane_bwd.launches += 1
+    plane_bwd.step_launches += per_step
     return out
 
 
 plane_bwd.launches = 0
+plane_bwd.step_launches = 0
 
 
 # K6's plain versions are K5's: the same recursion at any d.
@@ -680,17 +713,13 @@ stream_fwd.launches = 0
 def stream_bwd(a_seg, norm, prefpad, seeds):
     """K6 adjoint: same contract as :func:`plane_bwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor it launches
-    ``csrc/stream_bwd.cu`` or raises."""
+    ``csrc/stream_bwd.cu`` in the seeds' mode or raises. Counted as
+    :func:`chain_bwd`."""
     if a_seg.device.type == "cpu":
         return stream_bwd_plain(a_seg, norm, prefpad, seeds)
     dp = _check_stream("stream_bwd", a_seg, norm, prefpad, seeds)
     s_count, length = a_seg.shape[:2]
-    if (prefpad.shape[:2] != (s_count, length + 1)
-            or seeds.shape[0] != s_count):
-        raise ValueError("stream_bwd: prefpad {}, seeds {} do not match "
-                         "planes {}".format(tuple(prefpad.shape),
-                                            tuple(seeds.shape),
-                                            tuple(a_seg.shape)))
+    per_step = _seed_mode("stream_bwd", seeds, prefpad, s_count, length)
     dev = a_seg.device
     out = torch.empty_like(a_seg)
     grid, slots = stream_grid(True, dp, s_count, dev)
@@ -700,15 +729,17 @@ def stream_bwd(a_seg, norm, prefpad, seeds):
         err = load_kernels().qoc_stream_bwd(
             a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
             seeds.data_ptr(), out.data_ptr(), ws.data_ptr(), s_count, length,
-            dp, grid, _stream(dev))
+            dp, grid, per_step, _stream(dev))
     if err != 0:
         raise RuntimeError("K6 adjoint launch failed: CUDA error {}".format(
             err))
     stream_bwd.launches += 1
+    stream_bwd.step_launches += per_step
     return out
 
 
 stream_bwd.launches = 0
+stream_bwd.step_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -792,31 +823,106 @@ def _merge(prefpad, d):
     return _prefix_products(prods), prods
 
 
-def _segment_seeds(grad_total, cums, prods, dp):
-    """Each segment's gradient at its last prefix, Sf_s^H g C_{s-1}^H
-    (after and before the segment), zero-padded to (S, dp, dp)."""
+def _before(cums):
+    """C_{s-1} = prods[s-1] ··· prods[0], the product of the segments before
+    segment s (C_{-1} = I), from the inclusive prefix products ``cums``."""
+    eye = torch.eye(cums.shape[-1], dtype=cums.dtype, device=cums.device)
+    return torch.cat((eye[None], cums[:-1]))
+
+
+def _compose_prefixes(prefpad, cums, n_steps):
+    """The chain's prefixes P_t = U_t ··· U_0 (n_steps, d, d): segment s's
+    local prefixes times C_{s-1}, P_{sL+j} = seg_pref[s, j] C_{s-1}, one
+    batched product over the kernels' prefpad (qoc_tpu chain_pallas.py
+    _compose_prefixes). Padded steps sit at the tail and are cut off."""
+    s_count, length, d = prefpad.shape[0], prefpad.shape[1] - 1, \
+        cums.shape[-1]
+    glob = prefpad[:, 1:, :d, :d] @ _before(cums)[:, None]
+    return glob.reshape(s_count * length, d, d)[:n_steps]
+
+
+def _chain_outputs(prefpad, d, n_steps, return_prefixes):
+    """(the op's outputs: the total, or (total, prefixes), cums, prods)."""
+    cums, prods = _merge(prefpad, d)
+    total = cums[-1].clone()
+    if return_prefixes:
+        return (total, _compose_prefixes(prefpad, cums, n_steps)), cums, prods
+    return total, cums, prods
+
+
+def _carries(prods, r, grad_total):
+    """D_s, the gradient of C_s = prods[s] ··· prods[0] (S, d, d), from
+    D_{S-1} = grad_total and D_{s-1} = R_s + prods[s]^H D_s: a log-depth
+    suffix scan of the affine maps D_{s+1} -> prods[s+1]^H D_{s+1} + R_{s+1}
+    (Hillis-Steele, one batched product a level)."""
     d = prods.shape[-1]
-    eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
-    before = torch.cat((eye, cums[:-1]))                 # C_{s-1}
-    after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
-    seeds = torch.zeros((prods.shape[0], dp, dp), dtype=prods.dtype,
+    a = torch.cat((prods[1:].mH, torch.zeros_like(prods[:1])))
+    b = torch.cat((r[1:], grad_total[None]))
+    off = 1
+    while off < prods.shape[0]:
+        ab = a[:-off] @ torch.cat((a[off:], b[off:]), dim=-1)
+        a = torch.cat((ab[..., :d], a[-off:]))
+        b = torch.cat((ab[..., d:] + b[:-off], b[-off:]))
+        off *= 2
+    return b
+
+
+def _segment_seeds(prefpad, cums, prods, dp, grad_total, grad_prefixes=None):
+    """The adjoint kernels' seeds, zero-padded to dp, for the gradients of
+    the total (d, d) and, in the trajectory form, of the prefixes
+    (n_steps, d, d); either may be None (no gradient flows there), both
+    None gives None. In PyTorch's convention, with C_{s-1} the product of
+    the segments before s and Sf_s those after:
+
+    - the total alone: each segment's seed at its last prefix,
+      Sf_s^H g C_{s-1}^H (S, dp, dp), the last-step-seed mode;
+    - with prefix gradients Q (P_{sL+j} = seg_pref[s, j] C_{s-1}): every
+      prefix its own seed Q_{s,j} C_{s-1}^H, and at each segment's last step
+      also D_s C_{s-1}^H, where D_{S-1} = g, D_{s-1} = R_s + prods[s]^H D_s
+      and R_s = Σ_j seg_pref[s, j]^H Q_{s,j} (S, L, dp, dp), the per-step
+      mode (qoc_tpu chain_pallas.py:1227-1250, there with conjugated
+      seeds and transposes)."""
+    if grad_total is None and grad_prefixes is None:
+        return None
+    s_count, length, d = prefpad.shape[0], prefpad.shape[1] - 1, \
+        prods.shape[-1]
+    g = (torch.zeros_like(prods[0]) if grad_total is None
+         else grad_total.to(prods.dtype))
+    before_h = _before(cums).mH
+    if grad_prefixes is None:
+        eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
+        after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
+        seeds = torch.zeros((s_count, dp, dp), dtype=prods.dtype,
+                            device=prods.device)
+        seeds[:, :d, :d] = after.mH @ g @ before_h
+        return seeds
+    q = torch.zeros((s_count * length, d, d), dtype=prods.dtype,
+                    device=prods.device)
+    q[:grad_prefixes.shape[0]] = grad_prefixes
+    q = q.reshape(s_count, length, d, d)
+    # R_s as one product: the segment's L local prefixes stacked as rows.
+    r = (prefpad[:, 1:, :d, :d].reshape(s_count, length * d, d).mH
+         @ q.reshape(s_count, length * d, d))
+    seeds = torch.zeros((s_count, length, dp, dp), dtype=prods.dtype,
                         device=prods.device)
-    seeds[:, :d, :d] = after.mH @ grad_total.to(prods.dtype) @ before.mH
+    seeds[:, :, :d, :d] = q @ before_h[:, None]
+    seeds[:, -1, :d, :d] += _carries(prods, r, g) @ before_h
     return seeds
 
 
 class _ChainExpm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, op):
-        total, saved = op._forward(w)
+        outputs, saved = op._forward(w)
+        ctx.set_materialize_grads(False)
         ctx.op, ctx.n_steps = op, w.shape[0]
         ctx.save_for_backward(*saved)
-        return total
+        return outputs
 
     @staticmethod
-    def backward(ctx, grad_total):
-        grad_w = ctx.op._backward(grad_total, *ctx.saved_tensors)
-        return grad_w[:ctx.n_steps], None
+    def backward(ctx, *grads):
+        grad_w = ctx.op._backward(grads, *ctx.saved_tensors)
+        return None if grad_w is None else grad_w[:ctx.n_steps], None
 
 
 class ChainExpmPropagate:
@@ -828,9 +934,16 @@ class ChainExpmPropagate:
     float32 (the kernels' type) and d <= :data:`KERNEL_DP`.
     ``plain=True`` runs the plain PyTorch versions of K1/K2 on any device:
     the reference the kernels are compared with. Propagation never sets
-    it, so on CUDA the op runs the kernels."""
+    it, so on CUDA the op runs the kernels.
+    ``return_prefixes=True`` (``qoc_tpu``'s
+    ``make_chain_expm_propagate(basis, return_prefixes=True)``, the
+    trajectory form): the op returns ``(total, prefixes)``, prefixes[t] =
+    exp(A_t) ··· exp(A_0) (B, d, d), with the exact gradient through both;
+    the backward runs K2 in its per-step-seed mode when the prefixes carry
+    a gradient."""
 
-    def __init__(self, basis, device, dtype, plain=False):
+    def __init__(self, basis, device, dtype, plain=False,
+                 return_prefixes=False):
         basis = np.asarray(basis)
         device = torch.device(device)
         cdtype = complex_dtype(dtype)
@@ -855,6 +968,7 @@ class ChainExpmPropagate:
         self.basis_ri = torch.view_as_real(
             g[:, :d, :d].contiguous()).reshape(n_b, 2 * d * d)
         self.d, self.dp, self.n_b = d, dp, n_b
+        self.return_prefixes = return_prefixes
         if plain:
             self._fwd, self._bwd = chain_fwd_plain, chain_bwd_plain
         else:
@@ -873,13 +987,16 @@ class ChainExpmPropagate:
         # Segment s owns steps [s L, (s+1) L): a reshape, no transpose.
         w_seg = w_seg.reshape(s_count, length, self.n_b)
         prefpad = self._fwd(w_seg, self.basis, n1)
-        cums, prods = _merge(prefpad, self.d)
-        return cums[-1].clone(), (w_seg, prefpad, cums, prods, ninf)
+        outputs, cums, prods = _chain_outputs(prefpad, self.d, n_steps,
+                                              self.return_prefixes)
+        return outputs, (w_seg, prefpad, cums, prods, ninf)
 
-    def _backward(self, grad_total, w_seg, prefpad, cums, prods, ninf):
+    def _backward(self, grads, w_seg, prefpad, cums, prods, ninf):
         s_count, length, _ = w_seg.shape
         d = self.d
-        seeds = _segment_seeds(grad_total, cums, prods, self.dp)
+        seeds = _segment_seeds(prefpad, cums, prods, self.dp, *grads)
+        if seeds is None:
+            return None
         grad_a = self._bwd(w_seg, self.basis_h, ninf, prefpad, seeds)
         grad_a = torch.view_as_real(grad_a[..., :d, :d]).reshape(
             s_count * length, 2 * d * d)
@@ -916,16 +1033,19 @@ class PlaneChainPropagate(torch.autograd.Function):
     autograd through any differentiable plane build: Magnus M4/M6 terms,
     any Hamiltonian callable, weights x basis.
 
-    ``PlaneChainPropagate.apply(a, plain=False)``: on CUDA ``a`` must be
-    complex64 (any complex dtype with ``plain``), and the op runs K5 at d <= :data:`KERNEL_DP` (padded to it)
-    and K6 at 256 < padded d <= 512 (padded to a multiple of 64), and
-    raises between; on the CPU it runs the plain versions in ``a``'s dtype
-    at any d, on the segment plan of the kernel the card would run.
-    ``plain=True`` runs the plain versions on any device: the reference the
-    kernels are compared with. Propagation never sets it."""
+    ``PlaneChainPropagate.apply(a, plain=False, return_prefixes=False)``: on
+    CUDA ``a`` must be complex64 (any complex dtype with ``plain``), and the
+    op runs K5 at d <= :data:`KERNEL_DP` (padded to it) and K6 at
+    256 < padded d <= 512 (padded to a multiple of 64), and raises between;
+    on the CPU it runs the plain versions in ``a``'s dtype at any d, on the
+    segment plan of the kernel the card would run. ``plain=True`` runs the
+    plain versions on any device: the reference the kernels are compared
+    with. Propagation never sets it. ``return_prefixes=True`` returns
+    ``(total, prefixes)`` as :class:`ChainExpmPropagate` does
+    (:func:`plane_chain_propagate_prefixes`)."""
 
     @staticmethod
-    def forward(ctx, a, plain=False):
+    def forward(ctx, a, plain=False, return_prefixes=False):
         n_steps, d = a.shape[0], a.shape[-1]
         if (a.device.type == "cuda" and not plain
                 and a.dtype != torch.complex64):
@@ -939,21 +1059,34 @@ class PlaneChainPropagate(torch.autograd.Function):
         a_seg[:n_steps, :d, :d] = a
         a_seg = a_seg.reshape(s_count, length, dp, dp)
         prefpad = fwd(a_seg, n1)
-        cums, prods = _merge(prefpad, d)
+        outputs, cums, prods = _chain_outputs(prefpad, d, n_steps,
+                                              return_prefixes)
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(a_seg, prefpad, cums, prods, ninf)
         ctx.bwd, ctx.n_steps = bwd, n_steps
-        return cums[-1].clone()
+        return outputs
 
     @staticmethod
-    def backward(ctx, grad_total):
+    def backward(ctx, *grads):
         a_seg, prefpad, cums, prods, ninf = ctx.saved_tensors
         s_count, length, dp = a_seg.shape[:3]
         d = prods.shape[-1]
-        seeds = _segment_seeds(grad_total, cums, prods, dp)
+        seeds = _segment_seeds(prefpad, cums, prods, dp, *grads)
+        if seeds is None:
+            return None, None, None
         grad_a = ctx.bwd(a_seg, ninf, prefpad, seeds)
         return grad_a.reshape(s_count * length, dp, dp)[
-            :ctx.n_steps, :d, :d], None
+            :ctx.n_steps, :d, :d], None, None
 
 
-# The functional form, under qoc_tpu's name: plane_chain_propagate(a, plain).
+# The functional forms, under qoc_tpu's names: plane_chain_propagate(a,
+# plain) and plane_chain_propagate_prefixes(a, plain) -> (total, prefixes).
 plane_chain_propagate = PlaneChainPropagate.apply
+
+
+def plane_chain_propagate_prefixes(a, plain=False):
+    """(total, prefixes) of the plane chain (``chain_pallas.py``
+    plane_chain_propagate_prefixes): the trajectory form of
+    :class:`PlaneChainPropagate`, its backward K5 or K6 in the per-step-seed
+    mode."""
+    return PlaneChainPropagate.apply(a, plain, True)

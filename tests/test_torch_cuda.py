@@ -466,3 +466,184 @@ def test_lindblad_iteration_has_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(error))
+
+
+def _chip_smoke():
+    """chip_smoke.py's problem builders (it imports no JAX)."""
+    _lindblad_d20()                         # puts the repo root on sys.path
+    import chip_smoke
+    return chip_smoke
+
+
+def _step_inputs(kernel, rng, target_norm, dev):
+    """(adjoint, plain adjoint, its inputs but the seeds, padded d) of K2 at
+    d = 16 over 37 steps, K5 at d = 16 over 37 steps or K6 at d = 260 over
+    5 steps (segment plans 5 x 8, 5 x 8 and 5 x 1), on generators scaled to
+    ``target_norm``, the prefixes from the plain forward."""
+    from qoc_tpu_torch.ops import chain
+    if kernel == "K2":
+        n_b, d, n_steps = 5, 16, 37
+        base = anti_hermitian_basis(rng, n_b, d)
+        w = rng.normal(size=(n_steps, n_b)).astype(np.float32)
+        norm1 = np.abs(np.einsum("jk,kab->jab", w, base)).sum(-2).max()
+        op = chain.ChainExpmPropagate(base * (target_norm / norm1), dev,
+                                      torch.float32)
+        s_count, length = chain.segment_plan(n_steps)
+        w_seg = torch.zeros((s_count * length, n_b), device=dev)
+        w_seg[:n_steps] = torch.as_tensor(w, device=dev)
+        w_seg = w_seg.reshape(s_count, length, n_b)
+        n1, ninf = chain._norm_max(w_seg.reshape(-1, n_b), op.basis_ri, d)
+        pref = chain.chain_fwd_plain(w_seg, op.basis, n1)
+        return (chain.chain_bwd, chain.chain_bwd_plain,
+                (w_seg, op.basis_h, ninf, pref), op.dp)
+    d, n_steps = (16, 37) if kernel == "K5" else (260, 5)
+    planes = (_unit_planes(rng, n_steps, d) * target_norm).astype(
+        np.complex64)
+    if kernel == "K5":
+        dp, plan = chain.KERNEL_DP, chain.segment_plan(n_steps)
+        fns = (chain.plane_bwd, chain.plane_bwd_plain)
+    else:
+        dp, plan = chain.kernel_dp(d), chain.stream_segment_plan(n_steps)
+        fns = (chain.stream_bwd, chain.stream_bwd_plain)
+    a_seg = torch.zeros((plan[0] * plan[1], dp, dp), dtype=torch.complex64,
+                        device=dev)
+    a_seg[:n_steps, :d, :d] = torch.as_tensor(planes, device=dev)
+    a_seg = a_seg.reshape(plan[0], plan[1], dp, dp)
+    n1, ninf = chain._plane_norm_max(a_seg)
+    pref = chain.plane_fwd_plain(a_seg, n1)
+    return fns + ((a_seg, ninf, pref), dp)
+
+
+@pytest.mark.parametrize("kernel", ("K2", "K5", "K6"))
+@pytest.mark.parametrize("target_norm", (0.03, 0.3, 1.0, 2.5, 7.0))
+def test_per_step_modes_match_plain_versions(cuda_device, kernel,
+                                             target_norm):
+    """K2, K5 and K6 in their per-step-seed mode against their plain
+    versions on every ladder level, launched in that mode; with seeds zero
+    but at each segment's last step, bitwise equal to the last-step mode."""
+    rng = np.random.default_rng(15)
+    bwd, bwd_plain, args, dp = _step_inputs(kernel, rng, target_norm,
+                                            cuda_device)
+    s_count, length = args[-1].shape[0], args[-1].shape[1] - 1
+    seeds = torch.as_tensor(
+        rng.normal(size=(s_count, length, dp, dp, 2)).astype(np.float32),
+        device=cuda_device)
+    seeds = torch.view_as_complex(seeds)
+    before = (bwd.launches, bwd.step_launches)
+    got, want = bwd(*args, seeds), bwd_plain(*args, seeds)
+    only_last = torch.zeros_like(seeds)
+    only_last[:, -1] = seeds[:, -1]
+    per_step_last = bwd(*args, only_last)
+    last_step = bwd(*args, seeds[:, -1].contiguous())
+    torch.cuda.synchronize()
+    assert (bwd.launches - before[0], bwd.step_launches - before[1]) == (3, 2)
+    assert float((got - want).abs().max() / want.abs().max()) < GRAD_RTOL
+    assert torch.equal(per_step_last, last_step)
+
+
+@pytest.mark.parametrize("op", ("chain", "plane"))
+def test_trajectory_ops_match_plain_versions(cuda_device, op):
+    """The trajectory form at d = 16 over 37 steps through the kernels
+    (K1 and K2, or K5) against the plain versions: total, prefixes and the
+    input gradient for random gradients on both outputs."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(16)
+    d, n_steps = 16, 37
+    if op == "chain":
+        basis = anti_hermitian_basis(rng, 3, d) * 0.2
+        x = torch.as_tensor(rng.normal(size=(n_steps, 3)).astype(np.float32),
+                            device=cuda_device)
+        ops = [chain.ChainExpmPropagate(basis, cuda_device, torch.float32,
+                                        plain=plain, return_prefixes=True)
+               for plain in (False, True)]
+        run = [ops[0], ops[1]]
+    else:
+        x = torch.as_tensor(_unit_planes(rng, n_steps, d).astype(
+            np.complex64), device=cuda_device)
+        run = [lambda a, plain=plain: chain.plane_chain_propagate_prefixes(
+            a, plain) for plain in (False, True)]
+    cotangents = [torch.as_tensor((rng.normal(size=shape)
+                                   + 1j * rng.normal(size=shape)).astype(
+                                       np.complex64), device=cuda_device)
+                  for shape in ((d, d), (n_steps, d, d))]
+    outs = []
+    for fn in run:
+        xt = x.clone().requires_grad_(True)
+        total, prefixes = fn(xt)
+        grad, = torch.autograd.grad((total, prefixes), xt, cotangents)
+        outs.append((total.detach(), prefixes.detach(), grad))
+    torch.cuda.synchronize()
+    for (got, want), rtol in zip(zip(*outs), (FWD_RTOL, FWD_RTOL, GRAD_RTOL)):
+        assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+def _counters():
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    return (chain.chain_fwd, chain.chain_bwd, chain.plane_fwd,
+            chain.plane_bwd, expm_cuda.expm_fwd, expm_cuda.expm_frechet_fwd,
+            chain.stream_fwd, chain.stream_bwd)
+
+
+def _launches(counters):
+    return ([fn.launches for fn in counters]
+            + [counters[i].step_launches for i in (1, 3, 7)])
+
+
+def test_stepcost_headline_grape_launches_k1_k2_only(cuda_device):
+    """The step-cost headline (the Table-3 problem with ForbidStates of
+    |1>) takes the fused route in its trajectory form: K1, and K2 in its
+    per-step-seed mode, once an iteration; nothing else."""
+    import qoc_tpu_torch
+    cs = _chip_smoke()
+    pstate, hamiltonian, costs = cs.stepcost_problem()
+    counters = _counters()
+    before = _launches(counters)
+    result = qoc_tpu_torch.grape_schroedinger_discrete(
+        cs.CONTROL_COUNT, cs.CONTROL_EVAL_COUNT, costs, cs.EVOLUTION_TIME,
+        hamiltonian, pstate.initial_states, cs.SYSTEM_EVAL_COUNT,
+        complex_controls=True, initial_controls=pstate.initial_controls,
+        iteration_count=3, log_iteration_step=0,
+        max_control_norms=pstate.max_control_norms, device=cuda_device)
+    assert [n - b for n, b in zip(_launches(counters), before)] == \
+        [3, 3, 0, 0, 0, 0, 0, 0, 3, 0, 0]
+    assert result.errors[-1] < result.errors[0]
+
+
+def test_lindblad_d20_stepcost_grape_launches_k6_only(cuda_device):
+    """The d = 20 Lindblad cell with density step costs: K6 forward and
+    adjoint (per-step-seed mode) once an iteration, K1-K5 never."""
+    import qoc_tpu_torch
+    cs = _chip_smoke()
+    counters = _counters()
+    before = _launches(counters)
+    result = qoc_tpu_torch.grape_lindblad_discrete(
+        iteration_count=3, log_iteration_step=0, device=cuda_device,
+        **cs.lindblad_d20_problem(cs.d20_step_costs()))
+    assert [n - b for n, b in zip(_launches(counters), before)] == \
+        [0, 0, 0, 0, 0, 0, 3, 3, 0, 0, 3]
+    assert result.errors[-1] < result.errors[0]
+
+
+@pytest.mark.parametrize("cell", ("headline", "lindblad d20"))
+def test_stepcost_iteration_has_no_host_sync(cuda_device, cell):
+    """One step-cost GRAPE iteration (clip, loss with the per-step prefixes,
+    gradient through the per-step seeds, Adam) with CUDA's synchronizing
+    calls turned into errors."""
+    from qoc_tpu_torch.core.lindblad import build_lindblad_loss
+    cs = _chip_smoke()
+    if cell == "headline":
+        iteration = cs.make_iteration(cs.stepcost_problem()[0], cuda_device)
+    else:
+        iteration = cs.make_iteration(
+            cs.lindblad_d20_pstate(cs.d20_step_costs()), cuda_device,
+            build_lindblad_loss)
+    iteration()                             # builds and caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            error = iteration()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(error))

@@ -2,7 +2,8 @@
 the Lindbladian and its superoperator, the superoperator basis, the density
 cost, the loss and its control gradient on every route, evolve (with an
 analytic T1 decay), a short Adam GRAPE, the refusals of what is not ported
-yet, and the conversions.
+yet, and the conversions (density step costs and intermediate densities:
+tests/test_torch_stepcost.py).
 
 On the CPU in x64 ``qoc_tpu`` takes its generic route (an XLA expm per step
 of the superoperator, composed by a tree product). Tolerances: 1e-12 on the
@@ -21,105 +22,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import random_hermitian
+from torch_parity import LindbladProblem
+from torch_parity import annihilation as _annihilation
+from torch_parity import random_density as _density
 
 torch.set_num_threads(1)
 
 LOSS_RTOL = 1e-8
 GRAD_RTOL = 1e-6
-
-
-def _annihilation(d):
-    return np.diag(np.sqrt(np.arange(1, d)), 1).astype(complex)
-
-
-def _density(rng, d):
-    """A random full-rank density matrix."""
-    x = rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d))
-    rho = x @ x.conj().T
-    return rho / np.trace(rho)
-
-
-class LindbladProblem:
-    """A Lindblad GRAPE problem in both packages: H = h0 + Σ c_i A_i + h.c.
-    with a LinearHamiltonian (or the same H as a callable in each package),
-    two decay channels (a, rate 0.05, and a random operator, rate 0.02), two
-    initial densities (|0><0| and a mixed one) and their targets."""
-
-    def __init__(self, seed=3, d=3, n_c=2, n_steps=12, evolution_time=1.0,
-                 max_norm=10.0):
-        from qoc_tpu import ConstantLindblad, LinearHamiltonian
-        from qoc_tpu.standard import TargetDensityInfidelity
-        from qoc_tpu_torch import convert
-
-        rng = np.random.default_rng(seed)
-        self.d, self.n_c, self.n_steps = d, n_c, n_steps
-        self.evolution_time = evolution_time
-        self.h0 = random_hermitian(rng, d)
-        self.ops = 0.5 * (rng.normal(size=(n_c, d, d))
-                          + 1j * rng.normal(size=(n_c, d, d)))
-        self.rates = np.array([0.05, 0.02])
-        self.lops = np.stack((_annihilation(d), 0.3 * (
-            rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d)))))
-        pure = np.zeros((d, d), dtype=complex)
-        pure[0, 0] = 1
-        self.initial = np.stack((pure, _density(rng, d)))
-        target = np.zeros((d, d), dtype=complex)
-        target[-1, -1] = 1
-        self.targets = np.stack((target, _density(rng, d)))
-        self.controls = 0.3 * (rng.normal(size=(n_steps, n_c))
-                               + 1j * rng.normal(size=(n_steps, n_c)))
-        self.max_control_norms = np.full(n_c, max_norm)
-        self.jax_hamiltonian = LinearHamiltonian(self.h0, self.ops)
-        self.jax_lindblad = ConstantLindblad(self.rates, self.lops)
-        self.jax_costs = [TargetDensityInfidelity(self.targets)]
-        self.torch_hamiltonian = convert.linear_hamiltonian(
-            self.jax_hamiltonian)
-        self.torch_lindblad = convert.constant_lindblad(self.jax_lindblad)
-        self.torch_costs = [convert.target_density_infidelity(c)
-                            for c in self.jax_costs]
-        self.torch_initial = convert.densities(self.initial)
-
-    def use_callables(self):
-        """The same H as a time-dependent callable in each package,
-        H(c, t) = cos(t) h0 + Σ_i c_i A_i + conj(c_i) A_i^H."""
-        h0, ops = self.h0, self.ops
-        h0_t, ops_t = torch.as_tensor(h0), torch.as_tensor(ops)
-
-        def jax_hamiltonian(controls, t):
-            drive = jnp.einsum("i,iab->ab", controls, ops)
-            return jnp.cos(t) * h0 + drive + jnp.conjugate(drive.T)
-
-        def torch_hamiltonian(controls, t):
-            drive = torch.einsum("i,iab->ab", controls, ops_t)
-            return torch.cos(t) * h0_t + drive + drive.mH
-
-        self.jax_hamiltonian = jax_hamiltonian
-        self.torch_hamiltonian = torch_hamiltonian
-        return self
-
-    def pstate(self, package, magnus="M2", iteration_count=1):
-        """qoc_tpu's or the port's GrapeLindbladDiscreteState, under
-        MAGNUS_EXPM."""
-        if package == "jax":
-            from qoc_tpu import models
-            from qoc_tpu.optim import Adam
-            ham, lind, costs = (self.jax_hamiltonian, self.jax_lindblad,
-                                self.jax_costs)
-            initial = self.initial
-        else:
-            from qoc_tpu_torch import Adam, models
-            ham, lind, costs = (self.torch_hamiltonian, self.torch_lindblad,
-                                self.torch_costs)
-            initial = self.torch_initial
-        pstate = models.GrapeLindbladDiscreteState(
-            True, self.n_c, self.n_steps, 1, costs, self.evolution_time, ham,
-            None, self.controls, initial, models.InterpolationPolicy.LINEAR,
-            iteration_count, lind, 0, self.max_control_norms, 0, Adam(),
-            None, False, 0, self.n_steps)
-        pstate.method_ = models.LindbladMethod.MAGNUS_EXPM
-        pstate.magnus_policy_ = models.MagnusPolicy[magnus]
-        return pstate
 
 
 def _rel(got, want):
@@ -321,18 +231,11 @@ def test_grape_trajectory_matches_jax():
                                atol=1e-8)
 
 
-class _StepCost:
-    requires_step_evaluation = True
-
-
 def _refusals():
     from qoc_tpu_torch.models import LindbladMethod
     return {
         "default method (RKDP5)": (dict(), "MAGNUS_EXPM"),
         "RKDP5": (dict(method=LindbladMethod.RKDP5), "MAGNUS_EXPM"),
-        "step cost": (dict(costs=[_StepCost()]), "slice"),
-        "save_intermediate_densities": (
-            dict(save_intermediate_densities=True), "slice"),
         "save_file_path": (dict(save_file_path="run.h5"), "slice"),
         "impose_control_conditions": (
             dict(impose_control_conditions=lambda c: c), "slice"),
@@ -352,22 +255,19 @@ def test_unported_features_raise_not_implemented(case):
     kwargs.setdefault("method", LindbladMethod.MAGNUS_EXPM)
     if case == "default method (RKDP5)":
         del kwargs["method"]
-    costs = kwargs.pop("costs", problem.torch_costs)
     with pytest.raises(NotImplementedError, match=match):
         qoc_tpu_torch.grape_lindblad_discrete(
-            problem.n_c, problem.n_steps, costs, problem.evolution_time,
-            problem.torch_initial, problem.n_steps, complex_controls=True,
-            hamiltonian=problem.torch_hamiltonian,
+            problem.n_c, problem.n_steps, problem.torch_costs,
+            problem.evolution_time, problem.torch_initial, problem.n_steps,
+            complex_controls=True, hamiltonian=problem.torch_hamiltonian,
             lindblad_data=problem.torch_lindblad, iteration_count=1,
             log_iteration_step=0, device="cpu", **kwargs)
-    if case in ("default method (RKDP5)", "save_intermediate_densities"):
-        evolve_kwargs = {k: v for k, v in kwargs.items()
-                         if k != "costs"}
+    if case == "default method (RKDP5)":
         with pytest.raises(NotImplementedError, match=match):
             qoc_tpu_torch.evolve_lindblad_discrete(
                 problem.evolution_time, problem.torch_initial,
                 problem.n_steps, lindblad_data=problem.torch_lindblad,
-                device="cpu", **evolve_kwargs)
+                device="cpu", **kwargs)
 
 
 def test_conversions_carry_the_data():

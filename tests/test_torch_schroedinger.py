@@ -1,7 +1,8 @@
 """The port's Schrödinger path against qoc_tpu (float64, CPU): the loss and
 its gradient, a short Adam GRAPE trajectory, evolve, the refusals of what
 is not ported yet, the default device, and a run with JAX made
-unimportable.
+unimportable (step costs and intermediate states:
+tests/test_torch_stepcost.py).
 
 Tolerances: relative 1e-6 on the loss and 1e-5 on the gradient (the port's
 f32-calibrated Taylor ladder against JAX x64's f64 expm), 1e-6 on
@@ -129,16 +130,10 @@ def test_evolve_matches_jax(with_controls):
     assert got.error == pytest.approx(want.error, abs=1e-8)
 
 
-class _StepCost:
-    requires_step_evaluation = True
-
-
 def _refusals():
     return {
-        "step cost": dict(costs=[_StepCost()]),
         "save_file_path": dict(save_file_path="run.h5"),
         "save_iteration_step": dict(save_iteration_step=5),
-        "save_intermediate_states": dict(save_intermediate_states=True),
         "impose_control_conditions": dict(
             impose_control_conditions=lambda c: c),
         "resume_from": dict(resume_from="run.h5"),
