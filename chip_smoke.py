@@ -40,9 +40,10 @@ build, for a quick check of a kernel.) Phases, one line each:
    torch.linalg.matrix_exp of the same planes (exps only, no chain) and the
    conjugate transpose of the planes that the adjoint kernel does on load;
 11. K3 (expm) and K4 (its Fréchet derivative) against their plain versions
-   in float32 on every ladder level, at d = 16, 64, 96, 128 and 256 and
-   batches 1, 37 and 2000, the padded rows exact, and against float64
-   torch.linalg.matrix_exp and its autograd;
+   in float32 on every ladder level, at d = 16, 64, 96, 128, 180 and 256
+   (padded 64, 64, 128, 128, 192, 256) and batches 1, 37, 133 and 2000
+   (133: a ragged last wave of blocks), the padded rows exact, and against
+   float64 torch.linalg.matrix_exp and its autograd;
 12. the slice at full width: grape_schroedinger_discrete on the d = 2^7
    problem (bench.py's construction at d = 128, 10 complex controls, 2001
    points, T = 20, M2: the blocked route), 2 warm-up + 10 timed
@@ -55,7 +56,9 @@ build, for a quick check of a kernel.) Phases, one line each:
    against a float64 run of the same route;
 15. K3 and K4 times at the d = 128 GRAPE's planes and at the M4 planes,
    beside their plain versions, their bounds and torch.linalg.matrix_exp's
-   forward and backward on the same inputs;
+   forward and backward on the same inputs, with each kernel's design:
+   cluster size and grid, shared memory a block, ptxas registers and
+   spills (build.log) and its share of the bound;
 16. K6 (forward and adjoint of the streamed chain) against its plain
    versions in float32 at d = 260, 400 and 512 (padded 320, 448, 512),
    decaying non-normal planes on every ladder level, 1, 3, 37 and 100
@@ -75,8 +78,9 @@ build, for a quick check of a kernel.) Phases, one line each:
    points, 20 steps) through K1/K2 and a d = 12 problem (superoperator
    144) through K3/K4, with counters and final densities against float64;
 20. K6 times at the d = 20 cell's planes and at d = 2^9, beside their plain
-   versions and bounds, with the grid (clusters and SMs) and the segment
-   merge's device time;
+   versions and bounds, with the grid (clusters and SMs), shared memory a
+   block, ptxas registers and spills, the share of the bound, and the
+   segment merge's device time;
 21. K2, K5 and K6 in their per-step-seed mode (the trajectory form, where
    every prefix carries a gradient) against their plain versions in
    float32 on every ladder level: K2 and K5 at d = 64 and 16 over 3, 37
@@ -148,10 +152,10 @@ D128_EVOLUTION_TIME = 20.0
 # one step, timed over 20 iterations after 2 warm-up ones.
 D1024 = 1024
 BACKPROP_ITERATIONS = 20
-# K3/K4 against their plain versions: these d (padded to 64, 128, 128, 128,
-# 256) and batches, on every ladder level.
-EXPM_DIMS = (16, 64, 96, 128, 256)
-EXPM_BATCHES = (1, 37, 2000)
+# K3/K4 against their plain versions: these d (padded to 64, 64, 128, 128,
+# 192, 256) and batches, on every ladder level.
+EXPM_DIMS = (16, 64, 96, 128, 180, 256)
+EXPM_BATCHES = (1, 37, 133, 2000)
 # K6 against its plain versions: these d (padded 320, 448, 512) and steps,
 # on every ladder level.
 STREAM_DIMS = (260, 400, 512)
@@ -367,6 +371,34 @@ def cuda_ms(fn, repeats):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def ptxas_report(*entry):
+    """(registers, spill-store bytes) that ptxas reported in the kernels'
+    build.log for the first entry function whose mangled name holds every
+    string of ``entry`` (e.g. "stream_bwd_kernelILi7E")."""
+    from qoc_tpu_torch.ops import chain
+    regs = spill = None
+    current = None
+    for line in (chain.build_dir() / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            current = line
+        elif current and all(part in current for part in entry):
+            if "spill stores" in line and spill is None:
+                spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            if "Used" in line and "registers" in line and regs is None:
+                regs = int(line.split("Used")[1].split("registers")[0])
+    return regs, spill
+
+
+def design_line(name, entry, clusters, blocks, smem, bound_ms, ms):
+    """A kernel's launch design as phases 15 and 20 print it; ``entry``:
+    the strings of ptxas_report."""
+    regs, spill = ptxas_report(*entry)
+    return ("{}: cluster {} blocks, grid {} clusters ({} blocks), {} B "
+            "shared memory a block, {} registers, {} B spilled, {:.0%} of its "
+            "bound".format(name, blocks, clusters, clusters * blocks, smem,
+                           regs, spill, bound_ms / ms))
 
 
 def phase_device():
@@ -1202,6 +1234,16 @@ def phase_expm_timing(dev):
                   "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its "
                   "time".format(k, b[0], b[1], b[2], b[0] / ms[k])
                   for k, b in bounds.items()), flush=True)
+        for key, dual in (("K3", False), ("K4", True)):
+            blocks = expm_cuda.launch_grid(dual, dp, a.shape[0], dev.index)[0]
+            smem = expm_cuda._plan(dual, dp, dev.index)[2]
+            entry = (("frechet_resident_kernel" if dual else
+                      "expm_resident_kernel",) if dp == 64 else
+                     ("expm_tiled_kernel",
+                      "TiledILi{}ELb{}E".format(dp // 64, int(dual))))
+            print("phase 15 design ({} planes): ".format(label)
+                  + design_line(key, entry, blocks, 1, smem, bounds[key][0],
+                                ms[key]), flush=True)
         out[label] = (ms, bounds, {"K3": err3, "K4": err4})
     return out["d=128"]
 
@@ -1655,6 +1697,13 @@ def _time_stream(label, a, launches):
     grids = {key: chain.stream_grid(dual, dp, s_count, a.device)[0]
              for key, dual in (("K6 fwd", False), ("K6 bwd", True))}
     resident = chain._stream_plan(False, dp, a.device.index)[:2]
+    for key, dual in (("K6 fwd", False), ("K6 bwd", True)):
+        _, blocks, _, smem = chain._stream_plan(dual, dp, a.device.index)
+        entry = ("stream_{}_kernelILi{}E".format("bwd" if dual else "fwd",
+                                                 dp // 64),)
+        print("phase 20 design ({} planes): ".format(label)
+              + design_line(key, entry, grids[key], blocks, smem,
+                            bounds[key][0], ms[key]), flush=True)
     print("phase 20 stream timing ({} planes {}, padded {}, S x L = {} x {}, "
           "levels {}/{}; grid fwd {} / bwd {} clusters of {} blocks, {} "
           "resident: {} of 132 SMs busy): ".format(

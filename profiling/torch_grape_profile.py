@@ -49,8 +49,8 @@ def _class(name):
     for key, label in KERNELS:
         if key in name:
             return label
-    if "expm_tiled_kernel" in name:    # <T, false> is K3, <T, true> K4
-        return "K4" if "true>" in name else "K3"
+    if "expm_tiled_kernel" in name:    # Tiled<T, false, ...> is K3, true K4
+        return "K4" if ", true," in name else "K3"
     lower = name.lower()
     if "gemm" in lower or "cutlass" in lower:
         return "glue matmuls (cuBLAS)"

@@ -27,7 +27,14 @@ __all__ = ["adam_state", "constant_lindblad", "controls", "densities",
 
 def linear_hamiltonian(hamiltonian):
     """A port ``LinearHamiltonian`` with the same ``h0`` and
-    ``operators``."""
+    ``operators``. An ensemble (``qoc_tpu``'s ``EnsembleLinearHamiltonian``,
+    known by its ``param_operators``) raises ``NotImplementedError``: a
+    plain ``LinearHamiltonian`` would drop its member terms."""
+    if hasattr(hamiltonian, "param_operators"):
+        raise NotImplementedError(
+            "EnsembleLinearHamiltonian is not ported to qoc_tpu_torch yet "
+            "(ROADMAP Queue 1, item 1: ensembles); converting it to a "
+            "LinearHamiltonian would drop its param_operators.")
     return LinearHamiltonian(np.asarray(hamiltonian.h0, dtype=np.complex128),
                              np.asarray(hamiltonian.operators,
                                         dtype=np.complex128))

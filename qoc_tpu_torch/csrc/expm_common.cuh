@@ -1,7 +1,7 @@
 // Shared device code of the tiled matrix-exponential kernels: K3 forward
 // (expm_fwd.cu), K4 Fréchet derivative (expm_frechet.cu) and the streamed
-// chain K6 (stream_fwd.cu, stream_bwd.cu). The Taylor ladder and the tile
-// map are chain_common.cuh's.
+// chain K6 (stream_fwd.cu, stream_bwd.cu). The Taylor ladder and the
+// constants are chain_common.cuh's.
 //
 // Two designs, by the padded dimension D:
 //
@@ -9,26 +9,43 @@
 //   chain_common.cuh's expm (5 matrices) and expm_dual (6 matrices and the
 //   per-block stash of the dual powers): K1/K5's step without the chain,
 //   K2/K5's dual step without the recursion.
-// - D = 128 ... 512 (T = D / 64 tiles a side): one complex64 matrix is
-//   128 KB - 2 MB, so not even one fits the 227 KB of shared memory a block
-//   may use. The ladder's matrices (M, M2, M3, M4 and two accumulators X, Y;
-//   with their tangents for the dual form) live in a device-memory
-//   workspace, allocated by the wrapper. A product Z = X Y walks Z's T^2
-//   64 x 64 output tiles; for each it stages the 64 x 64 tiles of X's row
-//   band and Y's column band through shared memory, T of each, and
-//   accumulates with chain_common.cuh's mm_acc on the calling thread's 16
-//   registers (FP32 SIMT FMAs, no tensor cores, no TF32). The linear
-//   combinations of the ladder are fused into the products' epilogues where
-//   they follow one.
+// - D = 128 ... 512 (T = D / 64): one complex64 matrix is 128 KB - 2 MB, so
+//   not even one fits the 227 KB of shared memory a block may use. The
+//   ladder's matrices (M, M2, M3, M4 and two accumulators X, Y; with their
+//   tangents for the dual form) live in a device-memory workspace, shared
+//   by the CL blocks of a thread-block cluster (Tiled below).
 //
-// Who shares a workspace (Tiled's CL): K3/K4 give each block its own and
-// walk the batch one matrix a block (CL = 1). K6 advances one chain at a
-// time, so it splits every operation of a step across the CL blocks of a
-// thread-block cluster: a product's output tiles, an elementwise pass's
-// elements. Between two operations the cluster meets at a barrier
-// (barrier.cluster, after a device-scope fence of the workspace writes),
-// and workspace reads go to L2 (ld.global.cg): another SM wrote them, and
-// an L1 line of this SM may be stale.
+// The tiled product Z = X Y (Tiled::gemm_p). Z is cut into PR x PC panels;
+// the CL blocks sharing a workspace take the panels in turn, so an even
+// panel count splits every product evenly. Each thread of a block owns a
+// TM x TN register tile of a panel (Tile) and accumulates it with FP32 SIMT
+// FMAs (no tensor cores, no TF32). The operands stream through shared
+// memory in k-slices 32 deep (a PR x 32 slice of X, a 32 x PC slice of Y),
+// in a ring of NS stages filled by cp.async.cg (16 bytes a thread, at L2):
+// while the FMAs run on one slice, the next NS - 1 are in flight, across
+// the block's panels. The dual product (X, dX)(Y, dY) is two such products
+// on one accumulator: X Y, then its tangent dX Y + X dY as one product of
+// twice the depth, [dX X] [Y; dY]; so it needs no more registers or shared
+// memory than a plain one (holding both accumulators and four staged
+// slices took 255 registers and spilled). The conjugate
+// transpose Y^H (YADJ) cannot be copied as it is, so its slices go through
+// registers into the same ring, synchronously. The epilogue of a panel
+// adds a linear combination of ladder matrices (Lin), scales, adds an
+// input, copies the result out of the workspace, and computes up to two
+// further ladder matrices from the new element (the "posts": the ladder's
+// elementwise passes, fused where the product's own elements are all they
+// need).
+//
+// Who shares a workspace (CL): K3/K4 give each block its own and walk the
+// batch one matrix a block (CL = 1: clusters of 2 or 4 blocks a matrix,
+// whose ladders would fit the L2, measured slower at D = 128;
+// profiling/tiled_variants.py). K6 advances one chain at a time, so the
+// CL = 8 blocks of a thread-block cluster split every operation of a
+// step, each block one row band (PR = D / 8) of every product. Between two dependent operations
+// the sharing blocks meet at a barrier (with CL > 1 barrier.cluster, after
+// a device-scope fence of the workspace writes), and their workspace reads
+// go to L2 (ld.global.cg, cp.async.cg): another SM wrote them, and an L1
+// line of this SM may be stale.
 //
 // Ladder rule, both designs and the plain versions (ops/chain.py
 // _expm_ladder): the level comes from the batch-max 1-norm (by pointer,
@@ -70,25 +87,153 @@ __device__ __forceinline__ Lin chunk(int k, float c4 = 0.f, int s4 = NONE) {
   return lin(kC[k], kC[k + 1], M, kC[k + 2], M2, kC[k + 3], M3, c4, s4);
 }
 
-// Shared memory of the tiled kernels: the staged tiles (X, Y and, dual,
-// dX, dY) and a block-reduction scratch of NT floats.
-template <bool DUAL>
-constexpr size_t tiled_smem() {
-  return (DUAL ? 4 : 2) * MAT * sizeof(float2) + NT * sizeof(float);
+// What a product's epilogue does with each element z of Z = alpha X Y + L:
+// adds add[i] (an input), copies z (and, dual, dz) to vout (tout), and
+// sets slot post_dst[j] = post[j], where a term on the product's own slot
+// reads the new z.
+struct Epi {
+  Lin L;
+  float alpha;
+  const float2* add;
+  float2* vout;
+  float2* tout;
+  int post_dst[2];
+  Lin post[2];
+};
+
+__device__ __forceinline__ Epi epi(const Lin& L) {
+  return Epi{L, 1.0f, nullptr, nullptr, nullptr, {NONE, NONE}, {L, L}};
 }
 
-// CL blocks share one workspace and split each operation (see above). The
-// workspace holds SLOTS ladder matrices, then any extra ones of the caller
-// (extra(j)).
-template <int T, bool DUAL, int CL = 1>
-struct Tiled {
+__device__ __forceinline__ Epi epi_post(const Lin& L, int d0, const Lin& p0,
+                                        int d1 = NONE, const Lin& p1 = {}) {
+  Epi e = epi(L);
+  e.post_dst[0] = d0;
+  e.post[0] = p0;
+  e.post_dst[1] = d1;
+  e.post[1] = p1;
+  return e;
+}
+
+__device__ __forceinline__ Epi epi_out(const Lin& L, float2* vout,
+                                       float2* tout) {
+  Epi e = epi(L);
+  e.vout = vout;
+  e.tout = tout;
+  return e;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A thread's register tile of a product's output panel: the NT threads
+// form a GI x GJ grid, thread (i, j) owning rows i + GI r (r < TM) and
+// columns j + GJ c (c < TN) of a PR x PC panel.
+template <int TM, int TN, int GI>
+struct Tile {
+  static constexpr int GJ = NT / GI;
+  static constexpr int PR = GI * TM;  // panel rows
+  static constexpr int PC = GJ * TN;  // panel columns
+  static constexpr int EP = TM * TN;  // a thread's elements a panel
+  static __device__ __forceinline__ int i() { return threadIdx.x / GJ; }
+  static __device__ __forceinline__ int j() { return threadIdx.x % GJ; }
+  // Row and column in the panel of the thread's element e.
+  static __device__ __forceinline__ int row(int e) {
+    return i() + GI * (e / TN);
+  }
+  static __device__ __forceinline__ int col(int e) {
+    return j() + GJ * (e % TN);
+  }
+};
+
+// acc += X Y for a PR x KD slice X (row stride KD) and a KD x PC slice Y
+// (row stride PC) in shared memory, on the calling thread's tile
+// (Tile<TM, TN, GI>). X rows are read as float4 (two k) broadcasts to the
+// threads of a row, Y rows as consecutive float2 across j (conflict-free).
+template <int TM, int TN, int GI, int KD>
+__device__ __forceinline__ void mm_slice(const float2* __restrict__ Xs,
+                                         const float2* __restrict__ Ys,
+                                         float2 (&acc)[TM * TN]) {
+  using P = Tile<TM, TN, GI>;
+  const int ti = P::i(), tj = P::j();
+#pragma unroll 4
+  for (int k = 0; k < KD; k += 2) {
+    float4 a[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+      a[r] = *reinterpret_cast<const float4*>(Xs + (ti + GI * r) * KD + k);
+    float2 b0[TN], b1[TN];
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      b0[c] = Ys[k * P::PC + tj + P::GJ * c];
+      b1[c] = Ys[(k + 1) * P::PC + tj + P::GJ * c];
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        float2& o = acc[r * TN + c];
+        o.x = fmaf(a[r].x, b0[c].x, o.x);
+        o.x = fmaf(-a[r].y, b0[c].y, o.x);
+        o.x = fmaf(a[r].z, b1[c].x, o.x);
+        o.x = fmaf(-a[r].w, b1[c].y, o.x);
+        o.y = fmaf(a[r].x, b0[c].y, o.y);
+        o.y = fmaf(a[r].y, b0[c].x, o.y);
+        o.y = fmaf(a[r].z, b1[c].y, o.y);
+        o.y = fmaf(a[r].w, b1[c].x, o.y);
+      }
+    }
+  }
+}
+
+// Ring and panel geometry of a product at D = 64 T on the tile P.
+template <int T, typename P>
+struct Geometry {
   static constexpr int D = 64 * T;
+  static constexpr int KS = 32;                 // k-slice depth
+  static constexpr int KT = D / KS;             // slices a panel
+  static constexpr int PR = P::PR, PC = P::PC;  // panel rows, columns
+  static constexpr int RP = D / PR;             // row panels
+  static constexpr int PANELS = RP * (D / PC);
+  static constexpr int NS = 4;                  // ring stages
+  static constexpr int XSL = PR * KS;           // X slice elements
+  static constexpr int YSL = KS * PC;           // Y slice elements
+  static constexpr int STAGE = XSL + YSL;
+  static constexpr size_t SMEM = (size_t)NS * STAGE * sizeof(float2) +
+                                 NT * sizeof(float);
+  static_assert(D % PR == 0 && D % PC == 0, "panels must tile D");
+  static_assert(NS * STAGE >= MAT, "the ring must hold a 64 x 64 tile");
+};
+
+// CL blocks share one workspace and split each operation (see the file
+// note). The workspace holds the SLOTS ladder matrices, then any extra
+// ones of the caller (extra(j)).
+template <int T, bool DUAL, int CL, int TM = 8, int TN = 2, int GI = 8>
+struct Tiled {
+  using P = Tile<TM, TN, GI>;
+  using G = Geometry<T, P>;
+  static constexpr int D = G::D;
   static constexpr int N = D * D;
   static constexpr int SLOTS = DUAL ? 2 * NV : NV;
+  static constexpr int BLOCKS = CL;       // blocks sharing a workspace
   static constexpr int STRIDE = CL * NT;  // threads of the sharing blocks
+  static constexpr int EP = P::EP;
 
-  float2* ws;  // the workspace of this block (CL = 1) or cluster
-  float2* sm;  // staged tiles
+  float2* ws;  // the workspace of this cluster
+  float2* sm;  // the ring (and a 64 x 64 staging tile outside products)
   float* red;  // NT floats
   int rank;    // this block's rank among the CL
 
@@ -110,6 +255,7 @@ struct Tiled {
   }
 
   // Barrier of the sharing blocks, their workspace writes visible after it.
+  // Every operation below leaves it to the caller.
   __device__ __forceinline__ void sync() const {
     if constexpr (CL > 1) {
       __threadfence();
@@ -129,55 +275,136 @@ struct Tiled {
     return rank * NT + threadIdx.x;
   }
 
-  __device__ float2 value(const Lin& L, int i) const {
+  // L at element i; a term on slot zs reads z instead of the workspace.
+  __device__ float2 value(const Lin& L, int i, int zs = NONE,
+                          float2 z = {}) const {
     float2 r = make_float2(i / D == i % D ? L.id : 0.0f, 0.0f);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (L.s[j] != NONE) r = caxpy(L.c[j], ld(v(L.s[j]) + i), r);
+      if (L.s[j] != NONE)
+        r = caxpy(L.c[j], L.s[j] == zs ? z : ld(v(L.s[j]) + i), r);
     return r;
   }
 
-  __device__ float2 tangent(const Lin& L, int i) const {
+  __device__ float2 tangent(const Lin& L, int i, int zs = NONE,
+                            float2 dz = {}) const {
     float2 r = make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (L.s[j] != NONE) r = caxpy(L.c[j], ld(t(L.s[j]) + i), r);
+      if (L.s[j] != NONE)
+        r = caxpy(L.c[j], L.s[j] == zs ? dz : ld(t(L.s[j]) + i), r);
     return r;
   }
 
-  // slot dst = L (and its tangent), elementwise; ends with sync(). dst may
-  // be one of L's terms: each element is read and written by one thread.
-  __device__ void set(int dst, const Lin& L) const {
-    for (int i = first(); i < N; i += STRIDE) {
-      const float2 x = value(L, i);
-      if (DUAL) t(dst)[i] = tangent(L, i);
-      v(dst)[i] = x;
-    }
-    sync();
-  }
-
-  // dst = src, a D x D matrix (an input, or workspace); ends with sync().
+  // dst = src, a D x D matrix (an input, or workspace).
   __device__ void copy(float2* dst, const float2* src) const {
     for (int i = first(); i < N; i += STRIDE) dst[i] = ld(src + i);
-    sync();
   }
 
-  // dst += src for workspace dst and an input src; ends with sync().
-  __device__ void add(float2* dst, const float2* __restrict__ src) const {
-    for (int i = first(); i < N; i += STRIDE)
-      dst[i] = cadd(ld(dst + i), __ldg(src + i));
-    sync();
-  }
-
-  // The 64 x 64 tile at g (row stride D) into shared memory (row stride 64),
-  // 16 bytes a thread and load, coalesced.
-  __device__ void stage(float2* s, const float2* g) const {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int idx = threadIdx.x + NT * j;
-      const int r = idx >> 5, c = idx & 31;
-      reinterpret_cast<float4*>(s)[idx] = ld4(g + (size_t)r * D + 2 * c);
+  // One k-slice of a product into ring stage st: the PR x 32 slice of x
+  // at rows r0 and the 32 x PC slice of y (y^H with YADJ) at columns c0,
+  // both at depth k0.
+  template <bool YADJ>
+  __device__ void issue(float2* st, const float2* x, const float2* y, int r0,
+                        int c0, int k0) const {
+    float2* xs = st;
+    float2* ys = st + G::XSL;
+    for (int c = threadIdx.x; c < G::PR * 16; c += NT) {
+      const int r = c >> 4, q = 2 * (c & 15);
+      cp_async16(xs + r * G::KS + q, x + (size_t)(r0 + r) * D + k0 + q);
     }
+    if constexpr (YADJ) {
+      // (y^H)[k0 + kk, c0 + j] = conj y[c0 + j, k0 + kk], through registers.
+      for (int c = threadIdx.x; c < G::PC * 16; c += NT) {
+        const int j = c >> 4, q = 2 * (c & 15);
+        const float4 a = ld4(y + (size_t)(c0 + j) * D + k0 + q);
+        ys[q * G::PC + j] = make_float2(a.x, -a.y);
+        ys[(q + 1) * G::PC + j] = make_float2(a.z, -a.w);
+      }
+    } else {
+      constexpr int H = G::PC / 2;  // 16-byte chunks a row
+      for (int c = threadIdx.x; c < G::KS * H; c += NT) {
+        const int r = c / H, q = 2 * (c % H);
+        cp_async16(ys + r * G::PC + q, y + (size_t)(k0 + r) * D + c0 + q);
+      }
+    }
+  }
+
+  // Z = alpha x y + L (y^H with YADJ) and the epilogue e; with dz (DUAL
+  // only) the dual product, dz = alpha (dx y + x dy) + tangent of L. z and
+  // dz must differ from x, dx, y and dy; zs is z's slot (NONE if z is not
+  // one), which e's posts may read. The CL blocks split the panels; a panel
+  // takes KT slices (x, y), and in the dual form 2 KT more, (dx, y) then
+  // (x, dy), its value's epilogue after the first KT and its tangent's
+  // after the last.
+  template <bool YADJ = false>
+  __device__ void gemm_p(const float2* x, const float2* dx, const float2* y,
+                         const float2* dy, float2* z, float2* dz, int zs,
+                         const Epi& e) const {
+    const bool dual = DUAL && dz != nullptr;
+    const int spp = dual ? 3 * G::KT : G::KT;  // slices a panel
+    const int mine = rank < G::PANELS ? (G::PANELS - 1 - rank) / CL + 1 : 0;
+    const int n_it = mine * spp;
+    auto start = [&](int it) {
+      const int p = rank + (it / spp) * CL, s = it % spp;
+      const int pass = s / G::KT;  // 0: (x, y), 1: (dx, y), 2: (x, dy)
+      issue<YADJ>(sm + (it % G::NS) * G::STAGE, pass == 1 ? dx : x,
+                  pass == 2 ? dy : y, (p % G::RP) * G::PR,
+                  (p / G::RP) * G::PC, (s % G::KT) * G::KS);
+    };
+#pragma unroll
+    for (int it = 0; it < G::NS - 1; ++it) {
+      if (it < n_it) start(it);
+      cp_async_commit();
+    }
+    float2 acc[EP];
+#pragma unroll
+    for (int j = 0; j < EP; ++j) acc[j] = make_float2(0.f, 0.f);
+    for (int it = 0; it < n_it; ++it) {
+      cp_async_wait<G::NS - 2>();
+      __syncthreads();
+      // The stage of it - 1 is free: every thread has passed its FMAs.
+      if (it + G::NS - 1 < n_it) start(it + G::NS - 1);
+      cp_async_commit();
+      const float2* st = sm + (it % G::NS) * G::STAGE;
+      mm_slice<TM, TN, GI, G::KS>(st, st + G::XSL, acc);
+      const int s = it % spp;
+      if (s != G::KT - 1 && s != spp - 1) continue;
+      // Epilogue of the panel's value (s = KT - 1) or tangent.
+      const bool tan = s != G::KT - 1;
+      const int p = rank + (it / spp) * CL;
+      const int r0 = (p % G::RP) * G::PR, c0 = (p / G::RP) * G::PC;
+#pragma unroll
+      for (int j = 0; j < EP; ++j) {
+        const int gi = (r0 + P::row(j)) * D + c0 + P::col(j);
+        float2 w = cscale(e.alpha, acc[j]);
+        acc[j] = make_float2(0.f, 0.f);
+        if (tan) {
+          w = cadd(w, tangent(e.L, gi));
+          dz[gi] = w;
+          if (e.tout != nullptr) e.tout[gi] = w;
+        } else {
+          w = cadd(w, value(e.L, gi));
+          if (e.add != nullptr) w = cadd(w, __ldg(e.add + gi));
+          z[gi] = w;
+          if (e.vout != nullptr) e.vout[gi] = w;
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (e.post_dst[q] == NONE) continue;
+          if (tan) t(e.post_dst[q])[gi] = tangent(e.post[q], gi, zs, w);
+          else v(e.post_dst[q])[gi] = value(e.post[q], gi, zs, w);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next product
+  }
+
+  // slot dst = x y + e (dual: with tangents); dst must differ from x, y.
+  __device__ void gemm(int x, int y, int dst, const Epi& e) const {
+    gemm_p(v(x), DUAL ? t(x) : nullptr, v(y), DUAL ? t(y) : nullptr, v(dst),
+           DUAL ? t(dst) : nullptr, dst, e);
   }
 
   // The conjugate transpose of the 64 x 64 tile at g (row stride D) into
@@ -191,61 +418,6 @@ struct Tiled {
       s[(2 * c) * 64 + r] = make_float2(q.x, -q.y);
       s[(2 * c + 1) * 64 + r] = make_float2(q.z, -q.w);
     }
-  }
-
-  // z = x y + L, or x y^H + L with YADJ; with dz (DUAL only) the dual
-  // product, dz = dx y + x dy + tangent of L. z and dz must differ from x,
-  // dx, y and dy. The CL blocks split the output tiles; ends with sync().
-  template <bool YADJ = false>
-  __device__ void gemm_p(const float2* x, const float2* dx, const float2* y,
-                         const float2* dy, float2* z, float2* dz,
-                         const Lin& L) const {
-    const bool dual = DUAL && dz != nullptr;
-    float2* xs = sm;
-    float2* ys = sm + MAT;
-    float2* dxs = sm + 2 * MAT;
-    float2* dys = sm + 3 * MAT;
-    for (int tile = rank; tile < T * T; tile += CL) {
-      const int ti = tile / T, tj = tile % T;
-      float2 acc[EPT], dacc[EPT];
-      zero(acc);
-      if (dual) zero(dacc);
-      for (int kt = 0; kt < T; ++kt) {
-        const size_t xo = (size_t)ti * 64 * D + kt * 64;
-        const size_t yo = YADJ ? (size_t)tj * 64 * D + kt * 64
-                               : (size_t)kt * 64 * D + tj * 64;
-        stage(xs, x + xo);
-        if (YADJ) stage_adjoint(ys, y + yo);
-        else stage(ys, y + yo);
-        if (dual) {
-          stage(dxs, dx + xo);
-          if (YADJ) stage_adjoint(dys, dy + yo);
-          else stage(dys, dy + yo);
-        }
-        __syncthreads();
-        mm_acc(xs, ys, acc);
-        if (dual) {
-          mm_acc(dxs, ys, dacc);
-          mm_acc(xs, dys, dacc);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) {
-        const int li = own(e);
-        const int gi = (ti * 64 + li / DP) * D + tj * 64 + li % DP;
-        const float2 zv = cadd(acc[e], value(L, gi));
-        if (dual) dz[gi] = cadd(dacc[e], tangent(L, gi));
-        z[gi] = zv;
-      }
-    }
-    sync();
-  }
-
-  // slot dst = x y + L (dual: with tangents); dst must differ from x and y.
-  __device__ void gemm(int x, int y, int dst, const Lin& L) const {
-    gemm_p(v(x), DUAL ? t(x) : nullptr, v(y), DUAL ? t(y) : nullptr, v(dst),
-           DUAL ? t(dst) : nullptr, L);
   }
 
   // Squaring count of the input matrix a (device memory) from its complex
@@ -277,7 +449,7 @@ struct Tiled {
     return (int)s;
   }
 
-  // M (and dM) = scale * a (and g). Ends with sync().
+  // M (and dM) = scale * a (and g).
   __device__ void load_scaled(const float2* __restrict__ a,
                               const float2* __restrict__ g,
                               float scale) const {
@@ -285,11 +457,10 @@ struct Tiled {
       v(M)[i] = cscale(scale, __ldg(a + i));
       if (DUAL) t(M)[i] = cscale(scale, __ldg(g + i));
     }
-    sync();
   }
 
-  // M = scale * a^H and dM = scale * dM (dM written by the caller), tile by
-  // tile through shared memory (coalesced both ways). Ends with sync().
+  // M = scale * a^H, 64 x 64 tile by tile through shared memory (coalesced
+  // both ways). Outside products only: it stages in the ring.
   __device__ void load_adjoint_scaled(const float2* __restrict__ a,
                                       float scale) const {
     for (int tile = rank; tile < T * T; tile += CL) {
@@ -301,97 +472,147 @@ struct Tiled {
         const int li = own(e);
         const int gi = (ti * 64 + li / DP) * D + tj * 64 + li % DP;
         v(M)[gi] = cscale(scale, sm[li]);
-        if (DUAL) t(M)[gi] = cscale(scale, ld(t(M) + gi));
       }
       __syncthreads();
     }
-    sync();
   }
 
-  // The ladder on slot M (scaled already); s squarings at level 4. Returns
-  // the slot that holds exp(M) (and, dual, its Fréchet derivative).
-  __device__ int ladder(int level, int s) const {
+  // The ladder on slot M (scaled and synced already); s squarings at level
+  // 4. The last product also writes its value to vout and its tangent to
+  // tout (where not null). Returns the slot that holds exp(M) (and, dual,
+  // its Fréchet derivative); ends with sync(). Every elementwise pass of
+  // the ladder is a post of the product before it.
+  __device__ int ladder(int level, int s, float2* vout, float2* tout) const {
     const Lin none = lin(0.0f);
     if (level == 0) {
       // Degree 4: c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
-      gemm(M, M, M2, none);
-      set(M3, lin(0.0f, kC[3], M, kC[4], M2));
-      gemm(M2, M3, X, lin(kC[0], kC[1], M, kC[2], M2));
+      gemm(M, M, M2, epi_post(none, M3, lin(0.0f, kC[3], M, kC[4], M2)));
+      sync();
+      gemm(M2, M3, X, epi_out(lin(kC[0], kC[1], M, kC[2], M2), vout, tout));
+      sync();
       return X;
     }
     if (level == 1) {
-      // Degree 8 in 3 products (_D8X).
-      gemm(M, M, M2, none);
-      set(M3, lin(0.0f, kD8[0], M, kD8[1], M2));
-      gemm(M2, M3, M4, none);
-      set(M3, lin(0.0f, kD8[2], M2, 1.0f, M4));
-      set(X, lin(kD8[3], kD8[4], M, kD8[5], M2, kD8[6], M4));
-      gemm(M3, X, Y, lin(kD8[7], kD8[8], M, kD8[9], M2));
-      return Y;
+      // Degree 8 in 3 products (_D8X): A4 = A2 (x1 M + x2 A2);
+      // T8 = y0 I + y1 M + y2 A2 + (x3 A2 + A4)(x4 I + x5 M + x6 A2 + x7 A4).
+      gemm(M, M, M2, epi_post(none, M3, lin(0.0f, kD8[0], M, kD8[1], M2)));
+      sync();
+      gemm(M2, M3, M4,
+           epi_post(none, X, lin(0.0f, kD8[2], M2, 1.0f, M4), Y,
+                    lin(kD8[3], kD8[4], M, kD8[5], M2, kD8[6], M4)));
+      sync();
+      gemm(X, Y, M3,
+           epi_out(lin(kD8[7], kD8[8], M, kD8[9], M2), vout, tout));
+      sync();
+      return M3;
     }
-    gemm(M, M, M2, none);
-    gemm(M2, M, M3, none);
-    gemm(M2, M2, M4, none);
+    gemm(M, M, M2, epi(none));
+    sync();
+    // M3 and M4 in one phase: both read M and M2 only, and the post reads
+    // the M3 element this thread wrote.
+    gemm(M2, M, M3, epi(none));
     if (level == 2) {
       // Degree 12, Paterson-Stockmeyer: M4 (chunk(4) + M4 (chunk(8) +
       // c12 M4)) + chunk(0).
-      set(X, chunk(8, kC[12], M4));
-      gemm(M4, X, Y, chunk(4));
-      gemm(M4, Y, X, chunk(0));
+      gemm(M2, M2, M4, epi_post(none, X, chunk(8, kC[12], M4)));
+      sync();
+      gemm(M4, X, Y, epi(chunk(4)));
+      sync();
+      gemm(M4, Y, X, epi_out(chunk(0), vout, tout));
+      sync();
       return X;
     }
     // Degree 19, Paterson-Stockmeyer: p = chunk(16); p = p M4 + chunk(k).
-    set(X, chunk(16));
-    gemm(X, M4, Y, chunk(12));
-    gemm(Y, M4, X, chunk(8));
-    gemm(X, M4, Y, chunk(4));
-    gemm(Y, M4, X, chunk(0));
+    gemm(M2, M2, M4, epi_post(none, X, chunk(16)));
+    sync();
+    gemm(X, M4, Y, epi(chunk(12)));
+    sync();
+    gemm(Y, M4, X, epi(chunk(8)));
+    sync();
+    gemm(X, M4, Y, epi(chunk(4)));
+    sync();
+    gemm(Y, M4, X, s == 0 ? epi_out(chunk(0), vout, tout) : epi(chunk(0)));
+    sync();
     int r = X;
     for (int j = 0; j < s; ++j) {
       const int o = r == X ? Y : X;
-      gemm(r, r, o, none);
+      gemm(r, r, o, j == s - 1 ? epi_out(none, vout, tout) : epi(none));
+      sync();
       r = o;
     }
     return r;
   }
 };
 
-// Batch of matrices a (B, D, D) (and tangents g for the dual form) into out:
-// exp(a), or the Fréchet derivative L(a, g). ws holds gridDim.x blocks of
-// SLOTS matrices.
+// K3/K4's tiled form: one matrix a block, its ladder in the block's own
+// workspace; K4 on 8 x 4 register tiles of 128 x 64 panels where they tile
+// D (not at D = 192). Both chosen by measuring (expm_fwd.cu).
 template <int T, bool DUAL>
+using ExpmTiled = Tiled<T, DUAL, 1, 8, DUAL && T != 3 ? 4 : 2,
+                        DUAL && T != 3 ? 16 : 8>;
+
+// Batch of matrices a (B, D, D) (and tangents g for the dual form) into out:
+// exp(a), or the Fréchet derivative L(a, g), one matrix a group of
+// K::BLOCKS blocks (ExpmTiled: one block; profiling/tiled_variants.cu runs
+// the others). ws holds gridDim.x / K::BLOCKS workspaces of K::SLOTS
+// matrices.
+template <typename K>
 __global__ void __launch_bounds__(NT, 1)
     expm_tiled_kernel(const float2* __restrict__ a,
                       const float2* __restrict__ g,
                       const float* __restrict__ norm,
                       float2* __restrict__ out, float2* ws, int B) {
-  using K = Tiled<T, DUAL>;
+  constexpr bool DUAL = K::SLOTS == 2 * NV;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
-  const K k{ws + (size_t)blockIdx.x * K::SLOTS * K::N, sm,
-            reinterpret_cast<float*>(sm + (DUAL ? 4 : 2) * MAT), 0};
+  const int group = blockIdx.x / K::BLOCKS;
+  const int groups = gridDim.x / K::BLOCKS;
+  const K k{ws + (size_t)group * K::SLOTS * K::N, sm,
+            reinterpret_cast<float*>(sm + (size_t)K::G::NS * K::G::STAGE),
+            (int)(blockIdx.x % K::BLOCKS)};
   const int level = ladder_level(__ldg(norm));
-  for (int m = blockIdx.x; m < B; m += gridDim.x) {
+  for (int m = group; m < B; m += groups) {
     const float2* am = a + (size_t)m * K::N;
     const int s = level == 4 ? k.squarings(am) : 0;
     k.load_scaled(am, DUAL ? g + (size_t)m * K::N : nullptr,
                   exp2f(-(float)s));
-    const int r = k.ladder(level, s);
-    const float2* src = DUAL ? k.t(r) : k.v(r);
+    k.sync();
     float2* dst = out + (size_t)m * K::N;
-    for (int i = threadIdx.x; i < K::N; i += NT) dst[i] = src[i];
-    __syncthreads();  // the next matrix overwrites the slots
+    k.ladder(level, s, DUAL ? nullptr : dst, DUAL ? dst : nullptr);
   }
 }
 
-// Sets the kernel's dynamic shared memory, then launches it on grid blocks.
+template <int T, bool DUAL>
+constexpr size_t expm_tiled_smem() {
+  return ExpmTiled<T, DUAL>::G::SMEM;
+}
+
+// Sets the kernel's dynamic shared memory, then launches it on grid blocks,
+// in clusters of cl blocks where cl > 1.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int grid, void* stream,
+int launch(Kernel kernel, size_t smem, int grid, void* stream, int cl,
            Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
+  if (cl <= 1) {
+    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -414,8 +635,8 @@ int resident_blocks(Kernel kernel, size_t smem, int* blocks) {
   return *blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
-// Clusters of cl blocks of the kernel (compiled with __cluster_dims__) that
-// the current device keeps resident at once.
+// Clusters of cl blocks of the kernel (a launch attribute, as launch()
+// gives it) that the current device keeps resident at once.
 template <typename Kernel>
 int resident_clusters(Kernel kernel, size_t smem, int cl, int* clusters) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -425,6 +646,13 @@ int resident_clusters(Kernel kernel, size_t smem, int cl, int* clusters) {
   cfg.gridDim = dim3(cl);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   return *clusters > 0 ? 0 : (int)cudaErrorInvalidConfiguration;

@@ -21,8 +21,12 @@
 // What the design does about it: K3's, with the tangents beside the values.
 // At D = 64 the dual ladder is chain_common.cuh's expm_dual, six resident
 // matrices and the per-block stash of the dual powers (K2's step without
-// the recursion); above, twelve workspace matrices a block and four staged
-// tiles a k-step (X, dX, Y, dY), two register accumulators.
+// the recursion); above, twelve workspace matrices a block, each dual
+// product run as one product for the value and one of twice the depth,
+// [dX X] [Y; dY], for the tangent, through K3's ring, on 8 x 4 register
+// tiles of 128 x 64 panels (8 x 2 tiles of 64 x 64 at D = 192, which 128
+// does not divide): at the d = 2^7 planes on an H100 it beat K3's 8 x 2
+// and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
 
 #include "expm_common.cuh"
 
@@ -62,12 +66,20 @@ __global__ void __launch_bounds__(NT, 1)
 
 template <int T>
 int tiled(const void* b, const void* g, const void* norm, void* out,
-          void* ws, int B, int grid, void* stream) {
-  return ex::launch(ex::expm_tiled_kernel<T, true>, ex::tiled_smem<true>(),
-                    grid, stream, static_cast<const float2*>(b),
+          void* ws, int B, int blocks, void* stream) {
+  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, true>>,
+                    ex::expm_tiled_smem<T, true>(), blocks, stream, 1,
+                    static_cast<const float2*>(b),
                     static_cast<const float2*>(g),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+template <int T>
+int tiled_plan(int* blocks, int* smem) {
+  *smem = (int)ex::expm_tiled_smem<T, true>();
+  return ex::resident_blocks(
+      ex::expm_tiled_kernel<ex::ExpmTiled<T, true>>, (size_t)*smem, blocks);
 }
 
 }  // namespace
@@ -84,7 +96,7 @@ extern "C" int qoc_expm_frechet(const void* b, const void* g,
   switch (dp) {
     case 64:
       return ex::launch(frechet_resident_kernel, RESIDENT_SMEM, grid, stream,
-                        static_cast<const float2*>(b),
+                        1, static_cast<const float2*>(b),
                         static_cast<const float2*>(g),
                         static_cast<const float*>(norm),
                         static_cast<float2*>(out), static_cast<float2*>(ws),
@@ -96,24 +108,19 @@ extern "C" int qoc_expm_frechet(const void* b, const void* g,
   }
 }
 
-// The grid of qoc_expm_frechet at dp and the workspace matrices each block
-// needs. Returns the CUDA error.
-extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots) {
+// As qoc_expm_fwd_plan, for K4. Returns the CUDA error.
+extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots,
+                                     int* smem) {
   using namespace qoc;
   *slots = dp == 64 ? STASH_SLOTS : 2 * ex::NV;
   switch (dp) {
     case 64:
+      *smem = (int)RESIDENT_SMEM;
       return ex::resident_blocks(frechet_resident_kernel, RESIDENT_SMEM,
                                  blocks);
-    case 128:
-      return ex::resident_blocks(ex::expm_tiled_kernel<2, true>,
-                                 ex::tiled_smem<true>(), blocks);
-    case 192:
-      return ex::resident_blocks(ex::expm_tiled_kernel<3, true>,
-                                 ex::tiled_smem<true>(), blocks);
-    case 256:
-      return ex::resident_blocks(ex::expm_tiled_kernel<4, true>,
-                                 ex::tiled_smem<true>(), blocks);
+    case 128: return tiled_plan<2>(blocks, smem);
+    case 192: return tiled_plan<3>(blocks, smem);
+    case 256: return tiled_plan<4>(blocks, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }

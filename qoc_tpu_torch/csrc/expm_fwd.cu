@@ -15,13 +15,18 @@
 // for 256 KB, about 320 FLOP a byte, far above the card's FP32 balance
 // point of 20.
 //
-// What the design does about it: one block per matrix at a time, persistent
-// blocks walking the batch, FP32 SIMT FMAs on register tiles. At D = 64 the
-// whole ladder stays in shared memory (chain_common.cuh's expm, K1's step).
-// Above, the ladder's six matrices live in a per-block device workspace and
-// each product streams 64 x 64 tiles through shared memory; the workspace
-// traffic (about 6 matrices a product) is the design's cost, not yet
-// hidden behind the FMAs (no double buffering).
+// What the design does about it. One block a matrix, persistent blocks
+// walking the batch. At D = 64 the whole ladder stays in shared memory
+// (chain_common.cuh's expm, K1's step). Above, the ladder's six matrices
+// live in the block's device workspace, and every product streams 32-deep
+// k-slices through a 4-stage cp.async ring in shared memory while the FMAs
+// run on 8 x 2 register tiles (expm_common.cuh's Tiled); the ladder's
+// elementwise passes are fused into the epilogues of the products before
+// them, and the last product writes exp(A) out. Chosen by measuring at the
+// d = 2^7 GRAPE's planes (2000 x 128^2, degree 19) on an H100 against
+// clusters of 2 or 4 blocks a matrix (ladders that fit the L2) and 4 x 4
+// and 8 x 4 register tiles: profiling/tiled_variants.py, numbers in
+// PERF.md.
 
 #include "expm_common.cuh"
 
@@ -56,12 +61,20 @@ __global__ void __launch_bounds__(NT, 1)
 
 template <int T>
 int tiled(const void* a, const void* norm, void* out, void* ws, int B,
-          int grid, void* stream) {
-  return ex::launch(ex::expm_tiled_kernel<T, false>, ex::tiled_smem<false>(),
-                    grid, stream, static_cast<const float2*>(a),
+          int blocks, void* stream) {
+  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, false>>,
+                    ex::expm_tiled_smem<T, false>(), blocks, stream, 1,
+                    static_cast<const float2*>(a),
                     static_cast<const float2*>(nullptr),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+template <int T>
+int tiled_plan(int* blocks, int* smem) {
+  *smem = (int)ex::expm_tiled_smem<T, false>();
+  return ex::resident_blocks(
+      ex::expm_tiled_kernel<ex::ExpmTiled<T, false>>, (size_t)*smem, blocks);
 }
 
 }  // namespace
@@ -72,11 +85,12 @@ int tiled(const void* a, const void* norm, void* out, void* ws, int B,
 // qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256. Returns
 // the CUDA error.
 extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
-                            void* ws, int B, int dp, int grid, void* stream) {
+                            void* ws, int B, int dp, int grid,
+                            void* stream) {
   using namespace qoc;
   switch (dp) {
     case 64:
-      return ex::launch(expm_resident_kernel, RESIDENT_SMEM, grid, stream,
+      return ex::launch(expm_resident_kernel, RESIDENT_SMEM, grid, stream, 1,
                         static_cast<const float2*>(a),
                         static_cast<const float*>(norm),
                         static_cast<float2*>(out), B);
@@ -87,23 +101,21 @@ extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
   }
 }
 
-// The grid of qoc_expm_fwd at dp (resident blocks on the current device)
-// and the workspace matrices each block needs. Returns the CUDA error.
-extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots) {
+// The grid of qoc_expm_fwd at dp (resident blocks on the current device),
+// the workspace matrices each block needs and the dynamic shared memory of
+// a block. Returns the CUDA error.
+extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots,
+                                 int* smem) {
   using namespace qoc;
   *slots = dp == 64 ? 0 : ex::NV;
   switch (dp) {
     case 64:
-      return ex::resident_blocks(expm_resident_kernel, RESIDENT_SMEM, blocks);
-    case 128:
-      return ex::resident_blocks(ex::expm_tiled_kernel<2, false>,
-                                 ex::tiled_smem<false>(), blocks);
-    case 192:
-      return ex::resident_blocks(ex::expm_tiled_kernel<3, false>,
-                                 ex::tiled_smem<false>(), blocks);
-    case 256:
-      return ex::resident_blocks(ex::expm_tiled_kernel<4, false>,
-                                 ex::tiled_smem<false>(), blocks);
+      *smem = (int)RESIDENT_SMEM;
+      return ex::resident_blocks(expm_resident_kernel, RESIDENT_SMEM,
+                                 blocks);
+    case 128: return tiled_plan<2>(blocks, smem);
+    case 192: return tiled_plan<3>(blocks, smem);
+    case 256: return tiled_plan<4>(blocks, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,11 +23,20 @@
 // D^3 products a step at degree 4/8/12/19, about three times the forward.
 //
 // What the design does about it: the forward's (stream_fwd.cu), with the
-// dual ladder (K4's tiled form: value and tangent slots, four staged tiles
-// a k-step). A_t^H and P_{t-1}^H are read conjugate-transposed tile by tile
-// through shared memory, so the caller keeps one copy of the planes and
-// prefixes. The workspace holds the twelve dual slots and the carry T
-// (two slots, written alternately); U_{t+1}^H is the value slot the
+// dual ladder (value and tangent slots; a dual product is its value's
+// product and its tangent's, [dX X] [Y; dY], of twice the depth, through
+// the forward's ring and register tile: expm_common.cuh). Each of the
+// cluster's 8 blocks computes one row band (D / 8 rows) of every product,
+// so no block waits on a ragged last round of 64 x 64 tiles. A step has
+// five cluster barriers at degree 8: after T_t = U_{t+1}^H T_{t+1} (the
+// per-step seed added in its epilogue), after gU_t with the plane's
+// conjugate transpose loaded beside it (gU_t scaled by 2^-s in its
+// epilogue), and after each of the ladder's three products (its
+// elementwise passes fused into their epilogues; the last also writes gA_t
+// out). A_t^H and P_{t-1}^H are read conjugate-transposed through shared
+// memory, so the caller keeps one copy of the planes and prefixes. The
+// workspace holds the twelve dual slots and the carry T (two slots,
+// written alternately); U_{t+1}^H is the value slot the
 // previous step's ladder returned.
 
 #include "expm_common.cuh"
@@ -38,20 +47,24 @@ namespace {
 constexpr int CL = 8;  // blocks of a cluster
 
 template <int T>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
+using Bwd = ex::Tiled<T, true, CL, T>;
+
+template <int T>
+__global__ void __launch_bounds__(NT, 1)
     stream_bwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm,
                       const float2* __restrict__ prefpad,
                       const float2* __restrict__ seeds, float2* gA,
                       float2* ws, int S, int L, bool per_step) {
-  using K = ex::Tiled<T, true, CL>;
+  using K = Bwd<T>;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
   const K k{ws + (size_t)cluster * (K::SLOTS + 2) * K::N, sm,
-            reinterpret_cast<float*>(sm + 4 * MAT), (int)(blockIdx.x % CL)};
+            reinterpret_cast<float*>(sm + (size_t)K::G::NS * K::G::STAGE),
+            (int)(blockIdx.x % CL)};
   const int level = ladder_level(__ldg(norm));
-  const ex::Lin none = ex::lin(0.0f);
+  const ex::Epi none = ex::epi(ex::lin(0.0f));
   for (int seg = cluster; seg < S; seg += clusters) {
     const float2* aseg = a + (size_t)seg * L * K::N;
     const float2* pseg = prefpad + (size_t)seg * (L + 1) * K::N;
@@ -64,22 +77,27 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
       if (t == L - 1) {
         k.copy(tc, seed);
       } else {
-        // U_{t+1}^H T_{t+1}, then (per-step mode) the step's seed, once
-        // the cluster barrier that ends the product has passed.
-        k.gemm_p(k.v(r), nullptr, tc, nullptr, tn, nullptr, none);
-        if (seed != nullptr) k.add(tn, seed);
+        // U_{t+1}^H T_{t+1}, plus (per-step mode) the step's seed.
+        ex::Epi e = none;
+        e.add = seed;
+        k.gemm_p(k.v(r), nullptr, tc, nullptr, tn, nullptr, ex::NONE, e);
         float2* swap = tc;
         tc = tn;
         tn = swap;
       }
-      // gU_t = T_t P_{t-1}^H into the tangent of slot M.
-      k.template gemm_p<true>(tc, nullptr, pseg + (size_t)t * K::N, nullptr,
-                              k.t(ex::M), nullptr, none);
+      k.sync();
+      // gU_t = 2^-s T_t P_{t-1}^H into the tangent of slot M, and the
+      // value of slot M = 2^-s A_t^H beside it.
       const float2* at = aseg + (size_t)t * K::N;
       const int s = level == 4 ? k.template squarings<true>(at) : 0;
-      k.load_adjoint_scaled(at, exp2f(-(float)s));
-      r = k.ladder(level, s);
-      k.copy(gseg + (size_t)t * K::N, k.t(r));
+      const float scale = exp2f(-(float)s);
+      ex::Epi e = none;
+      e.alpha = scale;
+      k.template gemm_p<true>(tc, nullptr, pseg + (size_t)t * K::N, nullptr,
+                              k.t(ex::M), nullptr, ex::NONE, e);
+      k.load_adjoint_scaled(at, scale);
+      k.sync();
+      r = k.ladder(level, s, nullptr, gseg + (size_t)t * K::N);
     }
   }
 }
@@ -88,8 +106,8 @@ template <int T>
 int launch(const void* a, const void* norm, const void* prefpad,
            const void* seeds, void* gA, void* ws, int S, int L, bool per_step,
            int clusters, void* stream) {
-  return ex::launch(stream_bwd_kernel<T>, ex::tiled_smem<true>(),
-                    clusters * CL, stream, static_cast<const float2*>(a),
+  return ex::launch(stream_bwd_kernel<T>, Bwd<T>::G::SMEM, clusters * CL,
+                    stream, CL, static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<const float2*>(prefpad),
                     static_cast<const float2*>(seeds),
@@ -98,9 +116,10 @@ int launch(const void* a, const void* norm, const void* prefpad,
 }
 
 template <int T>
-int plan(int* clusters) {
-  return ex::resident_clusters(stream_bwd_kernel<T>, ex::tiled_smem<true>(),
-                               CL, clusters);
+int plan(int* clusters, int* smem) {
+  *smem = (int)Bwd<T>::G::SMEM;
+  return ex::resident_clusters(stream_bwd_kernel<T>, Bwd<T>::G::SMEM, CL,
+                               clusters);
 }
 
 }  // namespace
@@ -136,15 +155,15 @@ extern "C" int qoc_stream_bwd(const void* a, const void* norm,
 
 // As qoc_stream_fwd_plan, for the adjoint. Returns the CUDA error.
 extern "C" int qoc_stream_bwd_plan(int dp, int* clusters, int* blocks,
-                                   int* slots) {
+                                   int* slots, int* smem) {
   using namespace qoc;
   *blocks = CL;
   *slots = 2 * ex::NV + 2;
   switch (dp) {
-    case 320: return plan<5>(clusters);
-    case 384: return plan<6>(clusters);
-    case 448: return plan<7>(clusters);
-    case 512: return plan<8>(clusters);
+    case 320: return plan<5>(clusters, smem);
+    case 384: return plan<6>(clusters, smem);
+    case 448: return plan<7>(clusters, smem);
+    case 512: return plan<8>(clusters, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,17 +15,18 @@
 //
 // What the design does about it. One matrix does not fit a block's shared
 // memory (1.6 MB at D = 448), so the ladder lives in a device workspace and
-// every product streams 64 x 64 tiles through shared memory
+// every product streams k-slices through a cp.async ring in shared memory
 // (expm_common.cuh's Tiled, K3's design). A chain is sequential, and a
 // chain per block would keep only S of the 132 SMs busy at a time, each for
 // S times longer: here the CL = 8 blocks of a thread-block cluster advance
-// one segment together, each product's T^2 output tiles and each
-// elementwise pass split among them, the cluster meeting at a barrier
-// between operations. The grid is as many clusters as the card keeps
-// resident and the device memory allows (the wrapper's plan), each walking
-// its share of the segments; the running product P is the prefix slot the
-// cluster wrote the step before, so the workspace holds the ladder's six
-// matrices only.
+// one segment together, each block computing one row band (D / 8 rows) of
+// every product and its share of each elementwise pass, the cluster
+// meeting at a barrier between dependent operations. The grid is as many
+// clusters as the card keeps resident and the device memory allows (the
+// wrapper's plan), each walking its share of the segments; the running
+// product P is the prefix slot the cluster wrote the step before, so the
+// workspace holds the ladder's six matrices only. The next step's plane is
+// loaded beside the product P_t = U_t P_{t-1}, which does not read it.
 
 #include "expm_common.cuh"
 
@@ -35,28 +36,40 @@ namespace {
 constexpr int CL = 8;  // blocks of a cluster
 
 template <int T>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
+using Fwd = ex::Tiled<T, false, CL, T>;
+
+template <int T>
+__global__ void __launch_bounds__(NT, 1)
     stream_fwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm, float2* prefpad,
                       float2* ws, int S, int L) {
-  using K = ex::Tiled<T, false, CL>;
+  using K = Fwd<T>;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
   const K k{ws + (size_t)cluster * K::SLOTS * K::N, sm,
-            reinterpret_cast<float*>(sm + 2 * MAT), (int)(blockIdx.x % CL)};
+            reinterpret_cast<float*>(sm + (size_t)K::G::NS * K::G::STAGE),
+            (int)(blockIdx.x % CL)};
   const int level = ladder_level(__ldg(norm));
   for (int seg = cluster; seg < S; seg += clusters) {
     const float2* aseg = a + (size_t)seg * L * K::N;
     float2* pseg = prefpad + (size_t)seg * (L + 1) * K::N;
+    int s = level == 4 ? k.squarings(aseg) : 0;
+    k.load_scaled(aseg, nullptr, exp2f(-(float)s));
+    k.sync();
     for (int t = 0; t < L; ++t) {
-      const float2* at = aseg + (size_t)t * K::N;
-      const int s = level == 4 ? k.squarings(at) : 0;
-      k.load_scaled(at, nullptr, exp2f(-(float)s));
-      const int r = k.ladder(level, s);
-      // P_t = U_t P_{t-1}: prefix slot t + 1 from slot t.
+      const int r = k.ladder(level, s, nullptr, nullptr);
+      // P_t = U_t P_{t-1}: prefix slot t + 1 from slot t; the ladder's
+      // result r is never slot M, so the next plane loads beside it.
       k.gemm_p(k.v(r), nullptr, pseg + (size_t)t * K::N, nullptr,
-               pseg + (size_t)(t + 1) * K::N, nullptr, ex::lin(0.0f));
+               pseg + (size_t)(t + 1) * K::N, nullptr, ex::NONE,
+               ex::epi(ex::lin(0.0f)));
+      if (t + 1 < L) {
+        const float2* an = aseg + (size_t)(t + 1) * K::N;
+        s = level == 4 ? k.squarings(an) : 0;
+        k.load_scaled(an, nullptr, exp2f(-(float)s));
+      }
+      k.sync();
     }
   }
 }
@@ -64,17 +77,18 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
 template <int T>
 int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
            int L, int clusters, void* stream) {
-  return ex::launch(stream_fwd_kernel<T>, ex::tiled_smem<false>(),
-                    clusters * CL, stream, static_cast<const float2*>(a),
+  return ex::launch(stream_fwd_kernel<T>, Fwd<T>::G::SMEM, clusters * CL,
+                    stream, CL, static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(prefpad), static_cast<float2*>(ws),
                     S, L);
 }
 
 template <int T>
-int plan(int* clusters) {
-  return ex::resident_clusters(stream_fwd_kernel<T>,
-                               ex::tiled_smem<false>(), CL, clusters);
+int plan(int* clusters, int* smem) {
+  *smem = (int)Fwd<T>::G::SMEM;
+  return ex::resident_clusters(stream_fwd_kernel<T>, Fwd<T>::G::SMEM, CL,
+                               clusters);
 }
 
 }  // namespace
@@ -99,18 +113,18 @@ extern "C" int qoc_stream_fwd(const void* a, const void* norm, void* prefpad,
 }
 
 // The clusters of qoc_stream_fwd that the current device keeps resident at
-// dp, the blocks a cluster has, and the workspace matrices each cluster
-// needs. Returns the CUDA error.
+// dp, the blocks a cluster has, the workspace matrices each cluster needs
+// and the dynamic shared memory of a block. Returns the CUDA error.
 extern "C" int qoc_stream_fwd_plan(int dp, int* clusters, int* blocks,
-                                   int* slots) {
+                                   int* slots, int* smem) {
   using namespace qoc;
   *blocks = CL;
   *slots = ex::NV;
   switch (dp) {
-    case 320: return plan<5>(clusters);
-    case 384: return plan<6>(clusters);
-    case 448: return plan<7>(clusters);
-    case 512: return plan<8>(clusters);
+    case 320: return plan<5>(clusters, smem);
+    case 384: return plan<6>(clusters, smem);
+    case 448: return plan<7>(clusters, smem);
+    case 512: return plan<8>(clusters, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -169,18 +169,22 @@ def _build(out_dir, lib_path):
     os.replace(tmp, lib_path)
 
 
-@functools.cache
-def load_kernels():
-    """Build the kernels' shared library, K1/K2/K5/K6 here and K3/K4 of
-    ``ops/expm_cuda.py`` (once per source hash, into
-    ``qoc_tpu_torch/_build/<hash>/``), and load it with ctypes.
-
-    The compiler's register/spill report is kept beside the library as
-    ``build.log``."""
+def build_dir():
+    """The kernels' build directory for the current sources and flags,
+    ``qoc_tpu_torch/_build/<hash>/``; its ``build.log`` holds the
+    compiler's register/spill report."""
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for name in _SOURCES + _HEADERS:
         digest.update((_CSRC / name).read_bytes())
-    out_dir = _BUILD_DIR / digest.hexdigest()[:16]
+    return _BUILD_DIR / digest.hexdigest()[:16]
+
+
+@functools.cache
+def load_kernels():
+    """Build the kernels' shared library, K1/K2/K5/K6 here and K3/K4 of
+    ``ops/expm_cuda.py`` (once per source hash, into :func:`build_dir`),
+    and load it with ctypes."""
+    out_dir = build_dir()
     lib_path = out_dir / "libqoc_chain.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -201,10 +205,10 @@ def load_kernels():
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
                                    cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
-    lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p]
-    lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p]
-    lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
-    lib.qoc_stream_bwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
+    lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
+    lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
+    lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
+    lib.qoc_stream_bwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
     for fn in (lib.qoc_chain_fwd, lib.qoc_chain_bwd, lib.qoc_plane_fwd,
                lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots,
                lib.qoc_expm_fwd, lib.qoc_expm_frechet, lib.qoc_expm_fwd_plan,
@@ -641,16 +645,16 @@ stream_bwd_plain = plane_bwd_plain
 @functools.cache
 def _stream_plan(dual, dp, device_index):
     """(clusters the card keeps resident, blocks a cluster, workspace
-    matrices a cluster) of K6's forward or adjoint at dp on a device."""
+    matrices a cluster, shared-memory bytes a block) of K6's forward or
+    adjoint at dp on a device."""
     lib = load_kernels()
-    clusters, blocks, slots = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = [ctypes.c_int() for _ in range(4)]
     fn = lib.qoc_stream_bwd_plan if dual else lib.qoc_stream_fwd_plan
     with torch.cuda.device(device_index):
-        err = fn(dp, ctypes.byref(clusters), ctypes.byref(blocks),
-                 ctypes.byref(slots))
+        err = fn(dp, *map(ctypes.byref, out))
     if err != 0:
         raise RuntimeError("K6 launch plan failed: CUDA error {}".format(err))
-    return clusters.value, blocks.value, slots.value
+    return tuple(x.value for x in out)
 
 
 def stream_grid(dual, dp, s_count, device):
@@ -658,7 +662,7 @@ def stream_grid(dual, dp, s_count, device):
     a segment, at most as many as the card keeps resident and as many
     workspaces as half the free device memory holds (the caching
     allocator's free blocks counted as free)."""
-    clusters, _, slots = _stream_plan(dual, dp, device.index)
+    clusters, _, slots, _ = _stream_plan(dual, dp, device.index)
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))

@@ -31,7 +31,7 @@ from qoc_tpu_torch.ops.chain import (_Dual, _expm_ladder, _stream,
                                      kernel_dp, ladder_level, load_kernels)
 
 __all__ = ["KERNEL_MAX_DP", "expm_frechet_fwd", "expm_frechet_plain",
-           "expm_fwd", "expm_fwd_plain", "kernel_dp"]
+           "expm_fwd", "expm_fwd_plain", "kernel_dp", "launch_grid"]
 
 # Padded dimensions the kernels take: multiples of 64 (ops/chain.py
 # kernel_dp) up to 256 (qoc_tpu/ops/expm.py _pallas_size_ok).
@@ -106,16 +106,24 @@ def _check_kernel_inputs(dp, norm, *mats):
 
 @functools.cache
 def _plan(dual, dp, device_index):
-    """(grid, workspace matrices a block) of K3 or K4 at dp on a device."""
+    """(resident blocks, workspace matrices a block, shared-memory bytes
+    a block) of K3 or K4 at dp on a device."""
     lib = load_kernels()
-    blocks, slots = ctypes.c_int(), ctypes.c_int()
+    out = [ctypes.c_int() for _ in range(3)]
     fn = lib.qoc_expm_frechet_plan if dual else lib.qoc_expm_fwd_plan
     with torch.cuda.device(device_index):
-        err = fn(dp, ctypes.byref(blocks), ctypes.byref(slots))
+        err = fn(dp, *map(ctypes.byref, out))
     if err != 0:
         raise RuntimeError("K{} launch plan failed: CUDA error {}".format(
             4 if dual else 3, err))
-    return blocks.value, slots.value
+    return tuple(x.value for x in out)
+
+
+def launch_grid(dual, dp, batch, device_index):
+    """(blocks, workspace matrices a block) of one K3 (K4 with ``dual``)
+    launch on ``batch`` matrices: at most one block a matrix."""
+    blocks, slots, _ = _plan(dual, dp, device_index)
+    return min(batch, blocks), slots
 
 
 def _launch(dual, dp, norm, *mats):
@@ -124,22 +132,16 @@ def _launch(dual, dp, norm, *mats):
     _check_kernel_inputs(dp, norm, *mats)
     x = mats[0]
     batch, dev = x.shape[0], x.device
-    blocks, slots = _plan(dual, dp, dev.index)
-    grid = min(batch, blocks)
+    grid, slots = launch_grid(dual, dp, batch, dev.index)
     out = torch.empty_like(x)
     ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
                      device=dev)
     lib = load_kernels()
     ptrs = [m.data_ptr() for m in mats]
+    fn = lib.qoc_expm_frechet if dual else lib.qoc_expm_fwd
     with torch.cuda.device(dev):
-        if dual:
-            err = lib.qoc_expm_frechet(*ptrs, norm.data_ptr(), out.data_ptr(),
-                                       ws.data_ptr(), batch, dp, grid,
-                                       _stream(dev))
-        else:
-            err = lib.qoc_expm_fwd(*ptrs, norm.data_ptr(), out.data_ptr(),
-                                   ws.data_ptr(), batch, dp, grid,
-                                   _stream(dev))
+        err = fn(*ptrs, norm.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 batch, dp, grid, _stream(dev))
     if err != 0:
         raise RuntimeError("K{} launch failed: CUDA error {}".format(
             4 if dual else 3, err))

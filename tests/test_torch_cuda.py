@@ -280,17 +280,29 @@ def test_plane_route_matches_fused_route(cuda_device):
                  / g_fused.abs().max()) < GRAD_RTOL
 
 
-@pytest.mark.parametrize("d", (16, 64, 128, 256))
+@pytest.mark.parametrize("d", (16, 64, 128, 180, 256))
 @pytest.mark.parametrize("target_norm", (0.03, 0.3, 1.0, 2.5, 7.0))
 def test_expm_kernels_match_plain_versions(cuda_device, d, target_norm):
     """K3 and K4 against their plain versions on every ladder level, at the
-    resident (d <= 64) and the tiled (d > 64) design; the padded rows and
-    columns of K3's output are exactly the identity's."""
+    resident (d <= 64) and the tiled (padded 128, 192, 256) design; the
+    padded rows and columns of K3's output are exactly the identity's."""
+    _check_expm_kernels(cuda_device, d, target_norm, 37)
+
+
+@pytest.mark.parametrize("d", (128, 180, 256))
+@pytest.mark.parametrize("batch", (1, 133))
+def test_expm_kernels_on_ragged_batches(cuda_device, d, batch):
+    """The tiled K3/K4 on one matrix (one block busy) and on 133 (one more
+    than the 132 blocks an H100 keeps resident: a ragged last wave)."""
+    _check_expm_kernels(cuda_device, d, 2.5, batch)
+
+
+def _check_expm_kernels(cuda_device, d, target_norm, batch):
     from qoc_tpu_torch.ops import expm_cuda
     rng = np.random.default_rng(13)
-    a = torch.as_tensor((_unit_planes(rng, 37, d) * target_norm).astype(
+    a = torch.as_tensor((_unit_planes(rng, batch, d) * target_norm).astype(
         np.complex64), device=cuda_device)
-    g = torch.as_tensor(rng.normal(size=(37, d, d)).astype(np.complex64),
+    g = torch.as_tensor(rng.normal(size=(batch, d, d)).astype(np.complex64),
                         device=cuda_device)
     k3, p3 = expm_cuda.expm_fwd(a), expm_cuda.expm_fwd_plain(a)
     k4 = expm_cuda.expm_frechet_fwd(a, g)
@@ -302,7 +314,7 @@ def test_expm_kernels_match_plain_versions(cuda_device, d, target_norm):
     assert float((k3 - p3).abs().max() / p3.abs().max()) < FWD_RTOL
     assert float((k4 - p4).abs().max() / p4.abs().max()) < GRAD_RTOL
     eye = torch.eye(dp - d, dtype=torch.complex64, device=cuda_device)
-    assert torch.equal(padded[:, d:, d:], eye.expand(37, dp - d, dp - d))
+    assert torch.equal(padded[:, d:, d:], eye.expand(batch, dp - d, dp - d))
     assert not bool(padded[:, :d, d:].any() or padded[:, d:, :d].any())
 
 
@@ -417,6 +429,67 @@ def test_stream_kernels_match_plain_versions(cuda_device, d, n_steps,
                  / total_p.abs().max()) < FWD_RTOL
     assert float((grad_k - grad_p).abs().max()
                  / grad_p.abs().max()) < GRAD_RTOL
+
+
+@pytest.mark.parametrize("d", (260, 400, 512))
+@pytest.mark.parametrize("per_step", (False, True))
+def test_stream_adjoint_matches_plain_version(cuda_device, d, per_step):
+    """K6's adjoint alone at padded 320, 448 and 512 on 3 segments of 2
+    steps (3 clusters of the card's resident ones busy), in both seed
+    modes, on decaying non-normal planes at the degree-8 level; per-step
+    seeds zero but at each segment's last step give the last-step mode
+    bitwise."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(16)
+    n_steps, dp = 6, chain.kernel_dp(d)
+    k = _unit_planes(rng, n_steps, d)
+    n = rng.normal(size=(n_steps, d, d)) + 1j * rng.normal(
+        size=(n_steps, d, d))
+    nn = n @ np.conj(np.swapaxes(n, -1, -2))
+    planes = k - 0.1 * nn / np.abs(nn).sum(-2).max()
+    planes = (planes * 0.3 / np.abs(planes).sum(-2).max()).astype(
+        np.complex64)
+    a_seg = torch.zeros((n_steps, dp, dp), dtype=torch.complex64,
+                        device=cuda_device)
+    a_seg[:, :d, :d] = torch.as_tensor(planes, device=cuda_device)
+    a_seg = a_seg.reshape(3, 2, dp, dp)
+    n1, ninf = chain._plane_norm_max(a_seg)
+    pref = chain.plane_fwd_plain(a_seg, n1)
+    shape = (3, 2, dp, dp) if per_step else (3, dp, dp)
+    seeds = torch.view_as_complex(torch.as_tensor(
+        rng.normal(size=shape + (2,)).astype(np.float32), device=cuda_device))
+    before = chain.stream_bwd.step_launches
+    got = chain.stream_bwd(a_seg, ninf, pref, seeds)
+    want = chain.stream_bwd_plain(a_seg, ninf, pref, seeds)
+    if per_step:
+        only_last = torch.zeros_like(seeds)
+        only_last[:, -1] = seeds[:, -1]
+        assert torch.equal(chain.stream_bwd(a_seg, ninf, pref, only_last),
+                           chain.stream_bwd(a_seg, ninf, pref,
+                                            seeds[:, -1].contiguous()))
+    torch.cuda.synchronize()
+    assert chain.ladder_level(ninf) == 1
+    assert chain.stream_bwd.step_launches - before == 2 * per_step
+    assert float((got - want).abs().max() / want.abs().max()) < GRAD_RTOL
+
+
+def test_d128_iteration_has_no_host_sync(cuda_device):
+    """One d = 2^7 GRAPE iteration of chip_smoke.py (clip, loss, gradient,
+    Adam; the blocked route through K3/K4) with CUDA's synchronizing calls
+    turned into errors."""
+    chip_smoke = _chip_smoke()
+    iteration = chip_smoke.make_iteration(chip_smoke.d128_problem()[0],
+                                          cuda_device)
+    iteration()                             # builds and caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            error = iteration()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(error))
 
 
 def _lindblad_d20():

@@ -96,27 +96,45 @@ def test_target_density_infidelity_matches_jax():
     assert float(got) == pytest.approx(float(want), abs=1e-12)
 
 
-def _loss_and_gradient_both(problem, magnus="M2", **port_kwargs):
-    """qoc_tpu's loss and control gradient on its default route, and the
-    port's with ``port_kwargs`` (CPU, float64)."""
+def _jax_loss(problem, magnus):
+    """qoc_tpu's loss and control gradient on its default route."""
     from qoc_tpu.core.common import slap_controls_jax
     from qoc_tpu.core.lindblad import build_lindblad_loss as jax_build_loss
+    from qoc_tpu_torch.core.common import strip_controls
+    shape = (problem.n_steps, problem.n_c)
+    jax_loss = jax_build_loss(problem.pstate("jax", magnus))
+    (want, _), g_want = jax.value_and_grad(
+        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
+        has_aux=True)(jnp.asarray(strip_controls(True, problem.controls)))
+    return float(want), np.asarray(g_want)
+
+
+# qoc_tpu's references by (problem key, magnus), shared by the cases that
+# run the same problem on two of the port's routes.
+_JAX_REFERENCES = {}
+
+
+def _loss_and_gradient_both(problem, magnus="M2", key=None, **port_kwargs):
+    """qoc_tpu's loss and control gradient on its default route (cached
+    under ``key``), and the port's with ``port_kwargs`` (CPU, float64)."""
     from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
     from qoc_tpu_torch.core.lindblad import build_lindblad_loss
 
     shape = (problem.n_steps, problem.n_c)
     flat = strip_controls(True, problem.controls)
-    jax_loss = jax_build_loss(problem.pstate("jax", magnus))
-    (want, _), g_want = jax.value_and_grad(
-        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(flat))
+    reference = _JAX_REFERENCES.get((key, magnus))
+    if reference is None:
+        reference = _jax_loss(problem, magnus)
+        if key is not None:
+            _JAX_REFERENCES[key, magnus] = reference
+    want, g_want = reference
     loss = build_lindblad_loss(problem.pstate("torch", magnus),
                                torch.device("cpu"), torch.float64,
                                log_path=True, **port_kwargs)
     flat_t = torch.tensor(flat, requires_grad=True)
     got, _ = loss(slap_controls_torch(True, flat_t, shape))
     g_got, = torch.autograd.grad(got, flat_t)
-    return float(got.detach()), float(want), g_got.numpy(), np.asarray(g_want)
+    return float(got.detach()), want, g_got.numpy(), g_want
 
 
 @pytest.mark.parametrize("case,path", (
@@ -133,19 +151,19 @@ def test_loss_and_gradient_match_jax(case, path, capsys):
     M2 and M4 the plane chain (and the blocked route with
     allow_plane_chain=False), d = 9 (d^2 = 81) the blocked route, d = 17
     (d^2 = 289, padded 320) K6's streamed route."""
-    magnus, kwargs = "M2", {}
+    magnus, kwargs, key = "M2", {}, None
     if case == "d2 fused":
         problem = LindbladProblem(d=2, n_steps=12)
     elif case.startswith("d3"):
         problem = LindbladProblem(d=3, n_steps=10).use_callables()
-        magnus = case.split()[-1] if "blocked" not in case else "M4"
+        magnus, key = "M4" if "M4" in case else "M2", "d3 callable"
         if "blocked" in case:
             kwargs = dict(allow_plane_chain=False, time_block_size=4)
     elif case == "d9 blocked":
         problem = LindbladProblem(d=9, n_steps=5)
     else:
-        problem = LindbladProblem(d=17, n_steps=4, evolution_time=0.3)
-    got, want, g_got, g_want = _loss_and_gradient_both(problem, magnus,
+        problem = LindbladProblem(d=17, n_steps=2, evolution_time=0.15)
+    got, want, g_got, g_want = _loss_and_gradient_both(problem, magnus, key,
                                                        **kwargs)
     assert "Lindblad propagation path = " + path in capsys.readouterr().out
     assert got == pytest.approx(want, rel=LOSS_RTOL)

@@ -45,6 +45,21 @@ def test_interpolate_linear_set_batched_queries():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
+def test_convert_refuses_an_ensemble_hamiltonian():
+    """An EnsembleLinearHamiltonian is a LinearHamiltonian subclass; its
+    conversion raises a named error instead of dropping param_operators."""
+    from qoc_tpu.models.hamiltonian import EnsembleLinearHamiltonian
+    from qoc_tpu_torch import convert
+    rng = np.random.default_rng(4)
+    d = 3
+    h0 = random_hermitian(rng, d)
+    ensemble = EnsembleLinearHamiltonian(
+        h0, rng.normal(size=(1, d, d)) + 0j, h0[None])
+    with pytest.raises(NotImplementedError,
+                       match="EnsembleLinearHamiltonian.*Queue 1, item 1"):
+        convert.linear_hamiltonian(ensemble)
+
+
 def test_linear_hamiltonian_and_magnus_m2_match_jax():
     from qoc_tpu import LinearHamiltonian as JaxLinearHamiltonian
     from qoc_tpu.ops.magnus import magnus_m2 as jax_magnus_m2

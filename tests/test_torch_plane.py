@@ -11,6 +11,8 @@ f64-accurate expm, as in test_torch_chain.py), 1e-6 on GRAPE errors, 1e-8
 on evolved states.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -78,7 +80,7 @@ def test_plane_chain_gradcheck():
     every ladder level."""
     from qoc_tpu_torch.ops.chain import plane_chain_propagate
     rng = np.random.default_rng(4)
-    base = _planes(rng, 5, 3)
+    base = _planes(rng, 3, 3)
     for _, target_norm in LEVEL_NORMS:
         assert torch.autograd.gradcheck(
             plane_chain_propagate,
@@ -131,42 +133,60 @@ def test_plane_wrappers_take_plain_versions_on_cpu():
     assert (chain.plane_fwd.launches, chain.plane_bwd.launches) == launches
 
 
-def _loss_both(problem, magnus, time_block_size):
+def _jax_loss(problem, magnus):
+    """qoc_tpu's loss and control gradient on its CPU route (one time
+    block: the blocking does not change the numbers)."""
     from qoc_tpu.core.common import slap_controls_jax
     from qoc_tpu.core.schroedinger import (
         build_schroedinger_loss as jax_build_loss)
+    from qoc_tpu_torch.core.common import strip_controls
+    shape = (problem.n_steps, problem.n_c)
+    jax_loss = jax_build_loss(problem.jax_pstate(magnus=magnus))
+    (want, _), g_want = jax.value_and_grad(
+        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
+        has_aux=True)(jnp.asarray(strip_controls(True, problem.controls)))
+    return float(want), np.asarray(g_want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(callables, magnus):
+    """_jax_loss of Problem() (with its callables), once per module for the
+    cases that share it."""
+    problem = Problem().use_callables() if callables else Problem()
+    return _jax_loss(problem, magnus)
+
+
+def _loss_both(problem, magnus, time_block_size, reference):
     from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
     from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
 
     shape = (problem.n_steps, problem.n_c)
     flat = strip_controls(True, problem.controls)
-    jax_loss = jax_build_loss(problem.jax_pstate(magnus=magnus),
-                              time_block_size=time_block_size)
-    (want, _), g_want = jax.value_and_grad(
-        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(flat))
+    want, g_want = reference
     loss = build_schroedinger_loss(problem.torch_pstate(magnus=magnus),
                                    torch.device("cpu"), torch.float64,
                                    time_block_size=time_block_size)
     flat_t = torch.tensor(flat, requires_grad=True)
     got, _ = loss(slap_controls_torch(True, flat_t, shape))
     g_got, = torch.autograd.grad(got, flat_t)
-    assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
-    assert _rel(g_got.numpy(), np.asarray(g_want)) < 1e-5
+    assert float(got.detach()) == pytest.approx(want, rel=1e-6)
+    assert _rel(g_got.numpy(), g_want) < 1e-5
 
 
 @pytest.mark.parametrize("time_block_size", (None, 7))
 @pytest.mark.parametrize("magnus", ("M2", "M4", "M6"))
 def test_callable_loss_and_gradient_match_jax(magnus, time_block_size):
     """A time-dependent callable (cos(t) drift), one time block and four
-    blocks of 7 steps (the last one short)."""
-    _loss_both(Problem().use_callables(), magnus, time_block_size)
+    blocks of 7 steps (the last one short), against one qoc_tpu reference
+    for both."""
+    _loss_both(Problem().use_callables(), magnus, time_block_size,
+               _jax_reference(True, magnus))
 
 
 @pytest.mark.parametrize("magnus", ("M4", "M6"))
 def test_linear_hamiltonian_plane_route_matches_jax(magnus):
     """A LinearHamiltonian under M4/M6 takes the plane route."""
-    _loss_both(Problem(), magnus, None)
+    _loss_both(Problem(), magnus, None, _jax_reference(False, magnus))
 
 
 @pytest.mark.parametrize("magnus", ("M2", "M4"))

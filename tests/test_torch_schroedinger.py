@@ -10,6 +10,7 @@ per-iteration GRAPE errors, 1e-5 on the best controls, 1e-8 on evolved
 states.
 """
 
+import functools
 import subprocess
 import sys
 import textwrap
@@ -29,23 +30,34 @@ torch.set_num_threads(1)
 _REPO = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("time_block_size", (None, 7))
-def test_loss_and_gradient_match_jax(time_block_size):
-    """One time block, and four blocks of 7 steps (the last one short)."""
+@functools.lru_cache(maxsize=None)
+def _jax_reference():
+    """qoc_tpu's loss and control gradient of Problem(), once for the cases
+    that share it."""
     from qoc_tpu.core.common import slap_controls_jax
     from qoc_tpu.core.schroedinger import (
         build_schroedinger_loss as jax_build_loss)
+    from qoc_tpu_torch.core.common import strip_controls
+    problem = Problem()
+    shape = (problem.n_steps, problem.n_c)
+    jax_loss = jax_build_loss(problem.jax_pstate())
+    (want, _), g_want = jax.value_and_grad(
+        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
+        has_aux=True)(jnp.asarray(strip_controls(True, problem.controls)))
+    return float(want), np.asarray(g_want)
+
+
+@pytest.mark.parametrize("time_block_size", (None, 7))
+def test_loss_and_gradient_match_jax(time_block_size):
+    """One time block, and four blocks of 7 steps (the last one short),
+    against one qoc_tpu reference."""
     from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
     from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
 
     problem = Problem()
     shape = (problem.n_steps, problem.n_c)
     flat = strip_controls(True, problem.controls)
-
-    jax_loss = jax_build_loss(problem.jax_pstate())
-    (want, _), g_want = jax.value_and_grad(
-        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(flat))
+    want, g_want = _jax_reference()
 
     loss = build_schroedinger_loss(problem.torch_pstate(),
                                    torch.device("cpu"), torch.float64,
@@ -53,8 +65,7 @@ def test_loss_and_gradient_match_jax(time_block_size):
     flat_t = torch.tensor(flat, requires_grad=True)
     got, _ = loss(slap_controls_torch(True, flat_t, shape))
     g_got, = torch.autograd.grad(got, flat_t)
-    assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
-    g_want = np.asarray(g_want)
+    assert float(got.detach()) == pytest.approx(want, rel=1e-6)
     assert np.abs(g_got.numpy() - g_want).max() / np.abs(g_want).max() \
         < 1e-5
 
@@ -246,7 +257,7 @@ def test_blocked_route_matches_jax(case, capsys):
         problem, magnus = Problem(d=8, n_steps=13).use_callables(), "M4"
         kwargs = dict(allow_plane_chain=False, time_block_size=5)
     else:
-        problem, magnus, kwargs = Problem(d=72, n_steps=6), "M2", {}
+        problem, magnus, kwargs = Problem(d=72, n_steps=4), "M2", {}
     got, want, g_got, g_want = _loss_and_gradient_both(problem, magnus,
                                                        **kwargs)
     assert "propagation path = blocked expm" in capsys.readouterr().out
@@ -255,11 +266,11 @@ def test_blocked_route_matches_jax(case, capsys):
 
 
 def test_blocked_route_grape_trajectory_matches_jax():
-    """3 Adam iterations at d = 72 (the port's blocked route, qoc_tpu's
+    """2 Adam iterations at d = 72 (the port's blocked route, qoc_tpu's
     default one): per-iteration errors and the best iterate agree."""
-    problem = Problem(d=72, n_steps=6)
-    want, got = _grape_both(problem, 3, 0.0)
-    assert got.iteration_count_ran == want.iteration_count_ran == 3
+    problem = Problem(d=72, n_steps=4)
+    want, got = _grape_both(problem, 2, 0.0)
+    assert got.iteration_count_ran == want.iteration_count_ran == 2
     np.testing.assert_allclose(got.errors, want.errors, rtol=0, atol=1e-6)
     assert got.best_iteration == want.best_iteration
     np.testing.assert_allclose(got.best_controls, want.best_controls,

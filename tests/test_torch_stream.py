@@ -1,17 +1,22 @@
 """The port's streamed chain route (K6's, 256 < padded d <= 512) on the CPU.
 
-- The plane op at d = 260 (padded 320) with weights x basis planes, against
-  ``qoc_tpu``'s ``make_chain_expm_propagate``, whose streamed kernels
-  ``_stream_fwd_kernel`` / ``_stream_bwd_kernel`` run in Pallas interpret
-  mode (float32): relative 1e-4 forward and 1e-3 on the weight gradient, as
-  tests/test_chain.py holds them to its reference; and against
-  ``chain_expm_propagate_reference`` under x64 at test_torch_chain.py's
-  1e-6 / 1e-5 (the port's f32-calibrated ladder against an f64 expm). The
-  inputs are exact in float32, so both packages see the same numbers.
+- The plane op at d = 260 (padded 320) with weights x basis planes, on a
+  Taylor level against ``qoc_tpu``'s ``make_chain_expm_propagate``, whose
+  streamed kernels ``_stream_fwd_kernel`` / ``_stream_bwd_kernel`` run in
+  Pallas interpret mode (float32): relative 1e-4 forward and 1e-3 on the
+  weight gradient, as tests/test_chain.py holds them to its reference. The
+  inputs are exact in float32, so both packages see the same numbers. The
+  squaring branch and the Taylor level are also held against the port's
+  own float64 reference on the same input (an ordered product of
+  ``torch.linalg.matrix_exp``, autograd for the gradient) at
+  test_torch_chain.py's 1e-6 / 1e-5 (the f32-calibrated ladder against an
+  f64 expm): one interpret-mode run of the JAX kernels is the slow part, and
+  the small-d tests already hold the plain math to ``qoc_tpu``.
 - K6's segment plan, ``chain_block_plan``'s padded dimension, the refusals
-  of the CUDA wrappers, and the d = 300 Schrödinger loss and gradient
-  against ``qoc_tpu``'s ``build_schroedinger_loss`` (relative 1e-6 / 1e-5,
-  as tests/test_torch_schroedinger.py).
+  of the CUDA wrappers, and the d = 260 Schrödinger loss and gradient: the
+  streamed route against ``qoc_tpu``'s ``build_schroedinger_loss``
+  (relative 1e-6 / 1e-5, as tests/test_torch_schroedinger.py), the plane
+  route of an M4 callable against the port's blocked route.
 """
 
 import numpy as np
@@ -73,37 +78,62 @@ def _port_loss_and_grad(basis, w, tgt):
     return total.detach().numpy(), grad.numpy()
 
 
-@pytest.mark.parametrize("case,scale", (("ladder", 0.01 / 3),
-                                        ("squaring", 2.0 / (2 * 260 ** 0.5))))
-def test_plane_op_matches_interpreted_stream_kernels(interpreted_pallas,
-                                                     case, scale):
+def _expm_chain_loss_and_grad(basis, w, tgt):
+    """The port's float64 reference for the same chain: an ordered product
+    of torch.linalg.matrix_exp of the planes, its weight gradient by
+    autograd."""
+    n_b, d = basis.shape[0], basis.shape[-1]
+    wt = torch.tensor(w.astype(np.float64), requires_grad=True)
+    g = torch.as_tensor(basis.astype(np.complex128)).reshape(n_b, d * d)
+    total = torch.eye(d, dtype=g.dtype)
+    for u in torch.linalg.matrix_exp((wt.to(g.dtype) @ g).reshape(-1, d, d)):
+        total = u @ total
+    loss = torch.sum(torch.abs(total - torch.as_tensor(tgt)) ** 2)
+    grad, = torch.autograd.grad(loss, wt)
+    return total.detach().numpy(), grad.numpy()
+
+
+_CASES = {"ladder": (11, 0.01 / 3), "squaring": (12, 2.0 / (2 * 260 ** 0.5))}
+
+
+@pytest.mark.parametrize("case", ("ladder", "squaring"))
+def test_plane_op_matches_interpreted_stream_kernels(request, case):
     """The streamed regime on a Taylor level and on the squaring branch
     (tests/test_chain.py:975-1037's inputs): the port's total and weight
-    gradient against qoc_tpu's streamed kernels in interpret mode."""
-    from qoc_tpu.ops.chain_pallas import (chain_fused_ok,
-                                          make_chain_expm_propagate)
+    gradient against the port's float64 matrix_exp chain and, on the Taylor
+    level, against qoc_tpu's streamed kernels in interpret mode."""
     from qoc_tpu_torch.ops.chain import (_plane_norm_max, ladder_level,
                                          uses_stream)
-    seed = 11 if case == "ladder" else 12
+    seed, scale = _CASES[case]
     basis, w, tgt = _stream_problem(seed, scale)
-    assert chain_fused_ok(260, 3) and uses_stream(260)
-    prop = make_chain_expm_propagate(basis)
-    want = np.asarray(prop(jnp.asarray(w)))
-    g_want = np.asarray(jax.grad(lambda ww: jnp.sum(
-        jnp.abs(prop(ww) - tgt) ** 2))(jnp.asarray(w)))
+    assert uses_stream(260)
     got, g_got = _port_loss_and_grad(basis, w, tgt)
     planes = torch.as_tensor(np.einsum("bk,kij->bij", w.astype(np.float64),
                                        basis.astype(np.complex128)))
     level = ladder_level(_plane_norm_max(planes)[0])
     assert level == (4 if case == "squaring" else 3)
-    assert _rel(got, want) < 1e-4
-    assert _rel(g_got, g_want) < 1e-3
+    want, g_want = _expm_chain_loss_and_grad(basis, w, tgt)
+    assert _rel(got, want) < 1e-6
+    assert _rel(g_got, g_want) < 1e-5
+    if case == "ladder":
+        request.getfixturevalue("interpreted_pallas")
+        from qoc_tpu.ops.chain_pallas import (chain_fused_ok,
+                                              make_chain_expm_propagate)
+        assert chain_fused_ok(260, 3)
+        prop = make_chain_expm_propagate(basis)
+        want = np.asarray(prop(jnp.asarray(w)))
+        g_want = np.asarray(jax.grad(lambda ww: jnp.sum(
+            jnp.abs(prop(ww) - tgt) ** 2))(jnp.asarray(w)))
+        assert _rel(got, want) < 1e-4
+        assert _rel(g_got, g_want) < 1e-3
 
 
 def test_plane_op_matches_chain_reference():
-    """The same d = 260 chain against qoc_tpu's XLA reference under x64."""
+    """The same d = 260 chain against qoc_tpu's XLA reference under x64, on
+    two steps (the reference's expm at d = 260 is the slow part)."""
     from qoc_tpu.ops.chain_pallas import chain_expm_propagate_reference
     basis, w, tgt = _stream_problem(11, 0.01 / 3)
+    w = w[:2]
     basis64 = basis.astype(np.complex128)
 
     def loss(ww):
@@ -182,34 +212,49 @@ def test_cuda_paths_refuse_what_k6_cannot_take():
     assert (dp, plan) == (320, chain.stream_segment_plan)
 
 
+def _port_loss(problem, magnus, **kwargs):
+    """The port's loss and control gradient (CPU, float64) and its path
+    log."""
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    shape = (problem.n_steps, problem.n_c)
+    flat_t = torch.tensor(strip_controls(True, problem.controls),
+                          requires_grad=True)
+    loss = build_schroedinger_loss(problem.torch_pstate(magnus=magnus),
+                                   torch.device("cpu"), torch.float64,
+                                   log_path=True, **kwargs)
+    got, _ = loss(slap_controls_torch(True, flat_t, shape))
+    g_got, = torch.autograd.grad(got, flat_t)
+    return float(got.detach()), g_got.numpy()
+
+
 @pytest.mark.parametrize("case,path", (("M2 LinearHamiltonian",
                                         "streamed chain"),
                                        ("M4 callable", "plane chain")))
 def test_d300_schroedinger_matches_jax(case, path, capsys):
-    """d = 300 (padded 320), 4 steps: the K6 routes' loss and control
-    gradient against qoc_tpu's build_schroedinger_loss on its CPU route."""
-    from qoc_tpu.core.common import slap_controls_jax
-    from qoc_tpu.core.schroedinger import (
-        build_schroedinger_loss as jax_build_loss)
-    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
-    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
-    problem = Problem(d=300, n_c=1, n_steps=5, evolution_time=0.5)
-    magnus = "M2"
+    """d = 260 (padded 320, K6's smallest), 2 steps: the streamed route's
+    loss and control gradient against qoc_tpu's build_schroedinger_loss on
+    its CPU route, and the M4 callable's plane route against the port's
+    blocked route (expm + tree product) on the same problem."""
+    problem = Problem(d=260, n_c=1, n_steps=2, evolution_time=0.2)
     if case == "M4 callable":
         problem.use_callables()
-        magnus = "M4"
-    shape = (problem.n_steps, problem.n_c)
-    flat = strip_controls(True, problem.controls)
-    jax_loss = jax_build_loss(problem.jax_pstate(magnus=magnus))
-    (want, _), g_want = jax.value_and_grad(
-        lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(flat))
-    loss = build_schroedinger_loss(problem.torch_pstate(magnus=magnus),
-                                   torch.device("cpu"), torch.float64,
-                                   log_path=True)
-    flat_t = torch.tensor(flat, requires_grad=True)
-    got, _ = loss(slap_controls_torch(True, flat_t, shape))
-    g_got, = torch.autograd.grad(got, flat_t)
-    assert "propagation path = " + path in capsys.readouterr().out
-    assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
-    assert _rel(g_got.numpy(), g_want) < 1e-5
+        got, g_got = _port_loss(problem, "M4")
+        assert "propagation path = " + path in capsys.readouterr().out
+        want, g_want = _port_loss(problem, "M4", allow_plane_chain=False)
+        assert "blocked expm" in capsys.readouterr().out
+    else:
+        from qoc_tpu.core.common import slap_controls_jax
+        from qoc_tpu.core.schroedinger import (
+            build_schroedinger_loss as jax_build_loss)
+        from qoc_tpu_torch.core.common import strip_controls
+        shape = (problem.n_steps, problem.n_c)
+        flat = strip_controls(True, problem.controls)
+        jax_loss = jax_build_loss(problem.jax_pstate(magnus="M2"))
+        (want, _), g_want = jax.value_and_grad(
+            lambda f: jax_loss(slap_controls_jax(True, f, shape)),
+            has_aux=True)(jnp.asarray(flat))
+        got, g_got = _port_loss(problem, "M2")
+        assert "propagation path = " + path in capsys.readouterr().out
+    assert got == pytest.approx(float(want), rel=1e-6)
+    assert _rel(g_got, np.asarray(g_want)) < 1e-5
