@@ -21,7 +21,9 @@ build, for a quick check of a kernel.) Phases, one line each:
    iterations, with every kernel's launch counter set to 0 before the run
    and read after it (K1 and K2 launched, K5 not);
 6. K1 and K2 times beside their plain versions, their bounds and
-   torch.linalg.matrix_exp of the same generators, at the headline shapes;
+   torch.linalg.matrix_exp of the same generators, at the headline shapes,
+   with each kernel's design: threads and shared memory a block, ptxas
+   registers and spills (build.log) and its share of the bound;
 7. K5 (forward and adjoint of the plane chain) against its plain versions
    in float32, at d = 64 and 16 with planes scaled onto every ladder level,
    at 3, 37 and 2001 steps, the padded rows and steps exactly the identity,
@@ -38,7 +40,8 @@ build, for a quick check of a kernel.) Phases, one line each:
    steps, M2 callable), 20 iterations;
 10. K5 times at the M4 shapes beside their plain versions, their bounds,
    torch.linalg.matrix_exp of the same planes (exps only, no chain) and the
-   conjugate transpose of the planes that the adjoint kernel does on load;
+   conjugate transpose of the planes that the adjoint kernel does on load,
+   with both kernels' design as in phase 6;
 11. K3 (expm) and K4 (its Fréchet derivative) against their plain versions
    in float32 on every ladder level, at d = 16, 64, 96, 128, 180 and 256
    (padded 64, 64, 128, 128, 192, 256) and batches 1, 37, 133 and 2000
@@ -105,8 +108,9 @@ build, for a quick check of a kernel.) Phases, one line each:
    intermediate densities against float64;
 25. the per-step modes' times at their main paths' shapes (K2 at the
    step-cost headline, K5 at the M4 planes, K6 at the d = 20 planes)
-   beside their plain versions, the last-step mode and their bounds, and
-   the trajectory glue's device times at the headline.
+   beside their plain versions, the last-step mode and their bounds, K2's
+   and K5's design as in phase 6, and the trajectory glue's device times at
+   the headline.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -391,14 +395,34 @@ def ptxas_report(*entry):
     return regs, spill
 
 
-def design_line(name, entry, clusters, blocks, smem, bound_ms, ms):
-    """A kernel's launch design as phases 15 and 20 print it; ``entry``:
-    the strings of ptxas_report."""
+def design_line(name, entry, clusters, blocks, smem, bound_ms, ms,
+                threads=256):
+    """A kernel's launch design as phases 6, 10, 15, 20 and 25 print it;
+    ``entry``: the strings of ptxas_report."""
     regs, spill = ptxas_report(*entry)
-    return ("{}: cluster {} blocks, grid {} clusters ({} blocks), {} B "
-            "shared memory a block, {} registers, {} B spilled, {:.0%} of its "
-            "bound".format(name, blocks, clusters, clusters * blocks, smem,
-                           regs, spill, bound_ms / ms))
+    return ("{}: {} threads a block, cluster {} blocks, grid {} clusters ({} "
+            "blocks), {} B shared memory a block, {} registers, {} B spilled, "
+            "{:.0%} of its bound".format(
+                name, threads, blocks, clusters, clusters * blocks, smem,
+                regs, spill, bound_ms / ms))
+
+
+# ptxas entry strings of the resident chain kernels (K2/K5 adjoint: the
+# kernels' Adjoint<512>).
+RESIDENT_ENTRY = {
+    "K1": ("chain_fwd_kernel",), "K5 fwd": ("plane_fwd_kernel",),
+    "K2": ("chain_bwd_kernel", "AdjointILi512ELb0ELb0E"),
+    "K5 bwd": ("plane_bwd_kernel", "AdjointILi512ELb0ELb0E")}
+
+
+def resident_design_line(key, s_count, bound_ms, ms):
+    """design_line of a resident chain kernel launched on s_count segment
+    chains, one block each."""
+    from qoc_tpu_torch.ops import chain
+    base = key.replace(" step", "")
+    threads, smem = chain.resident_block(base in ("K2", "K5 bwd"))
+    return design_line(key, RESIDENT_ENTRY[base], s_count, 1, smem,
+                       bound_ms, ms, threads)
 
 
 def phase_device():
@@ -671,6 +695,9 @@ def phase_timing(dev, headline_w):
             "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time"
             "".format(k, b[0], b[1], b[2], b[0] / ms[k])
             for k, b in bounds.items()), flush=True)
+    for key in ("K1", "K2"):
+        print("phase 6 design: " + resident_design_line(
+            key, s_count, bounds[key][0], ms[key]), flush=True)
     return ms, bounds
 
 
@@ -947,6 +974,9 @@ def phase_plane_timing(dev):
               "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time"
               "".format(k, b[0], b[1], b[2], b[0] / ms[k])
               for k, b in bounds.items()), flush=True)
+    for key in ("K5 fwd", "K5 bwd"):
+        print("phase 10 design: " + resident_design_line(
+            key, s_count, bounds[key][0], ms[key]), flush=True)
     return ms, bounds
 
 
@@ -1195,7 +1225,7 @@ def phase_expm_timing(dev):
     (A^H, G)), at the d = 128 GRAPE's planes and at the M4 planes: kernel
     and plain times, bounds, and torch.linalg.matrix_exp forward and
     backward on the same inputs (the library yardstick, only timed here)."""
-    from qoc_tpu_torch.ops import expm_cuda
+    from qoc_tpu_torch.ops import chain, expm_cuda
     out = {}
     for label, a in (("d=128", initial_planes(*d128_problem()[:2], dev)),
                      ("M4", m4_planes(dev))):
@@ -1237,13 +1267,16 @@ def phase_expm_timing(dev):
         for key, dual in (("K3", False), ("K4", True)):
             blocks = expm_cuda.launch_grid(dual, dp, a.shape[0], dev.index)[0]
             smem = expm_cuda._plan(dual, dp, dev.index)[2]
+            # K4 at dp = 64 runs K2's adjoint block (chain.resident_block).
+            threads = chain.resident_block(True)[0] if dual and dp == 64 \
+                else 256
             entry = (("frechet_resident_kernel" if dual else
                       "expm_resident_kernel",) if dp == 64 else
                      ("expm_tiled_kernel",
                       "TiledILi{}ELb{}E".format(dp // 64, int(dual))))
             print("phase 15 design ({} planes): ".format(label)
                   + design_line(key, entry, blocks, 1, smem, bounds[key][0],
-                                ms[key]), flush=True)
+                                ms[key], threads), flush=True)
         out[label] = (ms, bounds, {"K3": err3, "K4": err4})
     return out["d=128"]
 
@@ -2236,6 +2269,8 @@ def phase_step_timing(dev, headline_w=None):
         (w_seg, op.basis_h, ninf, pref), op.dp,
         a.abs().sum(-1).amax(-1), chain.ladder_level(ninf), gen, 10)
     bounds, errs = {"K2 step": bound}, {"K2 step": err}
+    designs = [resident_design_line("K2 step", s_count, bound[0],
+                                    ms["K2 step"])]
     # The trajectory glue at the headline.
     cums, prods = chain._merge(pref, op.d)
     g_total = torch.randn((op.d, op.d), dtype=torch.complex64, device=dev,
@@ -2278,6 +2313,9 @@ def phase_step_timing(dev, headline_w=None):
         ms.update(step_ms)
         bounds[key + " step"] = bound
         errs[key + " step"] = err
+        if key == "K5 bwd":
+            designs.append(resident_design_line(
+                "K5 bwd step", a_seg.shape[0], bound[0], ms["K5 bwd step"]))
     print("phase 25 per-step timing (K2 at the step-cost headline, S x L = "
           "{} x {}; K5 at the M4 planes; K6 at the d = 20 planes): ".format(
               s_count, length)
@@ -2287,6 +2325,8 @@ def phase_step_timing(dev, headline_w=None):
               "max|err| {:.2e}".format(k, b[0], b[1], b[2], b[0] / ms[k],
                                        errs[k])
               for k, b in bounds.items()), flush=True)
+    for line in designs:
+        print("phase 25 design: " + line, flush=True)
     return ms, bounds, errs
 
 

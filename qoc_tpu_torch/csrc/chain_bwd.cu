@@ -27,13 +27,22 @@
 // gU) + 3 x (2/3/5/7) products for degree 4/8/12/19 (8-23 products). The
 // per-step mode adds a 32 KB seed read and an elementwise add a step.
 //
-// What the design does about it: as K1, one block per segment chain with
-// its working set in shared memory: T, U^H / value, tangent and the dual
-// powers (7 x 32 KB = 224 KB, the most a block may use). Degrees 12 and 19
-// need more live matrices than fit, so once M^4 is formed the powers M, M^2,
-// M^3 and their tangents, which are only read elementwise from then on, go
-// to a per-block stash in device memory: each thread reads back only what
-// it wrote, with coalesced accesses, so no barrier guards it.
+// What the design does about it (chain_common.cuh Adjoint): one block of
+// 512 threads (16 warps, a 4 x 2 register tile each) per segment chain,
+// with T, U^H, the generator, its tangent and the ladder resident in seven
+// 32 KB slots of shared memory (224 KB, the most a block may use). Each dual
+// product runs in two passes on one accumulator (value, then the tangent as
+// one product of twice the depth), so a thread needs at most 128 registers
+// and nothing spills; the ladder's elementwise passes are fused into the
+// products' epilogues. At degrees 12 and 19 the Paterson-Stockmeyer chunks
+// are formed once, in the epilogue of M^3, and those below the top one go
+// to a per-block device-memory stash, written and read once each. A step's
+// operands, P_{t-1} and the seed, are staged by cp.async while the T update
+// runs, and P_{t-1}^H is formed in shared memory without bank conflicts.
+// A_t^H is built from the basis G_k^H, which stays L2-resident, 7 terms'
+// loads in flight at once, in the same phase as the T update, so one warp's
+// wait on L2 hides behind another's products; gU runs beside the value pass
+// of the ladder's first product.
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -42,7 +51,8 @@
 namespace qoc {
 namespace {
 
-__global__ void __launch_bounds__(NT, 1)
+template <class A>
+__global__ void __launch_bounds__(A::THREADS, 1)
     chain_bwd_kernel(const float* __restrict__ w,
                      const float2* __restrict__ basis_h,
                      const float* __restrict__ norm,
@@ -64,16 +74,33 @@ __global__ void __launch_bounds__(NT, 1)
   float2* gseg = gA + seg * L * MAT;
   float2* st = stash + seg * STASH_SLOTS * MAT;
 
+  const float2* uh = nullptr;
   for (int t = L - 1; t >= 0; --t) {
-    adjoint_gu(b, step_seed(seeds, seg, t, L, per_step),
-               pseg + (size_t)t * MAT, t == L - 1);
-    build_generator(b[1], wseg + (size_t)t * n_b, basis_h, n_b);  // A_t^H
-    __syncthreads();
-    expm_dual(b, level, st, red);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      gseg[(size_t)t * MAT + own(e)] = b[2][own(e)];
+    uh = A::step(b, uh, step_seed(seeds, seg, t, L, per_step),
+                 pseg + (size_t)t * MAT, nullptr,
+                 [&](float2* m) {  // A_t^H
+                   build_generator<A::THREADS, A::BUILD_KU>(
+                       m, wseg + (size_t)t * n_b, basis_h, n_b);
+                 },
+                 level, st, red, gseg + (size_t)t * MAT);
   }
+}
+
+template <class A>
+int launch_chain_bwd(const void* w, const void* basis_h, const void* norm,
+                     const void* prefpad, const void* seeds, void* gA,
+                     void* stash, int S, int L, int n_b, int per_step,
+                     void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_bwd_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  chain_bwd_kernel<A><<<S, A::THREADS, BWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(w), static_cast<const float2*>(basis_h),
+      static_cast<const float*>(norm), static_cast<const float2*>(prefpad),
+      static_cast<const float2*>(seeds), static_cast<float2*>(gA),
+      static_cast<float2*>(stash), L, n_b, per_step != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -82,23 +109,15 @@ __global__ void __launch_bounds__(NT, 1)
 // w (S, L, n_b) f32; basis_h (n_b, DP, DP) complex64 holding G_k^H; norm -> 1
 // f32 (batch-max inf-norm of the generators = 1-norm of A^H); prefpad
 // (S, L + 1, DP, DP) from K1; seeds (S, DP, DP), or (S, L, DP, DP) with
-// per_step != 0; gA (S, L, DP, DP) out; stash (S, 6, DP, DP) scratch.
-// Returns the CUDA error.
+// per_step != 0; gA (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP)
+// scratch. Returns the CUDA error.
 extern "C" int qoc_chain_bwd(const void* w, const void* basis_h,
                              const void* norm, const void* prefpad,
                              const void* seeds, void* gA, void* stash, int S,
                              int L, int n_b, int per_step, void* stream) {
-  using namespace qoc;
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  chain_bwd_kernel<<<S, NT, BWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float*>(w), static_cast<const float2*>(basis_h),
-      static_cast<const float*>(norm), static_cast<const float2*>(prefpad),
-      static_cast<const float2*>(seeds), static_cast<float2*>(gA),
-      static_cast<float2*>(stash), L, n_b, per_step != 0);
-  return (int)cudaGetLastError();
+  return qoc::launch_chain_bwd<qoc::AdjointNTA>(
+      w, basis_h, norm, prefpad, seeds, gA, stash, S, L, n_b, per_step,
+      stream);
 }
 
 extern "C" int qoc_chain_stash_slots() { return qoc::STASH_SLOTS; }

@@ -78,3 +78,10 @@ extern "C" int qoc_chain_fwd(const void* w, const void* basis,
 }
 
 extern "C" int qoc_chain_dp() { return qoc::DP; }
+
+// Threads and dynamic shared memory a block of the resident forward
+// (adjoint = 0: K1, K5) or adjoint (K2, K5) kernels.
+extern "C" void qoc_chain_block(int adjoint, int* threads, int* smem) {
+  *threads = adjoint ? qoc::NTA : qoc::NT;
+  *smem = (int)(adjoint ? qoc::BWD_SMEM : qoc::FWD_SMEM);
+}

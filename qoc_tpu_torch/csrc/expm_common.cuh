@@ -6,9 +6,9 @@
 // Two designs, by the padded dimension D:
 //
 // - D = 64 (K3/K4): the matrix's whole ladder resident in shared memory, by
-//   chain_common.cuh's expm (5 matrices) and expm_dual (6 matrices and the
-//   per-block stash of the dual powers): K1/K5's step without the chain,
-//   K2/K5's dual step without the recursion.
+//   chain_common.cuh's expm (5 matrices) and Adjoint::expm_dual (6 matrices
+//   and the per-block stash of the Paterson-Stockmeyer chunks): K1/K5's
+//   step without the chain, K2/K5's dual step without the recursion.
 // - D = 128 ... 512 (T = D / 64): one complex64 matrix is 128 KB - 2 MB, so
 //   not even one fits the 227 KB of shared memory a block may use. The
 //   ladder's matrices (M, M2, M3, M4 and two accumulators X, Y; with their
@@ -121,22 +121,6 @@ __device__ __forceinline__ Epi epi_out(const Lin& L, float2* vout,
   e.vout = vout;
   e.tout = tout;
   return e;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A thread's register tile of a product's output panel: the NT threads
@@ -587,21 +571,21 @@ constexpr size_t expm_tiled_smem() {
   return ExpmTiled<T, DUAL>::G::SMEM;
 }
 
-// Sets the kernel's dynamic shared memory, then launches it on grid blocks,
-// in clusters of cl blocks where cl > 1.
-template <typename Kernel, typename... Args>
+// Sets the kernel's dynamic shared memory, then launches it on grid blocks
+// of THREADS threads, in clusters of cl blocks where cl > 1.
+template <int THREADS = NT, typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t smem, int grid, void* stream, int cl,
            Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (cl <= 1) {
-    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(args...);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
@@ -616,16 +600,18 @@ int launch(Kernel kernel, size_t smem, int grid, void* stream, int cl,
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel resident on the current device at once (blocks per
-// SM x SMs): the wrapper's grid, and the workspace it allocates.
+// Blocks of the kernel (of ``threads`` threads) resident on the current
+// device at once (blocks per SM x SMs): the wrapper's grid, and the
+// workspace it allocates.
 template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem, int* blocks) {
+int resident_blocks(Kernel kernel, size_t smem, int* blocks,
+                    int threads = NT) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;

@@ -19,9 +19,9 @@
 // and one written.
 //
 // What the design does about it: K3's, with the tangents beside the values.
-// At D = 64 the dual ladder is chain_common.cuh's expm_dual, six resident
-// matrices and the per-block stash of the dual powers (K2's step without
-// the recursion); above, twelve workspace matrices a block, each dual
+// At D = 64 the dual ladder is chain_common.cuh's Adjoint::expm_dual on 512
+// threads, six resident matrices and the per-block stash of the
+// Paterson-Stockmeyer chunks (K2's step without the recursion); above, twelve workspace matrices a block, each dual
 // product run as one product for the value and one of twice the depth,
 // [dX X] [Y; dY], for the tangent, through K3's ring, on 8 x 4 register
 // tiles of 128 x 64 panels (8 x 2 tiles of 64 x 64 at D = 192, which 128
@@ -33,18 +33,19 @@
 namespace qoc {
 namespace {
 
-// D = 64: (value, tangent) and four dual-power scratch matrices resident,
-// + the 1-norm scratch.
+// D = 64: (value, tangent) and four scratch matrices of the dual ladder
+// resident, + the 1-norm scratch.
 constexpr size_t RESIDENT_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
 
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NTA, 1)
     frechet_resident_kernel(const float2* __restrict__ b,
                             const float2* __restrict__ g,
                             const float* __restrict__ norm,
                             float2* __restrict__ out, float2* stash, int B) {
+  using A = AdjointNTA;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
-  // expm_dual's buffers b1..b6 (b0, the adjoint's T, is not used here).
+  // expm_dual's slots b1..b6 (b0, the adjoint's T, is not used here).
   float2* buf[7];
   buf[0] = nullptr;
 #pragma unroll
@@ -53,14 +54,10 @@ __global__ void __launch_bounds__(NT, 1)
   float2* st = stash + (size_t)blockIdx.x * STASH_SLOTS * MAT;
   const int level = ladder_level(__ldg(norm));
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
-    load(buf[1], b + (size_t)m * MAT);
-    load(buf[2], g + (size_t)m * MAT);
+    load<NTA>(buf[1], b + (size_t)m * MAT);
+    load<NTA>(buf[2], g + (size_t)m * MAT);
     __syncthreads();
-    expm_dual(buf, level, st, red);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      out[(size_t)m * MAT + own(e)] = buf[2][own(e)];
-    __syncthreads();
+    A::expm_dual(buf, level, st, red, out + (size_t)m * MAT);
   }
 }
 
@@ -87,20 +84,20 @@ int tiled_plan(int* blocks, int* smem) {
 
 // b, g (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max
 // 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
-// qoc_expm_frechet_plan (the dual powers' stash at dp = 64). dp is 64, 128,
-// 192 or 256. Returns the CUDA error.
+// qoc_expm_frechet_plan (the Paterson-Stockmeyer chunks' stash at
+// dp = 64). dp is 64, 128, 192 or 256. Returns the CUDA error.
 extern "C" int qoc_expm_frechet(const void* b, const void* g,
                                 const void* norm, void* out, void* ws, int B,
                                 int dp, int grid, void* stream) {
   using namespace qoc;
   switch (dp) {
     case 64:
-      return ex::launch(frechet_resident_kernel, RESIDENT_SMEM, grid, stream,
-                        1, static_cast<const float2*>(b),
-                        static_cast<const float2*>(g),
-                        static_cast<const float*>(norm),
-                        static_cast<float2*>(out), static_cast<float2*>(ws),
-                        B);
+      return ex::launch<NTA>(frechet_resident_kernel, RESIDENT_SMEM, grid,
+                             stream, 1, static_cast<const float2*>(b),
+                             static_cast<const float2*>(g),
+                             static_cast<const float*>(norm),
+                             static_cast<float2*>(out),
+                             static_cast<float2*>(ws), B);
     case 128: return tiled<2>(b, g, norm, out, ws, B, grid, stream);
     case 192: return tiled<3>(b, g, norm, out, ws, B, grid, stream);
     case 256: return tiled<4>(b, g, norm, out, ws, B, grid, stream);
@@ -117,7 +114,7 @@ extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots,
     case 64:
       *smem = (int)RESIDENT_SMEM;
       return ex::resident_blocks(frechet_resident_kernel, RESIDENT_SMEM,
-                                 blocks);
+                                 blocks, NTA);
     case 128: return tiled_plan<2>(blocks, smem);
     case 192: return tiled_plan<3>(blocks, smem);
     case 256: return tiled_plan<4>(blocks, smem);

@@ -14,16 +14,18 @@
 // planes' gradient in PyTorch's convention (dL/dRe + i dL/dIm) as it stands.
 // The bracketed seed is the per-step-seed mode's (per_step), as in K2.
 //
-// A_t^H: the kernel reads the forward's plane A_t coalesced and stores it
-// conjugate-transposed into shared memory (as K2 stages P_{t-1}^H), so the
-// caller keeps one copy of the planes and makes no transposed one.
+// A_t^H: the kernel stages the forward's plane A_t by cp.async (coalesced)
+// and forms its conjugate transpose in shared memory (as it does P_{t-1}^H),
+// so the caller keeps one copy of the planes and makes no transposed one.
 //
 // What bounds it on the card: FP32 arithmetic, as K2: 2 + 3 x (2/3/5/7)
 // complex 64^3 products a step for degree 4/8/12/19.
 //
-// What the design does about it: K2's, one block per segment chain with 7
-// resident matrices and the per-block stash for the dual powers (see
-// chain_bwd.cu).
+// What the design does about it: K2's (chain_bwd.cu; chain_common.cuh
+// Adjoint), one block of 512 threads per segment chain with 7 resident
+// matrices, two-pass dual products and the per-block stash of the
+// Paterson-Stockmeyer chunks; the plane is staged with P_{t-1} and the seed
+// while the T update runs.
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -32,7 +34,8 @@
 namespace qoc {
 namespace {
 
-__global__ void __launch_bounds__(NT, 1)
+template <class A>
+__global__ void __launch_bounds__(A::THREADS, 1)
     plane_bwd_kernel(const float2* __restrict__ a,
                      const float* __restrict__ norm,
                      const float2* __restrict__ prefpad,
@@ -53,16 +56,28 @@ __global__ void __launch_bounds__(NT, 1)
   float2* gseg = gA + seg * L * MAT;
   float2* st = stash + seg * STASH_SLOTS * MAT;
 
+  const float2* uh = nullptr;
   for (int t = L - 1; t >= 0; --t) {
-    adjoint_gu(b, step_seed(seeds, seg, t, L, per_step),
-               pseg + (size_t)t * MAT, t == L - 1);
-    load_adjoint(b[1], aseg + (size_t)t * MAT);  // A_t^H
-    __syncthreads();
-    expm_dual(b, level, st, red);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      gseg[(size_t)t * MAT + own(e)] = b[2][own(e)];
+    uh = A::step(b, uh, step_seed(seeds, seg, t, L, per_step),
+                 pseg + (size_t)t * MAT, aseg + (size_t)t * MAT,
+                 [](float2*) {}, level, st, red, gseg + (size_t)t * MAT);
   }
+}
+
+template <class A>
+int launch_plane_bwd(const void* a, const void* norm, const void* prefpad,
+                     const void* seeds, void* gA, void* stash, int S, int L,
+                     int per_step, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      plane_bwd_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  plane_bwd_kernel<A><<<S, A::THREADS, BWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float2*>(a), static_cast<const float*>(norm),
+      static_cast<const float2*>(prefpad), static_cast<const float2*>(seeds),
+      static_cast<float2*>(gA), static_cast<float2*>(stash), L,
+      per_step != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -77,15 +92,7 @@ extern "C" int qoc_plane_bwd(const void* a, const void* norm,
                              const void* prefpad, const void* seeds, void* gA,
                              void* stash, int S, int L, int per_step,
                              void* stream) {
-  using namespace qoc;
-  cudaError_t err = cudaFuncSetAttribute(
-      plane_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  plane_bwd_kernel<<<S, NT, BWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(a), static_cast<const float*>(norm),
-      static_cast<const float2*>(prefpad), static_cast<const float2*>(seeds),
-      static_cast<float2*>(gA), static_cast<float2*>(stash), L,
-      per_step != 0);
-  return (int)cudaGetLastError();
+  return qoc::launch_plane_bwd<qoc::AdjointNTA>(a, norm, prefpad, seeds, gA,
+                                                 stash, S, L, per_step,
+                                                 stream);
 }

@@ -72,7 +72,7 @@ __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
            "kernel_dp", "ladder_level", "load_kernels", "plane_bwd",
            "per_step_seeds", "plane_bwd_plain", "plane_chain_propagate",
            "plane_chain_propagate_prefixes", "plane_fwd", "plane_fwd_plain",
-           "segment_plan", "stream_bwd",
+           "resident_block", "segment_plan", "stream_bwd",
            "stream_bwd_plain", "stream_fwd", "stream_fwd_plain",
            "stream_grid", "stream_segment_plan", "uses_stream", "KERNEL_DP",
            "STREAM_MAX_DP", "STREAM_MIN_DP"]
@@ -205,6 +205,8 @@ def load_kernels():
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
                                    cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
+    lib.qoc_chain_block.argtypes = [cint, cint_p, cint_p]
+    lib.qoc_chain_block.restype = None
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
@@ -220,6 +222,15 @@ def load_kernels():
         raise RuntimeError("chain kernel library DP {} != {}".format(
             lib.qoc_chain_dp(), KERNEL_DP))
     return lib
+
+
+def resident_block(adjoint):
+    """(threads, dynamic shared-memory bytes) a block of the resident chain
+    kernels: the forward's (K1, K5) or, ``adjoint``, K2's and K5's."""
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    load_kernels().qoc_chain_block(int(adjoint), ctypes.byref(threads),
+                                   ctypes.byref(smem))
+    return threads.value, smem.value
 
 
 def _check_norm(norm, dev):

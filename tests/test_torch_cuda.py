@@ -614,6 +614,77 @@ def test_per_step_modes_match_plain_versions(cuda_device, kernel,
     assert torch.equal(per_step_last, last_step)
 
 
+_LEVEL_NORMS = {0.03: 0, 0.3: 1, 1.0: 2, 2.5: 3, 7.0: 4}
+
+
+def _resident_adjoint_inputs(kernel, rng, d, s_count, length, target_norm,
+                             dev):
+    """(adjoint, plain adjoint, its inputs but the seeds) of K2 or K5 on
+    s_count segment chains of ``length`` steps at d zero-padded to the
+    kernels' 64, the generators' inf-norm (the adjoint's level) scaled to
+    ``target_norm``, the prefixes from the plain forward."""
+    from qoc_tpu_torch.ops import chain
+    dp = chain.KERNEL_DP
+    n = s_count * length
+    if kernel == "K2":
+        n_b = 5
+        base = anti_hermitian_basis(rng, n_b, d)
+        w = rng.normal(size=(n, n_b)).astype(np.float32)
+        ninf = np.abs(np.einsum("jk,kab->jab", w, base)).sum(-1).max()
+        basis = np.zeros((n_b, dp, dp), np.complex64)
+        basis[:, :d, :d] = base * (target_norm / ninf)
+        basis = torch.as_tensor(basis, device=dev)
+        w_seg = torch.as_tensor(w, device=dev).reshape(s_count, length, n_b)
+        planes = torch.einsum("slk,kab->slab", w_seg.to(torch.complex64),
+                              basis)
+        head = (w_seg, basis.mH.contiguous())
+        fns = (chain.chain_bwd, chain.chain_bwd_plain)
+    else:
+        x = anti_hermitian_basis(rng, n, d)
+        planes = torch.zeros((n, dp, dp), dtype=torch.complex64, device=dev)
+        planes[:, :d, :d] = torch.as_tensor(
+            (x * (target_norm / np.abs(x).sum(-1).max())).astype(
+                np.complex64), device=dev)
+        planes = planes.reshape(s_count, length, dp, dp)
+        head = (planes,)
+        fns = (chain.plane_bwd, chain.plane_bwd_plain)
+    n1, ninf = chain._plane_norm_max(planes)
+    assert chain.ladder_level(ninf) == _LEVEL_NORMS[target_norm]
+    return fns + (head + (ninf, chain.plane_fwd_plain(planes, n1)),)
+
+
+@pytest.mark.parametrize("kernel", ("K2", "K5"))
+@pytest.mark.parametrize("d", (3, 17, 64))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_resident_adjoints_match_plain_versions(cuda_device, kernel, d,
+                                                target_norm):
+    """K2 and K5's adjoint (csrc/chain_common.cuh Adjoint) against their
+    plain versions on every ladder level, over S x L = 1 x 1, 37 x 5 and
+    127 x 3 segment chains, in both seed modes; the zero padding stays
+    exactly zero, and with seeds zero but at each segment's last step the
+    per-step mode is bitwise the last-step mode."""
+    rng = np.random.default_rng(int(100 * target_norm) + d)
+    dp = 64
+    for s_count, length in ((1, 1), (37, 5), (127, 3)):
+        bwd, bwd_plain, args = _resident_adjoint_inputs(
+            kernel, rng, d, s_count, length, target_norm, cuda_device)
+        for shape in ((s_count, d, d), (s_count, length, d, d)):
+            seeds = torch.zeros(shape[:-2] + (dp, dp), dtype=torch.complex64,
+                                device=cuda_device)
+            seeds[..., :d, :d] = torch.as_tensor(
+                (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+                    np.complex64), device=cuda_device)
+            got, want = bwd(*args, seeds), bwd_plain(*args, seeds)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()
+                         / want.abs().max()) < GRAD_RTOL
+            assert not bool(got[..., d:, :].any() or got[..., :, d:].any())
+        only_last = torch.zeros_like(seeds)
+        only_last[:, -1] = seeds[:, -1]
+        assert torch.equal(bwd(*args, only_last),
+                           bwd(*args, seeds[:, -1].contiguous()))
+
+
 @pytest.mark.parametrize("op", ("chain", "plane"))
 def test_trajectory_ops_match_plain_versions(cuda_device, op):
     """The trajectory form at d = 16 over 37 steps through the kernels
