@@ -110,7 +110,34 @@ build, for a quick check of a kernel.) Phases, one line each:
    step-cost headline, K5 at the M4 planes, K6 at the d = 20 planes)
    beside their plain versions, the last-step mode and their bounds, K2's
    and K5's design as in phase 6, and the trajectory glue's device times at
-   the headline.
+   the headline;
+26. K1/K2's member axis (the chains of ensembles and multistart, one
+   launch for all chains) against their plain versions in float32 on every
+   ladder level and in both seed modes, at 2 and 5 members with S_m > 1
+   segments a chain, 9 members and 512 chains with one segment a chain,
+   and 133 chains (a ragged last wave): totals, prefixes and the weight
+   gradient, each member against itself run alone through the
+   single-chain op, the padded rows and steps exactly the identity, and
+   the totals against float64 matrix_exp products;
+27. the ensemble at full width: grape_schroedinger_ensemble on bench_m4's
+   widths under M2 (d = 64, 10 complex controls, 2001 points, T = 20) with
+   the drift an EnsembleLinearHamiltonian (1 + δ)·H0, 4 and 16 members,
+   δ = linspace(-0.05, 0.05, M), 2 warm-up + 10 timed iterations,
+   counters read around each run (K1 and K2 once a time block, K3-K6
+   never), then with ForbidStates of |1> (0.1) every step (K2 per step);
+   loss and gradient against float64 over the plain versions;
+28. the generic member route: the 4-member ensemble under M4 through the
+   blocked route (K3/K4 launched, K1/K2/K5 never), against float64;
+29. grape_schroedinger_multistart at full width on bench.py's
+   bench_multistart problem (d = 64, 10 complex controls, 201 points,
+   T = 2, Adam, fused_chunk 12): 512 candidates for 48 iterations, 1024 and
+   2048 for 24, candidate-iterations/s (steady), time blocks and launches
+   an iteration, peak memory and the best error; the 512 candidates' losses
+   and gradients at their seeds against float64; then a robust multistart
+   of 64 candidates x the 4-member ensemble of phase 27 (8 iterations);
+30. K1/K2 at the 512-candidate shapes (512 chains x 200 steps), both seed
+   modes, beside their plain versions, bounds and design, and the member
+   merge and seed glue's device times at phase 27's 4 and 16 members.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -184,6 +211,26 @@ THINNED_COST_EVAL_STEP = 10
 STEP_DIMS = (D, 16)
 STEP_STEPS = (3, 37, M4_STEPS)
 STREAM_STEP_STEPS = (1, 3, 37)
+# K1/K2's member axis against their plain versions: (members, steps) with
+# S_m > 1 segments a chain (2 and 5 members), one segment a chain (9 members
+# over 8 steps, and the multistart's 512 chains of 200 steps), and 133
+# chains, whose rows leave a ragged last wave on the H100's 132 SMs.
+MEMBER_CASES = ((2, 1001), (5, 203), (9, 8), (133, 37), (512, 200))
+# The ensemble of phases 27-28: bench_m4's widths (2001 points, T = 20),
+# the drift miscalibrated as (1 + δ)·H0, δ = linspace(-0.05, 0.05, M).
+ENSEMBLE_MEMBERS = (4, 16)
+ENSEMBLE_DELTA = 0.05
+# The multistart of phase 29 (bench.py:352-375 of the JAX package): d = 64,
+# 10 complex controls, 201 points, T = 2, Adam, fused_chunk 12; (candidates,
+# iterations) of each run, and the robust multistart over phase 27's 4
+# members.
+MULTISTART_POINTS = 201
+MULTISTART_TIME = 2.0
+MULTISTART_CHUNK = 12
+MULTISTART_RUNS = ((512, 48), (1024, 24), (2048, 24))
+ROBUST_CANDIDATES = 64
+ROBUST_ITERATIONS = 8
+ROBUST_CHUNK = 4
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth.
@@ -1179,6 +1226,42 @@ def make_iteration(pstate, dev, build_loss=None):
     return iteration
 
 
+def make_multistart_iteration(pstate, hamiltonian, params, n_starts, dev):
+    """One iteration of the multistart runner (parallel/_msrunner.py) on
+    ``n_starts`` candidates from their seeds over the members ``params``
+    (or one member): clip, the candidates' errors and gradients from one
+    backward of their sum, the per-candidate Adam update; returns the
+    errors."""
+    from qoc_tpu_torch.core.common import (clip_control_norms_torch,
+                                           slap_controls_torch,
+                                           strip_controls_torch)
+    from qoc_tpu_torch.parallel._msrunner import candidate_seeds
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    shape = pstate.controls_shape
+    loss = build_chain_loss(pstate, hamiltonian, params, dev, torch.float32,
+                            n_candidates=n_starts)
+    slap = torch.func.vmap(lambda p: slap_controls_torch(True, p, shape))
+    strip = torch.func.vmap(lambda c: strip_controls_torch(True, c))
+    mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
+                          device=dev)
+    adam = pstate.optimizer
+    params0 = torch.as_tensor(candidate_seeds(pstate, n_starts, 0),
+                              dtype=torch.float32, device=dev)
+    state = {"params": params0, "opt": adam.init_state_batch(params0)}
+
+    def iteration():
+        flat = strip(clip_control_norms_torch(slap(state["params"]),
+                                              mcn)).detach()
+        flat.requires_grad_(True)
+        errors = loss(slap(flat))[0].mean(dim=1)
+        grads, = torch.autograd.grad(errors.sum(), flat)
+        errors = errors.detach()
+        state["opt"], state["params"] = adam.update_batch(
+            state["opt"], grads, state["params"], errors <= 0.0)
+        return errors
+    return iteration
+
+
 def phase_d1024_backprop(dev):
     """The Table-1 d = 2^10 single-step backprop through the blocked route
     on torch.matmul (no kernel): 20 timed GRAPE iterations (clip, loss,
@@ -1858,9 +1941,11 @@ def schroedinger_reference(pstate, dev, planes):
         else:
             prefixes = chain._prefix_products(torch.linalg.matrix_exp(a))
             total = prefixes[-1]
-        error = step_cost_sum(pstate.step_costs, controls,
-                              lambda sel: prefixes[sel, None] @ initial, 0,
-                              n_steps, pstate.cost_eval_step, dev)
+        error = 0.0
+        if pstate.step_costs:
+            error = step_cost_sum(pstate.step_costs, controls,
+                                  lambda sel: prefixes[sel, None] @ initial,
+                                  0, n_steps, pstate.cost_eval_step, dev)
         states = total @ initial
         for cost in final_costs:
             error = error + cost.cost(controls, states, n_steps)
@@ -2330,6 +2415,578 @@ def phase_step_timing(dev, headline_w=None):
     return ms, bounds, errs
 
 
+# ---------------------------------------------------------------------------
+# Ensembles and multistart: the member-batched K1/K2 (phases 26-30)
+# ---------------------------------------------------------------------------
+
+
+def _member_case(rng, n_members, n_steps, target_norm, dev, d=None):
+    """(kernel op, plain op, weights (M, steps, 21)) of a member-batched
+    chain at d (default D) whose generators' batch-max 1-norm is
+    ``target_norm``; the members' weights differ."""
+    from qoc_tpu_torch.ops import chain
+    d = d or D
+    n_b = 1 + 2 * CONTROL_COUNT
+    w = rng.normal(size=(n_members, n_steps, n_b)).astype(np.float32)
+    basis = np.stack([-1j * _random_hermitian(rng, d).astype(np.complex128)
+                      for _ in range(n_b)])
+    # The batch-max 1-norm on the card (chunked): 10^5 generators are too
+    # many for a host einsum.
+    norm = float(chain._norm_max(
+        torch.as_tensor(w, dtype=torch.float64, device=dev),
+        torch.view_as_real(torch.as_tensor(basis, device=dev)).reshape(
+            n_b, 2 * d * d), d)[0])
+    basis = basis * (target_norm / norm)
+    ops = [chain.ChainExpmPropagate(basis, dev, torch.float32, plain=plain,
+                                    return_prefixes=True)
+           for plain in (False, True)]
+    return ops[0], ops[1], torch.as_tensor(w, device=dev)
+
+
+def _member_outputs(op, w, g_total, g_pref):
+    """(totals, prefixes, weight gradient in the last-step mode, in the
+    per-step mode) of the trajectory op on weights ``w``."""
+    x = w.clone().requires_grad_(True)
+    total, prefixes = op(x)
+    grad_last, = torch.autograd.grad(total, x, g_total, retain_graph=True)
+    grad_step, = torch.autograd.grad((total, prefixes), x, (g_total, g_pref))
+    return total.detach(), prefixes.detach(), grad_last, grad_step
+
+
+def _member_padding(op, w):
+    """True when K1's prefixes of the member-batched rows are exactly the
+    identity outside d = ``op.d`` and unchanged over the padded steps."""
+    from qoc_tpu_torch.ops import chain
+    n_members, n_steps = w.shape[:2]
+    s_count, length = chain.segment_plan(n_steps, n_members)
+    w_seg = torch.zeros((n_members, s_count * length, op.n_b),
+                        device=w.device)
+    w_seg[:, :n_steps] = w
+    pref = chain.chain_fwd(w_seg.reshape(-1, length, op.n_b), op.basis,
+                           chain._norm_max(w, op.basis_ri, op.d)[0])
+    pref = pref.reshape(n_members, s_count, length + 1, D, D)
+    last = n_steps - (s_count - 1) * length
+    eye = torch.eye(D, dtype=pref.dtype, device=pref.device)
+    d = op.d
+    return (torch.equal(pref[:, -1, last + 1:],
+                        pref[:, -1, last:last + 1].expand_as(
+                            pref[:, -1, last + 1:]))
+            and torch.equal(pref[..., d:, d:],
+                            eye[d:, d:].expand_as(pref[..., d:, d:]))
+            and not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any()))
+
+
+def phase_member_kernels(dev):
+    """K1/K2's member axis against the plain versions on every ladder
+    level and in both seed modes, each member against itself run alone,
+    the padding exact, and the totals against float64 matrix_exp."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(26)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    worst = {"K1 member": 0.0, "K2 member": 0.0, "K2 member step": 0.0}
+    for n_members, n_steps in MEMBER_CASES:
+        s_count = chain.segment_plan(n_steps, n_members)[0]
+        rows = []
+        for target in LEVEL_NORMS:
+            op_k, op_p, w = _member_case(rng, n_members, n_steps, target,
+                                         dev)
+            g_total = torch.randn((n_members, D, D), dtype=torch.complex64,
+                                  device=dev, generator=gen)
+            g_pref = torch.randn((n_members, n_steps, D, D),
+                                 dtype=torch.complex64, device=dev,
+                                 generator=gen)
+            reset_launches()
+            got = _member_outputs(op_k, w, g_total, g_pref)
+            launches = read_launches()
+            want = _member_outputs(op_p, w, g_total, g_pref)
+            torch.cuda.synchronize()
+            if (launches["K1"], launches["K2"], launches["K2 step"]) != \
+                    (1, 2, 1):
+                raise RuntimeError("the member-batched op did not launch K1 "
+                                   "once and K2 once a backward: {}".format(
+                                       launches))
+            rels = [_rel(x, y) for x, y in zip(got, want)]
+            # Each member run alone through the single-chain op: the
+            # first, a middle and the last.
+            for m in sorted({0, n_members // 2, n_members - 1}):
+                alone = _member_outputs(op_k, w[m], g_total[m], g_pref[m])
+                rels += [_rel(x[m], y) for x, y in zip(got, alone)]
+            if max(rels[0::4] + rels[1::4]) > FWD_RTOL or \
+                    max(rels[2::4] + rels[3::4]) > GRAD_RTOL:
+                raise RuntimeError("the member-batched chain disagrees: {} "
+                                   "members, {} steps, level {}: {}".format(
+                                       n_members, n_steps,
+                                       LEVEL_NORMS.index(target), rels))
+            if not _member_padding(op_k, w):
+                raise RuntimeError("padded steps of a member-batched chain "
+                                   "moved its prefixes")
+            for key, x, y in (("K1 member", got[1], want[1]),
+                              ("K2 member", got[2], want[2]),
+                              ("K2 member step", got[3], want[3])):
+                worst[key] = max(worst[key], float((x - y).abs().max()))
+            rows.append("{} {:.1e}/{:.1e}/{:.1e}/{:.1e}".format(
+                LEVEL_NORMS.index(target), *rels[:4]))
+        print("phase 26 member-batched K1/K2 ({} members x {} steps, S_m = "
+              "{}): level total/prefixes/grad last-step/grad per-step rel "
+              "vs plain: {}".format(n_members, n_steps, s_count,
+                                    "; ".join(rows)), flush=True)
+    # An independent reference on a small input at d = 16 (zero-padded to
+    # 64): float64 matrix_exp.
+    d = 16
+    op_k, _, w = _member_case(rng, 3, 37, 1.0, dev, d)
+    if not _member_padding(op_k, w):
+        raise RuntimeError("the padded rows of a member-batched chain are "
+                           "not the identity")
+    total = op_k(w)[0].to(torch.complex128)
+    a = torch.einsum("mjk,kab->mjab", w.double().to(torch.complex128),
+                     op_k.basis[:, :d, :d].to(torch.complex128))
+    want = torch.eye(d, dtype=torch.complex128, device=dev).expand(
+        3, d, d)
+    for t in range(a.shape[1]):
+        want = torch.linalg.matrix_exp(a[:, t]) @ want
+    rel = _rel(total, want)
+    print("phase 26 member-batched K1/K2: 3 members x 37 steps at d = 16 vs "
+          "float64 matrix_exp products rel {:.2e}; padded rows and steps "
+          "exact; max|err| {}".format(
+              rel, worst), flush=True)
+    if rel > FWD_RTOL:
+        raise RuntimeError("the member-batched op disagrees with matrix_exp")
+    return worst
+
+
+def ensemble_problem(n_members, magnus="M2", step_costs=()):
+    """Phase 27's ensemble: bench_m4's widths (d = 64, 10 complex controls,
+    2001 points, T = 20) under ``magnus``, the drift an
+    EnsembleLinearHamiltonian with param_operators = [h0] (the (1 + δ)·H0
+    miscalibration), δ = linspace(-0.05, 0.05, M): (pstate, hamiltonian,
+    params, costs)."""
+    from qoc_tpu_torch import EnsembleLinearHamiltonian
+    pstate, linear, costs = bench_problem(
+        D, CONTROL_COUNT, M4_STEPS, M4_STEPS, M4_EVOLUTION_TIME, magnus,
+        step_costs=step_costs)
+    hamiltonian = EnsembleLinearHamiltonian(linear.h0, linear.operators,
+                                            linear.h0[None])
+    params = np.linspace(-ENSEMBLE_DELTA, ENSEMBLE_DELTA, n_members)[:, None]
+    pstate.hamiltonian = None
+    pstate.set_ensemble(params)
+    return pstate, hamiltonian, params, costs
+
+
+def chain_reference(pstate, hamiltonian, params, dev):
+    """controls (N, E, C) -> (errors (N, M), final states) of N candidates
+    over M members (``params``, or one member when None) in float64 on the
+    card: the fused route over the plain versions of K1/K2 (the
+    member-batched chain op with plain=True, one time block), each chain's
+    step costs at its cost steps and its final costs."""
+    from qoc_tpu_torch.core.schroedinger import fused_weights, step_cost_sum
+    from qoc_tpu_torch.ops.chain import ChainExpmPropagate
+    dt = float(pstate.dt)
+    n_steps = pstate.system_eval_count - 1
+    times = torch.arange(n_steps, dtype=torch.float64, device=dev) * dt
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float64,
+                          device=dev)
+    initial = torch.as_tensor(pstate.initial_states, dtype=torch.complex128,
+                              device=dev)
+    step_costs = pstate.step_costs
+    final_costs = [cost for cost in pstate.costs
+                   if not cost.requires_step_evaluation]
+    op = ChainExpmPropagate(hamiltonian.generator_basis(dt), dev,
+                            torch.float64, plain=True,
+                            return_prefixes=bool(step_costs))
+    deltas = (None if params is None
+              else torch.as_tensor(params, dtype=torch.float64, device=dev))
+    n_members = 1 if params is None else len(params)
+
+    def loss(controls):
+        w = fused_weights(controls, times, cet, dt)
+        if deltas is not None:
+            w = torch.stack([torch.cat((
+                w[..., :1], delta.expand(w.shape[:-1] + delta.shape),
+                w[..., 1:]), dim=-1) for delta in deltas], dim=1).flatten(
+                    0, 1)
+        total, prefixes = op(w) if step_costs else (op(w), None)
+        states = total[:, None] @ initial
+        errors = []
+        for r in range(states.shape[0]):
+            c = controls[r // n_members]
+            error = 0.0
+            if step_costs:
+                error = step_cost_sum(
+                    step_costs, c, lambda sel: prefixes[r, sel, None]
+                    @ initial, 0, n_steps, pstate.cost_eval_step, dev)
+            for cost in final_costs:
+                error = error + cost.cost(c, states[r], n_steps)
+            errors.append(error)
+        return (torch.stack(errors).reshape(-1, n_members),
+                states.reshape((-1, n_members) + states.shape[1:]))
+
+    return loss
+
+
+def _member_launches(label, launches, kernels, counts):
+    """Raise unless each of ``kernels`` (read_launches keys) was launched as
+    ``counts`` says and nothing else was."""
+    want = {key: counts.get(key, 0) if key in kernels else 0
+            for key in launches}
+    if launches != want:
+        raise RuntimeError("{} launched {}, expected {}".format(
+            label, launches, want))
+
+
+def phase_ensemble(dev):
+    """grape_schroedinger_ensemble at full width: phase 27's ensemble at 4
+    and 16 members, 2 warm-up + 10 timed iterations, counters read around
+    each run (K1 and K2 once a time block for all members, K3-K6 never);
+    then with ForbidStates of |1> (0.1) every step (K2 per step); each
+    loss and gradient against float64 over the plain versions."""
+    from qoc_tpu_torch import grape_schroedinger_ensemble
+    from qoc_tpu_torch.parallel import build_ensemble_loss
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    rates, step_launches = {}, None
+    for step in (False, True):
+        for n_members in ENSEMBLE_MEMBERS:
+            costs = [forbid_level(D, M4_STEPS)] if step else ()
+            pstate, ham, params, costs = ensemble_problem(
+                n_members, step_costs=costs)
+            loss = build_ensemble_loss(pstate, ham, params, device=dev)
+            blocks = -(-(M4_STEPS - 1) // loss.block)
+            reset_launches()
+            result = grape_schroedinger_ensemble(
+                CONTROL_COUNT, M4_STEPS, costs, M4_EVOLUTION_TIME, ham,
+                params, pstate.initial_states, M4_STEPS,
+                complex_controls=True,
+                initial_controls=pstate.initial_controls,
+                iteration_count=iterations, log_iteration_step=0,
+                max_control_norms=pstate.max_control_norms,
+                fused_chunk=WARMUP_ITERATIONS, device=dev)
+            launches = read_launches()
+            n = blocks * iterations
+            _member_launches("the {}-member ensemble".format(n_members),
+                             launches, ("K1", "K2", "K2 step") if step
+                             else ("K1", "K2"),
+                             {"K1": n, "K2": n, "K2 step": n})
+            errors = np.asarray(result.errors)
+            if not (result.iteration_count_ran == iterations
+                    and np.all(np.isfinite(errors))
+                    and np.all(np.isfinite(result.best_final_states))
+                    and result.best_final_states.shape
+                    == (n_members, 1, D, 1) and errors[-1] < errors[0]):
+                raise RuntimeError("the {}-member ensemble GRAPE failed its "
+                                   "checks".format(n_members))
+            check = _against_float64(
+                "loss", loss, _ensemble_reference(pstate, ham, params, dev),
+                pstate, dev)
+            print("phase 27 ensemble ({} members x {} steps{}, {} block(s) "
+                  "of {}): {} iterations, {:.2f} it/s steady ({:.1f} "
+                  "member-it/s), error {:.6f} -> {:.6f}, launches {}; vs "
+                  "float64 plain route: {}".format(
+                      n_members, M4_STEPS - 1,
+                      ", ForbidStates |1> x 0.1" if step else "", blocks,
+                      loss.block, iterations, result.iterations_per_s,
+                      n_members * result.iterations_per_s, errors[0],
+                      errors[-1], launches, check), flush=True)
+            rates[(n_members, step)] = result.iterations_per_s
+            if step and n_members == ENSEMBLE_MEMBERS[0]:
+                step_launches = launches["K2 step"]
+    return rates, step_launches
+
+
+def _ensemble_reference(pstate, ham, params, dev):
+    chain_loss = chain_reference(pstate, ham, params, dev)
+
+    def loss(controls):
+        errors, states = chain_loss(controls[None])
+        return errors[0].mean(), states[0]
+    return loss
+
+
+def phase_ensemble_blocked(dev):
+    """The generic member route: phase 27's 4-member ensemble under
+    Magnus-M4 takes the blocked route (all members' planes in one K3/K4
+    batch a time block): 12 GRAPE iterations with counters (K3/K4 only),
+    then loss and gradient against float64 (each member's planes through
+    the plain plane op)."""
+    from qoc_tpu_torch import grape_schroedinger_ensemble
+    from qoc_tpu_torch.parallel import build_ensemble_loss
+    n_members = ENSEMBLE_MEMBERS[0]
+    pstate, ham, params, costs = ensemble_problem(n_members, "M4")
+    loss = build_ensemble_loss(pstate, ham, params, device=dev)
+    blocks = -(-(M4_STEPS - 1) // loss.block)
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    reset_launches()
+    result = grape_schroedinger_ensemble(
+        CONTROL_COUNT, M4_STEPS, costs, M4_EVOLUTION_TIME, ham, params,
+        pstate.initial_states, M4_STEPS, complex_controls=True,
+        initial_controls=pstate.initial_controls,
+        iteration_count=iterations, log_iteration_step=0,
+        max_control_norms=pstate.max_control_norms,
+        magnus_policy=pstate.magnus_policy,
+        fused_chunk=WARMUP_ITERATIONS, device=dev)
+    launches = read_launches()
+    n = blocks * iterations
+    _member_launches("the M4 ensemble", launches, ("K3", "K4"),
+                     {"K3": n, "K4": n})
+    errors = np.asarray(result.errors)
+    if loss.uses_fused_chain or not (
+            np.all(np.isfinite(errors)) and errors[-1] < errors[0]):
+        raise RuntimeError("the M4 ensemble GRAPE failed its checks")
+    members = [schroedinger_reference(pstate, dev, float64_planes(
+        pstate, ham.member(torch.as_tensor(row, device=dev)), dev))
+        for row in params]
+
+    def reference(controls):
+        outs = [member(controls) for member in members]
+        return (torch.stack([o[0] for o in outs]).mean(),
+                torch.stack([o[1] for o in outs]))
+
+    check = _against_float64("loss", loss, reference, pstate, dev)
+    print("phase 28 ensemble blocked route (M4, {} members x {} steps, {} "
+          "block(s)): {} iterations, {:.2f} it/s steady, error {:.6f} -> "
+          "{:.6f}, launches {}; vs float64 (plain plane op a member): {}"
+          "".format(n_members, M4_STEPS - 1, blocks, iterations,
+                    result.iterations_per_s, errors[0], errors[-1], launches,
+                    check), flush=True)
+    return result.iterations_per_s
+
+
+def multistart_problem():
+    """bench.py's bench_multistart problem (:352-375 of the JAX package):
+    bench_problem at d = 64, 10 complex controls, 201 points, T = 2."""
+    return bench_problem(D, CONTROL_COUNT, MULTISTART_POINTS,
+                         MULTISTART_POINTS, MULTISTART_TIME)
+
+
+def _multistart_run(label, n_starts, iterations, chunk, dev, problem,
+                    params=None):
+    """One grape_schroedinger_multistart run with counters and peak memory:
+    (result, launches, blocks, peak GB)."""
+    from qoc_tpu_torch import Adam, grape_schroedinger_multistart
+    from qoc_tpu_torch.ops.chain import chain_block_plan
+    pstate, ham, costs = problem
+    n_chains = n_starts * (1 if params is None else len(params))
+    n_steps = pstate.system_eval_count - 1
+    blocks = -(-n_steps // chain_block_plan(D, n_steps, 8, 2, n_chains))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    result = grape_schroedinger_multistart(
+        CONTROL_COUNT, pstate.control_eval_count, costs,
+        pstate.evolution_time, ham, pstate.initial_states,
+        pstate.system_eval_count, n_starts=n_starts, complex_controls=True,
+        hamiltonian_params=params, iteration_count=iterations,
+        log_iteration_step=0, optimizer=Adam(), fused_chunk=chunk,
+        device=dev)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # K2 once a block an iteration; K1 also once a block for the winner's
+    # final states.
+    _member_launches(label, launches, ("K1", "K2"),
+                     {"K1": blocks * (iterations + 1),
+                      "K2": blocks * iterations})
+    errors = np.asarray(result.errors)
+    if not (result.iteration_count_ran == iterations
+            and np.all(np.isfinite(errors))
+            and np.isfinite(result.best_error)
+            and result.best_error <= errors[0]
+            and np.all(np.isfinite(result.best_final_states))):
+        raise RuntimeError(label + " failed its checks")
+    print("phase 29 {}: {} iterations (chunks of {}), {:.1f} "
+          "candidate-it/s steady ({:.1f} mean), {} block(s) and {} K1 + {} "
+          "K2 launches an iteration, peak {:.2f} GB, best error {:.6f} "
+          "(candidate 0 {:.6f}, median {:.6f})".format(
+              label, iterations, chunk, result.iterations_per_s,
+              result.iterations_per_s_mean, blocks, blocks, blocks, peak,
+              result.best_error, errors[0], float(np.median(errors))),
+          flush=True)
+    return result, launches
+
+
+def phase_multistart(dev):
+    """grape_schroedinger_multistart at full width: bench_multistart's
+    problem with Adam and fused_chunk 12 at 512, 1024 and 2048 candidates,
+    counters and peak memory around each run; the 512 candidates' losses
+    and gradients at their seeds against float64 over the plain versions;
+    then a robust multistart of 64 candidates x phase 27's 4 members."""
+    from qoc_tpu_torch.core.common import slap_controls_torch
+    from qoc_tpu_torch.parallel._msrunner import candidate_seeds
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    problem = multistart_problem()
+    rates, launches = {}, None
+    for n_starts, iterations in MULTISTART_RUNS:
+        result, run_launches = _multistart_run(
+            "multistart {} candidates".format(n_starts), n_starts,
+            iterations, MULTISTART_CHUNK, dev, problem)
+        rates[n_starts] = result.iterations_per_s
+        if launches is None:
+            launches = run_launches
+    pstate, ham, _ = problem
+    n_starts = MULTISTART_RUNS[0][0]
+    seeds = candidate_seeds(pstate, n_starts, 0)
+    shape = pstate.controls_shape
+    outs = []
+    for dtype, loss in ((torch.float32, build_chain_loss(
+            pstate, ham, None, dev, torch.float32, n_candidates=n_starts)),
+                        (torch.float64, chain_reference(pstate, ham, None,
+                                                        dev))):
+        flat = torch.as_tensor(seeds, dtype=dtype, device=dev)
+        flat.requires_grad_(True)
+        errors = loss(torch.func.vmap(
+            lambda p: slap_controls_torch(True, p, shape))(flat))[0][:, 0]
+        grad, = torch.autograd.grad(errors.sum(), flat)
+        outs.append((errors.detach().double(), grad.double()))
+    torch.cuda.synchronize()
+    rel_err, rel_grad = _rel(outs[0][0], outs[1][0]), _rel(outs[0][1],
+                                                           outs[1][1])
+    print("phase 29 multistart {} candidates at their seeds, float32 kernel "
+          "route vs float64 plain route: errors rel {:.2e}, gradients rel "
+          "{:.2e}".format(n_starts, rel_err, rel_grad), flush=True)
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("the multistart kernel route disagrees with "
+                           "float64")
+    pstate, ham, params, costs = ensemble_problem(ENSEMBLE_MEMBERS[0])
+    robust, _ = _multistart_run(
+        "robust multistart {} candidates x {} members".format(
+            ROBUST_CANDIDATES, len(params)), ROBUST_CANDIDATES,
+        ROBUST_ITERATIONS, ROBUST_CHUNK, dev, (pstate, ham, costs), params)
+    rates["robust"] = robust.iterations_per_s
+    return rates, launches
+
+
+def phase_member_timing(dev):
+    """K1/K2 at the 512-candidate multistart's shapes (512 chains x 200
+    steps, one segment a chain) in both seed modes, beside their plain
+    versions, bounds and design; and the device time of the member merge,
+    seeds and prefix composition at phase 27's 4 and 16 members."""
+    from qoc_tpu_torch.core.common import slap_controls_torch
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.parallel._msrunner import candidate_seeds
+    gen = torch.Generator(device=dev).manual_seed(30)
+    pstate, ham, _ = multistart_problem()
+    n_starts, n_steps = MULTISTART_RUNS[0][0], MULTISTART_POINTS - 1
+    dt = float(pstate.dt)
+    controls = torch.func.vmap(lambda p: slap_controls_torch(
+        True, p, pstate.controls_shape))(torch.as_tensor(
+            candidate_seeds(pstate, n_starts, 0), dtype=torch.float32,
+            device=dev))
+    w = fused_weights(controls, torch.arange(
+        n_steps, dtype=torch.float32, device=dev) * dt, torch.as_tensor(
+            pstate.control_eval_times, dtype=torch.float32, device=dev), dt)
+    op = chain.ChainExpmPropagate(ham.generator_basis(dt), dev,
+                                  torch.float32)
+    s_count, length = chain.segment_plan(n_steps, n_starts)
+    w_seg = w.reshape(n_starts * s_count, length, op.n_b).contiguous()
+    n1, ninf = chain._norm_max(w, op.basis_ri, op.d)
+    pref = chain.chain_fwd(w_seg, op.basis, n1)
+    pref_plain = chain.chain_fwd_plain(w_seg, op.basis, n1)
+    seeds = torch.randn((n_starts, D, D), dtype=torch.complex64, device=dev,
+                        generator=gen)
+    step_seeds = torch.randn((n_starts, length, D, D),
+                             dtype=torch.complex64, device=dev,
+                             generator=gen)
+    args = (w_seg, op.basis_h, ninf, pref)
+    err = {"K1 member": float((pref - pref_plain).abs().max())}
+    for key, s in (("K2 member", seeds), ("K2 member step", step_seeds)):
+        got = chain.chain_bwd(*args, s)
+        err[key] = float((got - chain.chain_bwd_plain(*args, s)).abs().max())
+        if not bool(torch.isfinite(torch.view_as_real(got)).all()):
+            raise RuntimeError(key + " produced non-finite values")
+    ms = {
+        "K1 member": cuda_ms(lambda: chain.chain_fwd(w_seg, op.basis, n1),
+                             5),
+        "K1 member plain": cuda_ms(
+            lambda: chain.chain_fwd_plain(w_seg, op.basis, n1), 2),
+        "K2 member": cuda_ms(lambda: chain.chain_bwd(*args, seeds), 5),
+        "K2 member plain": cuda_ms(
+            lambda: chain.chain_bwd_plain(*args, seeds), 2),
+        "K2 member step": cuda_ms(lambda: chain.chain_bwd(*args, step_seeds),
+                                  5),
+        "K2 member step plain": cuda_ms(
+            lambda: chain.chain_bwd_plain(*args, step_seeds), 2),
+    }
+    a = torch.einsum("jk,kab->jab", w_seg.reshape(-1, op.n_b).to(
+        torch.complex64), op.basis)
+    absa = a.abs()
+    del a
+    bounds = {
+        "K1 member": kernel_bound(absa.sum(-2).amax(-1),
+                                  chain.ladder_level(n1), False,
+                                  [w_seg, op.basis, n1, pref]),
+        "K2 member": kernel_bound(absa.sum(-1).amax(-1),
+                                  chain.ladder_level(ninf), True,
+                                  [w_seg, op.basis_h, ninf, pref, seeds,
+                                   pref[:, 1:]]),
+        "K2 member step": kernel_bound(absa.sum(-1).amax(-1),
+                                       chain.ladder_level(ninf), True,
+                                       [w_seg, op.basis_h, ninf, pref,
+                                        step_seeds, pref[:, 1:]]),
+    }
+    del absa
+    print("phase 30 member-batched timing ({} chains x {} steps, S x L = {} "
+          "x {}, levels {}/{}): ".format(
+              n_starts, n_steps, n_starts * s_count, length,
+              chain.ladder_level(n1), chain.ladder_level(ninf))
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time, "
+              "max|err| {:.2e}".format(k, b[0], b[1], b[2], b[0] / ms[k],
+                                       err[k])
+              for k, b in bounds.items()), flush=True)
+    for key, base in (("K1 member", "K1"), ("K2 member", "K2"),
+                      ("K2 member step", "K2")):
+        print("phase 30 design: " + resident_design_line(
+            base, n_starts * s_count, bounds[key][0], ms[key]).replace(
+                base + ":", key + ":", 1), flush=True)
+    del pref, pref_plain, step_seeds, args
+    glue = []
+    for n_members in ENSEMBLE_MEMBERS:
+        pstate, ham, params, _ = ensemble_problem(n_members)
+        dt = float(pstate.dt)
+        steps = pstate.system_eval_count - 1
+        cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
+                              device=dev)
+        controls = torch.as_tensor(pstate.initial_controls,
+                                   dtype=torch.complex64, device=dev)
+        w = fused_weights(controls, torch.arange(
+            steps, dtype=torch.float32, device=dev) * dt, cet, dt)
+        delta = torch.as_tensor(params, dtype=torch.float32, device=dev)
+        w = torch.cat((w[None, :, :1].expand(n_members, steps, 1),
+                       delta[:, None, :].expand(n_members, steps, 1),
+                       w[None, :, 1:].expand(n_members, steps,
+                                             w.shape[-1] - 1)), dim=-1)
+        op = chain.ChainExpmPropagate(ham.generator_basis(dt), dev,
+                                      torch.float32, return_prefixes=True)
+        _, (w_seg, prefpad, cums, prods, _) = op._forward(w)
+        g_total = torch.randn((n_members, D, D), dtype=torch.complex64,
+                              device=dev, generator=gen)
+        g_pref = torch.randn((n_members, steps, D, D), dtype=torch.complex64,
+                             device=dev, generator=gen)
+        glue.append("{} members (S x L = {} x {}): merge {:.3f} ms, seeds "
+                    "last-step {:.3f} ms, seeds per-step {:.3f} ms, compose "
+                    "prefixes {:.3f} ms".format(
+                        n_members, w_seg.shape[0], w_seg.shape[1],
+                        cuda_ms(lambda: chain._merge(prefpad, D), 5),
+                        cuda_ms(lambda: chain._segment_seeds(
+                            prefpad, cums, prods, D, g_total), 5),
+                        cuda_ms(lambda: chain._segment_seeds(
+                            prefpad, cums, prods, D, g_total, g_pref), 5),
+                        cuda_ms(lambda: chain._compose_prefixes(
+                            prefpad, cums, steps), 5)))
+    print("phase 30 member glue at phase 27's ensembles: " + "; ".join(glue),
+          flush=True)
+    return ms, bounds, err
+
+
+def run_phase(phase, *args):
+    """Call a phase and print its wall time (host clock)."""
+    start = time.perf_counter()
+    out = phase(*args)
+    print("({} took {:.1f} s)".format(phase.__name__,
+                                      time.perf_counter() - start),
+          flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound,
                 library_ms=None):
     return {"name": name, "route": "cuda",
@@ -2355,50 +3012,65 @@ def main():
     build_s = phase_build()
     if args.phases:
         for phase in args.phases.split(","):
-            STANDALONE[int(phase)](dev)
+            run_phase(STANDALONE[int(phase)], dev)
         return
     pstate, _, _ = table3_problem(1)
     headline_w = headline_weights(pstate, dev)
-    worst = phase_kernels(dev, headline_w)
-    phase_headline(dev)
-    launches, it_s = phase_grape(dev)
-    ms, bounds = phase_timing(dev, headline_w)
-    worst.update(phase_plane_kernels(dev))
-    phase_cross_route(dev)
-    m4_launches, m4_it_s = phase_m4_grape(dev)
-    plane_ms, plane_bounds = phase_plane_timing(dev)
+    worst = run_phase(phase_kernels, dev, headline_w)
+    run_phase(phase_headline, dev)
+    launches, it_s = run_phase(phase_grape, dev)
+    ms, bounds = run_phase(phase_timing, dev, headline_w)
+    worst.update(run_phase(phase_plane_kernels, dev))
+    run_phase(phase_cross_route, dev)
+    m4_launches, m4_it_s = run_phase(phase_m4_grape, dev)
+    plane_ms, plane_bounds = run_phase(phase_plane_timing, dev)
     launches.update({k: m4_launches[k] for k in ("K5 fwd", "K5 bwd")})
     ms.update(plane_ms)
     bounds.update(plane_bounds)
-    phase_expm_kernels(dev)
-    d128_launches, d128_it_s = phase_d128_grape(dev)
+    run_phase(phase_expm_kernels, dev)
+    d128_launches, d128_it_s = run_phase(phase_d128_grape, dev)
     launches.update({k: d128_launches[k] for k in ("K3", "K4")})
-    route_ms = phase_blocked_vs_plane(dev)
-    backprop_ms = phase_d1024_backprop(dev)
-    expm_ms, expm_bounds, expm_err = phase_expm_timing(dev)
+    route_ms = run_phase(phase_blocked_vs_plane, dev)
+    backprop_ms = run_phase(phase_d1024_backprop, dev)
+    expm_ms, expm_bounds, expm_err = run_phase(phase_expm_timing, dev)
     ms.update(expm_ms)
     bounds.update(expm_bounds)
     worst.update(expm_err)
-    phase_stream_kernels(dev)
-    phase_stream_schroedinger(dev)
-    d20_launches, d20_it_s = phase_lindblad_d20(dev)
+    run_phase(phase_stream_kernels, dev)
+    run_phase(phase_stream_schroedinger, dev)
+    d20_launches, d20_it_s = run_phase(phase_lindblad_d20, dev)
     launches.update({k: d20_launches[k] for k in ("K6 fwd", "K6 bwd")})
-    phase_lindblad_routes(dev)
-    stream_ms, stream_bounds, stream_err = phase_stream_timing(dev)
+    run_phase(phase_lindblad_routes, dev)
+    stream_ms, stream_bounds, stream_err = run_phase(phase_stream_timing,
+                                                     dev)
     ms.update(stream_ms)
     bounds.update(stream_bounds)
     worst.update(stream_err)
-    phase_step_kernels(dev)
-    stepcost = phase_stepcost_grape(dev)
+    run_phase(phase_step_kernels, dev)
+    stepcost = run_phase(phase_stepcost_grape, dev)
     launches["K2 step"] = stepcost[1][0]["K2 step"]
-    m4_step_launches, m4_step_it_s = phase_stepcost_routes(dev)
+    m4_step_launches, m4_step_it_s = run_phase(phase_stepcost_routes, dev)
     launches["K5 bwd step"] = m4_step_launches["K5 bwd step"]
-    d20_step_launches, d20_step_it_s = phase_stepcost_lindblad(dev)
+    d20_step_launches, d20_step_it_s = run_phase(phase_stepcost_lindblad,
+                                                 dev)
     launches["K6 bwd step"] = d20_step_launches["K6 bwd step"]
-    step_ms, step_bounds, step_err = phase_step_timing(dev, headline_w)
+    step_ms, step_bounds, step_err = run_phase(phase_step_timing, dev,
+                                               headline_w)
     ms.update(step_ms)
     bounds.update(step_bounds)
     worst.update(step_err)
+    run_phase(phase_member_kernels, dev)
+    ensemble_rates, launches["K2 member step"] = run_phase(phase_ensemble,
+                                                           dev)
+    blocked_it_s = run_phase(phase_ensemble_blocked, dev)
+    ms_rates, ms_launches = run_phase(phase_multistart, dev)
+    launches.update({"K1 member": ms_launches["K1"],
+                     "K2 member": ms_launches["K2"]})
+    member_ms, member_bounds, member_err = run_phase(phase_member_timing,
+                                                     dev)
+    ms.update(member_ms)
+    bounds.update(member_bounds)
+    worst.update(member_err)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -2419,17 +3091,30 @@ def main():
             ("plane_bwd (per-step seeds)", "plane_bwd.cu",
              "chain_pallas.py:718", "K5 bwd step"),
             ("stream_bwd (per-step seeds)", "stream_bwd.cu",
-             "chain_pallas.py:463", "K6 bwd step"))]
+             "chain_pallas.py:463", "K6 bwd step"),
+            ("chain_fwd (member-batched)", "chain_fwd.cu",
+             "chain_pallas.py:236", "K1 member"),
+            ("chain_bwd (member-batched)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 member"),
+            ("chain_bwd (member-batched, per-step seeds)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 member step"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
           "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
           "Lindblad d=20 GRAPE {:.2f} it/s | step-cost headline GRAPE {:.2f} "
           "it/s (cost_eval_step {}: {:.2f}) | M4 step-cost GRAPE {:.2f} it/s "
-          "| Lindblad d=20 step-cost GRAPE {:.2f} it/s".format(
+          "| Lindblad d=20 step-cost GRAPE {:.2f} it/s | ensemble GRAPE "
+          "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {}".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
-              m4_step_it_s, d20_step_it_s))
+              m4_step_it_s, d20_step_it_s, ", ".join(
+                  "{} members{} {:.2f} it/s".format(
+                      m, " with step costs" if step else "", rate)
+                  for (m, step), rate in sorted(ensemble_rates.items())),
+              blocked_it_s, ", ".join(
+                  "{} {:.1f} cand-it/s".format(k, v)
+                  for k, v in ms_rates.items())))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2442,7 +3127,9 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               19: phase_lindblad_routes, 20: phase_stream_timing,
               21: phase_step_kernels, 22: phase_stepcost_grape,
               23: phase_stepcost_routes, 24: phase_stepcost_lindblad,
-              25: phase_step_timing}
+              25: phase_step_timing, 26: phase_member_kernels,
+              27: phase_ensemble, 28: phase_ensemble_blocked,
+              29: phase_multistart, 30: phase_member_timing}
 
 
 if __name__ == "__main__":

@@ -13,14 +13,19 @@ torch.matmul, no kernel), the Lindblad d = 20 cell (superoperator 400,
 (the headline with the JAX package's bench_stepcost ForbidStates at
 cost_eval_step 1 and 10: K1, K2 in its per-step-seed mode and the
 trajectory glue; the d = 20 cell with its density step costs: K6 in its
-per-step-seed mode), all built as chip_smoke.py builds them, it runs
-one GRAPE iteration the way core/graperunner.py does (clip, loss, gradient,
-Adam update; chip_smoke.make_iteration): 2 warm-up iterations, then 10
+per-step-seed mode), the 4- and 16-member ensembles of chip_smoke's phase
+27 (K1/K2's member axis; 16 members also with ForbidStates) and the
+512-candidate multistart of its phase 29, all built as chip_smoke.py
+builds them, it runs one GRAPE iteration the way core/graperunner.py does
+(clip, loss, gradient, Adam update; chip_smoke.make_iteration), or one
+iteration of the multistart runner (chip_smoke.make_multistart_iteration):
+2 warm-up iterations, then 10
 timed without the profiler (host clock, one synchronise at the end), then
 5 under torch.profiler. It prints the card's name and power limit, the
 unprofiled ms per iteration, the device time of each kernel class per
 iteration, the device's busy and idle share of the profiled window and the
-peak device memory; ``--json PATH`` also writes them to PATH as JSON.
+peak device memory; ``--json PATH`` also writes them to PATH as JSON, and
+``--cells 0,9`` profiles only the listed cells (by their order above).
 """
 
 import argparse
@@ -59,8 +64,63 @@ def _class(name):
     return "glue elementwise/reductions"
 
 
-def profile_cell(name, pstate, dev, build_loss=None):
-    iteration = chip_smoke.make_iteration(pstate, dev, build_loss)
+def ensemble_loss(hamiltonian, params):
+    """build_loss of chip_smoke.make_iteration for an ensemble."""
+    from qoc_tpu_torch.parallel import build_ensemble_loss
+    return lambda pstate, dev, dtype: build_ensemble_loss(
+        pstate, hamiltonian, params, device=dev, dtype=dtype)
+
+
+def grape_cell(pstate, build_loss=None):
+    """(dev -> a cell's iteration) of a GRAPE problem."""
+    return lambda dev: chip_smoke.make_iteration(pstate, dev, build_loss)
+
+
+def ensemble_cell(n_members, step_costs=()):
+    pstate, ham, params, _ = chip_smoke.ensemble_problem(
+        n_members, step_costs=step_costs)
+    return grape_cell(pstate, ensemble_loss(ham, params))
+
+
+def multistart_cell(n_starts):
+    pstate, ham, _ = chip_smoke.multistart_problem()
+    return lambda dev: chip_smoke.make_multistart_iteration(
+        pstate, ham, None, n_starts, dev)
+
+
+def cells():
+    """(name, dev -> iteration) of every cell, in the order of --cells."""
+    return [
+        ("headline M2 (fused, K1/K2)",
+         grape_cell(chip_smoke.table3_problem(1)[0])),
+        ("bench_m4 M4 (plane, K5)", grape_cell(chip_smoke.m4_problem(1)[0])),
+        ("d=128 M2 (blocked, K3/K4)",
+         grape_cell(chip_smoke.d128_problem()[0])),
+        ("d=1024 backprop (blocked, torch.matmul)",
+         grape_cell(chip_smoke.d1024_problem()[0])),
+        ("Lindblad d=20 (streamed, K6)",
+         grape_cell(chip_smoke.lindblad_d20_pstate(), build_lindblad_loss)),
+        ("step-cost headline (fused, K1/K2 per-step)",
+         grape_cell(chip_smoke.stepcost_problem()[0])),
+        ("step-cost headline, cost_eval_step 10",
+         grape_cell(chip_smoke.stepcost_problem(
+             chip_smoke.THINNED_COST_EVAL_STEP)[0])),
+        ("Lindblad d=20 step costs (streamed, K6 per-step)",
+         grape_cell(chip_smoke.lindblad_d20_pstate(
+             chip_smoke.d20_step_costs()), build_lindblad_loss)),
+        ("ensemble 4 members (fused, K1/K2 member axis)", ensemble_cell(4)),
+        ("ensemble 16 members (fused, K1/K2 member axis)",
+         ensemble_cell(16)),
+        ("ensemble 16 members step costs (K2 member axis per-step)",
+         ensemble_cell(16, [chip_smoke.forbid_level(
+             chip_smoke.D, chip_smoke.M4_STEPS)])),
+        ("multistart 512 candidates (fused, K1/K2 member axis)",
+         multistart_cell(512)),
+    ]
+
+
+def profile_cell(name, build_iteration, dev):
+    iteration = build_iteration(dev)
     for _ in range(WARMUP):
         iteration()
     torch.cuda.synchronize()
@@ -131,6 +191,8 @@ def profile_cell(name, pstate, dev, build_loss=None):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, help="write the results here")
+    parser.add_argument("--cells", help="comma-separated cell indices "
+                        "(default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_grape_profile: needs a CUDA device.")
@@ -141,26 +203,10 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    results = [profile_cell("headline M2 (fused, K1/K2)",
-                            chip_smoke.table3_problem(1)[0], dev),
-               profile_cell("bench_m4 M4 (plane, K5)",
-                            chip_smoke.m4_problem(1)[0], dev),
-               profile_cell("d=128 M2 (blocked, K3/K4)",
-                            chip_smoke.d128_problem()[0], dev),
-               profile_cell("d=1024 backprop (blocked, torch.matmul)",
-                            chip_smoke.d1024_problem()[0], dev),
-               profile_cell("Lindblad d=20 (streamed, K6)",
-                            chip_smoke.lindblad_d20_pstate(), dev,
-                            build_lindblad_loss),
-               profile_cell("step-cost headline (fused, K1/K2 per-step)",
-                            chip_smoke.stepcost_problem()[0], dev),
-               profile_cell("step-cost headline, cost_eval_step 10",
-                            chip_smoke.stepcost_problem(
-                                chip_smoke.THINNED_COST_EVAL_STEP)[0], dev),
-               profile_cell("Lindblad d=20 step costs (streamed, K6 "
-                            "per-step)", chip_smoke.lindblad_d20_pstate(
-                                chip_smoke.d20_step_costs()), dev,
-                            build_lindblad_loss)]
+    chosen = cells()
+    if args.cells:
+        chosen = [chosen[int(i)] for i in args.cells.split(",")]
+    results = [profile_cell(name, build, dev) for name, build in chosen]
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "cells": results},

@@ -9,7 +9,9 @@ the step costs ``TargetStateInfidelityTime``, ``ForbidStates``), intermediate
 states, ``grape_unitary`` and Adam, and the Lindblad path under
 ``LindbladMethod.MAGNUS_EXPM`` (``ConstantLindblad``, the density costs
 ``TargetDensityInfidelity``, ``TargetDensityInfidelityTime``,
-``ForbidDensities``, intermediate densities), whose propagation runs through
+``ForbidDensities``, intermediate densities), and on one card the
+ensemble-robust GRAPE and the multistart (``parallel/``,
+``EnsembleLinearHamiltonian``), whose propagation runs through
 the fused expm-product chain kernels (``ops/chain.py``: d <= 64, and the
 streamed chain at 256 < padded d <= 512) or the batched expm kernels and a
 tree product (``ops/expm.py``; up to padded d = 256 on the card,
@@ -30,17 +32,22 @@ from qoc_tpu_torch.costs import (ForbidDensities, ForbidStates,
                                  TargetDensityInfidelityTime,
                                  TargetStateInfidelity,
                                  TargetStateInfidelityTime)
-from qoc_tpu_torch.models import (ConstantLindblad, LindbladMethod,
+from qoc_tpu_torch.models import (ConstantLindblad,
+                                  EnsembleLinearHamiltonian, LindbladMethod,
                                   LinearHamiltonian)
 from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
                                     expm_taylor)
 from qoc_tpu_torch.optim import Adam
+from qoc_tpu_torch.parallel import (build_ensemble_loss,
+                                    grape_schroedinger_ensemble,
+                                    grape_schroedinger_multistart)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Adam",
     "ConstantLindblad",
+    "EnsembleLinearHamiltonian",
     "ForbidDensities",
     "ForbidStates",
     "LindbladMethod",
@@ -49,6 +56,7 @@ __all__ = [
     "TargetDensityInfidelityTime",
     "TargetStateInfidelity",
     "TargetStateInfidelityTime",
+    "build_ensemble_loss",
     "evolve_lindblad_discrete",
     "evolve_schroedinger_discrete",
     "expm",
@@ -58,5 +66,7 @@ __all__ = [
     "expm_taylor",
     "grape_lindblad_discrete",
     "grape_schroedinger_discrete",
+    "grape_schroedinger_ensemble",
+    "grape_schroedinger_multistart",
     "grape_unitary",
 ]

@@ -16,7 +16,9 @@ from qoc_tpu_torch.costs import (ForbidDensities, ForbidStates,
                                  TargetDensityInfidelityTime,
                                  TargetStateInfidelity,
                                  TargetStateInfidelityTime)
-from qoc_tpu_torch.models import ConstantLindblad, LinearHamiltonian
+from qoc_tpu_torch.models import (ConstantLindblad,
+                                  EnsembleLinearHamiltonian,
+                                  LinearHamiltonian)
 
 __all__ = ["adam_state", "constant_lindblad", "controls", "densities",
            "forbid_densities", "forbid_states", "linear_hamiltonian",
@@ -26,18 +28,17 @@ __all__ = ["adam_state", "constant_lindblad", "controls", "densities",
 
 
 def linear_hamiltonian(hamiltonian):
-    """A port ``LinearHamiltonian`` with the same ``h0`` and
-    ``operators``. An ensemble (``qoc_tpu``'s ``EnsembleLinearHamiltonian``,
-    known by its ``param_operators``) raises ``NotImplementedError``: a
-    plain ``LinearHamiltonian`` would drop its member terms."""
+    """A port ``LinearHamiltonian`` with the same ``h0`` and ``operators``;
+    for an ensemble (``qoc_tpu``'s ``EnsembleLinearHamiltonian``, known by
+    its ``param_operators``) the port's ``EnsembleLinearHamiltonian`` with
+    the same ``param_operators`` too."""
+    h0 = np.asarray(hamiltonian.h0, dtype=np.complex128)
+    operators = np.asarray(hamiltonian.operators, dtype=np.complex128)
     if hasattr(hamiltonian, "param_operators"):
-        raise NotImplementedError(
-            "EnsembleLinearHamiltonian is not ported to qoc_tpu_torch yet "
-            "(ROADMAP Queue 1, item 1: ensembles); converting it to a "
-            "LinearHamiltonian would drop its param_operators.")
-    return LinearHamiltonian(np.asarray(hamiltonian.h0, dtype=np.complex128),
-                             np.asarray(hamiltonian.operators,
-                                        dtype=np.complex128))
+        return EnsembleLinearHamiltonian(
+            h0, operators, np.asarray(hamiltonian.param_operators,
+                                      dtype=np.complex128))
+    return LinearHamiltonian(h0, operators)
 
 
 def states(array):

@@ -40,9 +40,11 @@ def run_grape(pstate, result, loss_flat, device, dtype, evolved="states"):
 
     ``loss_flat`` maps flat real params (already clipped; a tensor that
     requires grad) to (error, final evolved): the final states, or with
-    ``evolved="densities"`` the final densities, which go to
-    ``result.best_final_<evolved>`` (``qoc_tpu``'s runner takes the field
-    names; its Lindblad entry point passes ``best_final_densities``)."""
+    ``evolved="densities"`` the final densities, of shape
+    ``pstate.evolved_shape``, which go to ``result.best_final_<evolved>``
+    (``qoc_tpu``'s runner takes the field names; its Lindblad entry point
+    passes ``best_final_densities``). For an ensemble the error is the
+    members' mean and the final states keep the member axis."""
     if pstate.impose_control_conditions is not None:
         raise NotImplementedError(
             "impose_control_conditions needs the host optimization loop, "
@@ -79,7 +81,7 @@ def _run_fused(pstate, result, loss_flat, device, dtype, evolved):
     params = torch.as_tensor(x0, dtype=dtype, device=device)
     opt_state = optimizer.init_state(params)
     done = torch.zeros((), dtype=torch.bool, device=device)
-    states_shape = np.asarray(getattr(pstate, "initial_" + evolved)).shape
+    states_shape = pstate.evolved_shape
     best = {
         "error": torch.tensor(torch.finfo(dtype).max, dtype=dtype,
                               device=device),
@@ -117,7 +119,7 @@ def _run_fused(pstate, result, loss_flat, device, dtype, evolved):
                      for key in opt_state}
         return params, opt_state, new_done, (error, grads_norm, valid)
 
-    chunk = int(getattr(pstate, "fused_chunk", 0) or _DEFAULT_CHUNK)
+    chunk = int(pstate.fused_chunk or _DEFAULT_CHUNK)
     iterations_left = max(0, pstate.iteration_count)
     global_iter = 0
     all_errors = []

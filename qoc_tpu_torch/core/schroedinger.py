@@ -74,8 +74,9 @@ from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
 from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
 from qoc_tpu_torch.optim import Adam
 
-__all__ = ["build_schroedinger_loss", "evolve_schroedinger_discrete",
-           "fused_weights", "grape_schroedinger_discrete",
+__all__ = ["build_schroedinger_loss", "cost_steps",
+           "evolve_schroedinger_discrete", "fused_weights",
+           "grape_schroedinger_discrete",
            "hamiltonian_sampler", "make_propagator", "plane_builder",
            "step_cost_sum"]
 
@@ -110,16 +111,18 @@ def _not_ported(what, roadmap_slice):
 
 
 def fused_weights(controls, times, control_eval_times, dt):
-    """Weight rows [1, Re c_1, Im c_1, ...] of the chain op, with the
-    controls interpolated at the step midpoints ``times + dt/2``
-    (``qoc_tpu`` schroedinger.py fused_weights)."""
-    c_mid = interpolate_linear_set(times + dt / 2, control_eval_times,
-                                   controls)
+    """Weight rows [1, Re c_1, Im c_1, ...] (B, 1 + 2C) of the chain op,
+    with the controls (E, C) interpolated at the step midpoints
+    ``times + dt/2`` (``qoc_tpu`` schroedinger.py fused_weights); controls
+    (N, E, C) of N candidates give (N, B, 1 + 2C)."""
+    c_mid = torch.movedim(interpolate_linear_set(
+        times + dt / 2, control_eval_times, torch.movedim(controls, -2, 0)),
+        0, -2)
     imag = (torch.imag(c_mid) if c_mid.is_complex()
             else torch.zeros_like(c_mid))
     ri = torch.stack((torch.real(c_mid), imag), dim=-1).reshape(
-        c_mid.shape[0], 2 * c_mid.shape[-1])
-    ones = torch.ones((c_mid.shape[0], 1), dtype=ri.dtype,
+        c_mid.shape[:-1] + (2 * c_mid.shape[-1],))
+    ones = torch.ones(c_mid.shape[:-1] + (1,), dtype=ri.dtype,
                       device=ri.device)
     return torch.cat((ones, ri), dim=-1)
 
@@ -163,17 +166,18 @@ def plane_builder(hamiltonian, magnus_policy, control_eval_times, dt):
 
 
 def _tree_product(us):
-    """us[B-1] ··· us[1] us[0] of a (B, d, d) stack by a log-depth pairwise
-    reduction, an odd level padded with the identity (qoc_tpu
-    schroedinger.py:349-357)."""
+    """us[B-1] ··· us[1] us[0] of a (..., B, d, d) stack by a log-depth
+    pairwise reduction along B, an odd level padded with the identity
+    (qoc_tpu schroedinger.py:349-357): (..., d, d)."""
     d = us.shape[-1]
-    while us.shape[0] > 1:
-        if us.shape[0] % 2:
+    while us.shape[-3] > 1:
+        if us.shape[-3] % 2:
             eye = torch.eye(d, dtype=us.dtype, device=us.device)
-            us = torch.cat((us, eye[None]))
-        pairs = us.reshape(us.shape[0] // 2, 2, d, d)
-        us = pairs[:, 1] @ pairs[:, 0]
-    return us[0]
+            us = torch.cat((us, eye.expand(us.shape[:-3] + (1, d, d))),
+                           dim=-3)
+        pairs = us.reshape(us.shape[:-3] + (us.shape[-3] // 2, 2, d, d))
+        us = pairs[..., 1, :, :] @ pairs[..., 0, :, :]
+    return us[..., 0, :, :]
 
 
 def _route(d, fused_ok, allow_plane_chain):
@@ -213,7 +217,9 @@ def make_propagator(route, magnus_policy, device, dtype, basis=None,
     t_block)`` -> (B, n, n) Magnus planes on the plane and blocked routes.
     ``trajectory_steps`` > 0 gives the trajectory form, for blocks of at
     most that many steps: propagate returns (product, prefixes (B, n, n)).
-    The Lindblad loss shares it (core/lindblad.py)."""
+    Weights (R, B, n_b) or planes (R, B, n, n) of R chains give R products
+    and prefixes (R, B, n, n) (``parallel/``). The Lindblad loss shares it
+    (core/lindblad.py)."""
     cdtype = complex_dtype(dtype)
     build_planes = _MAGNUS[magnus_policy][1]
     trajectory = trajectory_steps > 0
@@ -242,7 +248,7 @@ def make_propagator(route, magnus_policy, device, dtype, basis=None,
         def propagate(controls, t_block):
             prefixes = _prefix_products(expm(
                 planes(controls, t_block).to(cdtype)))
-            return prefixes[-1], prefixes
+            return prefixes[..., -1, :, :], prefixes
         return propagate, (_BLOCKED_PLANES + build_planes + kept
                            + (trajectory_steps - 1).bit_length())
     return (lambda controls, t_block: _tree_product(expm(
@@ -250,27 +256,43 @@ def make_propagator(route, magnus_policy, device, dtype, basis=None,
         _BLOCKED_PLANES + build_planes)
 
 
-def step_cost_sum(step_costs, controls, evolved, start, block_steps,
-                  cost_eval_step, device):
-    """The step costs of one block of ``block_steps`` steps starting after
-    step ``start``: Σ over its cost steps k (global k = start + j + 1 with
-    k % cost_eval_step == 0) of Σ_costs cost(controls, x_k, k), evaluated
-    under ``torch.func.vmap``. ``evolved(sel)`` gives the evolved states or
-    densities at the block's steps ``sel`` (a slice). Only the cost steps
-    are evaluated (``qoc_tpu`` evaluates every step and masks: the values
-    agree). Zero where the block holds no cost step."""
+def cost_steps(start, block_steps, cost_eval_step, device):
+    """(sel, ks) of a block of ``block_steps`` steps starting after step
+    ``start``: the slice of its cost steps (global k = start + j + 1 with
+    k % cost_eval_step == 0) and their global indices k, or None where the
+    block holds no cost step."""
     sel = slice(-(start + 1) % cost_eval_step, block_steps, cost_eval_step)
     if not range(block_steps)[sel]:
-        return 0.0
-    ks = torch.arange(start + 1, start + 1 + block_steps, device=device)[sel]
+        return None
+    return sel, torch.arange(start + 1, start + 1 + block_steps,
+                             device=device)[sel]
 
+
+def _step_cost(step_costs, controls):
+    """x, k -> Σ_costs cost(controls, x, k)."""
     def one_step(x, k):
         error = 0.0
         for cost in step_costs:
             error = error + cost.cost(controls, x, k)
         return error
+    return one_step
 
-    return torch.func.vmap(one_step)(evolved(sel), ks).sum()
+
+def step_cost_sum(step_costs, controls, evolved, start, block_steps,
+                  cost_eval_step, device):
+    """The step costs of one block of ``block_steps`` steps starting after
+    step ``start``: Σ over its cost steps k (:func:`cost_steps`) of
+    Σ_costs cost(controls, x_k, k), evaluated under ``torch.func.vmap``.
+    ``evolved(sel)`` gives the evolved states or densities at the block's
+    steps ``sel`` (a slice). Only the cost steps are evaluated (``qoc_tpu``
+    evaluates every step and masks: the values agree). Zero where the block
+    holds no cost step."""
+    steps = cost_steps(start, block_steps, cost_eval_step, device)
+    if steps is None:
+        return 0.0
+    sel, ks = steps
+    return torch.func.vmap(_step_cost(step_costs, controls))(
+        evolved(sel), ks).sum()
 
 
 def build_schroedinger_loss(pstate, device, dtype, time_block_size=None,

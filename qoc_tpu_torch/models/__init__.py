@@ -2,6 +2,7 @@
 
 from qoc_tpu_torch.models.cost import Cost, validate_cost_dimensions
 from qoc_tpu_torch.models.hamiltonian import (ConstantLindblad,
+                                              EnsembleLinearHamiltonian,
                                               LinearHamiltonian)
 from qoc_tpu_torch.models.policies import (
     InterpolationPolicy,
@@ -30,6 +31,7 @@ __all__ = [
     "Cost",
     "validate_cost_dimensions",
     "ConstantLindblad",
+    "EnsembleLinearHamiltonian",
     "LinearHamiltonian",
     "InterpolationPolicy",
     "LindbladMethod",

@@ -1,8 +1,7 @@
 """Structured Hamiltonians.
 
-Counterpart of ``qoc_tpu/models/hamiltonian.py`` (``LinearHamiltonian``
-and ``ConstantLindblad``; the ensemble Hamiltonian is a later slice of the
-port). ``LinearHamiltonian`` declares the linear control structure
+Counterpart of ``qoc_tpu/models/hamiltonian.py``. ``LinearHamiltonian``
+declares the linear control structure
 
     H(c, t) = H0 + Σᵢ cᵢ Aᵢ + conj(cᵢ) Aᵢ^H
 
@@ -10,13 +9,17 @@ as data. It stays callable with the reference contract, and it is what the
 fused chain routes of the Schrödinger and Lindblad entry points propagate
 through the CUDA chain kernels. ``ConstantLindblad`` declares
 time-independent dissipation, which with a ``LinearHamiltonian`` keeps the
-Lindblad superoperator affine in the controls.
+Lindblad superoperator affine in the controls. ``EnsembleLinearHamiltonian``
+adds real member parameters δ_m with Hermitian operators, the structure
+that takes an ensemble or a robust multistart through the fused chain
+(``parallel/``).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["ConstantLindblad", "LinearHamiltonian"]
+__all__ = ["ConstantLindblad", "EnsembleLinearHamiltonian",
+           "LinearHamiltonian"]
 
 
 class LinearHamiltonian:
@@ -116,6 +119,88 @@ class LinearHamiltonian:
             parts.append(s_h(a + ah))
             parts.append(s_h(1j * (a - ah)))
         return dt * np.stack(parts)
+
+
+class EnsembleLinearHamiltonian(LinearHamiltonian):
+    """Affine ensemble of linear Hamiltonians (robust GRAPE):
+
+        H_m(c, t) = h0 + Σ_p δ_mp · param_operators[p]
+                       + Σᵢ cᵢ operatorsᵢ + conj(cᵢ) operatorsᵢ^H
+
+    where δ_m is member m's real parameter row (detuning, amplitude
+    miscalibration, ...). ``param_operators`` (param_count, d, d) must be
+    Hermitian (they enter with real coefficients); the common case
+    "(1 + δ)·H0" is ``param_operators=[h0]``.
+
+    The member parameters become weight columns of one shared generator
+    basis, so every member of an ensemble (and every candidate of a
+    multistart) runs through the fused chain kernels in one launch. The
+    instance is also callable with the ensemble contract ``(params_row,
+    controls, time)`` on torch tensors, which the blocked route evaluates
+    (``qoc_tpu/models/hamiltonian.py:114-190``)."""
+
+    def __init__(self, h0, operators, param_operators):
+        super().__init__(h0, operators)
+        self.param_operators = np.asarray(param_operators)
+        if self.param_operators.ndim != 3:
+            raise ValueError("param_operators must have shape "
+                             "(param_count, d, d); got {}."
+                             .format(self.param_operators.shape))
+        if self.param_operators.shape[1:] != self.h0.shape:
+            raise ValueError("param_operators {} and h0 {} dimension "
+                             "mismatch.".format(self.param_operators.shape,
+                                                self.h0.shape))
+        herm_err = np.abs(self.param_operators
+                          - np.conjugate(np.swapaxes(self.param_operators,
+                                                     -1, -2))).max()
+        if herm_err > 1e-8:
+            raise ValueError("param_operators must be Hermitian (they carry "
+                             "real ensemble coefficients); max |P - P^H| = "
+                             "{}.".format(herm_err))
+        self._param_tensors = {}
+
+    @property
+    def param_count(self):
+        return self.param_operators.shape[0]
+
+    def __call__(self, params_row, controls, time):
+        """H_m at ``time`` for member row ``params_row`` (a real or complex
+        tensor (param_count,)) and complex ``controls`` (a tensor
+        (..., control_count)), in the controls' dtype and device."""
+        h = LinearHamiltonian.__call__(self, controls, time)
+        key = (h.dtype, h.device)
+        if key not in self._param_tensors:
+            self._param_tensors[key] = torch.as_tensor(
+                self.param_operators, dtype=h.dtype, device=h.device)
+        return h + torch.einsum("p,pab->ab", params_row.to(h.dtype),
+                                self._param_tensors[key])
+
+    def member(self, params_row):
+        """The plain ``(controls, time) -> H`` callable of one member."""
+        return lambda controls, time: self(params_row, controls, time)
+
+    def hermitian_basis(self):
+        """[h0, param_ops..., P_1, Q_1, ...] so that H_m = W_m · basis with
+        W_m = [1, δ_m1..δ_mP, Re c_1, Im c_1, ...]."""
+        base = LinearHamiltonian.hermitian_basis(self)
+        return np.concatenate((base[:1], self.param_operators, base[1:]),
+                              axis=0)
+
+    def superoperator_basis(self, dt, dissipators=None, operators=None):
+        """Lindblad-superoperator basis with the member layout
+        [s0 (+ dissipators), s(param_ops)..., s(P_i), s(Q_i)...], matching
+        the weight rows [1, δ_m, Re c, Im c]: each Hermitian param operator
+        contributes its own -i[·, ρ] column, and the dissipators stay in the
+        constant k = 0 term that every member shares."""
+        base = LinearHamiltonian.superoperator_basis(self, dt, dissipators,
+                                                     operators)
+        d = self.h0.shape[-1]
+        eye = np.eye(d)
+        param_cols = np.stack([
+            -1j * dt * (np.kron(p, eye) - np.kron(eye, p.T))
+            for p in self.param_operators])
+        return np.concatenate((base[:1], param_cols.astype(base.dtype),
+                               base[1:]), axis=0)
 
 
 class ConstantLindblad:

@@ -1,8 +1,7 @@
 """Fused expm-product chains: the propagation hot loop of Schrödinger GRAPE.
 
-Counterpart of ``qoc_tpu/ops/chain_pallas.py`` (one chain; member batches
-are a later slice). Two ops compute an ordered product of step
-exponentials
+Counterpart of ``qoc_tpu/ops/chain_pallas.py``. Two ops compute an ordered
+product of step exponentials
 
     U_j = exp(A_j),   P = U_{B-1} ··· U_1 U_0,
 
@@ -18,6 +17,15 @@ gradient flows to the planes. The steps are split into S contiguous
 *segments*, independent chains that run in parallel (one CUDA block each,
 or one thread-block cluster each for K6) and are merged by log-depth scans
 of matrix products; S is picked to fill the card's SMs.
+
+:class:`ChainExpmPropagate` also takes a member axis (``qoc_tpu``'s batched
+form, the chains of ensembles and multistart): weights (M, B, n_b) give M
+independent chains, totals (M, d, d) and prefixes (M, B, d, d). Each chain
+is split into S_m segments (:func:`segment_plan` counts the chains), the
+M·S_m rows go to K1/K2 in one launch, and the merge and the seeds run with
+the member axis leading, so no scan mixes two chains. S_m = 1 is
+``qoc_tpu``'s grouped packing: no merge, and the seeds are the gradients
+themselves.
 
 Six kernels carry the ops on CUDA tensors, each beside its plain PyTorch
 version of the same math:
@@ -98,10 +106,15 @@ _D8X = (-0.2791515105738877, -0.06978787764347194, 1.9965103670821102,
         -1.0443935504465197, -0.06254782056757438, -0.024382370915357013,
         0.005092363918911529, 1.0, 1.0, 2.585142563711936)
 
-# Segment plan: at least this many steps per segment, at most this many
-# segments (about one per SM of an H100, which has 132).
+# Segment plan: at least this many steps per segment, and at most this many
+# rows (segments of all chains) when the chains alone do not fill the card:
+# K1/K2 run one block an SM (their shared memory), and an H100 has 132 SMs,
+# so 128 rows are one wave. A constant, not the device's SM count, so that
+# the CPU walks the plan the card takes.
 _MIN_SEGMENT_STEPS = 8
 _MAX_SEGMENTS = 128
+# Rows of weights whose generators one pass of _norm_max forms at once.
+_NORM_CHUNK_BYTES = 256 * 1024 ** 2
 # K6's segment plan: at most this many segments, one per cluster of 8 blocks
 # that an H100 keeps resident (16 x 8 = 128 of its 132 SMs).
 _STREAM_SEGMENTS = 16
@@ -762,11 +775,16 @@ stream_bwd.step_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def segment_plan(n_steps):
-    """(segments S, steps per segment L) for a chain of ``n_steps``: at
-    least 8 steps a segment, at most 128 segments. The S*L - n_steps
-    padded steps carry zero weights (U = I exactly)."""
-    length = max(_MIN_SEGMENT_STEPS, -(-n_steps // _MAX_SEGMENTS))
+def segment_plan(n_steps, n_chains=1):
+    """(segments a chain S, steps per segment L) for ``n_chains`` chains of
+    ``n_steps``: at least 8 steps a segment, and 128 // n_chains segments a
+    chain at most, so the n_chains * S rows of K1/K2 fill one wave of the
+    card's SMs when the chains alone do not (4 members x 32 segments, 16 x
+    8 at 2000 steps). From 65 chains up a chain is one segment (``qoc_tpu``'s
+    grouped packing) and the rows run in waves. The S*L - n_steps padded
+    steps of each chain carry zero weights (U = I exactly)."""
+    per_chain = max(1, _MAX_SEGMENTS // n_chains)
+    length = max(_MIN_SEGMENT_STEPS, -(-n_steps // per_chain))
     return -(-n_steps // length), length
 
 
@@ -779,30 +797,48 @@ def stream_segment_plan(n_steps):
     return -(-n_steps // length), length
 
 
-def chain_block_plan(d, n_steps, itemsize=8, planes_per_step=2):
+def chain_block_plan(d, n_steps, itemsize=8, planes_per_step=2,
+                     n_chains=1):
     """Steps per time block of the loss: as many as keep the block's
     per-step backward state under 2 GiB, ``planes_per_step`` padded
-    (dp, dp) matrices of ``itemsize`` bytes a step. The basis route keeps
-    2 (its prefix, and the gradient plane the backward writes); the plane
-    route adds its input plane and the plane build's autograd graph
+    (dp, dp) matrices of ``itemsize`` bytes a step of each of ``n_chains``
+    chains (the members and candidates of ``parallel/``). The basis route
+    keeps 2 (its prefix, and the gradient plane the backward writes); the
+    plane route adds its input plane and the plane build's autograd graph
     (``core/schroedinger.py``). Planes count at the padded dimension of the
     kernel that serves the block (multiples of 64 up to 512; d itself
     above, where ``torch.matmul`` pads nothing). One block (the whole
     chain, most segments in flight) whenever that fits; the Table-3
-    headline (d = 64, 10^4 steps, complex64) holds ~660 MB. Blocks hold
-    their residuals until the backward (no remat)."""
+    headline (d = 64, 10^4 steps, complex64) holds ~660 MB.
+
+    Blocks hold their residuals until the backward (no remat), so what
+    stays on the card is every block's prefixes, n_chains x (n_steps +
+    blocks) planes, and the 2 GiB bound one block's transients on top: at
+    2048 chains x 200 steps of d = 64 in complex64 (13 blocks of 16 steps)
+    13.5 GB of prefixes, well inside an H100's 80 GB."""
     dp = kernel_dp(d) if kernel_dp(d) <= STREAM_MAX_DP else d
-    step_bytes = planes_per_step * dp * dp * itemsize
+    step_bytes = planes_per_step * dp * dp * itemsize * n_chains
     return max(1, min(n_steps, _BLOCK_BYTES // step_bytes))
 
 
 def _norm_max(w, basis_ri, d):
-    """(max_j ||A_j||_1, max_j ||A_j||_inf) over all steps, exactly, on the
-    device (qoc_tpu chain_pallas.py _exact_norm_max): the 1-norm picks the
-    forward's Taylor degree, the inf-norm (= 1-norm of A^H) the backward's."""
-    a = (w @ basis_ri).reshape(-1, d, d, 2)
-    absa = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1])
-    return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+    """(max_j ||A_j||_1, max_j ||A_j||_inf) over all steps of all chains
+    (``w`` (..., n_b)), exactly, on the device (qoc_tpu chain_pallas.py
+    _exact_norm_max): the 1-norm picks the forward's Taylor degree, the
+    inf-norm (= 1-norm of A^H) the backward's. The generators are formed a
+    chunk of rows at a time, so a multistart's 2048 x 200 steps need no
+    13 GB temporary."""
+    rows = w.reshape(-1, w.shape[-1])
+    chunk = max(1, _NORM_CHUNK_BYTES // (basis_ri.shape[-1]
+                                         * basis_ri.element_size()))
+    n1 = ninf = None
+    for part in rows.split(chunk):
+        a = (part @ basis_ri).reshape(-1, d, d, 2)
+        absa = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1])
+        p1, pinf = absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+        n1 = p1 if n1 is None else torch.maximum(n1, p1)
+        ninf = pinf if ninf is None else torch.maximum(ninf, pinf)
+    return n1, ninf
 
 
 def _plane_norm_max(a):
@@ -812,116 +848,167 @@ def _plane_norm_max(a):
     return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
 
 
+# The merge and seed glue below takes any leading (member) dimensions: the
+# segment axis is dim -3 of the (..., S, d, d) segment products and dim -4
+# of the kernels' prefpad (..., S, L+1, dp, dp). Every scan runs along the
+# segment axis alone, so no product mixes two chains.
+
+
+def _seg(x, sl):
+    """x[..., sl, :, :]: a slice of the segment (or step) axis, dim -3."""
+    return x[..., sl, :, :]
+
+
 def _prefix_products(prods):
-    """Inclusive ordered prefix products x[s] = prods[s] ··· prods[0]
-    (Hillis-Steele: log2(S) batched matmuls)."""
+    """Inclusive ordered prefix products x[s] = prods[s] ··· prods[0] along
+    dim -3 (Hillis-Steele: log2(S) batched matmuls)."""
     off = 1
-    while off < prods.shape[0]:
-        prods = torch.cat((prods[:off], prods[off:] @ prods[:-off]))
+    while off < prods.shape[-3]:
+        prods = torch.cat((_seg(prods, slice(None, off)),
+                           _seg(prods, slice(off, None))
+                           @ _seg(prods, slice(None, -off))), dim=-3)
         off *= 2
     return prods
 
 
 def _suffix_products(prods):
-    """Inclusive ordered suffix products z[s] = prods[S-1] ··· prods[s]."""
+    """Inclusive ordered suffix products z[s] = prods[S-1] ··· prods[s]
+    along dim -3."""
     off = 1
-    while off < prods.shape[0]:
-        prods = torch.cat((prods[off:] @ prods[:-off], prods[-off:]))
+    while off < prods.shape[-3]:
+        prods = torch.cat((_seg(prods, slice(off, None))
+                           @ _seg(prods, slice(None, -off)),
+                           _seg(prods, slice(-off, None))), dim=-3)
         off *= 2
     return prods
 
 
 def _merge(prefpad, d):
-    """Segment totals (S, d, d) and their inclusive prefix products: the
-    chain's total is the last of these."""
-    prods = prefpad[:, -1, :d, :d]
+    """Segment totals (..., S, d, d) and their inclusive prefix products:
+    each chain's total is the last of these."""
+    prods = prefpad[..., -1, :d, :d]
     return _prefix_products(prods), prods
+
+
+def _eye_like(x, count=1):
+    """Identities (..., count, d, d) with the leading dims of x (..., S, d,
+    d)."""
+    d = x.shape[-1]
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    return eye.expand(*x.shape[:-3], count, d, d)
 
 
 def _before(cums):
     """C_{s-1} = prods[s-1] ··· prods[0], the product of the segments before
     segment s (C_{-1} = I), from the inclusive prefix products ``cums``."""
-    eye = torch.eye(cums.shape[-1], dtype=cums.dtype, device=cums.device)
-    return torch.cat((eye[None], cums[:-1]))
+    return torch.cat((_eye_like(cums), _seg(cums, slice(None, -1))), dim=-3)
 
 
 def _compose_prefixes(prefpad, cums, n_steps):
-    """The chain's prefixes P_t = U_t ··· U_0 (n_steps, d, d): segment s's
-    local prefixes times C_{s-1}, P_{sL+j} = seg_pref[s, j] C_{s-1}, one
-    batched product over the kernels' prefpad (qoc_tpu chain_pallas.py
-    _compose_prefixes). Padded steps sit at the tail and are cut off."""
-    s_count, length, d = prefpad.shape[0], prefpad.shape[1] - 1, \
+    """Each chain's prefixes P_t = U_t ··· U_0 (..., n_steps, d, d):
+    segment s's local prefixes times C_{s-1}, P_{sL+j} = seg_pref[s, j]
+    C_{s-1}, one batched product over the kernels' prefpad (qoc_tpu
+    chain_pallas.py _compose_prefixes); with one segment a chain the local
+    prefixes themselves. Padded steps sit at the tail and are cut off."""
+    s_count, length, d = prefpad.shape[-4], prefpad.shape[-3] - 1, \
         cums.shape[-1]
-    glob = prefpad[:, 1:, :d, :d] @ _before(cums)[:, None]
-    return glob.reshape(s_count * length, d, d)[:n_steps]
+    if s_count == 1:
+        glob = prefpad[..., 0, 1:, :d, :d]
+    else:
+        glob = prefpad[..., 1:, :d, :d] @ _before(cums).unsqueeze(-3)
+    return glob.reshape(*prefpad.shape[:-4], s_count * length, d, d)[
+        ..., :n_steps, :, :]
 
 
 def _chain_outputs(prefpad, d, n_steps, return_prefixes):
     """(the op's outputs: the total, or (total, prefixes), cums, prods)."""
     cums, prods = _merge(prefpad, d)
-    total = cums[-1].clone()
+    total = cums[..., -1, :, :].clone()
     if return_prefixes:
         return (total, _compose_prefixes(prefpad, cums, n_steps)), cums, prods
     return total, cums, prods
 
 
 def _carries(prods, r, grad_total):
-    """D_s, the gradient of C_s = prods[s] ··· prods[0] (S, d, d), from
+    """D_s, the gradient of C_s = prods[s] ··· prods[0] (..., S, d, d), from
     D_{S-1} = grad_total and D_{s-1} = R_s + prods[s]^H D_s: a log-depth
     suffix scan of the affine maps D_{s+1} -> prods[s+1]^H D_{s+1} + R_{s+1}
     (Hillis-Steele, one batched product a level)."""
     d = prods.shape[-1]
-    a = torch.cat((prods[1:].mH, torch.zeros_like(prods[:1])))
-    b = torch.cat((r[1:], grad_total[None]))
+    a = torch.cat((_seg(prods, slice(1, None)).mH,
+                   torch.zeros_like(_seg(prods, slice(None, 1)))), dim=-3)
+    b = torch.cat((_seg(r, slice(1, None)), grad_total.unsqueeze(-3)),
+                  dim=-3)
     off = 1
-    while off < prods.shape[0]:
-        ab = a[:-off] @ torch.cat((a[off:], b[off:]), dim=-1)
-        a = torch.cat((ab[..., :d], a[-off:]))
-        b = torch.cat((ab[..., d:] + b[:-off], b[-off:]))
+    while off < prods.shape[-3]:
+        ab = _seg(a, slice(None, -off)) @ torch.cat(
+            (_seg(a, slice(off, None)), _seg(b, slice(off, None))), dim=-1)
+        a = torch.cat((ab[..., :d], _seg(a, slice(-off, None))), dim=-3)
+        b = torch.cat((ab[..., d:] + _seg(b, slice(None, -off)),
+                       _seg(b, slice(-off, None))), dim=-3)
         off *= 2
     return b
 
 
+def _pad_planes(x, dp):
+    """x (..., d, d) zero-padded to (..., dp, dp); x itself at d = dp."""
+    d = x.shape[-1]
+    if d == dp:
+        return x.contiguous()
+    out = x.new_zeros(x.shape[:-2] + (dp, dp))
+    out[..., :d, :d] = x
+    return out
+
+
 def _segment_seeds(prefpad, cums, prods, dp, grad_total, grad_prefixes=None):
     """The adjoint kernels' seeds, zero-padded to dp, for the gradients of
-    the total (d, d) and, in the trajectory form, of the prefixes
-    (n_steps, d, d); either may be None (no gradient flows there), both
+    the totals (..., d, d) and, in the trajectory form, of the prefixes
+    (..., n_steps, d, d); either may be None (no gradient flows there), both
     None gives None. In PyTorch's convention, with C_{s-1} the product of
     the segments before s and Sf_s those after:
 
     - the total alone: each segment's seed at its last prefix,
-      Sf_s^H g C_{s-1}^H (S, dp, dp), the last-step-seed mode;
+      Sf_s^H g C_{s-1}^H (..., S, dp, dp), the last-step-seed mode;
     - with prefix gradients Q (P_{sL+j} = seg_pref[s, j] C_{s-1}): every
       prefix its own seed Q_{s,j} C_{s-1}^H, and at each segment's last step
       also D_s C_{s-1}^H, where D_{S-1} = g, D_{s-1} = R_s + prods[s]^H D_s
-      and R_s = Σ_j seg_pref[s, j]^H Q_{s,j} (S, L, dp, dp), the per-step
-      mode (qoc_tpu chain_pallas.py:1227-1250, there with conjugated
-      seeds and transposes)."""
+      and R_s = Σ_j seg_pref[s, j]^H Q_{s,j} (..., S, L, dp, dp), the
+      per-step mode (qoc_tpu chain_pallas.py:1227-1250, there with
+      conjugated seeds and transposes).
+
+    With one segment a chain (C = Sf = I) the seeds are the gradients
+    themselves, g added at the last step (qoc_tpu chain_pallas.py
+    _chain_bwd_grouped, :1166-1174)."""
     if grad_total is None and grad_prefixes is None:
         return None
-    s_count, length, d = prefpad.shape[0], prefpad.shape[1] - 1, \
+    s_count, length, d = prefpad.shape[-4], prefpad.shape[-3] - 1, \
         prods.shape[-1]
-    g = (torch.zeros_like(prods[0]) if grad_total is None
+    lead = prods.shape[:-3]
+    g = (torch.zeros_like(prods[..., 0, :, :]) if grad_total is None
          else grad_total.to(prods.dtype))
-    before_h = _before(cums).mH
     if grad_prefixes is None:
-        eye = torch.eye(d, dtype=prods.dtype, device=prods.device)[None]
-        after = torch.cat((_suffix_products(prods)[1:], eye))  # Sf_s
-        seeds = torch.zeros((s_count, dp, dp), dtype=prods.dtype,
-                            device=prods.device)
-        seeds[:, :d, :d] = after.mH @ g @ before_h
-        return seeds
-    q = torch.zeros((s_count * length, d, d), dtype=prods.dtype,
-                    device=prods.device)
-    q[:grad_prefixes.shape[0]] = grad_prefixes
-    q = q.reshape(s_count, length, d, d)
+        if s_count == 1:
+            return _pad_planes(g.unsqueeze(-3), dp)
+        after = torch.cat((_seg(_suffix_products(prods), slice(1, None)),
+                           _eye_like(prods)), dim=-3)         # Sf_s
+        return _pad_planes(after.mH @ g.unsqueeze(-3) @ _before(cums).mH,
+                           dp)
+    n_steps = grad_prefixes.shape[-3]
+    if s_count == 1 and n_steps == length:
+        q = torch.cat((_seg(grad_prefixes, slice(None, -1)),
+                       (grad_prefixes[..., -1, :, :] + g).unsqueeze(-3)),
+                      dim=-3)
+        return _pad_planes(q.to(prods.dtype).unsqueeze(-4), dp)
+    q = prods.new_zeros(lead + (s_count * length, d, d))
+    q[..., :n_steps, :, :] = grad_prefixes
+    q = q.reshape(lead + (s_count, length, d, d))
+    before_h = _before(cums).mH
     # R_s as one product: the segment's L local prefixes stacked as rows.
-    r = (prefpad[:, 1:, :d, :d].reshape(s_count, length * d, d).mH
-         @ q.reshape(s_count, length * d, d))
-    seeds = torch.zeros((s_count, length, dp, dp), dtype=prods.dtype,
-                        device=prods.device)
-    seeds[:, :, :d, :d] = q @ before_h[:, None]
-    seeds[:, -1, :d, :d] += _carries(prods, r, g) @ before_h
+    r = (prefpad[..., 1:, :d, :d].reshape(lead + (s_count, length * d, d)).mH
+         @ q.reshape(lead + (s_count, length * d, d)))
+    seeds = prods.new_zeros(lead + (s_count, length, dp, dp))
+    seeds[..., :d, :d] = q @ before_h.unsqueeze(-3)
+    seeds[..., -1, :d, :d] += _carries(prods, r, g) @ before_h
     return seeds
 
 
@@ -930,32 +1017,44 @@ class _ChainExpm(torch.autograd.Function):
     def forward(ctx, w, op):
         outputs, saved = op._forward(w)
         ctx.set_materialize_grads(False)
-        ctx.op, ctx.n_steps = op, w.shape[0]
+        ctx.op, ctx.batched, ctx.n_steps = op, w.dim() == 3, w.shape[-2]
         ctx.save_for_backward(*saved)
         return outputs
 
     @staticmethod
     def backward(ctx, *grads):
+        if not ctx.batched:
+            grads = [None if g is None else g[None] for g in grads]
         grad_w = ctx.op._backward(grads, *ctx.saved_tensors)
-        return None if grad_w is None else grad_w[:ctx.n_steps], None
+        if grad_w is None:
+            return None, None
+        grad_w = grad_w[:, :ctx.n_steps]
+        return (grad_w if ctx.batched else grad_w[0]), None
 
 
 class ChainExpmPropagate:
     """P(w) = exp(A_{B-1}) ··· exp(A_0), A_j = Σ_k w[j, k] G_k, with the
-    exact gradient to the real weights ``w`` (B, n_b).
+    exact gradient to the real weights ``w`` (B, n_b); with a member axis,
+    ``w`` (M, B, n_b), the M chains' totals (M, d, d) (``qoc_tpu``'s
+    batched ``make_chain_expm_propagate``, chain_pallas.py:965-1026), all
+    in one K1 and one K2 launch.
 
     ``basis`` :: numpy complex (n_b, d, d), Magnus/dt factors folded in.
     ``device``/``dtype``: the real dtype of ``w``; on CUDA it must be
     float32 (the kernels' type) and d <= :data:`KERNEL_DP`.
-    ``plain=True`` runs the plain PyTorch versions of K1/K2 on any device:
-    the reference the kernels are compared with. Propagation never sets
-    it, so on CUDA the op runs the kernels.
+    ``plain=True`` runs the plain PyTorch versions of K1/K2 on any device,
+    in any dtype and unpadded: the reference the kernels are compared
+    with. Propagation never sets it, so on CUDA the op runs the kernels.
     ``return_prefixes=True`` (``qoc_tpu``'s
     ``make_chain_expm_propagate(basis, return_prefixes=True)``, the
     trajectory form): the op returns ``(total, prefixes)``, prefixes[t] =
-    exp(A_t) ··· exp(A_0) (B, d, d), with the exact gradient through both;
-    the backward runs K2 in its per-step-seed mode when the prefixes carry
-    a gradient."""
+    exp(A_t) ··· exp(A_0) (B, d, d), or (M, B, d, d), with the exact
+    gradient through both; the backward runs K2 in its per-step-seed mode
+    when the prefixes carry a gradient.
+
+    The chains share one batch-max norm, so one ladder level serves every
+    row (``qoc_tpu``'s ``_exact_norm_max`` over all members), and the W̄
+    projection is one product over all rows."""
 
     def __init__(self, basis, device, dtype, plain=False,
                  return_prefixes=False):
@@ -963,7 +1062,7 @@ class ChainExpmPropagate:
         device = torch.device(device)
         cdtype = complex_dtype(dtype)
         n_b, d = basis.shape[0], basis.shape[-1]
-        if device.type == "cuda":
+        if device.type == "cuda" and not plain:
             if dtype != torch.float32:
                 raise TypeError("the chain kernels are float32; got "
                                 + str(dtype))
@@ -993,29 +1092,40 @@ class ChainExpmPropagate:
         return _ChainExpm.apply(w, self)
 
     def _forward(self, w):
-        n_steps = w.shape[0]
-        s_count, length = segment_plan(n_steps)
-        n1, ninf = _norm_max(w, self.basis_ri, self.d)
-        w_seg = torch.zeros((s_count * length, self.n_b), dtype=w.dtype,
-                            device=w.device)
-        w_seg[:n_steps] = w
-        # Segment s owns steps [s L, (s+1) L): a reshape, no transpose.
-        w_seg = w_seg.reshape(s_count, length, self.n_b)
-        prefpad = self._fwd(w_seg, self.basis, n1)
+        w3 = w if w.dim() == 3 else w[None]
+        n_chains, n_steps = w3.shape[:2]
+        s_count, length = segment_plan(n_steps, n_chains)
+        n1, ninf = _norm_max(w3, self.basis_ri, self.d)
+        w_seg = w3.new_zeros((n_chains, s_count * length, self.n_b))
+        w_seg[:, :n_steps] = w3
+        # Segment s of chain m owns its steps [s L, (s+1) L) and is row
+        # m S + s of the kernels: a reshape, no transpose.
+        w_seg = w_seg.reshape(n_chains * s_count, length, self.n_b)
+        prefpad = self._fwd(w_seg, self.basis, n1).reshape(
+            n_chains, s_count, length + 1, self.dp, self.dp)
         outputs, cums, prods = _chain_outputs(prefpad, self.d, n_steps,
                                               self.return_prefixes)
+        if w.dim() == 2:
+            outputs = (tuple(x[0] for x in outputs) if self.return_prefixes
+                       else outputs[0])
         return outputs, (w_seg, prefpad, cums, prods, ninf)
 
     def _backward(self, grads, w_seg, prefpad, cums, prods, ninf):
-        s_count, length, _ = w_seg.shape
-        d = self.d
+        """The weight gradient (M, S L, n_b), padded steps included, for
+        the outputs' gradients, each with its member axis (or None)."""
+        n_chains, s_count, length = prefpad.shape[:3]
+        rows, length, d = n_chains * s_count, length - 1, self.d
         seeds = _segment_seeds(prefpad, cums, prods, self.dp, *grads)
         if seeds is None:
             return None
-        grad_a = self._bwd(w_seg, self.basis_h, ninf, prefpad, seeds)
+        grad_a = self._bwd(w_seg, self.basis_h, ninf,
+                           prefpad.reshape(rows, length + 1, self.dp,
+                                           self.dp),
+                           seeds.reshape(rows, *seeds.shape[2:]))
         grad_a = torch.view_as_real(grad_a[..., :d, :d]).reshape(
-            s_count * length, 2 * d * d)
-        return grad_a @ self.basis_ri.T
+            rows * length, 2 * d * d)
+        return (grad_a @ self.basis_ri.T).reshape(
+            n_chains, s_count * length, self.n_b)
 
 
 def _plane_route(d, device, plain):

@@ -6,8 +6,11 @@ plus the reference's extras (exponential learning-rate decay, gradient
 norm-rescaling, elementwise gradient clipping). The state is a dict of
 tensors that the GRAPE loop threads through its iterations; the update is
 the arithmetic of ``qoc_tpu``'s ``Adam.update_jax``, step for step, and
-never reads a value back to the host. The reference's host loop
-(``run``/``update`` on numpy) is ROADMAP slice 3 of the port.
+never reads a value back to the host. The per-candidate form
+(``init_state_batch``/``update_batch``, ``qoc_tpu``'s
+``jax.vmap(optimizer.update_jax)`` in its multistart runner) carries a
+leading candidate axis on the state and the parameters. The reference's
+host loop (``run``/``update`` on numpy) is ROADMAP slice 3 of the port.
 """
 
 import torch
@@ -76,3 +79,23 @@ class Adam:
         params = params - learning_rate * m_hat / (torch.sqrt(v_hat)
                                                    + self.epsilon)
         return {"m": m, "v": v, "t": t}, params
+
+    def init_state_batch(self, params):
+        """Per-candidate state for params (N, n): moments (N, n) and a step
+        count per candidate (N,)."""
+        return torch.func.vmap(self.init_state)(params)
+
+    def update_batch(self, state, grads, params, frozen):
+        """One Adam step of every candidate, each with its own step count
+        (:meth:`update` under ``torch.func.vmap``): returns (new state, new
+        params), where a ``frozen`` candidate (a bool (N,)) keeps its
+        parameters and its state."""
+        new_state, new_params = torch.func.vmap(self.update)(state, grads,
+                                                             params)
+
+        def keep(new, old):
+            return torch.where(
+                frozen.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
+
+        return ({key: keep(new_state[key], state[key]) for key in state},
+                keep(new_params, params))

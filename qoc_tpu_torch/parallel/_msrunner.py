@@ -1,0 +1,157 @@
+"""The multistart optimization loop, on device.
+
+Counterpart of ``qoc_tpu/parallel/_msrunner.py``: every candidate carries
+its own controls and Adam state, and each iteration (clip, loss and
+gradient of all candidates, update) runs on the card for the whole batch.
+The candidates' errors and gradients come from one backward of the sum of
+their errors (candidates are independent, so d(Σ_c err_c)/d(params_c') is
+d err_c'/d params_c'). As in ``core/graperunner.py`` the per-iteration
+rows (errors, active flags) stay on the device and are pulled to the host
+once a chunk (``fused_chunk`` iterations), for the log and the rate meter.
+
+Semantics of ``qoc_tpu``'s runner: candidate 0 starts from the flat
+initial controls (or the given ones), the rest from white noise; controls
+are clipped to ``max_control_norms`` outside the differentiation; a
+candidate whose error reaches ``min_error`` is frozen (its parameters and
+Adam state kept) and the run stops at the end of that chunk when
+``min_error > 0``; each candidate's best error and clipped controls are
+tracked, and the winner is the best of them. Checkpoint, resume and the H5
+winner rows (ROADMAP Queue 1, item 7) and the L-BFGS ``needs_loss``
+branch (item 5) are not ported.
+"""
+
+import numpy as np
+import torch
+
+from qoc_tpu_torch.core.common import (clip_control_norms_torch,
+                                       gen_controls_white, slap_controls,
+                                       slap_controls_torch, strip_controls,
+                                       strip_controls_torch)
+from qoc_tpu_torch.core.schroedinger import _not_ported
+from qoc_tpu_torch.models import EnsembleLinearHamiltonian
+from qoc_tpu_torch.profiler import RateMeter, trace_annotation
+
+__all__ = ["candidate_seeds", "run_multistart", "validate_multistart_entry"]
+
+_DEFAULT_CHUNK = 100
+
+
+def validate_multistart_entry(optimizer, entry_name, hamiltonian=None,
+                              hamiltonian_params=None):
+    """Fail fast on an optimizer without the per-candidate form (the port's
+    Adam is its only optimizer; the others are ROADMAP Queue 1, item 5) and
+    on an ensemble-contract Hamiltonian used without member parameters."""
+    if getattr(optimizer, "update_batch", None) is None:
+        raise _not_ported("{} in {} (the port's optimizers other than "
+                          "Adam)".format(type(optimizer).__name__,
+                                         entry_name), "3, Queue 1 item 5")
+    if (isinstance(hamiltonian, EnsembleLinearHamiltonian)
+            and hamiltonian_params is None):
+        raise ValueError(
+            "{}: an EnsembleLinearHamiltonian takes (params_row, controls, "
+            "time) and needs hamiltonian_params=(n_members, {}) member rows; "
+            "pass hamiltonian_params or use a plain LinearHamiltonian."
+            "".format(entry_name, hamiltonian.param_count))
+
+
+def candidate_seeds(pstate, n_starts, seed):
+    """(n_starts, n_flat) float64: candidate 0 the initial controls, the
+    rest white-noise seeds, ``gen_controls_white`` with seed + i
+    (``qoc_tpu`` _msrunner.py:94-106)."""
+    cc = pstate.complex_controls
+    mcn = np.asarray(pstate.max_control_norms)
+    seeds = [strip_controls(cc, np.asarray(pstate.initial_controls))]
+    for i in range(1, n_starts):
+        noise = gen_controls_white(cc, pstate.control_count,
+                                   pstate.control_eval_count,
+                                   pstate.evolution_time, mcn, seed=seed + i)
+        seeds.append(strip_controls(cc, noise))
+    return np.stack(seeds).astype(np.float64)
+
+
+def run_multistart(pstate, result, loss_sum, n_starts, device, dtype,
+                   seed=0):
+    """Run the candidate-batch optimization described by ``pstate``.
+
+    ``loss_sum`` maps clipped flat candidate params (N, n_flat), a tensor
+    that requires grad, to (Σ_c err_c, errors (N,)). Fills
+    ``result.best_controls/best_error/best_iteration/errors/
+    iteration_count_ran/iterations_per_s`` (the steady rate of
+    candidate-iterations, frozen candidates not counted) and returns the
+    winner's flat params (numpy)."""
+    optimizer = pstate.optimizer
+    cc, shape = pstate.complex_controls, pstate.controls_shape
+    mcn = torch.as_tensor(np.asarray(pstate.max_control_norms), dtype=dtype,
+                          device=device)
+    min_error = pstate.min_error
+    slap = torch.func.vmap(lambda p: slap_controls_torch(cc, p, shape))
+    strip = torch.func.vmap(lambda c: strip_controls_torch(cc, c))
+
+    params = torch.as_tensor(candidate_seeds(pstate, n_starts, seed),
+                             dtype=dtype, device=device)
+    opt_state = optimizer.init_state_batch(params)
+    done = torch.zeros((n_starts,), dtype=torch.bool, device=device)
+    best_err = torch.full((n_starts,), torch.finfo(dtype).max, dtype=dtype,
+                          device=device)
+    best_flat = torch.zeros_like(params)
+    best_iter = torch.zeros((n_starts,), dtype=torch.int64, device=device)
+    it = torch.zeros((), dtype=torch.int64, device=device)
+
+    def iteration_step(params, opt_state, done, best_err, best_flat,
+                       best_iter, it):
+        clipped_flat = strip(clip_control_norms_torch(slap(params), mcn))
+        clipped_flat = clipped_flat.detach().requires_grad_(True)
+        total, errors = loss_sum(clipped_flat)
+        grads, = torch.autograd.grad(total, clipped_flat)
+        errors, clipped_flat = errors.detach(), clipped_flat.detach()
+        new_done = done | (errors <= min_error)
+        opt_state, params = optimizer.update_batch(opt_state, grads, params,
+                                                   new_done)
+        valid = ~done
+        improved = valid & (errors < best_err)
+        best_err = torch.where(improved, errors, best_err)
+        best_flat = torch.where(improved[:, None], clipped_flat, best_flat)
+        best_iter = torch.where(improved, it, best_iter)
+        return (params, opt_state, new_done, best_err, best_flat, best_iter,
+                it + 1), (errors, valid.to(dtype))
+
+    carry = (params, opt_state, done, best_err, best_flat, best_iter, it)
+    chunk = int(pstate.fused_chunk or _DEFAULT_CHUNK)
+    meter = RateMeter().start()
+    iterations_left = max(0, pstate.iteration_count)
+    iteration = 0
+    while iterations_left > 0:
+        length = min(chunk, iterations_left)
+        rows = torch.empty((2, length, n_starts), dtype=dtype, device=device)
+        with trace_annotation("qoc_tpu_torch.multistart.chunk"):
+            for i in range(length):
+                carry, row = iteration_step(*carry)
+                rows[:, i] = torch.stack(row)
+        err_rows, active_rows = rows.cpu().numpy()
+        n_active = int(np.sum(active_rows > 0.5))
+        if n_active:
+            meter.tick(n_active)
+        for j in range(length):
+            _log_row(pstate, iteration + j, err_rows[j])
+        iteration += length
+        iterations_left -= length
+        if np.min(err_rows) <= min_error and min_error > 0:
+            break
+
+    best_err, best_flat, best_iter = (x.cpu().numpy() for x in carry[3:6])
+    winner = int(np.argmin(best_err))
+    result.best_controls = slap_controls(cc, best_flat[winner], shape)
+    result.best_error = float(best_err[winner])
+    result.best_iteration = int(best_iter[winner])
+    result.errors = best_err
+    result.iteration_count_ran = iteration
+    result.iterations_per_s = meter.steady_rate
+    result.iterations_per_s_mean = meter.mean_rate
+    return best_flat[winner]
+
+
+def _log_row(pstate, iteration, errors):
+    if pstate.should_log and (iteration % pstate.log_iteration_step == 0
+                              or iteration == pstate.iteration_count - 1):
+        print("{:^6d} | best {:^1.8e} | median {:^1.8e}".format(
+            iteration, float(np.min(errors)), float(np.median(errors))))

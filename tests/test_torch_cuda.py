@@ -791,3 +791,175 @@ def test_stepcost_iteration_has_no_host_sync(cuda_device, cell):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(error))
+
+
+# (members, steps) of the member-batched K1/K2 cases: S_m > 1 segments a
+# chain at 2 and 5 members, one segment a chain (the grouped packing) at 9
+# members over 8 steps and at 133 members, whose 133 rows leave a ragged
+# last wave on the H100's 132 SMs.
+_MEMBER_CASES = ((2, 40), (5, 203), (9, 8), (133, 12))
+
+
+@pytest.mark.parametrize("n_members,n_steps", _MEMBER_CASES)
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+@pytest.mark.parametrize("trajectory", (False, True))
+def test_member_batched_chain_matches_plain_versions(
+        cuda_device, n_members, n_steps, target_norm, trajectory):
+    """The chain op's member axis through K1/K2 (one launch each) against
+    the plain versions on every ladder level, in both seed modes: totals,
+    prefixes and the weight gradient; the first and last member against
+    the single-chain op on the card; the padded rows and steps of the
+    prefixes exactly the identity."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(n_members + int(10 * target_norm))
+    d, n_b = 8, 5
+    base = anti_hermitian_basis(rng, n_b, d)
+    w = rng.normal(size=(n_members, n_steps, n_b)).astype(np.float32)
+    norm1 = np.abs(np.einsum("mjk,kab->mjab", w, base)).sum(-2).max()
+    basis = base * (target_norm / norm1)
+    g_total = torch.as_tensor(
+        rng.normal(size=(n_members, d, d)).astype(np.complex64),
+        device=cuda_device)
+    g_pref = torch.as_tensor(
+        rng.normal(size=(n_members, n_steps, d, d)).astype(np.complex64),
+        device=cuda_device)
+    wt = torch.as_tensor(w, device=cuda_device)
+
+    def run(plain, x, g_t, g_p):
+        op = chain.ChainExpmPropagate(basis, cuda_device, torch.float32,
+                                      plain=plain,
+                                      return_prefixes=trajectory)
+        x = x.clone().requires_grad_(True)
+        out = op(x)
+        grad, = torch.autograd.grad(out, x, (g_t, g_p) if trajectory
+                                    else g_t)
+        return [o.detach() for o in (out if trajectory else (out,))] + [grad]
+
+    before = (chain.chain_fwd.launches, chain.chain_bwd.launches,
+              chain.chain_bwd.step_launches)
+    got = run(False, wt, g_total, g_pref)
+    assert (chain.chain_fwd.launches - before[0],
+            chain.chain_bwd.launches - before[1],
+            chain.chain_bwd.step_launches - before[2]) == (1, 1,
+                                                           int(trajectory))
+    want = run(True, wt, g_total, g_pref)
+    torch.cuda.synchronize()
+    for x, y, rtol in zip(got, want, (FWD_RTOL,) * (len(got) - 1)
+                          + (GRAD_RTOL,)):
+        assert float((x - y).abs().max() / y.abs().max()) < rtol
+    for m in (0, n_members - 1):
+        alone = run(False, wt[m], g_total[m], g_pref[m])
+        for x, y, rtol in zip(got, alone, (FWD_RTOL,) * (len(got) - 1)
+                              + (GRAD_RTOL,)):
+            assert float((x[m] - y).abs().max() / y.abs().max()) < rtol
+    # Padding: the kernels' prefixes outside d and past the last step.
+    s_count, length = chain.segment_plan(n_steps, n_members)
+    op = chain.ChainExpmPropagate(basis, cuda_device, torch.float32)
+    w_seg = torch.zeros((n_members, s_count * length, n_b),
+                        device=cuda_device)
+    w_seg[:, :n_steps] = wt
+    w_seg = w_seg.reshape(n_members * s_count, length, n_b)
+    pref = chain.chain_fwd(w_seg, op.basis, chain._norm_max(
+        wt, op.basis_ri, d)[0]).reshape(n_members, s_count * (length + 1),
+                                        64, 64)
+    eye = torch.eye(64, dtype=torch.complex64, device=cuda_device)
+    assert torch.equal(pref[..., d:, d:], eye[d:, d:].expand_as(
+        pref[..., d:, d:]))
+    assert not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+    tail = pref.reshape(n_members, s_count, length + 1, 64, 64)[
+        :, -1, 1 + n_steps - (s_count - 1) * length:]
+    last = pref.reshape(n_members, s_count, length + 1, 64, 64)[
+        :, -1, n_steps - (s_count - 1) * length]
+    assert torch.equal(tail, last[:, None].expand_as(tail))
+
+
+def _ensemble_problem(d=8, n_steps=64, magnus="M2"):
+    import qoc_tpu_torch
+    rng = np.random.default_rng(5)
+    h0 = rng.normal(size=(d, d))
+    h0 = h0 + h0.T
+    ham = qoc_tpu_torch.EnsembleLinearHamiltonian(
+        h0, 0.3 * np.ones((2, d, d)), h0[None])
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+    return dict(control_count=2, control_eval_count=n_steps,
+                costs=[qoc_tpu_torch.TargetStateInfidelity(target)],
+                evolution_time=1.0, hamiltonian=ham,
+                initial_states=initial, system_eval_count=n_steps,
+                complex_controls=True, log_iteration_step=0,
+                magnus_policy=qoc_tpu_torch.models.MagnusPolicy[magnus])
+
+
+@pytest.mark.parametrize("magnus,launched", (
+    ("M2", ("K1", "K2")), ("M4", ("K3", "K4"))))
+def test_ensemble_grape_launches(cuda_device, magnus, launched):
+    """grape_schroedinger_ensemble with 4 members: under M2 the fused route
+    launches K1 and K2 once an iteration for all members, under M4 the
+    blocked route K3 and K4; nothing else."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    wrappers = {"K1": chain.chain_fwd, "K2": chain.chain_bwd,
+                "K3": expm_cuda.expm_fwd, "K4": expm_cuda.expm_frechet_fwd,
+                "K5 fwd": chain.plane_fwd, "K5 bwd": chain.plane_bwd,
+                "K6 fwd": chain.stream_fwd, "K6 bwd": chain.stream_bwd}
+    before = {key: fn.launches for key, fn in wrappers.items()}
+    result = qoc_tpu_torch.grape_schroedinger_ensemble(
+        hamiltonian_params=np.linspace(-0.05, 0.05, 4)[:, None],
+        iteration_count=3, device=cuda_device, **_ensemble_problem(
+            magnus=magnus))
+    counts = {key: fn.launches - before[key]
+              for key, fn in wrappers.items()}
+    assert counts == {key: 3 if key in launched else 0 for key in counts}
+    assert result.best_final_states.shape == (4, 1, 8, 1)
+    assert result.errors[-1] < result.errors[0]
+
+
+def test_multistart_iteration_has_no_host_sync(cuda_device):
+    """One robust multistart iteration (16 candidates x 2 members through
+    K1/K2: clip, loss and gradient, the per-candidate Adam) runs with
+    CUDA's synchronizing calls turned into errors."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.core.common import (clip_control_norms_torch,
+                                           slap_controls_torch,
+                                           strip_controls_torch)
+    from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
+                                      InterpolationPolicy)
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    kw = _ensemble_problem()
+    n, n_c, n_starts = kw["system_eval_count"], kw["control_count"], 16
+    params = np.array([[-0.05], [0.05]])
+    adam = qoc_tpu_torch.Adam()
+    pstate = GrapeSchroedingerDiscreteState(
+        True, n_c, n, 1, kw["costs"], 1.0, kw["hamiltonian"], None,
+        np.zeros((n, n_c), complex), kw["initial_states"],
+        InterpolationPolicy.LINEAR, 1, 0, [1.0] * n_c, kw["magnus_policy"],
+        0, adam, None, False, 0, n)
+    loss = build_chain_loss(pstate, kw["hamiltonian"], params, cuda_device,
+                            torch.float32, n_candidates=n_starts)
+    assert loss.route == "fused"
+    slap = torch.func.vmap(lambda p: slap_controls_torch(True, p, (n, n_c)))
+    strip = torch.func.vmap(lambda c: strip_controls_torch(True, c))
+    mcn = torch.ones(n_c, device=cuda_device)
+    flat = torch.randn((n_starts, 2 * n * n_c), device=cuda_device) * 0.1
+    state = adam.init_state_batch(flat)
+
+    def iteration(flat, state):
+        clipped = strip(clip_control_norms_torch(slap(flat), mcn)).detach()
+        clipped.requires_grad_(True)
+        errors = loss(slap(clipped))[0].mean(dim=1)
+        grads, = torch.autograd.grad(errors.sum(), clipped)
+        state, flat = adam.update_batch(state, grads, flat,
+                                        errors.detach() <= 0.0)
+        return flat, state
+
+    flat, state = iteration(flat, state)   # builds and caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flat, state = iteration(flat, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(flat).all())

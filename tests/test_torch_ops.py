@@ -45,19 +45,29 @@ def test_interpolate_linear_set_batched_queries():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
-def test_convert_refuses_an_ensemble_hamiltonian():
-    """An EnsembleLinearHamiltonian is a LinearHamiltonian subclass; its
-    conversion raises a named error instead of dropping param_operators."""
+def test_convert_maps_an_ensemble_hamiltonian():
+    """qoc_tpu's EnsembleLinearHamiltonian converts to the port's, with the
+    same bases (δ columns after h0) and the same member Hamiltonians."""
     from qoc_tpu.models.hamiltonian import EnsembleLinearHamiltonian
+    from qoc_tpu_torch import EnsembleLinearHamiltonian as TorchEnsemble
     from qoc_tpu_torch import convert
     rng = np.random.default_rng(4)
     d = 3
     h0 = random_hermitian(rng, d)
     ensemble = EnsembleLinearHamiltonian(
         h0, rng.normal(size=(1, d, d)) + 0j, h0[None])
-    with pytest.raises(NotImplementedError,
-                       match="EnsembleLinearHamiltonian.*Queue 1, item 1"):
-        convert.linear_hamiltonian(ensemble)
+    converted = convert.linear_hamiltonian(ensemble)
+    assert isinstance(converted, TorchEnsemble)
+    np.testing.assert_array_equal(converted.param_operators,
+                                  ensemble.param_operators)
+    np.testing.assert_array_equal(converted.generator_basis(0.2),
+                                  ensemble.generator_basis(0.2))
+    controls = np.array([0.3 - 0.2j])
+    for delta in (-0.05, 0.05):
+        want = np.asarray(ensemble(jnp.asarray([delta]),
+                                   jnp.asarray(controls), 0.1))
+        got = converted(_t([delta]), _t(controls), torch.tensor(0.1))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-14)
 
 
 def test_linear_hamiltonian_and_magnus_m2_match_jax():

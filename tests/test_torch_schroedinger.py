@@ -180,8 +180,10 @@ def test_default_device_needs_cuda(monkeypatch):
 
 def test_grape_runs_without_jax():
     """With ``jax``, ``h5py`` and ``filelock`` made unimportable, the port
-    imports and runs a 3-iteration GRAPE on the fused route and one with
-    an M4 torch callable on the plane route: none is a dependency of it."""
+    imports and runs a 3-iteration GRAPE on the fused route, one with an M4
+    torch callable on the plane route and, through
+    ``qoc_tpu_torch.parallel``, a robust multistart: none is a dependency
+    of it."""
     script = textwrap.dedent("""
         import sys
         for name in ("jax", "h5py", "filelock"):
@@ -211,6 +213,14 @@ def test_grape_runs_without_jax():
             magnus_policy=qoc_tpu_torch.models.MagnusPolicy.M4, device="cpu")
         assert m4.iteration_count_ran == 3
         assert np.all(np.isfinite(m4.errors))
+        import qoc_tpu_torch.parallel
+        ens = qoc_tpu_torch.EnsembleLinearHamiltonian(
+            h0, 0.5 * np.ones((n_c, d, d)), h0[None])
+        robust = qoc_tpu_torch.parallel.grape_schroedinger_multistart(
+            n_c, n, costs, 1.0, ens, initial, n, n_starts=2,
+            hamiltonian_params=[[-0.05], [0.05]], iteration_count=2,
+            log_iteration_step=1, device="cpu")
+        assert robust.best_final_states.shape == (2, 1, d, 1)
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ran without jax", result.best_error, m4.best_error)

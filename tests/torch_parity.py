@@ -259,3 +259,60 @@ class LindbladProblem:
         pstate.method_ = models.LindbladMethod.MAGNUS_EXPM
         pstate.magnus_policy_ = models.MagnusPolicy[magnus]
         return pstate
+
+
+class EnsembleProblem(Problem):
+    """An ensemble GRAPE problem in both packages: the Problem's system with
+    an EnsembleLinearHamiltonian of two Hermitian parameter operators, h0
+    (the (1 + δ)·H0 miscalibration) and a random one, and ``n_members``
+    member rows, each row different."""
+
+    def __init__(self, n_members=2, seed=5, d=3, n_c=2, n_steps=24,
+                 evolution_time=1.5):
+        from qoc_tpu.models import EnsembleLinearHamiltonian
+        from qoc_tpu_torch import convert
+
+        super().__init__(seed=seed, d=d, n_c=n_c, n_steps=n_steps,
+                         evolution_time=evolution_time)
+        rng = np.random.default_rng(seed + 100)
+        self.param_ops = np.stack((self.h0, random_hermitian(rng, d)))
+        self.params = np.stack((np.linspace(-0.1, 0.1, n_members),
+                                0.3 * rng.normal(size=n_members)), axis=-1)
+        self.jax_hamiltonian = EnsembleLinearHamiltonian(self.h0, self.ops,
+                                                         self.param_ops)
+        self.torch_hamiltonian = convert.linear_hamiltonian(
+            self.jax_hamiltonian)
+
+    def use_callables(self):
+        """The members as one time-dependent callable in each package,
+        H(row, c, t) = (cos(t) + row[0]) h0 + row[1] P + Σ_i c_i A_i + h.c.,
+        taking the blocked route (qoc_tpu's generic route)."""
+        import jax.numpy as jnp
+        import torch
+        h0, ops, p = self.h0, self.ops, self.param_ops[1]
+
+        def jax_hamiltonian(row, controls, t):
+            drive = jnp.einsum("i,iab->ab", controls, ops)
+            return ((jnp.cos(t) + row[0]) * h0 + row[1] * p + drive
+                    + jnp.conjugate(drive.T))
+
+        h0_t, ops_t, p_t = (torch.as_tensor(x) for x in (h0, ops, p))
+
+        def torch_hamiltonian(row, controls, t):
+            drive = torch.einsum("i,iab->ab", controls, ops_t)
+            return ((torch.cos(t) + row[0]) * h0_t + row[1] * p_t + drive
+                    + drive.mH)
+
+        self.jax_hamiltonian = jax_hamiltonian
+        self.torch_hamiltonian = torch_hamiltonian
+        return self
+
+    def jax_pstate(self, iteration_count=1, magnus="M2"):
+        pstate = super().jax_pstate(iteration_count, magnus)
+        pstate.hamiltonian = None
+        return pstate
+
+    def torch_pstate(self, iteration_count=1, magnus="M2"):
+        pstate = super().torch_pstate(iteration_count, magnus)
+        pstate.hamiltonian = None
+        return pstate
