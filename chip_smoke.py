@@ -137,7 +137,40 @@ build, for a quick check of a kernel.) Phases, one line each:
    of 64 candidates x the 4-member ensemble of phase 27 (8 iterations);
 30. K1/K2 at the 512-candidate shapes (512 chains x 200 steps), both seed
    modes, beside their plain versions, bounds and design, and the member
-   merge and seed glue's device times at phase 27's 4 and 16 members.
+   merge and seed glue's device times at phase 27's 4 and 16 members;
+31. the plane op's member axis (K6 and K5, one launch for all chains)
+   against the plain versions in float32 on every ladder level and in both
+   seed modes: K6 at d = 260 and 400 (padded 320, 448) with 2, 5 and 16
+   members (S_m > 1), 15 chains (one segment a chain, the 15 resident
+   clusters) and 17 (a ragged second wave), K5 at d = 16 and 64 with 3
+   members and 133 chains: totals, prefixes and the plane gradient, each chain against
+   itself run alone, the padded rows and steps exactly the identity, and
+   the totals against float64 matrix_exp products;
+32. the slice at full width: grape_lindblad_ensemble on the d = 20 cell
+   (bench_lindblad_d20's construction with the drift an
+   EnsembleLinearHamiltonian (1 + δ)·0.1 n̂, δ = linspace(-0.05, 0.05, M),
+   MAGNUS_EXPM, M2) with 4 and 16 members (S_m = 7 and 5 segments a
+   chain in the first time block, rows in waves of the 15 clusters),
+   2 warm-up + 5 timed iterations, counters read around each run (K6
+   forward and adjoint once a time block, K1-K5 never), peak memory; the
+   4-member loss and gradient against float64 over the plain versions;
+   then the 4 members with phase 24's density step costs (K6 per step);
+33. grape_lindblad_multistart on the same cell: 16 candidates,
+   candidate-iterations/s, time blocks, launches, peak memory and
+   the best error; 4 candidates' losses and gradients at their seeds
+   against float64; then 4 candidates x phase 32's 4 members;
+34. the other member routes, each with counters and against float64:
+   examples/6_lindblad_ensemble_robust.py at its own widths (d = 2, 8
+   detuning members, 21 points) through K1/K2's member axis, its GRAPE and
+   its 8 x 8 robust multistart; a d = 12 Lindblad ensemble of 4 members
+   through the blocked route (K3/K4); a Schrödinger ensemble of 4 members
+   at d = 300 (phase 17's problem, 21 steps) through K6's member axis;
+35. K6's member-batched forward and adjoint (both seed modes) at phase
+   32's 16-member shapes, and K5's at the M4 ensemble's planes (4 members
+   x 2000 steps), beside their plain versions, bounds, grid and design; the
+   member merge and seed glue's device time at 4 members.
+
+Every phase prints its wall time, the summary the script's total.
 
 Any failure exits non-zero. The line before the last is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}.
@@ -231,6 +264,33 @@ MULTISTART_RUNS = ((512, 48), (1024, 24), (2048, 24))
 ROBUST_CANDIDATES = 64
 ROBUST_ITERATIONS = 8
 ROBUST_CHUNK = 4
+# The plane op's member axis (K6, K5) against its plain versions: (d,
+# chains, steps). K6 at d = 260 and 400 with S_m > 1 segments a chain (2
+# and 5 members, and phase 32's 16 members x 20 steps: 80 rows in 6 waves
+# of the 15 resident clusters), one segment a chain (15 chains fill the
+# clusters) and 17 chains of one step (a ragged second wave of the
+# clusters' loop); K5 at d = 16 and 64 with 3 members (S_m > 1) and 133
+# chains (one segment a chain, a ragged last wave of blocks).
+PLANE_MEMBER_CASES = (
+    tuple((d, m, n) for d in (260, 400)
+          for m, n in ((2, 9), (5, 7), (16, 20), (15, 2), (17, 1)))
+    + tuple((d, m, n) for d in (16, 64) for m, n in ((3, 37), (133, 5))))
+# The Lindblad ensemble of phases 32-33 and 35: the d = 20 cell with the
+# drift miscalibrated as (1 + δ)·0.1 n̂, δ = linspace(-0.05, 0.05, M), 4
+# and 16 members, 5 timed iterations after the warm-up; the multistart's 16
+# candidates and 4 candidates x 4 members.
+LINDBLAD_MEMBERS = (4, 16)
+LINDBLAD_TIMED = 5
+LINDBLAD_CANDIDATES = 16
+LINDBLAD_ROBUST_CANDIDATES = 4
+# examples/6_lindblad_ensemble_robust.py of the JAX package: d = 2, 8
+# detuning members δ = linspace(-0.02, 0.02, 8), T1 = 1000, 11 control
+# points, 21 points, T = 10, Adam(0.02), 8 candidates; the d = 12 ensemble
+# of phase 34 (superoperator 144, the blocked route).
+EXAMPLE6_MEMBERS = 8
+EXAMPLE6_DELTA = 0.02
+EXAMPLE6_ITERATIONS = 20
+D12 = 12
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth.
@@ -1607,18 +1667,7 @@ def lindblad_d20_problem(step_costs=()):
 def lindblad_d20_pstate(step_costs=()):
     """The d = 20 cell as a GrapeLindbladDiscreteState (MAGNUS_EXPM, Adam),
     for build_lindblad_loss."""
-    from qoc_tpu_torch import Adam
-    from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
-                                      InterpolationPolicy)
-    kw = lindblad_d20_problem(step_costs)
-    pstate = GrapeLindbladDiscreteState(
-        True, 1, kw["control_eval_count"], 1, kw["costs"],
-        kw["evolution_time"], kw["hamiltonian"], None, kw["initial_controls"],
-        kw["initial_densities"], InterpolationPolicy.LINEAR, 1,
-        kw["lindblad_data"], 0, kw["max_control_norms"], 0, Adam(), None,
-        False, 0, kw["system_eval_count"])
-    pstate.method_ = kw["method"]
-    return pstate
+    return lindblad_pstate(lindblad_d20_problem(step_costs))
 
 
 def lindblad_d20_planes(dev, dtype=torch.float32, step_costs=()):
@@ -2977,6 +3026,706 @@ def phase_member_timing(dev):
     return ms, bounds, err
 
 
+def _plane_member_outputs(a, plain, g_total, g_pref):
+    """(totals, prefixes, plane gradient in the last-step mode, in the
+    per-step mode) of the plane op's trajectory form on planes ``a``."""
+    from qoc_tpu_torch.ops.chain import plane_chain_propagate_prefixes
+    x = a.clone().requires_grad_(True)
+    total, prefixes = plane_chain_propagate_prefixes(x, plain)
+    last, = torch.autograd.grad(total, x, g_total, retain_graph=True)
+    step, = torch.autograd.grad((total, prefixes), x, (g_total, g_pref))
+    return total.detach(), prefixes.detach(), last, step
+
+
+def _plane_member_padding(a, n1):
+    """The forward kernel on the member rows of planes ``a`` (M, B, d, d):
+    every chain's padded rows, columns and steps exactly the identity's."""
+    from qoc_tpu_torch.ops import chain
+    n_chains, n_steps, d = a.shape[0], a.shape[1], a.shape[-1]
+    dp, plan, fwd, _ = chain._plane_route(d, a.device, False)
+    s_count, length = plan(n_steps, n_chains)
+    a_seg = torch.zeros((n_chains, s_count * length, dp, dp),
+                        dtype=a.dtype, device=a.device)
+    a_seg[:, :n_steps, :d, :d] = a
+    pref = fwd(a_seg.reshape(n_chains * s_count, length, dp, dp), n1)
+    for m, rows in enumerate(pref.reshape(n_chains, s_count, length + 1, dp,
+                                          dp)):
+        _check_padding(rows, d, n_steps)
+
+
+def phase_plane_member_kernels(dev):
+    """The plane op's member axis, K6 and K5, against the plain versions on
+    every ladder level and in both seed modes (PLANE_MEMBER_CASES): totals,
+    prefixes and the plane gradient, one forward and one adjoint launch a
+    backward, each chain against itself run alone through the single-chain
+    op, the padding exact; the totals against float64 matrix_exp
+    products."""
+    from qoc_tpu_torch.ops import chain
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst = {key: 0.0 for key in ("K6 member fwd", "K6 member bwd",
+                                  "K6 member bwd step", "K5 member fwd",
+                                  "K5 member bwd")}
+    for d, n_chains, n_steps in PLANE_MEMBER_CASES:
+        kernel = "K6" if chain.uses_stream(d) else "K5"
+        plan = (chain.stream_segment_plan if kernel == "K6"
+                else chain.segment_plan)
+        s_count = plan(n_steps, n_chains)[0]
+        rows = []
+        for target in LEVEL_NORMS:
+            a = _stream_planes(gen, n_chains * n_steps, d, target,
+                               dev).reshape(n_chains, n_steps, d, d)
+            g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                                  device=dev, generator=gen)
+            g_pref = torch.randn((n_chains, n_steps, d, d),
+                                 dtype=torch.complex64, device=dev,
+                                 generator=gen)
+            reset_launches()
+            got = _plane_member_outputs(a, False, g_total, g_pref)
+            launches = read_launches()
+            want = _plane_member_outputs(a, True, g_total, g_pref)
+            torch.cuda.synchronize()
+            if (launches[kernel + " fwd"], launches[kernel + " bwd"],
+                    launches[kernel + " bwd step"]) != (1, 2, 1):
+                raise RuntimeError("the member-batched plane op did not "
+                                   "launch {} once a pass: {}".format(
+                                       kernel, launches))
+            rels = [_rel(x, y) for x, y in zip(got, want)]
+            for m in sorted({0, n_chains // 2, n_chains - 1}):
+                alone = _plane_member_outputs(a[m], False, g_total[m],
+                                              g_pref[m])
+                rels += [_rel(x[m], y) for x, y in zip(got, alone)]
+            if max(rels[0::4] + rels[1::4]) > FWD_RTOL or \
+                    max(rels[2::4] + rels[3::4]) > GRAD_RTOL:
+                raise RuntimeError("the member-batched plane op disagrees: "
+                                   "{} at d = {}, {} chains x {} steps, "
+                                   "level {}: {}".format(
+                                       kernel, d, n_chains, n_steps,
+                                       LEVEL_NORMS.index(target), rels))
+            _plane_member_padding(a, chain._plane_norm_max(a)[0])
+            errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+            keys = ((kernel + " member fwd", max(errs[:2])),
+                    (kernel + " member bwd", errs[2]),
+                    ("K6 member bwd step" if kernel == "K6"
+                     else "K5 member bwd", errs[3]))
+            for key, err in keys:
+                worst[key] = max(worst[key], err)
+            rows.append("{} {:.1e}/{:.1e}/{:.1e}/{:.1e}".format(
+                LEVEL_NORMS.index(target), *rels[:4]))
+        print("phase 31 member-batched {} (d={}, padded {}, {} chains x {} "
+              "steps, S_m = {}): level total/prefixes/grad last-step/grad "
+              "per-step rel vs plain: {}; each chain = itself alone, "
+              "padding exact".format(
+                  kernel, d, chain.kernel_dp(d), n_chains, n_steps, s_count,
+                  "; ".join(rows)), flush=True)
+    # An independent reference: float64 matrix_exp products at d = 260.
+    a = _stream_planes(gen, 3 * 7, STREAM_DIMS[0], 1.0, dev).reshape(
+        3, 7, STREAM_DIMS[0], STREAM_DIMS[0])
+    total = chain.plane_chain_propagate(a).to(torch.complex128)
+    want = torch.eye(a.shape[-1], dtype=torch.complex128,
+                     device=dev).expand(3, -1, -1)
+    for t in range(a.shape[1]):
+        want = torch.linalg.matrix_exp(a[:, t].to(torch.complex128)) @ want
+    rel = _rel(total, want)
+    print("phase 31 member-batched K6: 3 members x 7 steps at d = 260 vs "
+          "float64 matrix_exp products rel {:.2e}; worst max|err| {}".format(
+              rel, {k: "{:.2e}".format(v) for k, v in worst.items()}),
+          flush=True)
+    if rel > FWD_RTOL:
+        raise RuntimeError("the member-batched K6 op disagrees with "
+                           "matrix_exp")
+    return worst
+
+
+def lindblad_pstate(kw):
+    """A GrapeLindbladDiscreteState (MAGNUS_EXPM, Adam) of the keyword
+    arguments ``kw`` of a Lindblad entry point, marked as the ensemble's
+    where ``kw`` holds member rows."""
+    from qoc_tpu_torch import Adam
+    from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
+                                      InterpolationPolicy)
+    pstate = GrapeLindbladDiscreteState(
+        True, kw["control_count"], kw["control_eval_count"], 1, kw["costs"],
+        kw["evolution_time"], kw["hamiltonian"], None,
+        kw["initial_controls"], kw["initial_densities"],
+        InterpolationPolicy.LINEAR, 1, kw["lindblad_data"], 0,
+        kw["max_control_norms"], 0, Adam(), None, False, 0,
+        kw["system_eval_count"])
+    pstate.method_ = kw["method"]
+    if kw.get("hamiltonian_params") is not None:
+        pstate.hamiltonian = None
+        pstate.set_ensemble(kw["hamiltonian_params"])
+    return pstate
+
+
+def lindblad_ensemble_problem(n_members, step_costs=(), d=D20,
+                              delta=ENSEMBLE_DELTA):
+    """Phase 32's cell: the d = 20 cell (or ``lindblad_problem`` at Hilbert
+    d) with the drift an EnsembleLinearHamiltonian(0.1 n̂, [a], [0.1 n̂]), so
+    member m's drift is (1 + δ_m)·0.1 n̂, δ = linspace(-delta, delta, M): the
+    keyword arguments of grape_lindblad_ensemble."""
+    from qoc_tpu_torch import EnsembleLinearHamiltonian
+    kw = (lindblad_d20_problem(step_costs) if d == D20
+          else lindblad_problem(d, 21, 21, 2.0, step_costs))
+    linear = kw["hamiltonian"]
+    kw.update(hamiltonian=EnsembleLinearHamiltonian(
+        linear.h0, linear.operators, linear.h0[None]),
+        hamiltonian_params=np.linspace(-delta, delta, n_members)[:, None])
+    return kw
+
+
+def member_reference(pstate, hamiltonian, params, dev):
+    """controls (N, E, C) -> (errors (N, M), final states or densities) of
+    N candidates over M members (``params``, or one member when None) in
+    float64 on the card, apart from the kernels and the member packing:
+    each chain's generators from its weight rows [1, δ_m, Re c, Im c] times
+    the generator basis (Schrödinger) or the superoperator basis (Lindblad),
+    all chains in one time block through the plain plane op's member axis
+    (K5's or K6's plain versions) or, at 64 < padded n <= 256,
+    torch.linalg.matrix_exp and a prefix scan; step costs at their cost
+    steps, final costs after the last step."""
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.models import GrapeLindbladDiscreteState
+    from qoc_tpu_torch.ops import chain
+    c128 = torch.complex128
+    dt = float(pstate.dt)
+    n_steps = pstate.system_eval_count - 1
+    times = torch.arange(n_steps, dtype=torch.float64, device=dev) * dt
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float64,
+                          device=dev)
+    if isinstance(pstate, GrapeLindbladDiscreteState):
+        initial = np.asarray(pstate.initial_densities)
+        rates, ops = pstate.lindblad_data(0.0)
+        basis = hamiltonian.superoperator_basis(dt, rates, ops)
+    else:
+        initial = np.asarray(pstate.initial_states)
+        basis = hamiltonian.generator_basis(dt)
+    basis = torch.as_tensor(basis, dtype=c128, device=dev)
+    initial = torch.as_tensor(initial, dtype=c128, device=dev)
+    shape, n = tuple(initial.shape), basis.shape[-1]
+    x0 = initial.reshape(shape[0], n)
+    deltas = (None if params is None
+              else torch.as_tensor(params, dtype=torch.float64, device=dev))
+    n_members = 1 if params is None else len(params)
+    step_costs = pstate.step_costs
+    final_costs = [cost for cost in pstate.costs
+                   if not cost.requires_step_evaluation]
+
+    def loss(controls):
+        w = fused_weights(controls, times, cet, dt)
+        if deltas is not None:
+            w = torch.stack([torch.cat((
+                w[..., :1], delta.expand(w.shape[:-1] + delta.shape),
+                w[..., 1:]), dim=-1) for delta in deltas], dim=1).flatten(
+                    0, 1)
+        a = torch.einsum("rjk,kab->rjab", w.to(c128), basis)
+        if n <= chain.KERNEL_DP or chain.uses_stream(n):
+            total, prefixes = chain.plane_chain_propagate_prefixes(a, True)
+        else:
+            prefixes = chain._prefix_products(torch.linalg.matrix_exp(a))
+            total = prefixes[:, -1]
+        errors = []
+        for r in range(a.shape[0]):
+            c = controls[r // n_members]
+            error = 0.0
+            for k in range(pstate.cost_eval_step, n_steps + 1,
+                           pstate.cost_eval_step):
+                y = (x0 @ prefixes[r, k - 1].mT).reshape(shape)
+                for cost in step_costs:
+                    error = error + cost.cost(c, y, k)
+            y = (x0 @ total[r].mT).reshape(shape)
+            for cost in final_costs:
+                error = error + cost.cost(c, y, n_steps)
+            errors.append(error)
+        final = (x0 @ total.mT).reshape((-1, n_members) + shape)
+        return torch.stack(errors).reshape(-1, n_members), final
+
+    return loss
+
+
+def _ensemble_mean(member_loss):
+    """The ensemble loss controls (E, C) -> (mean error, final states) of a
+    candidates x members loss."""
+    def loss(controls):
+        errors, final = member_loss(controls[None])
+        return errors[0].mean(), final[0]
+    return loss
+
+
+def _lindblad_ensemble_run(label, kw, dev, iterations, chunk):
+    """grape_lindblad_ensemble on ``kw`` with counters, peak memory and the
+    checks of a run: (result, launches, blocks, peak GB)."""
+    from qoc_tpu_torch import grape_lindblad_ensemble
+    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
+    pstate = lindblad_pstate(kw)
+    loss = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
+                                        kw["hamiltonian_params"], device=dev)
+    blocks = -(-(kw["system_eval_count"] - 1) // loss.block)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    result = grape_lindblad_ensemble(iteration_count=iterations,
+                                     log_iteration_step=0, fused_chunk=chunk,
+                                     device=dev, **kw)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    errors = np.asarray(result.errors)
+    d = np.asarray(kw["initial_densities"]).shape[-1]
+    n_members = len(kw["hamiltonian_params"])
+    if not (result.iteration_count_ran == iterations
+            and np.all(np.isfinite(errors))
+            and np.all(np.isfinite(result.best_final_densities))
+            and result.best_final_densities.shape == (n_members, 1, d, d)
+            and errors[-1] < errors[0]):
+        raise RuntimeError(label + " failed its checks")
+    return result, launches, blocks, peak, pstate, loss
+
+
+def phase_lindblad_ensemble(dev):
+    """The slice at full width: grape_lindblad_ensemble on the d = 20 cell
+    (superoperator 400, padded 448, 100 steps, MAGNUS_EXPM) with 4 and 16
+    members (stream_segment_plan's rows a launch), 2 warm-up + 5 timed
+    iterations, counters read around each run (K6 forward and adjoint once
+    a time block, K1-K5 never), peak memory; the 4-member loss and gradient
+    against float64 over the plain versions; then the 4 members with phase
+    24's density step costs (K6's adjoint in its per-step mode), against
+    float64 too."""
+    from qoc_tpu_torch.ops.chain import stream_segment_plan
+    iterations = WARMUP_ITERATIONS + LINDBLAD_TIMED
+    rates, run_launches = {}, {}
+    few, many = LINDBLAD_MEMBERS
+    for n_members, step in ((few, False), (many, False), (few, True)):
+        kw = lindblad_ensemble_problem(
+            n_members, d20_step_costs() if step else ())
+        label = "the {}-member d = 20 Lindblad ensemble{}".format(
+            n_members, " with step costs" if step else "")
+        result, launches, blocks, peak, pstate, loss = \
+            _lindblad_ensemble_run(label, kw, dev, iterations,
+                                   WARMUP_ITERATIONS)
+        n = blocks * iterations
+        _member_launches(label, launches,
+                         ("K6 fwd", "K6 bwd", "K6 bwd step") if step
+                         else ("K6 fwd", "K6 bwd"),
+                         {"K6 fwd": n, "K6 bwd": n, "K6 bwd step": n})
+        check = "not checked ({} members)".format(n_members)
+        if n_members == few:
+            check = _against_float64(
+                "loss", loss, _ensemble_mean(member_reference(
+                    pstate, kw["hamiltonian"], kw["hamiltonian_params"],
+                    dev)), pstate, dev)
+        s_count, length = stream_segment_plan(loss.block, n_members)
+        errors = np.asarray(result.errors)
+        print("phase 32 Lindblad ensemble d=20 ({} members x {} steps{}, "
+              "{} block(s) of {}, S x L = {} x {} rows a launch): {} "
+              "iterations, {:.2f} it/s steady ({:.1f} member-it/s), error "
+              "{:.6f} -> {:.6f}, launches {}, peak {:.2f} GB; vs float64 "
+              "plain route: {}".format(
+                  n_members, D20_POINTS - 1,
+                  ", density step costs" if step else "", blocks,
+                  loss.block, n_members * s_count, length, iterations,
+                  result.iterations_per_s,
+                  n_members * result.iterations_per_s, errors[0], errors[-1],
+                  {k: v for k, v in launches.items() if v}, peak, check),
+              flush=True)
+        rates[(n_members, step)] = result.iterations_per_s
+        run_launches[(n_members, step)] = launches
+    return rates, run_launches
+
+
+def _lindblad_multistart_run(phase, label, kw, n_starts, iterations, chunk,
+                             dev):
+    """grape_lindblad_multistart on ``kw`` (member rows where it holds
+    them) with counters and peak memory: (result, launches, blocks, peak
+    GB)."""
+    from qoc_tpu_torch import Adam, grape_lindblad_multistart
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    kw = dict(kw)
+    params = kw.pop("hamiltonian_params", None)
+    pstate = lindblad_pstate(dict(kw, hamiltonian_params=params))
+    loss = build_chain_loss(pstate, kw["hamiltonian"], params, dev,
+                            torch.float32, n_candidates=n_starts)
+    blocks = -(-(kw["system_eval_count"] - 1) // loss.block)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    result = grape_lindblad_multistart(
+        n_starts=n_starts, hamiltonian_params=params,
+        iteration_count=iterations, log_iteration_step=0, optimizer=Adam(),
+        fused_chunk=chunk, device=dev, **kw)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    kernels = (("K1", "K2") if loss.route == "fused"
+               else ("K6 fwd", "K6 bwd"))
+    # The adjoint once a block an iteration; the forward also once a block
+    # for the winner's final densities.
+    _member_launches(label, launches, kernels,
+                     {kernels[0]: blocks * (iterations + 1),
+                      kernels[1]: blocks * iterations})
+    errors = np.asarray(result.errors)
+    if not (result.iteration_count_ran == iterations
+            and np.all(np.isfinite(errors))
+            and np.isfinite(result.best_error)
+            and result.best_error <= errors[0]
+            and np.all(np.isfinite(result.best_final_densities))):
+        raise RuntimeError(label + " failed its checks")
+    print("phase {} {}: {} iterations (chunks of {}), {:.1f} "
+          "candidate-it/s steady ({:.1f} mean), {} block(s) of {} and {} "
+          "launches, peak {:.2f} GB, best error {:.6f} (candidate 0 {:.6f}, "
+          "median {:.6f})".format(
+              phase, label, iterations, chunk,
+              result.iterations_per_s, result.iterations_per_s_mean, blocks,
+              loss.block, {k: v for k, v in launches.items() if v}, peak,
+              result.best_error, errors[0], float(np.median(errors))),
+          flush=True)
+    return result, launches, pstate, loss
+
+
+def _candidates_against_float64(label, pstate, hamiltonian, params,
+                                n_starts, dev):
+    """The candidates' errors and gradients at their seeds (candidate_seeds)
+    through the float32 kernel route against the float64 member
+    reference."""
+    from qoc_tpu_torch.core.common import slap_controls_torch
+    from qoc_tpu_torch.parallel._msrunner import candidate_seeds
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    seeds = candidate_seeds(pstate, n_starts, 0)
+    shape = pstate.controls_shape
+    outs = []
+    for dtype, loss in (
+            (torch.float32, build_chain_loss(pstate, hamiltonian, params,
+                                             dev, torch.float32,
+                                             n_candidates=n_starts)),
+            (torch.float64, member_reference(pstate, hamiltonian, params,
+                                             dev))):
+        flat = torch.as_tensor(seeds, dtype=dtype, device=dev)
+        flat.requires_grad_(True)
+        errors = loss(torch.func.vmap(
+            lambda p: slap_controls_torch(True, p, shape))(flat))[0].mean(
+                dim=1)
+        grad, = torch.autograd.grad(errors.sum(), flat)
+        outs.append((errors.detach().double(), grad.double()))
+    torch.cuda.synchronize()
+    rel_err, rel_grad = _rel(outs[0][0], outs[1][0]), _rel(outs[0][1],
+                                                           outs[1][1])
+    if rel_err > FWD_RTOL or rel_grad > GRAD_RTOL:
+        raise RuntimeError("{}: the kernel route disagrees with float64 "
+                           "(errors rel {:.2e}, gradients rel {:.2e})".format(
+                               label, rel_err, rel_grad))
+    return "{} candidates at their seeds vs float64: errors rel {:.2e}, " \
+        "gradients rel {:.2e}".format(n_starts, rel_err, rel_grad)
+
+
+def phase_lindblad_multistart(dev):
+    """grape_lindblad_multistart on the d = 20 cell: 16 candidates, 2
+    warm-up + 5 timed iterations,
+    candidate-iterations/s, time blocks, launches, peak memory and the best
+    error; the 4 first candidates' losses and gradients at their seeds
+    against float64; then a robust multistart of 4 candidates x phase 32's
+    4 members."""
+    iterations = WARMUP_ITERATIONS + LINDBLAD_TIMED
+    kw = lindblad_d20_problem()
+    result, launches, pstate, _ = _lindblad_multistart_run(
+        33, "Lindblad multistart d=20, {} candidates".format(
+            LINDBLAD_CANDIDATES), kw, LINDBLAD_CANDIDATES, iterations,
+        WARMUP_ITERATIONS, dev)
+    rates = {LINDBLAD_CANDIDATES: result.iterations_per_s}
+    print("phase 33 Lindblad multistart d=20: " + _candidates_against_float64(
+        "the d = 20 multistart", pstate, kw["hamiltonian"], None,
+        LINDBLAD_ROBUST_CANDIDATES, dev), flush=True)
+    kw = lindblad_ensemble_problem(LINDBLAD_MEMBERS[0])
+    robust, _, _, _ = _lindblad_multistart_run(
+        33, "robust Lindblad multistart d=20, {} candidates x {} members"
+        "".format(LINDBLAD_ROBUST_CANDIDATES, LINDBLAD_MEMBERS[0]), kw,
+        LINDBLAD_ROBUST_CANDIDATES, iterations, WARMUP_ITERATIONS, dev)
+    rates["robust"] = robust.iterations_per_s
+    return rates, launches
+
+
+def example6_problem():
+    """examples/6_lindblad_ensemble_robust.py at its own widths, written
+    against the port: H(δ, c) = (1 + δ)·σz/2 + c a + conj(c) a^H (d = 2),
+    8 detuning members, T1 = 1000, |0><0| to |1><1|, 11 control points, 21
+    points, T = 10: the keyword arguments of grape_lindblad_ensemble."""
+    from qoc_tpu_torch import ConstantLindblad, EnsembleLinearHamiltonian
+    kw = lindblad_problem(2, 11, 21, 10.0)
+    h0 = np.diag([0.5, -0.5]).astype(complex)
+    a = np.array([[0, 1], [0, 0]], dtype=complex)
+    kw.update(hamiltonian=EnsembleLinearHamiltonian(h0, a[None], h0[None]),
+              hamiltonian_params=np.linspace(
+                  -EXAMPLE6_DELTA, EXAMPLE6_DELTA,
+                  EXAMPLE6_MEMBERS).reshape(-1, 1),
+              lindblad_data=ConstantLindblad(np.array([1e-3]), a[None]))
+    return kw
+
+
+def phase_member_routes(dev):
+    """The other member routes, each with counters and against float64:
+    example 6 (d = 2, 8 members) through K1/K2's member axis, its GRAPE and
+    its 8 x 8 robust multistart; a d = 12 Lindblad ensemble of 4 members
+    through the blocked route (K3/K4); a Schrödinger ensemble of 4 members
+    at d = 300 (phase 17's problem, 21 steps) through K6's member axis."""
+    from qoc_tpu_torch import (Adam, EnsembleLinearHamiltonian,
+                               grape_schroedinger_ensemble)
+    from qoc_tpu_torch.parallel import build_ensemble_loss
+    iterations = EXAMPLE6_ITERATIONS
+    for label, kw, kernels in (
+            ("example 6 (d=2, 8 members)", example6_problem(), ("K1", "K2")),
+            ("d=12, 4 members", lindblad_ensemble_problem(
+                4, d=D12), ("K3", "K4"))):
+        result, launches, blocks, _, pstate, loss = _lindblad_ensemble_run(
+            "the " + label + " Lindblad ensemble", kw, dev, iterations,
+            iterations)
+        _member_launches(label, launches, kernels,
+                         {k: blocks * iterations for k in kernels})
+        check = _against_float64(
+            "loss", loss, _ensemble_mean(member_reference(
+                pstate, kw["hamiltonian"], kw["hamiltonian_params"], dev)),
+            pstate, dev)
+        errors = np.asarray(result.errors)
+        print("phase 34 Lindblad ensemble {} ({} route): {} iterations, "
+              "error {:.6f} -> {:.6f}, launches {}; vs float64: {}".format(
+                  label, loss.route, iterations, errors[0], errors[-1],
+                  {k: v for k, v in launches.items() if v}, check),
+              flush=True)
+    kw = example6_problem()
+    result, _, pstate, _ = _lindblad_multistart_run(
+        34, "example 6 robust multistart, {} candidates x {} members".format(
+            EXAMPLE6_MEMBERS, EXAMPLE6_MEMBERS), kw, EXAMPLE6_MEMBERS,
+        iterations, iterations, dev)
+    print("phase 34 example 6 multistart: " + _candidates_against_float64(
+        "example 6's multistart", pstate, kw["hamiltonian"],
+        kw["hamiltonian_params"], EXAMPLE6_MEMBERS, dev), flush=True)
+    # Schrödinger at d = 300: the streamed route's member axis.
+    pstate, linear, costs = bench_problem(D300, 2, D300_STEPS + 1,
+                                          D300_STEPS + 1, 1.0)
+    ham = EnsembleLinearHamiltonian(linear.h0, linear.operators,
+                                    linear.h0[None])
+    params = np.linspace(-ENSEMBLE_DELTA, ENSEMBLE_DELTA, 4)[:, None]
+    pstate.hamiltonian = None
+    pstate.set_ensemble(params)
+    loss = build_ensemble_loss(pstate, ham, params, device=dev)
+    blocks = -(-D300_STEPS // loss.block)
+    iterations = 5
+    reset_launches()
+    result = grape_schroedinger_ensemble(
+        2, D300_STEPS + 1, costs, 1.0, ham, params, pstate.initial_states,
+        D300_STEPS + 1, complex_controls=True,
+        initial_controls=pstate.initial_controls,
+        max_control_norms=pstate.max_control_norms,
+        iteration_count=iterations, log_iteration_step=0, optimizer=Adam(),
+        device=dev)
+    launches = read_launches()
+    _member_launches("the d = 300 Schroedinger ensemble", launches,
+                     ("K6 fwd", "K6 bwd"),
+                     {"K6 fwd": blocks * iterations,
+                      "K6 bwd": blocks * iterations})
+    errors = np.asarray(result.errors)
+    if loss.route != "stream" or not (np.all(np.isfinite(errors))
+                                      and errors[-1] < errors[0]):
+        raise RuntimeError("the d = 300 Schroedinger ensemble failed its "
+                           "checks")
+    check = _against_float64("loss", loss, _ensemble_mean(member_reference(
+        pstate, ham, params, dev)), pstate, dev)
+    print("phase 34 Schroedinger ensemble d=300 (4 members x {} steps, "
+          "streamed route): {} iterations, error {:.6f} -> {:.6f}, launches "
+          "{}; vs float64: {}".format(
+              D300_STEPS, iterations, errors[0], errors[-1],
+              {k: v for k, v in launches.items() if v}, check), flush=True)
+
+
+def _member_stream_inputs(a):
+    """The plane op's kernel inputs for member planes ``a`` (M, B, d, d):
+    a_seg (M S, L, dp, dp) on the member plan of the kernel that serves d,
+    and the batch-max 1- and inf-norms."""
+    from qoc_tpu_torch.ops import chain
+    n_chains, n_steps, d = a.shape[0], a.shape[1], a.shape[-1]
+    dp, plan, _, _ = chain._plane_route(d, a.device, False)
+    s_count, length = plan(n_steps, n_chains)
+    a_seg = torch.zeros((n_chains, s_count * length, dp, dp),
+                        dtype=torch.complex64, device=a.device)
+    a_seg[:, :n_steps, :d, :d] = a
+    n1, ninf = chain._plane_norm_max(a)
+    return a_seg.reshape(n_chains * s_count, length, dp, dp), n1, ninf
+
+
+def _time_member_kernels(prefix, a, fwd, bwd, fwd_plain, bwd_plain, gen):
+    """The forward and the adjoint (last-step and per-step seeds) of a
+    member-batched launch on planes ``a``: ms, plain ms, bounds and max
+    |err| against the plain versions, keyed "<prefix> fwd", "<prefix> bwd"
+    and "<prefix> bwd step"."""
+    from qoc_tpu_torch.ops import chain
+    a_seg, n1, ninf = _member_stream_inputs(a)
+    rows, length, dp = a_seg.shape[:3]
+    pref = fwd(a_seg, n1)
+    pref_plain = fwd_plain(a_seg, n1)
+    seeds = torch.randn((rows, dp, dp), dtype=torch.complex64,
+                        device=a.device, generator=gen)
+    step_seeds = torch.randn((rows, length, dp, dp), dtype=torch.complex64,
+                             device=a.device, generator=gen)
+    err = {prefix + " fwd": float((pref - pref_plain).abs().max())}
+    del pref_plain
+    for key, s in ((prefix + " bwd", seeds), (prefix + " bwd step",
+                                              step_seeds)):
+        got = bwd(a_seg, ninf, pref, s)
+        err[key] = float((got - bwd_plain(a_seg, ninf, pref, s)).abs().max())
+        if not bool(torch.isfinite(torch.view_as_real(got)).all()):
+            raise RuntimeError(key + " produced non-finite values")
+    ms = {prefix + " fwd": cuda_ms(lambda: fwd(a_seg, n1), 5),
+          prefix + " fwd plain": cuda_ms(lambda: fwd_plain(a_seg, n1), 2),
+          prefix + " bwd": cuda_ms(lambda: bwd(a_seg, ninf, pref, seeds), 5),
+          prefix + " bwd plain": cuda_ms(
+              lambda: bwd_plain(a_seg, ninf, pref, seeds), 2),
+          prefix + " bwd step": cuda_ms(
+              lambda: bwd(a_seg, ninf, pref, step_seeds), 5),
+          prefix + " bwd step plain": cuda_ms(
+              lambda: bwd_plain(a_seg, ninf, pref, step_seeds), 2)}
+    absa = a.reshape(-1, *a.shape[-2:]).abs()
+    levels = chain.ladder_level(n1), chain.ladder_level(ninf)
+    bounds = {
+        prefix + " fwd": kernel_bound(absa.sum(-2).amax(-1), levels[0],
+                                      False, [a_seg, n1, pref], dp),
+        prefix + " bwd": kernel_bound(absa.sum(-1).amax(-1), levels[1], True,
+                                      [a_seg, ninf, pref, seeds,
+                                       pref[:, 1:]], dp),
+        prefix + " bwd step": kernel_bound(
+            absa.sum(-1).amax(-1), levels[1], True,
+            [a_seg, ninf, pref, step_seeds, pref[:, 1:]], dp)}
+    return ms, bounds, err, (rows, length, dp, levels)
+
+
+def phase_plane_member_timing(dev):
+    """K6's member-batched forward and adjoint (both seed modes) at phase
+    32's 16-member shapes (one time block's launch: 16 chains x 20 steps,
+    5 segments a chain) and K5's at the M4 ensemble's planes (4 members x
+    2000 steps of d = 64, S_m = 32), beside their plain versions, bounds
+    (kernel_bound), grid and design line; the launches of one pass of the
+    member-batched plane op (K5's member axis is run by no entry point, as
+    in qoc_tpu); and the member merge and seed glue's device time at phase
+    32's 4 members."""
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
+    gen = torch.Generator(device=dev).manual_seed(35)
+    n_members = LINDBLAD_MEMBERS[1]
+    kw = lindblad_ensemble_problem(n_members)
+    pstate = lindblad_pstate(kw)
+    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
+                                         kw["hamiltonian_params"],
+                                         device=dev).block
+    dt = float(pstate.dt)
+    rates, ops = kw["lindblad_data"](0.0)
+    basis = torch.as_tensor(kw["hamiltonian"].superoperator_basis(
+        dt, rates, ops), dtype=torch.complex64, device=dev)
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
+                          device=dev)
+    controls = torch.as_tensor(pstate.initial_controls,
+                               dtype=torch.complex64, device=dev)
+    def member_planes(params, steps):
+        """The planes (M, steps, 400, 400) of the members ``params`` over
+        the first ``steps`` steps, at the initial controls."""
+        delta = torch.as_tensor(params, dtype=torch.float32, device=dev)
+        n_chains = len(params)
+        w = fused_weights(controls, torch.arange(
+            steps, dtype=torch.float32, device=dev) * dt, cet, dt)
+        w = torch.cat((w[None, :, :1].expand(n_chains, steps, 1),
+                       delta[:, None, :].expand(n_chains, steps, 1),
+                       w[None, :, 1:].expand(n_chains, steps,
+                                             w.shape[-1] - 1)), dim=-1)
+        return torch.einsum("mjk,kab->mjab", w.to(torch.complex64), basis)
+
+    with torch.no_grad():
+        a = member_planes(kw["hamiltonian_params"], block)
+    ms, bounds, err, (rows, length, dp, levels) = _time_member_kernels(
+        "K6 member", a, chain.stream_fwd, chain.stream_bwd,
+        chain.stream_fwd_plain, chain.stream_bwd_plain, gen)
+    resident = chain._stream_plan(False, dp, dev.index)[:2]
+    for key, dual in (("K6 member fwd", False), ("K6 member bwd", True),
+                      ("K6 member bwd step", True)):
+        clusters = chain.stream_grid(dual, dp, rows, dev)[0]
+        _, blocks_a_cluster, _, smem = chain._stream_plan(dual, dp,
+                                                          dev.index)
+        entry = ("stream_{}_kernelILi{}E".format("bwd" if dual else "fwd",
+                                                 dp // 64),)
+        print("phase 35 design: " + design_line(
+            key, entry, clusters, blocks_a_cluster, smem, bounds[key][0],
+            ms[key]), flush=True)
+    print("phase 35 K6 member-batched timing ({} members x {} steps, a time "
+          "block of the {}-member d = 20 ensemble, S x L = {} x {}, padded "
+          "{}, levels {}/{}; {} resident clusters of {} blocks): ".format(
+              n_members, block, n_members, rows, length, dp, *levels,
+              *resident)
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time, "
+              "max|err| {:.2e}".format(k, b[0], b[1], b[2], b[0] / ms[k],
+                                       err[k])
+              for k, b in bounds.items()), flush=True)
+    del a
+    # K5's member axis at the M4 ensemble's planes (phase 28's problem).
+    m4_pstate, m4_ham, m4_params, _ = ensemble_problem(ENSEMBLE_MEMBERS[0],
+                                                       "M4")
+    a5 = torch.stack([initial_planes(m4_pstate, m4_ham.member(
+        torch.as_tensor(row, device=dev)), dev) for row in m4_params])
+    ms5, bounds5, err5, (rows5, length5, _, levels5) = _time_member_kernels(
+        "K5 member", a5, chain.plane_fwd, chain.plane_bwd,
+        chain.plane_fwd_plain, chain.plane_bwd_plain, gen)
+    for key in ("K5 member fwd", "K5 member bwd", "K5 member bwd step"):
+        print("phase 35 design: " + resident_design_line(
+            "K5 bwd" if "bwd" in key else "K5 fwd", rows5, bounds5[key][0],
+            ms5[key]).replace("K5 bwd:" if "bwd" in key else "K5 fwd:",
+                              key + ":", 1), flush=True)
+    x = a5.clone().requires_grad_(True)
+    reset_launches()
+    total = chain.plane_chain_propagate(x)
+    torch.autograd.grad(total, x, torch.ones_like(total))
+    k5_launches = read_launches()
+    print("phase 35 K5 member-batched timing ({} members x {} steps of the "
+          "M4 ensemble, S x L = {} x {}, levels {}/{}): ".format(
+              len(m4_params), a5.shape[1], rows5, length5, *levels5)
+          + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms5.items())
+          + "; " + ", ".join(
+              "{} bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time, "
+              "max|err| {:.2e}".format(k, b[0], b[1], b[2], b[0] / ms5[k],
+                                       err5[k])
+              for k, b in bounds5.items())
+          + "; one pass of the member-batched plane op launched {}".format(
+              {k: v for k, v in k5_launches.items() if v}), flush=True)
+    ms.update(ms5)
+    bounds.update(bounds5)
+    err.update(err5)
+    del a5, x
+    # The member glue at 4 members: one time block of phase 32's loss.
+    n_glue = LINDBLAD_MEMBERS[0]
+    kw = lindblad_ensemble_problem(n_glue)
+    glue_block = build_lindblad_ensemble_loss(
+        lindblad_pstate(kw), kw["hamiltonian"], kw["hamiltonian_params"],
+        device=dev).block
+    with torch.no_grad():
+        a = member_planes(kw["hamiltonian_params"], glue_block)
+    a_seg, n1, _ = _member_stream_inputs(a)
+    s_count, length = chain.stream_segment_plan(glue_block, n_glue)
+    prefpad = chain.stream_fwd(a_seg, n1).reshape(n_glue, s_count,
+                                                  length + 1, dp, dp)
+    d = a.shape[-1]
+    cums, prods = chain._merge(prefpad, d)
+    g_total = torch.randn((n_glue, d, d), dtype=torch.complex64, device=dev,
+                          generator=gen)
+    g_pref = torch.randn((n_glue, glue_block, d, d), dtype=torch.complex64,
+                         device=dev, generator=gen)
+    print("phase 35 member glue at {} members (S x L = {} x {}, padded {}): "
+          "merge {:.3f} ms, seeds last-step {:.3f} ms, seeds per-step {:.3f} "
+          "ms, compose prefixes {:.3f} ms".format(
+              n_glue, n_glue * s_count, length, dp,
+              cuda_ms(lambda: chain._merge(prefpad, d), 5),
+              cuda_ms(lambda: chain._segment_seeds(
+                  prefpad, cums, prods, dp, g_total), 5),
+              cuda_ms(lambda: chain._segment_seeds(
+                  prefpad, cums, prods, dp, g_total, g_pref), 5),
+              cuda_ms(lambda: chain._compose_prefixes(
+                  prefpad, cums, glue_block), 5)), flush=True)
+    return ms, bounds, err, {"K5 member fwd": k5_launches["K5 fwd"],
+                             "K5 member bwd": k5_launches["K5 bwd"]}
+
+
 def run_phase(phase, *args):
     """Call a phase and print its wall time (host clock)."""
     start = time.perf_counter()
@@ -3004,6 +3753,7 @@ def main():
         "after the build ({}), for a quick check of a kernel; prints no "
         "summary".format(", ".join(map(str, sorted(STANDALONE)))))
     args = parser.parse_args()
+    start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3071,6 +3821,24 @@ def main():
     ms.update(member_ms)
     bounds.update(member_bounds)
     worst.update(member_err)
+    worst.update(run_phase(phase_plane_member_kernels, dev))
+    lindblad_rates, lindblad_launches = run_phase(phase_lindblad_ensemble,
+                                                  dev)
+    launches.update({
+        "K6 member fwd": lindblad_launches[LINDBLAD_MEMBERS[1], False][
+            "K6 fwd"],
+        "K6 member bwd": lindblad_launches[LINDBLAD_MEMBERS[1], False][
+            "K6 bwd"],
+        "K6 member bwd step": lindblad_launches[LINDBLAD_MEMBERS[0], True][
+            "K6 bwd step"]})
+    lindblad_ms_rates, _ = run_phase(phase_lindblad_multistart, dev)
+    run_phase(phase_member_routes, dev)
+    plane_member = run_phase(phase_plane_member_timing, dev)
+    ms.update(plane_member[0])
+    bounds.update(plane_member[1])
+    for key, err in plane_member[2].items():
+        worst[key] = max(worst.get(key, 0.0), err)
+    launches.update(plane_member[3])
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -3097,14 +3865,26 @@ def main():
             ("chain_bwd (member-batched)", "chain_bwd.cu",
              "chain_pallas.py:262", "K2 member"),
             ("chain_bwd (member-batched, per-step seeds)", "chain_bwd.cu",
-             "chain_pallas.py:262", "K2 member step"))]
+             "chain_pallas.py:262", "K2 member step"),
+            ("stream_fwd (member-batched)", "stream_fwd.cu",
+             "chain_pallas.py:442", "K6 member fwd"),
+            ("stream_bwd (member-batched)", "stream_bwd.cu",
+             "chain_pallas.py:463", "K6 member bwd"),
+            ("stream_bwd (member-batched, per-step seeds)", "stream_bwd.cu",
+             "chain_pallas.py:463", "K6 member bwd step"),
+            ("plane_fwd (member-batched)", "plane_fwd.cu",
+             "chain_pallas.py:695", "K5 member fwd"),
+            ("plane_bwd (member-batched)", "plane_bwd.cu",
+             "chain_pallas.py:718", "K5 member bwd"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
           "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
           "Lindblad d=20 GRAPE {:.2f} it/s | step-cost headline GRAPE {:.2f} "
           "it/s (cost_eval_step {}: {:.2f}) | M4 step-cost GRAPE {:.2f} it/s "
           "| Lindblad d=20 step-cost GRAPE {:.2f} it/s | ensemble GRAPE "
-          "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {}".format(
+          "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {} | Lindblad "
+          "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | total "
+          "{:.1f} s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
@@ -3114,7 +3894,13 @@ def main():
                   for (m, step), rate in sorted(ensemble_rates.items())),
               blocked_it_s, ", ".join(
                   "{} {:.1f} cand-it/s".format(k, v)
-                  for k, v in ms_rates.items())))
+                  for k, v in ms_rates.items()), ", ".join(
+                  "{} members{} {:.2f} it/s".format(
+                      m, " with step costs" if step else "", rate)
+                  for (m, step), rate in sorted(lindblad_rates.items())),
+              ", ".join("{} {:.1f} cand-it/s".format(k, v)
+                        for k, v in lindblad_ms_rates.items()),
+              time.perf_counter() - start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3129,7 +3915,10 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               23: phase_stepcost_routes, 24: phase_stepcost_lindblad,
               25: phase_step_timing, 26: phase_member_kernels,
               27: phase_ensemble, 28: phase_ensemble_blocked,
-              29: phase_multistart, 30: phase_member_timing}
+              29: phase_multistart, 30: phase_member_timing,
+              31: phase_plane_member_kernels, 32: phase_lindblad_ensemble,
+              33: phase_lindblad_multistart, 34: phase_member_routes,
+              35: phase_plane_member_timing}
 
 
 if __name__ == "__main__":

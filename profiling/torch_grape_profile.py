@@ -14,8 +14,11 @@ torch.matmul, no kernel), the Lindblad d = 20 cell (superoperator 400,
 cost_eval_step 1 and 10: K1, K2 in its per-step-seed mode and the
 trajectory glue; the d = 20 cell with its density step costs: K6 in its
 per-step-seed mode), the 4- and 16-member ensembles of chip_smoke's phase
-27 (K1/K2's member axis; 16 members also with ForbidStates) and the
-512-candidate multistart of its phase 29, all built as chip_smoke.py
+27 (K1/K2's member axis; 16 members also with ForbidStates), the
+512-candidate multistart of its phase 29, and the 4- and 16-member d = 20
+Lindblad ensembles of its phase 32 and the 16-candidate d = 20 Lindblad
+multistart of its phase 33 (K6's member axis), all built as
+chip_smoke.py
 builds them, it runs one GRAPE iteration the way core/graperunner.py does
 (clip, loss, gradient, Adam update; chip_smoke.make_iteration), or one
 iteration of the multistart runner (chip_smoke.make_multistart_iteration):
@@ -82,6 +85,19 @@ def ensemble_cell(n_members, step_costs=()):
     return grape_cell(pstate, ensemble_loss(ham, params))
 
 
+def lindblad_ensemble_cell(n_members):
+    kw = chip_smoke.lindblad_ensemble_problem(n_members)
+    return grape_cell(chip_smoke.lindblad_pstate(kw), ensemble_loss(
+        kw["hamiltonian"], kw["hamiltonian_params"]))
+
+
+def lindblad_multistart_cell(n_starts):
+    kw = chip_smoke.lindblad_d20_problem()
+    return lambda dev: chip_smoke.make_multistart_iteration(
+        chip_smoke.lindblad_pstate(kw), kw["hamiltonian"], None, n_starts,
+        dev)
+
+
 def multistart_cell(n_starts):
     pstate, ham, _ = chip_smoke.multistart_problem()
     return lambda dev: chip_smoke.make_multistart_iteration(
@@ -116,6 +132,12 @@ def cells():
              chip_smoke.D, chip_smoke.M4_STEPS)])),
         ("multistart 512 candidates (fused, K1/K2 member axis)",
          multistart_cell(512)),
+        ("Lindblad ensemble d=20, 4 members (streamed, K6 member axis)",
+         lindblad_ensemble_cell(4)),
+        ("Lindblad ensemble d=20, 16 members (streamed, K6 member axis)",
+         lindblad_ensemble_cell(16)),
+        ("Lindblad multistart d=20, 16 candidates (streamed, K6 member "
+         "axis)", lindblad_multistart_cell(16)),
     ]
 
 

@@ -10,9 +10,9 @@ states, ``grape_unitary`` and Adam, and the Lindblad path under
 ``LindbladMethod.MAGNUS_EXPM`` (``ConstantLindblad``, the density costs
 ``TargetDensityInfidelity``, ``TargetDensityInfidelityTime``,
 ``ForbidDensities``, intermediate densities), and on one card the
-ensemble-robust GRAPE and the multistart (``parallel/``,
-``EnsembleLinearHamiltonian``), whose propagation runs through
-the fused expm-product chain kernels (``ops/chain.py``: d <= 64, and the
+ensemble-robust GRAPE and the multistart, Schrödinger and Lindblad
+(``parallel/``, ``EnsembleLinearHamiltonian``), whose propagation runs
+through the fused expm-product chain kernels (``ops/chain.py``: d <= 64, and the
 streamed chain at 256 < padded d <= 512) or the batched expm kernels and a
 tree product (``ops/expm.py``; up to padded d = 256 on the card,
 ``torch.matmul`` above 512), all in ``csrc/``; the Lindblad path takes
@@ -39,6 +39,9 @@ from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
                                     expm_taylor)
 from qoc_tpu_torch.optim import Adam
 from qoc_tpu_torch.parallel import (build_ensemble_loss,
+                                    build_lindblad_ensemble_loss,
+                                    grape_lindblad_ensemble,
+                                    grape_lindblad_multistart,
                                     grape_schroedinger_ensemble,
                                     grape_schroedinger_multistart)
 
@@ -57,6 +60,7 @@ __all__ = [
     "TargetStateInfidelity",
     "TargetStateInfidelityTime",
     "build_ensemble_loss",
+    "build_lindblad_ensemble_loss",
     "evolve_lindblad_discrete",
     "evolve_schroedinger_discrete",
     "expm",
@@ -65,6 +69,8 @@ __all__ = [
     "expm_pade",
     "expm_taylor",
     "grape_lindblad_discrete",
+    "grape_lindblad_ensemble",
+    "grape_lindblad_multistart",
     "grape_schroedinger_discrete",
     "grape_schroedinger_ensemble",
     "grape_schroedinger_multistart",

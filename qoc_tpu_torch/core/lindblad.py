@@ -64,7 +64,7 @@ def _check_method(method):
         raise NotImplementedError(
             "method={} (the adaptive Dormand-Prince integrator, "
             "ops/rkdp5.py) is not ported to qoc_tpu_torch yet (ROADMAP "
-            "slice 5); pass method=LindbladMethod.MAGNUS_EXPM, or use "
+            "slice 5, Queue 1 item 4); pass method=LindbladMethod.MAGNUS_EXPM, or use "
             "qoc_tpu.".format(method))
 
 

@@ -237,8 +237,10 @@ def make_propagator(route, magnus_policy, device, dtype, basis=None,
                                      device=device).reshape(n_b, n * n)
 
         def propagate(controls, t_block):
+            # Weights (B, n_b), or (R, B, n_b) of R chains: planes (..., B,
+            # n, n) on the plane op's member axis.
             a = weights(controls, t_block).to(cdtype) @ flat_basis
-            return plane_op(a.reshape(-1, n, n))
+            return plane_op(a.reshape(a.shape[:-1] + (n, n)))
         return propagate, _PLANE_OP_PLANES + 1 + kept
     if route == "plane":
         return (lambda controls, t_block: plane_op(

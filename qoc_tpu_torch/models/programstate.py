@@ -12,7 +12,8 @@ densities in its result, GRAPE ignores the flag.
 The GRAPE states carry the fields ``qoc_tpu``'s ensemble entry points set
 on them: ``evolved_shape``, the shape of the final states or densities
 the loss returns (with a leading member axis for an ensemble),
-``ensemble_params``, the member rows (None outside an ensemble), and
+``ensemble_params``, the member rows (None outside an ensemble; both set
+by ``set_ensemble``, ``member_shape`` being one member's shape), and
 ``fused_chunk``, the iterations between host pulls of the GRAPE loop
 (None: its default).
 """
@@ -100,6 +101,14 @@ class GrapeState(ProgramState):
         self.ensemble_params = None
         self.fused_chunk = None
 
+    def set_ensemble(self, hamiltonian_params):
+        """Mark the state as an ensemble's: one member a row of
+        ``hamiltonian_params``, the final states (M, K, d, 1) or densities
+        (M, K, d, d)."""
+        self.ensemble_params = np.asarray(hamiltonian_params)
+        self.evolved_shape = ((self.ensemble_params.shape[0],)
+                              + self.member_shape)
+
     def log_and_save_initial(self):
         if self.should_log:
             print("iter   |   total error  |    grads_l2   \n"
@@ -145,16 +154,10 @@ class GrapeSchroedingerDiscreteState(GrapeState):
                          system_eval_count)
         self.hilbert_size = initial_states[0].shape[0]
         self.initial_states = initial_states
-        self.evolved_shape = np.asarray(initial_states).shape
+        self.member_shape = self.evolved_shape = np.asarray(
+            initial_states).shape
         validate_cost_dimensions(costs, np.asarray(initial_states).shape[-2])
         self.magnus_policy = magnus_policy
-
-    def set_ensemble(self, hamiltonian_params):
-        """Mark the state as an ensemble's: one member a row of
-        ``hamiltonian_params``, the final states (M, K, d, 1)."""
-        self.ensemble_params = np.asarray(hamiltonian_params)
-        self.evolved_shape = ((self.ensemble_params.shape[0],)
-                              + np.asarray(self.initial_states).shape)
 
 
 class EvolveLindbladDiscreteState(ProgramState):
@@ -198,7 +201,8 @@ class GrapeLindbladDiscreteState(GrapeState):
                          system_eval_count)
         self.hilbert_size = initial_densities[0].shape[0]
         self.initial_densities = initial_densities
-        self.evolved_shape = np.asarray(initial_densities).shape
+        self.member_shape = self.evolved_shape = np.asarray(
+            initial_densities).shape
         validate_cost_dimensions(costs,
                                  np.asarray(initial_densities).shape[-1])
         self.lindblad_data = lindblad_data

@@ -18,14 +18,14 @@ gradient flows to the planes. The steps are split into S contiguous
 or one thread-block cluster each for K6) and are merged by log-depth scans
 of matrix products; S is picked to fill the card's SMs.
 
-:class:`ChainExpmPropagate` also takes a member axis (``qoc_tpu``'s batched
-form, the chains of ensembles and multistart): weights (M, B, n_b) give M
-independent chains, totals (M, d, d) and prefixes (M, B, d, d). Each chain
-is split into S_m segments (:func:`segment_plan` counts the chains), the
-M·S_m rows go to K1/K2 in one launch, and the merge and the seeds run with
-the member axis leading, so no scan mixes two chains. S_m = 1 is
-``qoc_tpu``'s grouped packing: no merge, and the seeds are the gradients
-themselves.
+Both ops also take a member axis (``qoc_tpu``'s batched form, the chains
+of ensembles and multistart): weights (M, B, n_b) or planes (M, B, d, d)
+give M independent chains, totals (M, d, d) and prefixes (M, B, d, d).
+Each chain is split into S_m segments (:func:`segment_plan` and
+:func:`stream_segment_plan` count the chains), the M·S_m rows go to the
+kernels in one launch, and the merge and the seeds run with the member
+axis leading, so no scan mixes two chains. S_m = 1 is ``qoc_tpu``'s
+grouped packing: no merge, and the seeds are the gradients themselves.
 
 Six kernels carry the ops on CUDA tensors, each beside its plain PyTorch
 version of the same math:
@@ -115,9 +115,17 @@ _MIN_SEGMENT_STEPS = 8
 _MAX_SEGMENTS = 128
 # Rows of weights whose generators one pass of _norm_max forms at once.
 _NORM_CHUNK_BYTES = 256 * 1024 ** 2
-# K6's segment plan: at most this many segments, one per cluster of 8 blocks
-# that an H100 keeps resident (16 x 8 = 128 of its 132 SMs).
-_STREAM_SEGMENTS = 16
+# K6's segment plan: the clusters of 8 blocks an H100 keeps resident at
+# padded 320-512 (120 of its 132 SMs; the grid chip_smoke.py phases 20 and
+# 35 print), and what one segment of a chain adds to the merge and seed
+# scans, per scan level, in cluster-steps of K6 (a step's forward and
+# adjoint on one cluster): about 0.04 ms against 4.9 ms at padded 448 on
+# the H100 (phase 35); the plan tries at most 64 segments a chain. A
+# constant, not the device's count, so that the CPU walks the plan the card
+# takes.
+_STREAM_CLUSTERS = 15
+_STREAM_SEGMENT_COST = 0.01
+_STREAM_MAX_SEGMENTS = 64
 # Share of the free device memory K6's workspace may take.
 _STREAM_WORKSPACE_SHARE = 0.5
 
@@ -788,13 +796,29 @@ def segment_plan(n_steps, n_chains=1):
     return -(-n_steps // length), length
 
 
-def stream_segment_plan(n_steps):
-    """K6's (segments S, steps per segment L): at most 16 segments, one a
-    cluster of 8 blocks, so the card's SMs are busy from 16 steps up and
-    the merge stays at about 4 S products. The S*L - n_steps padded steps
-    carry zero planes (U = I exactly)."""
-    length = -(-n_steps // min(n_steps, _STREAM_SEGMENTS))
-    return -(-n_steps // length), length
+@functools.cache
+def stream_segment_plan(n_steps, n_chains=1):
+    """K6's (segments a chain S, steps per segment L) for ``n_chains``
+    chains of ``n_steps``. The n_chains * S rows go to the card's 15
+    resident clusters in waves (cluster c walks rows c, c + 15, ...), so a
+    launch lasts waves x L cluster-steps. S minimizes that plus the merge
+    and seed scans' share (a hundredth of a cluster-step a segment and scan
+    level), the fewer segments on a tie: one chain of 100 steps 15 x 7, 4
+    chains of 83 steps 7 x 12 (28 rows in 2 waves), 16 chains of 20 steps
+    5 x 4 (80 rows in 6 waves, where one segment a chain would take 2
+    waves of 20 steps). The S*L - n_steps padded steps carry zero planes
+    (U = I exactly)."""
+    best = None
+    for s_count in range(1, min(n_steps, _STREAM_MAX_SEGMENTS) + 1):
+        length = -(-n_steps // s_count)
+        if -(-n_steps // length) != s_count:
+            continue                    # the same L on fewer segments
+        waves = -(-n_chains * s_count // _STREAM_CLUSTERS)
+        cost = waves * length + (_STREAM_SEGMENT_COST * n_chains * s_count
+                                 * math.log2(s_count))
+        if best is None or cost < best[0]:
+            best = (cost, s_count, length)
+    return best[1:]
 
 
 def chain_block_plan(d, n_steps, itemsize=8, planes_per_step=2,
@@ -842,10 +866,19 @@ def _norm_max(w, basis_ri, d):
 
 
 def _plane_norm_max(a):
-    """(max_j ||A_j||_1, max_j ||A_j||_inf) of complex planes, exactly, on
-    the device (chain_pallas.py _plane_fwd)."""
-    absa = a.abs()
-    return absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+    """(max_j ||A_j||_1, max_j ||A_j||_inf) of complex planes (..., d, d)
+    over every step of every chain, exactly, on the device (chain_pallas.py
+    _plane_fwd's ``norm1``): |A| is formed 256 MB of planes at a time."""
+    planes = a.reshape(-1, *a.shape[-2:])
+    chunk = max(1, _NORM_CHUNK_BYTES // (planes[0].numel()
+                                         * planes.element_size()))
+    n1 = ninf = None
+    for part in planes.split(chunk):
+        absa = part.abs()
+        p1, pinf = absa.sum(dim=-2).amax(), absa.sum(dim=-1).amax()
+        n1 = p1 if n1 is None else torch.maximum(n1, p1)
+        ninf = pinf if ninf is None else torch.maximum(ninf, pinf)
+    return n1, ninf
 
 
 # The merge and seed glue below takes any leading (member) dimensions: the
@@ -1156,7 +1189,14 @@ class PlaneChainPropagate(torch.autograd.Function):
     planes ``a`` (B, d, d), with the exact gradient to the planes
     (``chain_pallas.py`` plane_chain_propagate). Compose it with ordinary
     autograd through any differentiable plane build: Magnus M4/M6 terms,
-    any Hamiltonian callable, weights x basis.
+    any Hamiltonian callable, weights x basis. With a member axis, planes
+    (M, B, d, d) (``qoc_tpu``'s ``_plane_fwd`` with 4-D planes, and its
+    streamed chain with weights (M, B, n_b)), the M chains' totals (M, d, d)
+    and prefixes (M, B, d, d), all in one forward and one adjoint launch:
+    each chain is split into S_m segments (the plan counts the chains), the
+    M·S_m rows go to the kernel as one flat row axis, and one batch-max
+    norm over all chains picks the ladder level of every row, as
+    :class:`ChainExpmPropagate` does.
 
     ``PlaneChainPropagate.apply(a, plain=False, return_prefixes=False)``: on
     CUDA ``a`` must be complex64 (any complex dtype with ``plain``), and the
@@ -1171,37 +1211,49 @@ class PlaneChainPropagate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, plain=False, return_prefixes=False):
-        n_steps, d = a.shape[0], a.shape[-1]
+        a4 = a if a.dim() == 4 else a[None]
+        n_chains, n_steps, d = a4.shape[0], a4.shape[1], a4.shape[-1]
         if (a.device.type == "cuda" and not plain
                 and a.dtype != torch.complex64):
             raise TypeError("the plane kernels take complex64 planes; got "
                             + str(a.dtype))
         dp, plan, fwd, bwd = _plane_route(d, a.device, plain)
-        s_count, length = plan(n_steps)
-        n1, ninf = _plane_norm_max(a)
-        # Zero planes pad d and the steps: exp(0) = I exactly.
-        a_seg = a.new_zeros((s_count * length, dp, dp))
-        a_seg[:n_steps, :d, :d] = a
-        a_seg = a_seg.reshape(s_count, length, dp, dp)
-        prefpad = fwd(a_seg, n1)
+        s_count, length = plan(n_steps, n_chains)
+        n1, ninf = _plane_norm_max(a4)
+        # Zero planes pad d and the steps: exp(0) = I exactly. Segment s of
+        # chain m is row m S + s of the kernels: a reshape, no transpose.
+        a_seg = a.new_zeros((n_chains, s_count * length, dp, dp))
+        a_seg[:, :n_steps, :d, :d] = a4
+        a_seg = a_seg.reshape(n_chains * s_count, length, dp, dp)
+        prefpad = fwd(a_seg, n1).reshape(n_chains, s_count, length + 1, dp,
+                                         dp)
         outputs, cums, prods = _chain_outputs(prefpad, d, n_steps,
                                               return_prefixes)
+        if a.dim() == 3:
+            outputs = (tuple(x[0] for x in outputs) if return_prefixes
+                       else outputs[0])
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(a_seg, prefpad, cums, prods, ninf)
-        ctx.bwd, ctx.n_steps = bwd, n_steps
+        ctx.bwd, ctx.n_steps, ctx.batched = bwd, n_steps, a.dim() == 4
         return outputs
 
     @staticmethod
     def backward(ctx, *grads):
         a_seg, prefpad, cums, prods, ninf = ctx.saved_tensors
-        s_count, length, dp = a_seg.shape[:3]
-        d = prods.shape[-1]
+        n_chains, s_count, length, dp = prefpad.shape[:3] + prefpad.shape[-1:]
+        length, d = length - 1, prods.shape[-1]
+        if not ctx.batched:
+            grads = [None if g is None else g[None] for g in grads]
         seeds = _segment_seeds(prefpad, cums, prods, dp, *grads)
         if seeds is None:
             return None, None, None
-        grad_a = ctx.bwd(a_seg, ninf, prefpad, seeds)
-        return grad_a.reshape(s_count * length, dp, dp)[
-            :ctx.n_steps, :d, :d], None, None
+        rows = n_chains * s_count
+        grad_a = ctx.bwd(a_seg, ninf,
+                         prefpad.reshape(rows, length + 1, dp, dp),
+                         seeds.reshape(rows, *seeds.shape[2:]))
+        grad_a = grad_a.reshape(n_chains, s_count * length, dp, dp)[
+            :, :ctx.n_steps, :d, :d]
+        return (grad_a if ctx.batched else grad_a[0]), None, None
 
 
 # The functional forms, under qoc_tpu's names: plane_chain_propagate(a,

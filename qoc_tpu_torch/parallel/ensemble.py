@@ -7,27 +7,36 @@ one optimizer step updates the shared controls. ``qoc_tpu`` shards the
 members over a device mesh; the port runs them all on one card, so
 ``mesh`` other than None raises (ROADMAP Queue 1, item 8).
 
-Two routes, chosen by the problem alone as ``qoc_tpu`` chooses them:
+One chain loss (:func:`build_chain_loss`) carries every member of a
+Schrödinger problem (states evolve as U ψ) and of a Lindblad problem under
+``MAGNUS_EXPM`` (densities evolve vectorized, vec ← vec P^T, by
+superoperator chains of dimension n = d²; ``parallel/lindblad.py``). Its
+routes, chosen by the problem alone as ``qoc_tpu`` chooses them, by n:
 
-- the fused route, for an :class:`EnsembleLinearHamiltonian` under
-  Magnus-M2 with controls at d <= 64: member m's weight rows are
-  [1, δ_m, Re c, Im c] against the shared generator basis
-  [h0, param_ops..., P_i, Q_i], and all members' chains go through the
-  chain op's member axis (``ops/chain.py``), one K1 and one K2 launch a
-  time block on the card;
+- the fused route, for an :class:`EnsembleLinearHamiltonian` (or, without
+  member rows, a :class:`LinearHamiltonian`) under Magnus-M2 with controls
+  and, for Lindblad, constant or no dissipation: member m's weight rows
+  are [1, δ_m, Re c, Im c] against the shared generator basis [h0,
+  param_ops..., P_i, Q_i] (or its superoperator basis), and all members'
+  chains go through a chain op's member axis (``ops/chain.py``): at
+  n <= 64 the weight chain, one K1 and one K2 launch a time block on the
+  card; at 256 < padded n <= 512 the streamed route, the weights x basis
+  planes (M, B, n, n) through the plane chain op, one K6 forward and one
+  K6 adjoint launch a time block;
 - the blocked route, for everything else (Magnus M4/M6, any torch
-  callable ``hamiltonian(params_row, controls, t)``, and 64 < padded d):
-  each member's Magnus planes are built under ``torch.func.vmap`` over the
-  member rows, and all members' planes reach the batched expm (K3/K4 up to
-  padded d = 256) as one batch a time block, then a tree product (or the
-  prefix scan with step costs) per member. This is ``qoc_tpu``'s generic
-  route (``allow_plane_chain=False`` under ``vmap``).
+  callable ``hamiltonian(params_row, controls, t)``, time-dependent
+  dissipation, and 64 < padded n <= 256 or n above 512): each member's
+  Magnus planes (or superoperator planes) are built under
+  ``torch.func.vmap`` over the member rows, and all members' planes reach
+  the batched expm (K3/K4 up to padded n = 256) as one batch a time block,
+  then a tree product (or the prefix scan with step costs) per member.
+  This is ``qoc_tpu``'s generic route (``allow_plane_chain=False`` under
+  ``vmap``).
 
-At 256 < padded d <= 512 ``qoc_tpu`` runs K6's member axis on the fused
-route; the port raises there (ROADMAP Queue 2, item 4).
-
-The same chain loss carries the multistart (``parallel/multistart.py``):
-candidates x members, candidate-major, are the chains of one call.
+Step costs run on every route through the trajectory form, as in
+``qoc_tpu``'s fused ensemble and its generic route. The same chain loss
+carries the multistart (``parallel/multistart.py``): candidates x
+members, candidate-major, are the chains of one call.
 """
 
 import numpy as np
@@ -36,21 +45,24 @@ import torch
 from qoc_tpu_torch.config import complex_dtype, resolve
 from qoc_tpu_torch.core.common import initialize_controls, slap_controls_torch
 from qoc_tpu_torch.core.graperunner import run_grape
-from qoc_tpu_torch.core.schroedinger import (_not_ported, _route_names,
-                                             _step_cost, cost_steps,
-                                             fused_weights, make_propagator,
-                                             plane_builder)
-from qoc_tpu_torch.models import (EnsembleLinearHamiltonian,
+from qoc_tpu_torch.core.lindblad import _check_method, superoperator_builder
+from qoc_tpu_torch.core.schroedinger import (_not_ported, _route,
+                                             _route_names, _step_cost,
+                                             cost_steps, fused_weights,
+                                             make_propagator, plane_builder)
+from qoc_tpu_torch.models import (ConstantLindblad,
+                                  EnsembleLinearHamiltonian,
+                                  GrapeLindbladDiscreteState,
                                   GrapeSchroedingerDiscreteState,
                                   GrapeSchroedingerResult,
-                                  InterpolationPolicy, LinearHamiltonian,
-                                  MagnusPolicy)
-from qoc_tpu_torch.ops.chain import (KERNEL_DP, chain_block_plan,
-                                     segment_plan, uses_stream)
+                                  InterpolationPolicy, LindbladMethod,
+                                  LinearHamiltonian, MagnusPolicy)
+from qoc_tpu_torch.ops.chain import (chain_block_plan, segment_plan,
+                                     stream_segment_plan)
 from qoc_tpu_torch.optim import Adam
 
 __all__ = ["build_chain_loss", "build_ensemble_loss",
-           "grape_schroedinger_ensemble"]
+           "grape_schroedinger_ensemble", "run_ensemble"]
 
 
 def refuse_mesh(mesh):
@@ -61,12 +73,12 @@ def refuse_mesh(mesh):
                           "devices)", "6d, Queue 1 item 8")
 
 
-def _fused_ok(pstate, hamiltonian, params):
+def _fused_ok(magnus_policy, has_controls, hamiltonian, params):
     """True where the chain of weight rows against a basis applies:
     ``qoc_tpu``'s _build_fused_ensemble_loss / _make_fused_shard_loss
-    conditions, less the kernel limits."""
-    if (pstate.magnus_policy != MagnusPolicy.M2
-            or pstate.control_eval_times is None):
+    (and Lindblad's _fused_eligibility) conditions, less the kernel
+    limits."""
+    if magnus_policy != MagnusPolicy.M2 or not has_controls:
         return False
     if params is None:
         return (isinstance(hamiltonian, LinearHamiltonian)
@@ -91,24 +103,74 @@ def _member_weights(w, delta):
         dim=-1).reshape(n * m, b, -1)
 
 
+class _Evolved:
+    """What a chain loss evolves: a Schrödinger state's states (K, d, 1),
+    propagated in dimension n = d, or a Lindblad state's densities (K, d,
+    d), vectorized row-major and propagated by superoperators in n = d²
+    (``core/lindblad.py``), and how each route builds its chains."""
+
+    def __init__(self, pstate):
+        self.lindblad = isinstance(pstate, GrapeLindbladDiscreteState)
+        if self.lindblad:
+            _check_method(getattr(pstate, "method_", LindbladMethod.RKDP5))
+            if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
+                raise NotImplementedError(
+                    "The interpolation policy {} is not yet supported for "
+                    "this method.".format(pstate.interpolation_policy))
+            self.initial = np.asarray(pstate.initial_densities)
+            self.magnus_policy = getattr(pstate, "magnus_policy_",
+                                         MagnusPolicy.M2)
+            self.lindblad_data = pstate.lindblad_data
+            self.constant = isinstance(self.lindblad_data,
+                                       (ConstantLindblad, type(None)))
+            self.dim = self.initial.shape[-1] ** 2
+        else:
+            self.initial = np.asarray(pstate.initial_states)
+            self.magnus_policy = pstate.magnus_policy
+            self.constant = True
+            self.dim = self.initial.shape[-2]
+
+    def basis(self, hamiltonian, dt):
+        """The fused and streamed routes' generator basis."""
+        if not self.lindblad:
+            return hamiltonian.generator_basis(dt)
+        rates, operators = (self.lindblad_data(0.0)
+                            if self.lindblad_data is not None
+                            else (None, None))
+        return hamiltonian.superoperator_basis(dt, rates, operators)
+
+    def builder(self, cet, dt, device, cdtype):
+        """h -> planes(controls, times): the blocked route's Magnus planes
+        of one member's Hamiltonian h."""
+        if not self.lindblad:
+            return lambda h: plane_builder(h, self.magnus_policy, cet, dt)
+        d = self.initial.shape[-1]
+        return lambda h: superoperator_builder(
+            h, self.lindblad_data, self.magnus_policy, cet, dt, d, device,
+            cdtype)
+
+
 def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
                      n_candidates=1, time_block_size=None):
     """The loss of N candidates' controls over M members, one chain each.
 
-    ``hamiltonian_params`` (M, ...) are the member rows of an
-    ensemble-contract ``hamiltonian(params_row, controls, t)``, or None for
-    one member of a plain ``hamiltonian(controls, t)``. Returns
+    ``pstate`` is a Schrödinger or a Lindblad (``MAGNUS_EXPM``) GRAPE state
+    (:class:`_Evolved`). ``hamiltonian_params`` (M, ...) are the member
+    rows of an ensemble-contract ``hamiltonian(params_row, controls, t)``,
+    or None for one member of a plain ``hamiltonian(controls, t)``. Returns
     ``loss(controls)``, which maps complex controls (N, E, C) to (errors
-    (N, M), final states (N, M, K, d, 1)), differentiable; its ``route`` is
-    "fused" or "blocked" (module docstring) and its ``block`` the time
-    block in steps, sized for ``n_candidates`` (``chain_block_plan`` counts
-    the N M chains)."""
+    (N, M), final states (N, M, K, d, 1) or densities (N, M, K, d, d)),
+    differentiable; its ``route`` is "fused", "stream" or "blocked"
+    (module docstring), ``dim`` the propagated dimension n, ``lindblad``
+    the kind, ``n_steps``, ``trajectory`` (step costs) and ``block`` the
+    time block in steps, sized for ``n_candidates`` (``chain_block_plan``
+    counts the N M chains)."""
     params = (None if hamiltonian_params is None
               else np.asarray(hamiltonian_params))
     cdtype = complex_dtype(dtype)
-    initial_states = torch.as_tensor(np.asarray(pstate.initial_states),
-                                     dtype=cdtype, device=device)
-    d = initial_states.shape[-2]
+    kind = _Evolved(pstate)
+    initial = torch.as_tensor(kind.initial, dtype=cdtype, device=device)
+    shape, n = tuple(initial.shape), kind.dim
     dt = float(pstate.dt)
     n_steps = pstate.system_eval_count - 1
     final_step = pstate.final_system_eval_step
@@ -122,87 +184,86 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     cet = (torch.as_tensor(pstate.control_eval_times, dtype=dtype,
                            device=device)
            if pstate.control_eval_times is not None else None)
-    fused = _fused_ok(pstate, hamiltonian, params)
-    if fused and uses_stream(d):
-        raise _not_ported("The member axis of the streamed chain (K6, "
-                          "256 < padded d <= 512)", "Queue 2, item 4")
+    route = _route(n, kind.constant and _fused_ok(
+        kind.magnus_policy, cet is not None, hamiltonian, params), False)
     trajectory_steps = n_steps if trajectory else 0
-    if fused and d <= KERNEL_DP:
-        route = "fused"
+    if route in ("fused", "stream"):
         delta = (None if params is None
                  else torch.as_tensor(params, dtype=dtype, device=device))
         propagate, planes_per_step = make_propagator(
-            route, pstate.magnus_policy, device, dtype,
-            basis=hamiltonian.generator_basis(dt),
+            route, kind.magnus_policy, device, dtype,
+            basis=kind.basis(hamiltonian, dt),
             weights=lambda controls, t_block: _member_weights(
                 fused_weights(controls, t_block, cet, dt), delta),
             trajectory_steps=trajectory_steps)
     else:
-        route = "blocked"
-        planes = _member_planes(pstate, hamiltonian, params, cet, dt,
-                                device, dtype)
+        planes = _member_planes(kind.builder(cet, dt, device, cdtype),
+                                hamiltonian, params, device, dtype)
         propagate, planes_per_step = make_propagator(
-            route, pstate.magnus_policy, device, dtype, planes=planes,
+            route, kind.magnus_policy, device, dtype, planes=planes,
             trajectory_steps=trajectory_steps)
     block = int(time_block_size or chain_block_plan(
-        d, n_steps, cdtype.itemsize, planes_per_step,
+        n, n_steps, cdtype.itemsize, planes_per_step,
         n_candidates * n_members))
+    # Each chain's states or densities as rows (R, K, n): x <- x P^T.
+    x0 = initial.reshape(shape[0], n)
 
     def loss(controls):
-        n = controls.shape[0]
+        n_c = controls.shape[0]
         # Each chain's controls, candidate-major (the costs take them).
         chain_controls = controls.repeat_interleave(n_members, dim=0)
-        states = initial_states.expand((n * n_members,)
-                                       + initial_states.shape)
-        errors = torch.zeros((n * n_members,), dtype=dtype, device=device)
+        x = x0.expand((n_c * n_members,) + x0.shape)
+        errors = torch.zeros((n_c * n_members,), dtype=dtype, device=device)
         for start in range(0, n_steps, block):
             out = propagate(controls, times[start:start + block])
             if not trajectory:
-                states = out[:, None] @ states
+                x = x @ out.mT
                 continue
             prod, prefixes = out
             steps = cost_steps(start, prefixes.shape[-3], cost_eval_step,
                                device)
             if steps is not None:
                 sel, ks = steps
-                # The states after the block's cost steps, every chain:
-                # (R, steps, K, d, 1).
-                evolved = prefixes[:, sel, None] @ states[:, None]
+                # The states or densities after the block's cost steps,
+                # every chain: (R, steps, K, ...).
+                evolved = (x[:, None] @ prefixes[:, sel].mT).reshape(
+                    (x.shape[0], -1) + shape)
                 errors = errors + torch.func.vmap(
-                    lambda c, x: torch.func.vmap(_step_cost(
-                        step_costs, c))(x, ks).sum())(chain_controls,
+                    lambda c, y: torch.func.vmap(_step_cost(
+                        step_costs, c))(y, ks).sum())(chain_controls,
                                                       evolved)
-            states = prod[:, None] @ states
+            x = x @ prod.mT
+        final = x.reshape((-1,) + shape)
         if final_costs:
             errors = errors + torch.func.vmap(
-                lambda c, x: _step_cost(final_costs, c)(x, final_step))(
-                    chain_controls, states)
-        return (errors.reshape(n, n_members),
-                states.reshape((n, n_members) + initial_states.shape))
+                lambda c, y: _step_cost(final_costs, c)(y, final_step))(
+                    chain_controls, final)
+        return (errors.reshape(n_c, n_members),
+                final.reshape((n_c, n_members) + shape))
 
-    loss.route, loss.block = route, block
+    loss.route, loss.block, loss.dim = route, block, n
+    loss.lindblad, loss.n_steps, loss.trajectory = (kind.lindblad, n_steps,
+                                                    trajectory)
     return loss
 
 
-def _member_planes(pstate, hamiltonian, params, cet, dt, device, dtype):
-    """planes(controls (N, E, C), t_block) -> (N M, B, d, d): every
-    candidate's and member's Magnus planes, built under ``torch.func.vmap``
-    over the candidates and the member rows (``core/schroedinger.py``
-    plane_builder)."""
-    policy = pstate.magnus_policy
+def _member_planes(build, hamiltonian, params, device, dtype):
+    """planes(controls (N, E, C), t_block) -> (N M, B, n, n): every
+    candidate's and member's Magnus planes, ``build(h)(controls, times)``
+    of each member's Hamiltonian h, built under ``torch.func.vmap`` over
+    the candidates and the member rows."""
     if params is None:
-        build = plane_builder(hamiltonian, policy, cet, dt)
+        one = build(hamiltonian)
 
         def planes(controls, t_block):
-            return torch.func.vmap(lambda c: build(c, t_block))(controls)
+            return torch.func.vmap(lambda c: one(c, t_block))(controls)
         return planes
     rows = torch.as_tensor(params, device=device,
                            dtype=(complex_dtype(dtype)
                                   if np.iscomplexobj(params) else dtype))
 
     def member(row, c, t_block):
-        return plane_builder(lambda cc, tt: hamiltonian(row, cc, tt),
-                             policy, cet, dt)(c, t_block)
+        return build(lambda cc, tt: hamiltonian(row, cc, tt))(c, t_block)
 
     def planes(controls, t_block):
         out = torch.func.vmap(lambda c: torch.func.vmap(
@@ -211,14 +272,18 @@ def _member_planes(pstate, hamiltonian, params, cet, dt, device, dtype):
     return planes
 
 
-def describe_route(route, d, device, n_chains, n_steps, block, trajectory):
+def describe_route(chain_loss, device, n_chains):
     """(path, kernels, packing) of a chain loss for the one-time path log:
-    the fused route names its packing, grouped (one segment a chain) or
-    segmented (S_m segments a chain)."""
-    path, kernels = _route_names(route, d, device, trajectory)
-    if route != "fused":
+    the chain routes name their packing, grouped (one segment a chain) or
+    segmented (S_m segments a chain), and the rows S x L of one launch."""
+    path, kernels = _route_names(chain_loss.route, chain_loss.dim, device,
+                                 chain_loss.trajectory)
+    if chain_loss.route == "blocked":
         return path, kernels, "{} chains in one batch".format(n_chains)
-    s_count, length = segment_plan(min(block, n_steps), n_chains)
+    plan = segment_plan if chain_loss.route == "fused" else \
+        stream_segment_plan
+    s_count, length = plan(min(chain_loss.block, chain_loss.n_steps),
+                           n_chains)
     packing = ("grouped, one segment a chain" if s_count == 1 else
                "segmented, {} segments a chain".format(s_count))
     return path, kernels, "{} chains, {} (S x L = {} x {})".format(
@@ -230,13 +295,14 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh=None,
                         dtype=None):
     """The ensemble loss (``qoc_tpu`` ensemble.py:60-130): controls (E, C)
     -> (mean_m error_m, final states (M, K, d, 1)), differentiable w.r.t.
-    the controls. ``hamiltonian(params_row, controls, t) -> (d, d)`` is one
-    member's Hamiltonian (a torch callable, or an
+    the controls; for a Lindblad state the final densities (M, K, d, d)
+    (``parallel/lindblad.py``). ``hamiltonian(params_row, controls, t) ->
+    (d, d)`` is one member's Hamiltonian (a torch callable, or an
     :class:`EnsembleLinearHamiltonian`), one member a row of
-    ``hamiltonian_params``. The loss's ``uses_fused_chain`` says which
-    route it took (module docstring). ``device``/``dtype`` as the entry
-    points' (default the card in float32); ``block`` is its time block in
-    steps."""
+    ``hamiltonian_params``. The loss's ``uses_fused_chain`` says whether it
+    took a chain route, fused or streamed, and ``route`` which (module
+    docstring). ``device``/``dtype`` as the entry points' (default the card
+    in float32); ``block`` is its time block in steps."""
     refuse_mesh(mesh)
     device, dtype = resolve(device, dtype)
     params = np.asarray(hamiltonian_params)
@@ -246,22 +312,42 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh=None,
     chain_loss = build_chain_loss(pstate, hamiltonian, params, device, dtype,
                                   time_block_size=time_block_size)
     if log_path:
-        d = np.asarray(pstate.initial_states).shape[-2]
-        path, kernels, packing = describe_route(
-            chain_loss.route, d, device, params.shape[0],
-            pstate.system_eval_count - 1, chain_loss.block,
-            bool(pstate.step_costs))
-        print("qoc_tpu_torch: ensemble propagation path = {}, {} "
+        path, kernels, packing = describe_route(chain_loss, device,
+                                                params.shape[0])
+        print("qoc_tpu_torch: {}ensemble propagation path = {}, {} "
               "(member-batched: {}, block={}).".format(
-                  path, kernels, packing, chain_loss.block))
+                  "Lindblad " if chain_loss.lindblad else "", path, kernels,
+                  packing, chain_loss.block))
 
     def loss(controls):
-        errors, states = chain_loss(controls[None])
-        return errors[0].mean(), states[0]
+        errors, evolved = chain_loss(controls[None])
+        return errors[0].mean(), evolved[0]
 
-    loss.uses_fused_chain = chain_loss.route == "fused"
-    loss.block = chain_loss.block
+    loss.uses_fused_chain = chain_loss.route in ("fused", "stream")
+    loss.route, loss.block = chain_loss.route, chain_loss.block
     return loss
+
+
+def run_ensemble(pstate, hamiltonian, hamiltonian_params, result, device,
+                 dtype, time_block_size=None, evolved="states"):
+    """Mark ``pstate`` as the ensemble's, build its loss and run the GRAPE
+    loop (``core/graperunner.py``) into ``result``: the body of
+    :func:`grape_schroedinger_ensemble` and of
+    ``grape_lindblad_ensemble`` (``evolved="densities"``)."""
+    pstate.set_ensemble(hamiltonian_params)
+    loss_controls = build_ensemble_loss(pstate, hamiltonian,
+                                        hamiltonian_params,
+                                        time_block_size=time_block_size,
+                                        log_path=pstate.should_log,
+                                        device=device, dtype=dtype)
+    pstate.log_and_save_initial()
+    cc, shape = pstate.complex_controls, pstate.controls_shape
+
+    def loss_flat(flat_params):
+        return loss_controls(slap_controls_torch(cc, flat_params, shape))
+
+    run_grape(pstate, result, loss_flat, device, dtype, evolved=evolved)
+    return result
 
 
 def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
@@ -312,20 +398,7 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
         iteration_count, log_iteration_step, max_control_norms,
         magnus_policy, min_error, optimizer, save_file_path,
         save_intermediate_states, save_iteration_step, system_eval_count)
-    pstate.set_ensemble(hamiltonian_params)
     pstate.fused_chunk = fused_chunk
-    loss_controls = build_ensemble_loss(pstate, hamiltonian,
-                                        hamiltonian_params,
-                                        time_block_size=time_block_size,
-                                        log_path=pstate.should_log,
-                                        device=device, dtype=dtype)
-    pstate.log_and_save_initial()
-    result = GrapeSchroedingerResult()
-    shape = pstate.controls_shape
-
-    def loss_flat(flat_params):
-        return loss_controls(
-            slap_controls_torch(complex_controls, flat_params, shape))
-
-    run_grape(pstate, result, loss_flat, device, dtype)
-    return result
+    return run_ensemble(pstate, hamiltonian, hamiltonian_params,
+                        GrapeSchroedingerResult(), device, dtype,
+                        time_block_size)

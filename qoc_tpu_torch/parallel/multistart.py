@@ -11,12 +11,15 @@ the members (robust multistart).
 Propagation is the ensemble's chain loss (``parallel/ensemble.py``) over
 candidates x members, candidate-major (``qoc_tpu``'s ``jnp.repeat`` at
 multistart.py:439): for a ``LinearHamiltonian`` or an
-``EnsembleLinearHamiltonian`` under Magnus-M2 at d <= 64 every chain goes
-through the chain op's member axis, one K1 and one K2 launch a time block
-for all chains (step costs through the trajectory form, K2 per step);
+``EnsembleLinearHamiltonian`` under Magnus-M2 every chain goes through a
+chain op's member axis, one K1 and one K2 launch a time block for all
+chains at d <= 64, one K6 forward and one K6 adjoint at 256 < padded d <=
+512 (step costs through the trajectory form, the adjoint per step);
 anything else takes the blocked route, all chains' planes in one K3/K4
-batch a time block. ``qoc_tpu`` shards the candidates over a mesh; on one
-card ``mesh`` other than None raises (ROADMAP Queue 1, item 8).
+batch a time block. :func:`run_chain_multistart` is the body it shares with
+the Lindblad multistart (``parallel/lindblad.py``). ``qoc_tpu`` shards the
+candidates over a mesh; on one card ``mesh`` other than None raises
+(ROADMAP Queue 1, item 8).
 """
 
 import numpy as np
@@ -34,7 +37,7 @@ from qoc_tpu_torch.parallel._msrunner import (run_multistart,
 from qoc_tpu_torch.parallel.ensemble import (build_chain_loss,
                                              describe_route, refuse_mesh)
 
-__all__ = ["grape_schroedinger_multistart"]
+__all__ = ["grape_schroedinger_multistart", "run_chain_multistart"]
 
 
 def grape_schroedinger_multistart(control_count, control_eval_count, costs,
@@ -80,7 +83,6 @@ def grape_schroedinger_multistart(control_count, control_eval_count, costs,
         optimizer = Adam()
     validate_multistart_entry(optimizer, "grape_schroedinger_multistart",
                               hamiltonian, hamiltonian_params)
-    ensemble = hamiltonian_params is not None
     base_controls, max_control_norms = initialize_controls(
         complex_controls, control_count, control_eval_count, evolution_time,
         initial_controls, max_control_norms)
@@ -91,38 +93,50 @@ def grape_schroedinger_multistart(control_count, control_eval_count, costs,
         log_iteration_step, max_control_norms, magnus_policy, min_error,
         optimizer, save_file_path, False, save_iteration_step,
         system_eval_count)
+    pstate.fused_chunk = fused_chunk
+    return run_chain_multistart(pstate, hamiltonian, hamiltonian_params,
+                                n_starts, seed, GrapeSchroedingerResult(),
+                                device, dtype)
+
+
+def run_chain_multistart(pstate, hamiltonian, hamiltonian_params, n_starts,
+                         seed, result, device, dtype, evolved="states"):
+    """The multistart on a GRAPE state: the chain loss over candidates x
+    members (``parallel/ensemble.py``), the runner
+    (``parallel/_msrunner.py``) and one forward of the winner for its
+    final states, or densities (``evolved="densities"``), per member for a
+    robust multistart; the body of :func:`grape_schroedinger_multistart`
+    and of ``grape_lindblad_multistart``."""
+    ensemble = hamiltonian_params is not None
     if ensemble:
         pstate.set_ensemble(hamiltonian_params)
-    pstate.fused_chunk = fused_chunk
     chain_loss = build_chain_loss(
         pstate, hamiltonian, hamiltonian_params, device, dtype,
         n_candidates=n_starts)
     n_members = 1 if not ensemble else np.asarray(
         hamiltonian_params).shape[0]
     if pstate.should_log:
-        path, kernels, packing = describe_route(
-            chain_loss.route, np.asarray(initial_states).shape[-2], device,
-            n_starts * n_members, system_eval_count - 1, chain_loss.block,
-            bool(pstate.step_costs))
-        print("qoc_tpu_torch: multistart propagation path = {}, {} "
+        path, kernels, packing = describe_route(chain_loss, device,
+                                                n_starts * n_members)
+        print("qoc_tpu_torch: {}multistart propagation path = {}, {} "
               "(candidate{}-batched: {}, block={}).".format(
-                  path, kernels, " x member" if ensemble else "", packing,
+                  "Lindblad " if chain_loss.lindblad else "", path, kernels,
+                  " x member" if ensemble else "", packing,
                   chain_loss.block))
-    cc, shape = complex_controls, pstate.controls_shape
+    cc, shape = pstate.complex_controls, pstate.controls_shape
     slap = torch.func.vmap(lambda p: slap_controls_torch(cc, p, shape))
 
     def loss_sum(clipped_flat):
         errors = chain_loss(slap(clipped_flat))[0].mean(dim=1)
         return errors.sum(), errors
 
-    result = GrapeSchroedingerResult()
     winning_flat = run_multistart(pstate, result, loss_sum, n_starts, device,
                                   dtype, seed=seed)
     # One forward of the winner gives its final states (per member for a
     # robust multistart).
     with torch.no_grad():
         flat = torch.as_tensor(winning_flat, dtype=dtype, device=device)
-        states = chain_loss(slap(flat[None]))[1][0]
-    result.best_final_states = (states if ensemble else states[0]).cpu() \
-        .numpy()
+        final = chain_loss(slap(flat[None]))[1][0]
+    setattr(result, "best_final_" + evolved,
+            (final if ensemble else final[0]).cpu().numpy())
     return result

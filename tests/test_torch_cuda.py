@@ -963,3 +963,117 @@ def test_multistart_iteration_has_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(flat).all())
+
+
+# (kernel, d, chains, steps) of the member-batched plane op: K6 at d = 260
+# with S_m > 1 segments a chain (2 and 5 members; 16 chains of 2 steps, 32
+# rows in 3 waves of the 15 resident clusters), one a chain (15 chains fill
+# the clusters) and 17 chains of one step (a ragged second wave of the
+# clusters' loop); K5 at d = 16 with S_m > 1 (3 members) and 133 chains of
+# one segment (a ragged last wave of blocks).
+_PLANE_MEMBER_CASES = (("K6", 260, 2, 7), ("K6", 260, 5, 3),
+                       ("K6", 260, 16, 2), ("K6", 260, 15, 2),
+                       ("K6", 260, 17, 1), ("K5", 16, 3, 37),
+                       ("K5", 16, 133, 5))
+
+
+def _member_planes(gen, n_chains, n_steps, d, target_norm, dev):
+    """(M, B, d, d) complex64 planes, anti-Hermitian plus a decaying
+    Hermitian part (non-normal steps, as Lindblad generators are), at
+    batch-max 1-norm ``target_norm``."""
+    h = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    n = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                    device=dev, generator=gen)
+    a = -0.5j * (h + h.mH) - 0.01 * (n @ n.mH)
+    return a * (target_norm / a.abs().sum(-2).amax())
+
+
+@pytest.mark.parametrize("kernel,d,n_chains,n_steps", _PLANE_MEMBER_CASES)
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_member_batched_plane_op_matches_plain_versions(
+        cuda_device, kernel, d, n_chains, n_steps, target_norm):
+    """The plane op's member axis through K6 or K5 (one forward and one
+    adjoint launch a backward) against the plain versions on every ladder
+    level, in both seed modes: totals, prefixes and the plane gradient; the
+    first and last chain against the single-chain op on the card."""
+    from qoc_tpu_torch.ops import chain
+    fwd, bwd = ((chain.stream_fwd, chain.stream_bwd) if kernel == "K6"
+                else (chain.plane_fwd, chain.plane_bwd))
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        n_chains + int(10 * target_norm))
+    a = _member_planes(gen, n_chains, n_steps, d, target_norm, cuda_device)
+    g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                          device=cuda_device, generator=gen)
+    g_pref = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                         device=cuda_device, generator=gen)
+
+    def run(plain, x, g_t, g_p):
+        x = x.clone().requires_grad_(True)
+        total, prefixes = chain.plane_chain_propagate_prefixes(x, plain)
+        last, = torch.autograd.grad(total, x, g_t, retain_graph=True)
+        step, = torch.autograd.grad((total, prefixes), x, (g_t, g_p))
+        return total.detach(), prefixes.detach(), last, step
+
+    before = (fwd.launches, bwd.launches, bwd.step_launches)
+    got = run(False, a, g_total, g_pref)
+    assert (fwd.launches - before[0], bwd.launches - before[1],
+            bwd.step_launches - before[2]) == (1, 2, 1)
+    want = run(True, a, g_total, g_pref)
+    torch.cuda.synchronize()
+    rtols = (FWD_RTOL, FWD_RTOL, GRAD_RTOL, GRAD_RTOL)
+    for x, y, rtol in zip(got, want, rtols):
+        assert float((x - y).abs().max() / y.abs().max()) < rtol
+    for m in (0, n_chains - 1):
+        alone = run(False, a[m], g_total[m], g_pref[m])
+        for x, y, rtol in zip(got, alone, rtols):
+            assert float((x[m] - y).abs().max() / y.abs().max()) < rtol
+
+
+def _lindblad_ensemble(d, n_points):
+    """Example 6's open-system ensemble at Hilbert d (chip_smoke.py phase
+    32's construction): 4 members of (1 + δ)·h0, one complex control, T1
+    decay, |0><0| to |1><1|; the keyword arguments of
+    grape_lindblad_ensemble."""
+    import qoc_tpu_torch
+    a = np.diag(np.sqrt(np.arange(1, d)), 1).astype(complex)
+    h0 = 0.1 * a.conj().T @ a if d > 2 else np.diag([0.5, -0.5]) + 0j
+    initial = np.zeros((1, d, d), complex)
+    initial[0, 0, 0] = 1
+    target = np.zeros((1, d, d), complex)
+    target[0, 1, 1] = 1
+    return dict(
+        control_count=1, control_eval_count=n_points,
+        costs=[qoc_tpu_torch.TargetDensityInfidelity(target)],
+        evolution_time=10.0,
+        hamiltonian=qoc_tpu_torch.EnsembleLinearHamiltonian(h0, a[None],
+                                                            h0[None]),
+        hamiltonian_params=np.linspace(-0.05, 0.05, 4)[:, None],
+        initial_densities=initial, system_eval_count=n_points,
+        complex_controls=True, log_iteration_step=0,
+        lindblad_data=qoc_tpu_torch.ConstantLindblad(np.array([1e-3]),
+                                                     a[None]),
+        method=qoc_tpu_torch.LindbladMethod.MAGNUS_EXPM)
+
+
+@pytest.mark.parametrize("d,launched", ((2, ("K1", "K2")),
+                                        (17, ("K6 fwd", "K6 bwd"))))
+def test_lindblad_ensemble_grape_launches(cuda_device, d, launched):
+    """grape_lindblad_ensemble with 4 members: at d = 2 K1/K2's member
+    axis, at d = 17 (superoperator 289, padded 320) K6's, once an iteration
+    for all members; nothing else."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    wrappers = {"K1": chain.chain_fwd, "K2": chain.chain_bwd,
+                "K3": expm_cuda.expm_fwd, "K4": expm_cuda.expm_frechet_fwd,
+                "K5 fwd": chain.plane_fwd, "K5 bwd": chain.plane_bwd,
+                "K6 fwd": chain.stream_fwd, "K6 bwd": chain.stream_bwd}
+    before = {key: fn.launches for key, fn in wrappers.items()}
+    result = qoc_tpu_torch.grape_lindblad_ensemble(
+        iteration_count=3, device=cuda_device, **_lindblad_ensemble(d, 21))
+    counts = {key: fn.launches - before[key]
+              for key, fn in wrappers.items()}
+    assert counts == {key: 3 if key in launched else 0 for key in counts}
+    assert result.best_final_densities.shape == (4, 1, d, d)
+    assert np.all(np.isfinite(result.best_final_densities))
+    assert result.errors[-1] < result.errors[0]

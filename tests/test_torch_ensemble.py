@@ -158,8 +158,8 @@ _LOSS_CASES = {
 }
 
 
-def _problem(n_members, step_costs, callables):
-    problem = EnsembleProblem(n_members=n_members)
+def _problem(n_members, step_costs, callables, **sizes):
+    problem = EnsembleProblem(n_members=n_members, **sizes)
     if step_costs:
         problem.add_step_costs()
     if step_costs == "alone":
@@ -170,12 +170,13 @@ def _problem(n_members, step_costs, callables):
     return problem
 
 
-def _jax_loss(n_members, magnus, step_costs, callables):
+def _jax_loss(n_members, magnus, step_costs, callables, **sizes):
     """qoc_tpu's ensemble loss, value, gradient (w.r.t. the flat real
-    controls) and member final states, at the problem's controls."""
+    controls) and member final states, at the problem's controls
+    (``sizes``: EnsembleProblem's d, n_c, n_steps, evolution_time)."""
     from qoc_tpu.core.common import slap_controls_jax, strip_controls
     from qoc_tpu.parallel import build_ensemble_loss, make_mesh
-    problem = _problem(n_members, step_costs, callables)
+    problem = _problem(n_members, step_costs, callables, **sizes)
     pstate = problem.jax_pstate(magnus=magnus)
     loss = build_ensemble_loss(pstate, problem.jax_hamiltonian,
                                problem.params, make_mesh(1))
@@ -285,22 +286,32 @@ def test_grape_ensemble_refusals(case):
             device="cpu", **kwargs)
 
 
-def test_ensemble_stream_range_raises():
-    """At 256 < padded d <= 512 qoc_tpu runs K6's member axis; the port
-    raises there, naming its ROADMAP item."""
-    from qoc_tpu_torch import EnsembleLinearHamiltonian
-    from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
-                                      InterpolationPolicy, MagnusPolicy)
-    from qoc_tpu_torch.optim import Adam
+def test_ensemble_stream_range_matches_jax(capsys):
+    """At 256 < padded d <= 512 the fused ensemble takes the streamed
+    route, both members' chains on the plane op's member axis (K6's on the
+    card): d = 260, 2 members x 2 steps, loss, control gradient and member
+    final states against qoc_tpu's. Folding the members into one chain of
+    4 steps would fail here."""
+    from qoc_tpu_torch.core.common import slap_controls_torch, strip_controls
     from qoc_tpu_torch.parallel import build_ensemble_loss
-    d = 260
-    h0 = np.eye(d)
-    ham = EnsembleLinearHamiltonian(h0, np.zeros((1, d, d)), h0[None])
-    initial = np.zeros((1, d, 1))
-    initial[0, 0] = 1
-    pstate = GrapeSchroedingerDiscreteState(
-        True, 1, 3, 1, [], 1.0, None, None, np.zeros((3, 1), complex),
-        initial, InterpolationPolicy.LINEAR, 1, 0, np.ones(1),
-        MagnusPolicy.M2, 0, Adam(), None, False, 0, 3)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 4"):
-        build_ensemble_loss(pstate, ham, np.zeros((2, 1)), device="cpu")
+    problem = EnsembleProblem(n_members=2, d=260, n_c=1, n_steps=3,
+                              evolution_time=0.01)
+    pstate = problem.torch_pstate()
+    loss = build_ensemble_loss(pstate, problem.torch_hamiltonian,
+                               problem.params, log_path=True, device="cpu")
+    assert loss.route == "stream" and loss.uses_fused_chain
+    assert ("streamed chain, plain torch on cpu (member-batched: 2 chains, "
+            "segmented, 2 segments a chain" in capsys.readouterr().out)
+    flat = torch.as_tensor(strip_controls(True, problem.controls))
+    flat.requires_grad_(True)
+    error, states = loss(slap_controls_torch(True, flat,
+                                             pstate.controls_shape))
+    grad, = torch.autograd.grad(error, flat)
+    want_error, want_grad, want_states = _jax_loss(2, "M2", False, False,
+                                                   d=260, n_c=1, n_steps=3,
+                                                   evolution_time=0.01)
+    assert states.shape == (2, 1, 260, 1)
+    assert float(error.detach()) == pytest.approx(want_error, abs=1e-6)
+    np.testing.assert_allclose(grad.numpy(), want_grad, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(states.detach().numpy(), want_states,
+                               rtol=0, atol=1e-6)

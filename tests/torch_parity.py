@@ -316,3 +316,112 @@ class EnsembleProblem(Problem):
         pstate = super().torch_pstate(iteration_count, magnus)
         pstate.hamiltonian = None
         return pstate
+
+
+class LindbladEnsembleProblem:
+    """An open-system ensemble in both packages, example 6's construction
+    at Hilbert d (examples/6_lindblad_ensemble_robust.py; at d > 2 the drift
+    0.1 n̂ of bench_lindblad_d20): H_m = (1 + δ_m) h0 + c a + conj(c) a^H as
+    an EnsembleLinearHamiltonian with param_operators [h0], δ =
+    linspace(-0.02, 0.02, M), T1 decay on a at ``rate``, |0><0| to
+    |1><1|, random complex controls from ``seed``; MAGNUS_EXPM."""
+
+    def __init__(self, d=2, n_members=8, control_eval_count=11,
+                 system_eval_count=21, evolution_time=10.0, rate=1e-3,
+                 seed=6):
+        from qoc_tpu import ConstantLindblad, EnsembleLinearHamiltonian
+        from qoc_tpu.standard import TargetDensityInfidelity
+        from qoc_tpu_torch import convert
+
+        rng = np.random.default_rng(seed)
+        self.d, self.n_c = d, 1
+        self.control_eval_count = control_eval_count
+        self.system_eval_count = system_eval_count
+        self.evolution_time = evolution_time
+        self.a = annihilation(d)
+        self.h0 = (np.diag([0.5, -0.5]).astype(complex) if d == 2
+                   else 0.1 * self.a.conj().T @ self.a)
+        self.params = np.linspace(-0.02, 0.02, n_members).reshape(-1, 1)
+        self.initial = np.zeros((1, d, d), dtype=complex)
+        self.initial[0, 0, 0] = 1
+        self.target = np.zeros((1, d, d), dtype=complex)
+        self.target[0, 1, 1] = 1
+        self.controls = 0.3 * (rng.normal(size=(control_eval_count, 1))
+                               + 1j * rng.normal(size=(control_eval_count,
+                                                       1)))
+        self.max_control_norms = np.full(1, 10.0)
+        self.cost_eval_step = 1
+        self.jax_hamiltonian = EnsembleLinearHamiltonian(
+            self.h0, self.a[None], self.h0[None])
+        self.jax_lindblad = ConstantLindblad(np.array([rate]), self.a[None])
+        self.jax_costs = [TargetDensityInfidelity(self.target)]
+        self.torch_hamiltonian = convert.linear_hamiltonian(
+            self.jax_hamiltonian)
+        self.torch_lindblad = convert.constant_lindblad(self.jax_lindblad)
+        self.torch_costs = [convert.target_density_infidelity(c)
+                            for c in self.jax_costs]
+        self.torch_initial = convert.densities(self.initial)
+
+    def add_step_costs(self):
+        """TargetDensityInfidelityTime of the target (0.5) and
+        ForbidDensities of a random density (0.1), every step."""
+        from qoc_tpu.standard import (ForbidDensities,
+                                      TargetDensityInfidelityTime)
+        from qoc_tpu_torch import convert
+        n_steps = self.system_eval_count - 1
+        forbidden = random_density(np.random.default_rng(self.d), self.d)
+        step_costs = [
+            TargetDensityInfidelityTime(n_steps, self.target, 1,
+                                        cost_multiplier=0.5),
+            ForbidDensities([forbidden[None]], n_steps, 1,
+                            cost_multiplier=0.1)]
+        self.jax_costs = self.jax_costs + step_costs
+        self.torch_costs = self.torch_costs + [
+            convert.target_density_infidelity_time(step_costs[0]),
+            convert.forbid_densities(step_costs[1])]
+        return self
+
+    def use_callables(self):
+        """The members as one time-dependent callable in each package,
+        H(row, c, t) = (cos(t) + row[0]) h0 + c a + conj(c) a^H (the
+        generic route)."""
+        import jax.numpy as jnp
+        import torch
+        h0, a = self.h0, self.a
+
+        def jax_hamiltonian(row, controls, t):
+            drive = controls[0] * a
+            return ((jnp.cos(t) + row[0]) * h0 + drive
+                    + jnp.conjugate(drive.T))
+
+        h0_t, a_t = torch.as_tensor(h0), torch.as_tensor(a)
+
+        def torch_hamiltonian(row, controls, t):
+            drive = controls[0] * a_t
+            return (torch.cos(t) + row[0]) * h0_t + drive + drive.mH
+
+        self.jax_hamiltonian = jax_hamiltonian
+        self.torch_hamiltonian = torch_hamiltonian
+        return self
+
+    def pstate(self, package):
+        """qoc_tpu's or the port's GrapeLindbladDiscreteState under
+        MAGNUS_EXPM, with no Hamiltonian of its own (the members')."""
+        if package == "jax":
+            from qoc_tpu import models
+            from qoc_tpu.optim import Adam
+            lind, costs, initial = (self.jax_lindblad, self.jax_costs,
+                                    self.initial)
+        else:
+            from qoc_tpu_torch import Adam, models
+            lind, costs, initial = (self.torch_lindblad, self.torch_costs,
+                                    self.torch_initial)
+        pstate = models.GrapeLindbladDiscreteState(
+            True, 1, self.control_eval_count, self.cost_eval_step, costs,
+            self.evolution_time, None, None, self.controls, initial,
+            models.InterpolationPolicy.LINEAR, 1, lind, 0,
+            self.max_control_norms, 0, Adam(), None, False, 0,
+            self.system_eval_count)
+        pstate.method_ = models.LindbladMethod.MAGNUS_EXPM
+        pstate.magnus_policy_ = models.MagnusPolicy.M2
+        return pstate
