@@ -168,7 +168,34 @@ build, for a quick check of a kernel.) Phases, one line each:
 35. K6's member-batched forward and adjoint (both seed modes) at phase
    32's 16-member shapes, and K5's at the M4 ensemble's planes (4 members
    x 2000 steps), beside their plain versions, bounds, grid and design; the
-   member merge and seed glue's device time at 4 members.
+   member merge and seed glue's device time at 4 members;
+36. the bf16_3x precision mode (QOC_TPU_MXU_PRECISION, config.MXU_MODE;
+   phases 1-35 run with it pinned to "highest"): the mode's kernels (3 x
+   TF32 tensor-core products, _D12A at degree 12) against their plain
+   versions in the mode, in float32, on every ladder level and in both
+   seed modes: K1/K2 at d = 64 and 21 terms on one chain of 1001 steps, 2
+   and 5 members, 133 and 512 chains and at the headline's own shapes; K5
+   at d = 64 and 16, one chain and on the member axis; K3/K4 at padded 64
+   (d = 16 and 64, batches 37, 133 and 2000); the padded rows and steps
+   exactly the identity; each also against the exact-f32 kernel and
+   float64 matrix_exp products, within the mode's envelope;
+37. the slice at full width in the mode: the Table-3 headline GRAPE (2
+   warm-up + 10 timed iterations) with counters (the mode forms of K1 and
+   K2 launched, the exact forms not), its rate beside phase 5's, its loss
+   and gradient against the float64 plain route and its loss beside the
+   exact kernels'; then the step-cost headline GRAPE (K2 per step), the M4
+   GRAPE (K5) and its step-cost loss (K5 per step), the M4 loss through
+   the blocked route (K3/K4 at padded 64), the 4-member ensemble and the
+   512-candidate multistart, each in the mode with its rate and counters;
+38. the mode's kernels timed at the headline shapes, the M4 planes and the
+   512-candidate shapes, beside the exact kernel in the same call, the
+   plain version in the mode and the mode's bound (the ladder's complex
+   products at 24 dp^3 FLOP over the TF32 tensor-core peak, against the
+   bytes over the HBM rate), with threads, shared memory, ptxas registers
+   and spills;
+39. the routes without the mode refuse it: the d = 2^7 GRAPE (K3/K4's
+   tiled path) and the Lindblad d = 20 GRAPE (K6) raise
+   NotImplementedError naming ROADMAP Queue 2 item 5b and launch nothing.
 
 Every phase prints its wall time, the summary the script's total.
 
@@ -177,6 +204,7 @@ the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -293,12 +321,24 @@ EXAMPLE6_ITERATIONS = 20
 D12 = 12
 
 # One H100 SXM (NVIDIA's data sheet, dense, at 700 W): FP32 outside the
-# tensor cores, HBM3 bandwidth.
+# tensor cores, TF32 on them, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 # Complex DP^3 products a step of the Taylor ladder per level: degree
-# 4/8/12/19, and degree 19 before the squarings of the last level.
+# 4/8/12/19, and degree 19 before the squarings of the last level; in the
+# bf16_3x mode degree 12 takes 4 (_D12A).
 LADDER_PRODUCTS = (2, 3, 5, 7, 7)
+MODE_LADDER_PRODUCTS = (2, 3, 4, 7, 7)
+# The bf16_3x precision mode (phases 36-39). K1/K2 against their plain
+# versions in the mode: (members, steps) of one chain (S = 126 segments),
+# S_m > 1 segments a chain (2 and 5 members), 133 chains (a ragged last
+# wave) and the 512-candidate shapes; K5: (d, chains, steps); K3/K4 at
+# padded 64: (d, batch).
+MODE = "bf16_3x"
+MODE_MEMBER_CASES = ((1, 1001), (2, 1001), (5, 203), (133, 37), (512, 200))
+MODE_PLANE_CASES = ((64, 1, 37), (16, 1, 2001), (64, 3, 37), (16, 133, 5))
+MODE_EXPM_CASES = ((16, 37), (64, 133), (64, 2000))
 LEVEL_NORMS = (0.03, 0.3, 1.0, 2.5, 7.0)
 
 
@@ -402,10 +442,14 @@ def initial_planes(pstate, hamiltonian, dev):
         return planes(controls, times).to(torch.complex64)
 
 
-def kernel_bound(step_norms, level, dual, tensors, dp=D, chain=True):
+def kernel_bound(step_norms, level, dual, tensors, dp=D, chain=True,
+                 mode="highest"):
     """(bound ms, what bounds it, GFLOP) of one kernel call: the larger of
-    its complex dp^3 products over the FP32 peak and the bytes of its
-    inputs and outputs (``tensors``, each once) over the HBM rate.
+    its complex dp^3 products over the FP32 peak (8 dp^3 FLOP each) and the
+    bytes of its inputs and outputs (``tensors``, each once) over the HBM
+    rate. In the bf16_3x ``mode`` a complex product is 3 TF32 passes of its
+    4 real products, 24 dp^3 FLOP over the TF32 peak, and degree 12 takes
+    4 products.
     ``step_norms`` are the 1-norms of the matrices the ladder exponentiates
     (A_t forward, A_t^H adjoint), one per step or matrix: at the squaring
     level they give this run's squarings. ``chain``: a chain kernel, which
@@ -413,7 +457,8 @@ def kernel_bound(step_norms, level, dual, tensors, dp=D, chain=True):
     and gU (adjoint); else K3/K4, exps only. Elementwise work is not
     counted."""
     n = step_norms.shape[0]
-    ladder = LADDER_PRODUCTS[level] * n
+    tf32 = mode == MODE
+    ladder = (MODE_LADDER_PRODUCTS if tf32 else LADDER_PRODUCTS)[level] * n
     if level == len(LADDER_PRODUCTS) - 1:
         ladder += int(torch.clamp(torch.ceil(torch.log2(
             torch.clamp(step_norms, min=1.0))), 0, 60).sum())
@@ -421,9 +466,10 @@ def kernel_bound(step_norms, level, dual, tensors, dp=D, chain=True):
     products = 3 * ladder if dual else ladder
     if chain:
         products += 2 * n if dual else n
-    flops = products * 8 * dp ** 3
+    flops = products * (24 if tf32 else 8) * dp ** 3
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / (PEAK_TF32_FLOPS if tf32 else PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
 
@@ -437,8 +483,11 @@ def _wrappers():
 
 
 # The adjoint wrappers also count their launches in the per-step-seed mode
-# (``step_launches``, a part of ``launches``), read as "<key> step".
+# (``step_launches``, a part of ``launches``), read as "<key> step"; the
+# wrappers of kernels with a bf16_3x form those in that precision mode
+# (``mode_launches``), read as "<key> mode".
 STEP_MODES = ("K2", "K5 bwd", "K6 bwd")
+PRECISION_MODES = ("K1", "K2", "K5 fwd", "K5 bwd", "K3", "K4")
 
 
 def reset_launches():
@@ -447,6 +496,8 @@ def reset_launches():
         fn.launches = 0
     for key in STEP_MODES:
         wrappers[key].step_launches = 0
+    for key in PRECISION_MODES:
+        wrappers[key].mode_launches = 0
 
 
 def read_launches():
@@ -454,7 +505,22 @@ def read_launches():
     launches = {key: fn.launches for key, fn in wrappers.items()}
     launches.update({key + " step": wrappers[key].step_launches
                      for key in STEP_MODES})
+    launches.update({key + " mode": wrappers[key].mode_launches
+                     for key in PRECISION_MODES})
     return launches
+
+
+@contextlib.contextmanager
+def precision(mode):
+    """config.MXU_MODE set to ``mode`` inside the block, restored after
+    (errors pass through)."""
+    from qoc_tpu_torch import config
+    old = config.MXU_MODE
+    config.MXU_MODE = mode
+    try:
+        yield
+    finally:
+        config.MXU_MODE = old
 
 
 def headline_weights(pstate, dev):
@@ -515,20 +581,29 @@ def design_line(name, entry, clusters, blocks, smem, bound_ms, ms,
 
 
 # ptxas entry strings of the resident chain kernels (K2/K5 adjoint: the
-# kernels' Adjoint<512>).
+# kernels' Adjoint<512>), exact and (True) in the bf16_3x mode.
 RESIDENT_ENTRY = {
-    "K1": ("chain_fwd_kernel",), "K5 fwd": ("plane_fwd_kernel",),
-    "K2": ("chain_bwd_kernel", "AdjointILi512ELb0ELb0E"),
-    "K5 bwd": ("plane_bwd_kernel", "AdjointILi512ELb0ELb0E")}
+    tc: {"K1": ("chain_fwd_kernelILb{}E".format(int(tc)),),
+         "K5 fwd": ("plane_fwd_kernelILb{}E".format(int(tc)),),
+         "K2": ("chain_bwd_kernel",
+                "AdjointILi512ELb0ELb0ELi4ELi7ELb{}E".format(int(tc))),
+         "K5 bwd": ("plane_bwd_kernel",
+                    "AdjointILi512ELb0ELb0ELi4ELi7ELb{}E".format(int(tc))),
+         "K3": ("expm_resident_kernelILb{}E".format(int(tc)),),
+         "K4": ("frechet_resident_kernel",
+                "Li4ELi7ELb{}E".format(int(tc)))}
+    for tc in (False, True)}
 
 
 def resident_design_line(key, s_count, bound_ms, ms):
     """design_line of a resident chain kernel launched on s_count segment
-    chains, one block each."""
+    chains, one block each (a key ending in " mode": its bf16_3x form)."""
     from qoc_tpu_torch.ops import chain
-    base = key.replace(" step", "")
+    tc = key.endswith(" mode")
+    base = key.replace(" mode", "").replace(" step", "").replace(
+        " member", "")
     threads, smem = chain.resident_block(base in ("K2", "K5 bwd"))
-    return design_line(key, RESIDENT_ENTRY[base], s_count, 1, smem,
+    return design_line(key, RESIDENT_ENTRY[tc][base], s_count, 1, smem,
                        bound_ms, ms, threads)
 
 
@@ -1112,16 +1187,18 @@ def _compare_expm_kernels(a, b, g):
             float((k4 - p4).abs().max()), levels)
 
 
-def _check_expm_padding(a):
+def _check_expm_padding(a, tf32=0):
     """K3's padded rows and columns exactly the identity's and K4's exactly
-    zero, read from the kernels' padded outputs."""
+    zero, read from the kernels' padded outputs (``tf32``: the bf16_3x
+    mode's forms)."""
     from qoc_tpu_torch.ops import expm_cuda
     d = a.shape[-1]
     dp = expm_cuda.kernel_dp(d)
     x = expm_cuda._padded(a, dp)
     norm = expm_cuda._norm_max(x)
-    u = expm_cuda._launch(False, dp, norm, x)
-    dl = expm_cuda._launch(True, dp, norm, x, expm_cuda._padded(a, dp))
+    u = expm_cuda._launch(False, dp, norm, x, tf32=tf32)
+    dl = expm_cuda._launch(True, dp, norm, x, expm_cuda._padded(a, dp),
+                           tf32=tf32)
     eye = torch.eye(dp - d, dtype=u.dtype, device=u.device).expand(
         u.shape[0], dp - d, dp - d)
     if not (torch.equal(u[:, d:, d:], eye)
@@ -1413,8 +1490,7 @@ def phase_expm_timing(dev):
             # K4 at dp = 64 runs K2's adjoint block (chain.resident_block).
             threads = chain.resident_block(True)[0] if dual and dp == 64 \
                 else 256
-            entry = (("frechet_resident_kernel" if dual else
-                      "expm_resident_kernel",) if dp == 64 else
+            entry = (RESIDENT_ENTRY[False][key] if dp == 64 else
                      ("expm_tiled_kernel",
                       "TiledILi{}ELb{}E".format(dp // 64, int(dual))))
             print("phase 15 design ({} planes): ".format(label)
@@ -2806,9 +2882,10 @@ def multistart_problem():
 
 
 def _multistart_run(label, n_starts, iterations, chunk, dev, problem,
-                    params=None):
+                    params=None, mode=False):
     """One grape_schroedinger_multistart run with counters and peak memory:
-    (result, launches, blocks, peak GB)."""
+    (result, launches, blocks, peak GB); ``mode``: every launch in the
+    bf16_3x mode's forms."""
     from qoc_tpu_torch import Adam, grape_schroedinger_multistart
     from qoc_tpu_torch.ops.chain import chain_block_plan
     pstate, ham, costs = problem
@@ -2829,9 +2906,10 @@ def _multistart_run(label, n_starts, iterations, chunk, dev, problem,
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     # K2 once a block an iteration; K1 also once a block for the winner's
     # final states.
-    _member_launches(label, launches, ("K1", "K2"),
-                     {"K1": blocks * (iterations + 1),
-                      "K2": blocks * iterations})
+    counts = {"K1": blocks * (iterations + 1), "K2": blocks * iterations}
+    if mode:
+        counts.update({key + " mode": n for key, n in list(counts.items())})
+    _member_launches(label, launches, tuple(counts), counts)
     errors = np.asarray(result.errors)
     if not (result.iteration_count_ran == iterations
             and np.all(np.isfinite(errors))
@@ -2839,11 +2917,12 @@ def _multistart_run(label, n_starts, iterations, chunk, dev, problem,
             and result.best_error <= errors[0]
             and np.all(np.isfinite(result.best_final_states))):
         raise RuntimeError(label + " failed its checks")
-    print("phase 29 {}: {} iterations (chunks of {}), {:.1f} "
+    print("phase {} {}: {} iterations (chunks of {}), {:.1f} "
           "candidate-it/s steady ({:.1f} mean), {} block(s) and {} K1 + {} "
           "K2 launches an iteration, peak {:.2f} GB, best error {:.6f} "
           "(candidate 0 {:.6f}, median {:.6f})".format(
-              label, iterations, chunk, result.iterations_per_s,
+              37 if mode else 29, label, iterations, chunk,
+              result.iterations_per_s,
               result.iterations_per_s_mean, blocks, blocks, blocks, peak,
               result.best_error, errors[0], float(np.median(errors))),
           flush=True)
@@ -3726,6 +3805,627 @@ def phase_plane_member_timing(dev):
                              "K5 member bwd": k5_launches["K5 bwd"]}
 
 
+# ---------------------------------------------------------------------------
+# The bf16_3x precision mode (phases 36-39)
+# ---------------------------------------------------------------------------
+
+
+def _mode_check(label, rels, env):
+    """Raise where the mode's kernel route is further from its plain
+    version in the mode (``rels``) or from the exact kernels or float64
+    (``env``, the mode's envelope) than FWD_RTOL / GRAD_RTOL: rels and env
+    are (totals and prefixes, gradients) pairs of lists."""
+    for name, (fwd, grad) in (("its plain version in the mode", rels),
+                              ("the exact kernels or float64", env)):
+        if max(fwd, default=0.0) > FWD_RTOL or \
+                max(grad, default=0.0) > GRAD_RTOL:
+            raise RuntimeError("{}: the bf16_3x kernels disagree with {}: "
+                               "{} / {}".format(label, name, fwd, grad))
+
+
+def _mode_member_kernels(dev, rng, gen, worst):
+    """Phase 36's K1/K2: the trajectory op on MODE_MEMBER_CASES and at
+    d = 16 against float64 matrix_exp products."""
+    from qoc_tpu_torch.ops import chain
+    for n_members, n_steps in MODE_MEMBER_CASES:
+        tag = "" if n_members == 1 else " member"
+        rows = []
+        for target in LEVEL_NORMS:
+            op_k, op_p, w = _member_case(rng, n_members, n_steps, target,
+                                         dev)
+            g_total = torch.randn((n_members, D, D), dtype=torch.complex64,
+                                  device=dev, generator=gen)
+            g_pref = torch.randn((n_members, n_steps, D, D),
+                                 dtype=torch.complex64, device=dev,
+                                 generator=gen)
+            with precision(MODE):
+                reset_launches()
+                got = _member_outputs(op_k, w, g_total, g_pref)
+                launches = read_launches()
+                want = _member_outputs(op_p, w, g_total, g_pref)
+                if not _member_padding(op_k, w):
+                    raise RuntimeError("padded steps or rows of a bf16_3x "
+                                       "chain are not exact")
+            exact = _member_outputs(op_k, w, g_total, g_pref)
+            torch.cuda.synchronize()
+            if (launches["K1"], launches["K1 mode"], launches["K2"],
+                    launches["K2 mode"], launches["K2 step"]) != \
+                    (1, 1, 2, 2, 1):
+                raise RuntimeError("the op in the mode did not launch the "
+                                   "mode's K1 once and K2 once a backward: "
+                                   "{}".format(launches))
+            rels = [_rel(x, y) for x, y in zip(got, want)]
+            env = [_rel(x, y) for x, y in zip(got, exact)]
+            _mode_check("{} members x {} steps, level {}".format(
+                n_members, n_steps, LEVEL_NORMS.index(target)),
+                (rels[:2], rels[2:]), (env[:2], env[2:]))
+            for key, x, y in (("K1" + tag + " mode", got[1], want[1]),
+                              ("K2" + tag + " mode", got[2], want[2]),
+                              ("K2" + tag + " mode step", got[3], want[3])):
+                worst[key] = max(worst.get(key, 0.0),
+                                 float((x - y).abs().max()))
+            rows.append("{} {:.1e}/{:.1e}/{:.1e}/{:.1e} exact {:.1e}/{:.1e}"
+                        "".format(LEVEL_NORMS.index(target), *rels,
+                                  env[0], env[2]))
+        print("phase 36 bf16_3x K1/K2 ({} chains x {} steps, S_m = {}): "
+              "level total/prefixes/grad last-step/grad per-step rel vs plain "
+              "in the mode, total/grad rel vs the exact kernels: {}".format(
+                  n_members, n_steps,
+                  chain.segment_plan(n_steps, n_members)[0],
+                  "; ".join(rows)),
+              flush=True)
+    # Float64 matrix_exp products at d = 16 (zero-padded to 64).
+    d = 16
+    op_k, _, w = _member_case(rng, 3, 37, 1.0, dev, d)
+    with precision(MODE):
+        total = op_k(w)[0].to(torch.complex128)
+    a = torch.einsum("mjk,kab->mjab", w.double().to(torch.complex128),
+                     op_k.basis[:, :d, :d].to(torch.complex128))
+    want = torch.eye(d, dtype=torch.complex128, device=dev).expand(3, d, d)
+    for t in range(a.shape[1]):
+        want = torch.linalg.matrix_exp(a[:, t]) @ want
+    rel = _rel(total, want)
+    _mode_check("d = 16 vs float64", ([], []), ([rel], []))
+    return rel
+
+
+def _mode_headline(dev, headline_w, worst):
+    """Phase 36 at the headline's own shapes: K1 and K2 (both seed modes)
+    against their plain versions in the mode and the exact kernels."""
+    from qoc_tpu_torch.ops import chain
+    op = chain.ChainExpmPropagate(table3_basis(), dev, torch.float32)
+    n_steps = headline_w.shape[0]
+    s_count, length = chain.segment_plan(n_steps)
+    w_seg = torch.zeros((s_count * length, op.n_b), device=dev)
+    w_seg[:n_steps] = headline_w
+    w_seg = w_seg.reshape(s_count, length, op.n_b)
+    n1, ninf = chain._norm_max(headline_w, op.basis_ri, op.d)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    seeds = torch.randn((s_count, D, D), dtype=torch.complex64, device=dev,
+                        generator=gen)
+    step_seeds = torch.randn((s_count, length, D, D), dtype=torch.complex64,
+                             device=dev, generator=gen)
+    pref = chain.chain_fwd(w_seg, op.basis, n1, MODE)
+    pref_p = chain.chain_fwd_plain(w_seg, op.basis, n1, MODE)
+    pref_x = chain.chain_fwd(w_seg, op.basis, n1, "highest")
+    out = {"K1 mode": (pref, pref_p, pref_x)}
+    for key, s in (("K2 mode", seeds), ("K2 mode step", step_seeds)):
+        args = (w_seg, op.basis_h, ninf, pref_p, s)
+        out[key] = (chain.chain_bwd(*args, MODE),
+                    chain.chain_bwd_plain(*args, MODE),
+                    chain.chain_bwd(*args, "highest"))
+    torch.cuda.synchronize()
+    rows = []
+    for key, (k, p, x) in out.items():
+        if not bool(torch.isfinite(torch.view_as_real(k)).all()):
+            raise RuntimeError(key + " produced non-finite values")
+        rel, env = _rel(k, p), _rel(k, x)
+        grad = key != "K1 mode"
+        _mode_check("headline shapes, " + key,
+                    ([], [rel]) if grad else ([rel], []),
+                    ([], [env]) if grad else ([env], []))
+        worst[key] = max(worst.get(key, 0.0), float((k - p).abs().max()))
+        rows.append("{} max|err| {:.3e} (rel {:.2e}), rel vs exact {:.2e}"
+                    "".format(key, float((k - p).abs().max()), rel, env))
+    print("phase 36 bf16_3x headline shapes (S x L = {} x {}, levels {}/{}): "
+          "{}".format(s_count, length, chain.ladder_level(n1),
+                      chain.ladder_level(ninf), "; ".join(rows)), flush=True)
+
+
+def _mode_plane_kernels(dev, rng, gen, worst):
+    """Phase 36's K5: the plane op's trajectory form on MODE_PLANE_CASES
+    and against float64 matrix_exp products."""
+    from qoc_tpu_torch.ops import chain
+    for d, n_chains, n_steps in MODE_PLANE_CASES:
+        rows = []
+        for target in LEVEL_NORMS:
+            a = torch.stack([torch.as_tensor(
+                _unit_planes(rng, n_steps, d) * target,
+                dtype=torch.complex64, device=dev) for _ in range(n_chains)])
+            g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                                  device=dev, generator=gen)
+            g_pref = torch.randn((n_chains, n_steps, d, d),
+                                 dtype=torch.complex64, device=dev,
+                                 generator=gen)
+            n1 = chain._plane_norm_max(a)[0]
+            with precision(MODE):
+                reset_launches()
+                got = _plane_member_outputs(a, False, g_total, g_pref)
+                launches = read_launches()
+                want = _plane_member_outputs(a, True, g_total, g_pref)
+                _plane_member_padding(a, n1)
+            exact = _plane_member_outputs(a, False, g_total, g_pref)
+            torch.cuda.synchronize()
+            if (launches["K5 fwd"], launches["K5 fwd mode"],
+                    launches["K5 bwd"], launches["K5 bwd mode"],
+                    launches["K5 bwd step"]) != (1, 1, 2, 2, 1):
+                raise RuntimeError("the plane op in the mode did not launch "
+                                   "the mode's K5: {}".format(launches))
+            rels = [_rel(x, y) for x, y in zip(got, want)]
+            env = [_rel(x, y) for x, y in zip(got, exact)]
+            _mode_check("K5 d = {}, {} chains x {} steps, level {}".format(
+                d, n_chains, n_steps, LEVEL_NORMS.index(target)),
+                (rels[:2], rels[2:]), (env[:2], env[2:]))
+            for key, x, y in (("K5 fwd mode", got[1], want[1]),
+                              ("K5 bwd mode", got[2], want[2]),
+                              ("K5 bwd mode step", got[3], want[3])):
+                worst[key] = max(worst.get(key, 0.0),
+                                 float((x - y).abs().max()))
+            rows.append("{} {:.1e}/{:.1e}/{:.1e}/{:.1e} exact {:.1e}/{:.1e}"
+                        "".format(LEVEL_NORMS.index(target), *rels, env[0],
+                                  env[2]))
+        print("phase 36 bf16_3x K5 (d = {}, {} chains x {} steps): level "
+              "total/prefixes/grad last-step/grad per-step rel vs plain in "
+              "the mode, total/grad rel vs the exact kernels: {}; padding "
+              "exact".format(d, n_chains, n_steps, "; ".join(rows)),
+              flush=True)
+    d = 16
+    a = torch.as_tensor(_unit_planes(rng, 37, d), dtype=torch.complex64,
+                        device=dev)
+    with precision(MODE):
+        total = chain.plane_chain_propagate(a).to(torch.complex128)
+    want = torch.eye(d, dtype=torch.complex128, device=dev)
+    for u in torch.linalg.matrix_exp(a.to(torch.complex128)):
+        want = u @ want
+    rel = _rel(total, want)
+    _mode_check("K5 d = 16 vs float64", ([], []), ([rel], []))
+    return rel
+
+
+def _mode_expm_kernels(dev, gen, worst):
+    """Phase 36's K3/K4 at padded 64 on MODE_EXPM_CASES, every level:
+    against their plain versions in the mode and the exact kernels, the
+    padding exact, and at batch 37 against float64 matrix_exp and its
+    autograd."""
+    from qoc_tpu_torch.ops import expm_cuda
+    for d, batch in MODE_EXPM_CASES:
+        g = torch.randn((batch, d, d), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        rows = []
+        for target in LEVEL_NORMS:
+            a = _random_planes(gen, batch, d, target, dev)
+            with precision(MODE):
+                reset_launches()
+                rel3, rel4, err3, err4, (level, _) = _compare_expm_kernels(
+                    a, a, g)
+                launches = read_launches()
+                _check_expm_padding(a, tf32=1)
+                k3 = expm_cuda.expm_fwd(a)
+                k4 = expm_cuda.expm_frechet_fwd(a.mH, g)
+            if (launches["K3 mode"], launches["K4 mode"]) != (1, 1):
+                raise RuntimeError("K3/K4 in the mode did not launch their "
+                                   "mode forms: {}".format(launches))
+            env3 = _rel(k3, expm_cuda.expm_fwd(a))
+            env4 = _rel(k4, expm_cuda.expm_frechet_fwd(a.mH, g))
+            rows.append("{} {:.1e} {:.1e} exact {:.1e} {:.1e}".format(
+                level, rel3, rel4, env3, env4))
+            if batch == 37:
+                a64 = a.to(torch.complex128).requires_grad_(True)
+                u64 = torch.linalg.matrix_exp(a64)
+                grad64, = torch.autograd.grad(u64, a64,
+                                              g.to(torch.complex128))
+                f64 = (_rel(k3.to(torch.complex128), u64.detach()),
+                       _rel(k4.to(torch.complex128), grad64))
+                rows[-1] += " f64 {:.1e} {:.1e}".format(*f64)
+                env3, env4 = max(env3, f64[0]), max(env4, f64[1])
+            _mode_check("K3/K4 d = {}, batch {}, level {}".format(
+                d, batch, level), ([rel3], [rel4]), ([env3], [env4]))
+            worst["K3 mode"] = max(worst.get("K3 mode", 0.0), err3)
+            worst["K4 mode"] = max(worst.get("K4 mode", 0.0), err4)
+        print("phase 36 bf16_3x K3/K4: d={} (padded 64) batch={} (level, rel "
+              "K3, K4 vs plain in the mode, vs the exact kernels[, vs float64 "
+              "matrix_exp]): {}; padding exact".format(d, batch,
+                                                       "; ".join(rows)),
+              flush=True)
+
+
+def phase_mode_kernels(dev, headline_w=None):
+    """Phase 36: the bf16_3x mode's kernels against their plain versions in
+    the mode on every ladder level and in both seed modes, the exact kernels
+    and float64 (the mode's envelope), padding exact. Returns the worst
+    max |err| against plain of each mode row."""
+    if headline_w is None:
+        headline_w = headline_weights(table3_problem(1)[0], dev)
+    rng = np.random.default_rng(36)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    worst = {}
+    f64_chain = _mode_member_kernels(dev, rng, gen, worst)
+    _mode_headline(dev, headline_w, worst)
+    f64_plane = _mode_plane_kernels(dev, rng, gen, worst)
+    _mode_expm_kernels(dev, gen, worst)
+    print("phase 36 bf16_3x: chain op 3 members x 37 steps and plane op 37 "
+          "steps at d = 16 vs float64 matrix_exp products rel {:.2e} / "
+          "{:.2e}; max|err| vs plain {}".format(f64_chain, f64_plane, worst),
+          flush=True)
+    return worst
+
+
+def _mode_grape(label, kernels, **kw):
+    """A GRAPE of grape_schroedinger_discrete in the mode, counters read
+    around it: every launch of ``kernels`` in the mode's form, once an
+    iteration, nothing else. Returns (launches, it/s)."""
+    from qoc_tpu_torch import grape_schroedinger_discrete
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    with precision(MODE):
+        reset_launches()
+        result = grape_schroedinger_discrete(
+            complex_controls=True, iteration_count=iterations,
+            log_iteration_step=0, fused_chunk=WARMUP_ITERATIONS, **kw)
+        launches = read_launches()
+    modes = tuple(k + " mode" for k in kernels if k in PRECISION_MODES)
+    errors = _grape_launches(label, result, launches, kernels + modes,
+                             iterations)
+    print("phase 37 bf16_3x {} grape: {} iterations, {:.2f} it/s steady, "
+          "error {:.6f} -> {:.6f}, launches {}".format(
+              label, result.iteration_count_ran, result.iterations_per_s,
+              errors[0], errors[-1], launches), flush=True)
+    return launches, result.iterations_per_s
+
+
+def _problem_kw(pstate, hamiltonian, costs, dev):
+    return dict(control_count=CONTROL_COUNT,
+                control_eval_count=pstate.control_eval_count, costs=costs,
+                evolution_time=pstate.evolution_time, hamiltonian=hamiltonian,
+                initial_states=pstate.initial_states,
+                system_eval_count=pstate.system_eval_count,
+                initial_controls=pstate.initial_controls,
+                max_control_norms=pstate.max_control_norms, device=dev)
+
+
+def phase_mode_grape(dev, exact_it_s=None):
+    """Phase 37: the slice at full width in the mode (see the module
+    docstring). Returns ({row key: launches}, {cell: it/s})."""
+    from qoc_tpu_torch import (TargetStateInfidelityTime,
+                               grape_schroedinger_ensemble)
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    from qoc_tpu_torch.models import MagnusPolicy
+    from qoc_tpu_torch.parallel import build_ensemble_loss
+    launches, rates = {}, {}
+    pstate, hamiltonian, costs = table3_problem(1)
+    run, rates["headline"] = _mode_grape(
+        "headline", ("K1", "K2"),
+        **_problem_kw(pstate, hamiltonian, costs, dev))
+    launches.update({"K1 mode": run["K1 mode"], "K2 mode": run["K2 mode"]})
+    with precision(MODE):
+        check = _against_float64(
+            "loss", build_schroedinger_loss(pstate, dev, torch.float32),
+            schroedinger_reference(pstate, dev, float64_planes(
+                pstate, hamiltonian, dev)), pstate, dev)
+        loss = build_schroedinger_loss(pstate, dev, torch.float32)
+        e_mode = _loss_grad(loss, pstate, dev)[0]
+    e_exact = _loss_grad(loss, pstate, dev)[0]
+    gap = float(abs(e_mode.double() - e_exact.double()))
+    print("phase 37 bf16_3x headline: {:.2f} it/s against {} it/s exact "
+          "(phase 5, same call); vs float64 plain route: {}; loss gap to the "
+          "exact kernels {:.3e} (rel {:.2e})".format(
+              rates["headline"], "{:.2f}".format(exact_it_s)
+              if exact_it_s is not None else "(not run)", check, gap,
+              gap / abs(float(e_exact))), flush=True)
+    pstate, hamiltonian, costs = stepcost_problem(1)
+    run, rates["step-cost headline"] = _mode_grape(
+        "step-cost headline", ("K1", "K2", "K2 step"),
+        **_problem_kw(pstate, hamiltonian, costs, dev))
+    launches["K2 mode step"] = run["K2 mode"]
+    pstate, hamiltonian, costs = m4_problem(1)
+    run, rates["M4"] = _mode_grape(
+        "M4 (plane route)", ("K5 fwd", "K5 bwd"),
+        magnus_policy=MagnusPolicy.M4,
+        **_problem_kw(pstate, hamiltonian, costs, dev))
+    launches.update({"K5 fwd mode": run["K5 fwd mode"],
+                     "K5 bwd mode": run["K5 bwd mode"]})
+    # The M4 loss with a step cost (K5 per step) and through the blocked
+    # route (K3/K4 at padded 64), once each.
+    step_state, _, _ = bench_problem(
+        D, CONTROL_COUNT, M4_STEPS, M4_STEPS, M4_EVOLUTION_TIME, "M4",
+        step_costs=[TargetStateInfidelityTime(M4_STEPS, _last_level(D))])
+    lines = []
+    for label, state, allow, keys in (
+            ("M4 step-cost loss, plane route", step_state, True,
+             ("K5 fwd", "K5 bwd", "K5 bwd step")),
+            ("M4 loss, blocked route", pstate, False, ("K3", "K4"))):
+        with precision(MODE):
+            loss = build_schroedinger_loss(state, dev, torch.float32,
+                                           allow_plane_chain=allow)
+            reset_launches()
+            _loss_grad(loss, state, dev)
+            torch.cuda.synchronize()
+            run = read_launches()
+            check = _against_float64(
+                "loss", loss, schroedinger_reference(state, dev,
+                                                     float64_planes(
+                                                         state, hamiltonian,
+                                                         dev)), state, dev)
+        want = {k: 1 for k in keys}
+        want.update({k + " mode": 1 for k in keys if k in PRECISION_MODES})
+        _member_launches(label, run, tuple(want), want)
+        lines.append("{}: launches {}; vs float64: {}".format(label, run,
+                                                            check))
+    # K5's per-step form from the first, K3/K4's mode forms from the
+    # second (each checked to be the only launches).
+    launches.update({"K5 bwd mode step": 1, "K3 mode": 1, "K4 mode": 1})
+    print("phase 37 bf16_3x " + "; ".join(lines), flush=True)
+    pstate, ham, params, costs = ensemble_problem(ENSEMBLE_MEMBERS[0])
+    loss = build_ensemble_loss(pstate, ham, params, device=dev)
+    blocks = -(-(M4_STEPS - 1) // loss.block)
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    with precision(MODE):
+        reset_launches()
+        result = grape_schroedinger_ensemble(
+            CONTROL_COUNT, M4_STEPS, costs, M4_EVOLUTION_TIME, ham, params,
+            pstate.initial_states, M4_STEPS, complex_controls=True,
+            initial_controls=pstate.initial_controls,
+            iteration_count=iterations, log_iteration_step=0,
+            max_control_norms=pstate.max_control_norms,
+            fused_chunk=WARMUP_ITERATIONS, device=dev)
+        run = read_launches()
+        check = _against_float64(
+            "loss", loss, _ensemble_reference(pstate, ham, params, dev),
+            pstate, dev)
+    n = blocks * iterations
+    _member_launches("the bf16_3x 4-member ensemble", run,
+                     ("K1", "K2", "K1 mode", "K2 mode"),
+                     {"K1": n, "K2": n, "K1 mode": n, "K2 mode": n})
+    errors = np.asarray(result.errors)
+    if not (result.iteration_count_ran == iterations
+            and np.all(np.isfinite(errors)) and errors[-1] < errors[0]):
+        raise RuntimeError("the bf16_3x ensemble GRAPE failed its checks")
+    rates["4-member ensemble"] = result.iterations_per_s
+    print("phase 37 bf16_3x ensemble ({} members x {} steps): {:.2f} it/s "
+          "steady, error {:.6f} -> {:.6f}, launches {}; vs float64 plain "
+          "route: {}".format(ENSEMBLE_MEMBERS[0], M4_STEPS - 1,
+                             result.iterations_per_s, errors[0], errors[-1],
+                             run, check), flush=True)
+    n_starts, ms_iterations = MULTISTART_RUNS[0]
+    with precision(MODE):
+        result, run = _multistart_run(
+            "bf16_3x multistart {} candidates".format(n_starts), n_starts,
+            ms_iterations, MULTISTART_CHUNK, dev, multistart_problem(),
+            mode=True)
+    rates["multistart {}".format(n_starts)] = result.iterations_per_s
+    launches.update({"K1 member mode": run["K1 mode"],
+                     "K2 member mode": run["K2 mode"]})
+    return launches, rates
+
+
+def _mode_times(prefix, fwd, bwd, fwd_plain, bwd_plain, fwd_args, bwd_args,
+                seeds):
+    """ms of the forward and adjoint wrappers in the mode and exact, and of
+    their plain versions in the mode, at one shape; ``seeds``: {suffix:
+    seeds} of the adjoint's seed modes."""
+    ms = {
+        prefix[0] + " mode": cuda_ms(lambda: fwd(*fwd_args, MODE), 10),
+        prefix[0] + " exact": cuda_ms(lambda: fwd(*fwd_args, "highest"),
+                                      10),
+        prefix[0] + " mode plain": cuda_ms(
+            lambda: fwd_plain(*fwd_args, MODE), 2),
+    }
+    for suffix, s in seeds.items():
+        key = prefix[1] + " mode" + suffix
+        ms[key] = cuda_ms(lambda: bwd(*bwd_args, s, MODE), 10)
+        ms[key.replace(" mode", " exact")] = cuda_ms(
+            lambda: bwd(*bwd_args, s, "highest"), 10)
+        ms[key + " plain"] = cuda_ms(lambda: bwd_plain(*bwd_args, s, MODE),
+                                     2)
+    return ms
+
+
+def phase_mode_timing(dev, headline_w=None):
+    """Phase 38: the mode's kernels timed at the headline shapes (K1, K2 in
+    both seed modes), the M4 planes (K5, K3/K4 at padded 64) and the
+    512-candidate shapes (K1/K2's member rows), beside the exact kernels in
+    the same call, the plain versions in the mode, the mode's bounds and
+    each kernel's design. Returns (ms, bounds): row keys "<key> mode", with
+    "<key> mode plain" and "<key> mode library" beside."""
+    from qoc_tpu_torch.core.common import slap_controls_torch
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    from qoc_tpu_torch.parallel._msrunner import candidate_seeds
+    if headline_w is None:
+        headline_w = headline_weights(table3_problem(1)[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    ms, bounds, lines = {}, {}, []
+
+    def rows(w, n_chains, n_steps):
+        s_count, length = chain.segment_plan(n_steps, n_chains)
+        w_seg = torch.zeros((n_chains, s_count * length, w.shape[-1]),
+                            device=dev)
+        w_seg[:, :n_steps] = w.reshape(n_chains, n_steps, -1)
+        return w_seg.reshape(n_chains * s_count, length, -1), length
+
+    op = chain.ChainExpmPropagate(table3_basis(), dev, torch.float32)
+    # The 512-candidate multistart's weights at its seeds (phase 30's).
+    pstate, ham, _ = multistart_problem()
+    n_starts, n_ms = MULTISTART_RUNS[0][0], MULTISTART_POINTS - 1
+    dt = float(pstate.dt)
+    controls = torch.func.vmap(lambda p: slap_controls_torch(
+        True, p, pstate.controls_shape))(torch.as_tensor(
+            candidate_seeds(pstate, n_starts, 0), dtype=torch.float32,
+            device=dev))
+    w_ms = fused_weights(controls, torch.arange(
+        n_ms, dtype=torch.float32, device=dev) * dt, torch.as_tensor(
+            pstate.control_eval_times, dtype=torch.float32, device=dev), dt)
+    ms_op = chain.ChainExpmPropagate(ham.generator_basis(dt), dev,
+                                     torch.float32)
+    for label, the_op, w, n_chains, keys in (
+            ("headline", op, headline_w, 1, ("K1", "K2")),
+            ("512 candidates", ms_op, w_ms, n_starts,
+             ("K1 member", "K2 member"))):
+        n_steps = w.shape[-2]
+        w_seg, length = rows(w, n_chains, n_steps)
+        n1, ninf = chain._norm_max(w.reshape(-1, w.shape[-1]),
+                                   the_op.basis_ri, the_op.d)
+        pref = chain.chain_fwd(w_seg, the_op.basis, n1, MODE)
+        seeds = {"": torch.randn((w_seg.shape[0], D, D),
+                                 dtype=torch.complex64, device=dev,
+                                 generator=gen)}
+        if n_chains == 1:
+            seeds[" step"] = torch.randn((w_seg.shape[0], length, D, D),
+                                         dtype=torch.complex64, device=dev,
+                                         generator=gen)
+        ms.update(_mode_times(
+            keys, chain.chain_fwd, chain.chain_bwd, chain.chain_fwd_plain,
+            chain.chain_bwd_plain, (w_seg, the_op.basis, n1),
+            (w_seg, the_op.basis_h, ninf, pref), seeds))
+        a = torch.einsum("jk,kab->jab", w_seg.reshape(-1, the_op.n_b).to(
+            torch.complex64), the_op.basis)
+        absa = a.abs()
+        for mode in (MODE, "highest"):
+            tag = " mode" if mode == MODE else " exact"
+            bounds[keys[0] + tag] = kernel_bound(
+                absa.sum(-2).amax(-1), chain.ladder_level(n1), False,
+                [w_seg, the_op.basis, n1, pref], mode=mode)
+            for suffix, s in seeds.items():
+                bounds[keys[1] + tag + suffix] = kernel_bound(
+                    absa.sum(-1).amax(-1), chain.ladder_level(ninf), True,
+                    [w_seg, the_op.basis_h, ninf, pref, s, pref[:, 1:]],
+                    mode=mode)
+        lines.append((label, w_seg.shape[0], chain.ladder_level(n1),
+                      chain.ladder_level(ninf)))
+        del a, absa, pref
+    a = m4_planes(dev)
+    a_seg, n1, ninf = _segment_planes(a)
+    pref = chain.plane_fwd(a_seg, n1, MODE)
+    seeds = {"": torch.randn((a_seg.shape[0],) + a_seg.shape[-2:],
+                             dtype=torch.complex64, device=dev,
+                             generator=gen),
+             " step": torch.randn(a_seg.shape, dtype=torch.complex64,
+                                  device=dev, generator=gen)}
+    ms.update(_mode_times(
+        ("K5 fwd", "K5 bwd"), chain.plane_fwd, chain.plane_bwd,
+        chain.plane_fwd_plain, chain.plane_bwd_plain, (a_seg, n1),
+        (a_seg, ninf, pref), seeds))
+    step_norms = a_seg.reshape(-1, D, D).abs()
+    for mode in (MODE, "highest"):
+        tag = " mode" if mode == MODE else " exact"
+        bounds["K5 fwd" + tag] = kernel_bound(
+            step_norms.sum(-2).amax(-1), chain.ladder_level(n1), False,
+            [a_seg, n1, pref], mode=mode)
+        for suffix, s in seeds.items():
+            bounds["K5 bwd" + tag + suffix] = kernel_bound(
+                step_norms.sum(-1).amax(-1), chain.ladder_level(ninf), True,
+                [a_seg, ninf, pref, s, a_seg], mode=mode)
+    lines.append(("M4 planes", a_seg.shape[0], chain.ladder_level(n1),
+                  chain.ladder_level(ninf)))
+    # K3/K4 at padded 64 as the blocked route calls them: K3 at A, K4 at
+    # (A^H, G).
+    g = torch.randn(a.shape, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    ah = a.mH.contiguous()
+    ms.update({
+        "K3 mode": cuda_ms(lambda: expm_cuda.expm_fwd(a, MODE), 10),
+        "K3 exact": cuda_ms(lambda: expm_cuda.expm_fwd(a, "highest"), 10),
+        "K3 mode plain": cuda_ms(lambda: expm_cuda.expm_fwd_plain(a, MODE),
+                                 2),
+        "K3 mode library": cuda_ms(lambda: torch.linalg.matrix_exp(a), 5),
+        "K4 mode": cuda_ms(lambda: expm_cuda.expm_frechet_fwd(ah, g, MODE),
+                           10),
+        "K4 exact": cuda_ms(
+            lambda: expm_cuda.expm_frechet_fwd(ah, g, "highest"), 10),
+        "K4 mode plain": cuda_ms(
+            lambda: expm_cuda.expm_frechet_plain(ah, g, MODE), 2),
+    })
+    a_req = a.clone().requires_grad_(True)
+    u = torch.linalg.matrix_exp(a_req)
+    ms["K4 mode library"] = cuda_ms(lambda: torch.autograd.grad(
+        u, a_req, g, retain_graph=True), 3)
+    lv3 = chain.ladder_level(expm_cuda._norm_max(a))
+    lv4 = chain.ladder_level(expm_cuda._norm_max(ah))
+    for mode in (MODE, "highest"):
+        tag = " mode" if mode == MODE else " exact"
+        bounds["K3" + tag] = kernel_bound(a.abs().sum(-2).amax(-1), lv3,
+                                          False, [a, a], chain=False,
+                                          mode=mode)
+        bounds["K4" + tag] = kernel_bound(ah.abs().sum(-2).amax(-1), lv4,
+                                          True, [ah, g, g], chain=False,
+                                          mode=mode)
+    lines.append(("M4 planes, K3/K4", a.shape[0], lv3, lv4))
+    torch.cuda.synchronize()
+    print("phase 38 bf16_3x timing (rows, levels fwd/bwd: {}): ".format(
+        "; ".join("{} {} rows {}/{}".format(*x) for x in lines))
+        + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items()),
+        flush=True)
+    for key in sorted(k for k in bounds if " mode" in k):
+        exact = key.replace(" mode", " exact")
+        print("phase 38 bf16_3x {}: {:.3f} ms (exact {:.3f} ms), TF32 bound "
+              "{:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time; exact "
+              "kernel's FP32 bound {:.3f} ms = {:.0%}".format(
+                  key, ms[key], ms[exact], bounds[key][0], bounds[key][1],
+                  bounds[key][2], bounds[key][0] / ms[key], bounds[exact][0],
+                  bounds[exact][0] / ms[exact]), flush=True)
+    for key, s_count in (("K1 mode", lines[0][1]), ("K2 mode", lines[0][1]),
+                         ("K5 fwd mode", lines[2][1]),
+                         ("K5 bwd mode", lines[2][1])):
+        print("phase 38 design: " + resident_design_line(
+            key, s_count, bounds[key][0], ms[key]), flush=True)
+    for key, dual in (("K3 mode", False), ("K4 mode", True)):
+        blocks = expm_cuda.launch_grid(dual, D, a.shape[0], dev.index)[0]
+        smem = expm_cuda._plan(dual, D, dev.index)[2]
+        threads = chain.resident_block(True)[0] if dual else 256
+        print("phase 38 design: " + design_line(
+            key, RESIDENT_ENTRY[True][key.split()[0]], blocks, 1, smem,
+            bounds[key][0], ms[key], threads), flush=True)
+    return ms, bounds
+
+
+def _refused(label, call):
+    """Raise unless ``call`` in the mode raises NotImplementedError naming
+    ROADMAP Queue 2 item 5b before any kernel launches."""
+    with precision(MODE):
+        reset_launches()
+        try:
+            call()
+        except NotImplementedError as err:
+            if "Queue 2 item 5b" not in str(err):
+                raise
+            message = str(err)
+        else:
+            raise RuntimeError(label + " ran in the bf16_3x mode; it has no "
+                               "such form and must refuse it")
+        launches = read_launches()
+    if any(launches.values()):
+        raise RuntimeError("{} launched {} before it refused the mode"
+                           "".format(label, launches))
+    return message
+
+
+def phase_mode_refusals(dev):
+    """Phase 39: the d = 2^7 GRAPE (K3/K4's tiled path) and the Lindblad
+    d = 20 GRAPE (K6) raise NotImplementedError in the mode, naming ROADMAP
+    Queue 2 item 5b, and launch nothing."""
+    from qoc_tpu_torch import (grape_lindblad_discrete,
+                               grape_schroedinger_discrete)
+    pstate, hamiltonian, costs = d128_problem()
+    messages = [_refused("the d = 2^7 GRAPE", lambda: (
+        grape_schroedinger_discrete(
+            complex_controls=True, iteration_count=1, log_iteration_step=0,
+            **_problem_kw(pstate, hamiltonian, costs, dev))))]
+    messages.append(_refused("the Lindblad d = 20 GRAPE", lambda: (
+        grape_lindblad_discrete(iteration_count=1, log_iteration_step=0,
+                                device=dev, **lindblad_d20_problem()))))
+    print("phase 39 bf16_3x refusals: d = 2^7 GRAPE: {!r}; Lindblad d = 20 "
+          "GRAPE: {!r}".format(*messages), flush=True)
+
+
 def run_phase(phase, *args):
     """Call a phase and print its wall time (host clock)."""
     start = time.perf_counter()
@@ -3758,6 +4458,10 @@ def main():
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Phases 1-35 check the exact kernels whatever QOC_TPU_MXU_PRECISION
+    # says; phases 36-39 set the bf16_3x mode where they run it.
+    from qoc_tpu_torch import config
+    config.MXU_MODE = "highest"
     dev = torch.device("cuda", 0)
     build_s = phase_build()
     if args.phases:
@@ -3839,6 +4543,13 @@ def main():
     for key, err in plane_member[2].items():
         worst[key] = max(worst.get(key, 0.0), err)
     launches.update(plane_member[3])
+    worst.update(run_phase(phase_mode_kernels, dev, headline_w))
+    mode_launches, mode_rates = run_phase(phase_mode_grape, dev, it_s)
+    launches.update(mode_launches)
+    mode_ms, mode_bounds = run_phase(phase_mode_timing, dev, headline_w)
+    ms.update(mode_ms)
+    bounds.update(mode_bounds)
+    run_phase(phase_mode_refusals, dev)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -3875,7 +4586,27 @@ def main():
             ("plane_fwd (member-batched)", "plane_fwd.cu",
              "chain_pallas.py:695", "K5 member fwd"),
             ("plane_bwd (member-batched)", "plane_bwd.cu",
-             "chain_pallas.py:718", "K5 member bwd"))]
+             "chain_pallas.py:718", "K5 member bwd"),
+            ("chain_fwd (bf16_3x)", "chain_fwd.cu", "chain_pallas.py:236",
+             "K1 mode"),
+            ("chain_bwd (bf16_3x)", "chain_bwd.cu", "chain_pallas.py:262",
+             "K2 mode"),
+            ("chain_bwd (bf16_3x, per-step seeds)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 mode step"),
+            ("plane_fwd (bf16_3x)", "plane_fwd.cu", "chain_pallas.py:695",
+             "K5 fwd mode"),
+            ("plane_bwd (bf16_3x)", "plane_bwd.cu", "chain_pallas.py:718",
+             "K5 bwd mode"),
+            ("plane_bwd (bf16_3x, per-step seeds)", "plane_bwd.cu",
+             "chain_pallas.py:718", "K5 bwd mode step"),
+            ("expm_fwd (bf16_3x, padded 64)", "expm_fwd.cu",
+             "expm_pallas.py:264", "K3 mode"),
+            ("expm_frechet (bf16_3x, padded 64)", "expm_frechet.cu",
+             "expm_pallas.py:397", "K4 mode"),
+            ("chain_fwd (bf16_3x, member-batched)", "chain_fwd.cu",
+             "chain_pallas.py:236", "K1 member mode"),
+            ("chain_bwd (bf16_3x, member-batched)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 member mode"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
           "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
@@ -3883,8 +4614,8 @@ def main():
           "it/s (cost_eval_step {}: {:.2f}) | M4 step-cost GRAPE {:.2f} it/s "
           "| Lindblad d=20 step-cost GRAPE {:.2f} it/s | ensemble GRAPE "
           "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {} | Lindblad "
-          "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | total "
-          "{:.1f} s".format(
+          "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | bf16_3x "
+          "mode: {} | total {:.1f} s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
@@ -3900,6 +4631,9 @@ def main():
                   for (m, step), rate in sorted(lindblad_rates.items())),
               ", ".join("{} {:.1f} cand-it/s".format(k, v)
                         for k, v in lindblad_ms_rates.items()),
+              ", ".join("{} {:.2f} {}".format(
+                  k, v, "cand-it/s" if k.startswith("multistart") else
+                  "it/s") for k, v in mode_rates.items()),
               time.perf_counter() - start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3918,7 +4652,9 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               29: phase_multistart, 30: phase_member_timing,
               31: phase_plane_member_kernels, 32: phase_lindblad_ensemble,
               33: phase_lindblad_multistart, 34: phase_member_routes,
-              35: phase_plane_member_timing}
+              35: phase_plane_member_timing, 36: phase_mode_kernels,
+              37: phase_mode_grape, 38: phase_mode_timing,
+              39: phase_mode_refusals}
 
 
 if __name__ == "__main__":

@@ -27,8 +27,12 @@ timed without the profiler (host clock, one synchronise at the end), then
 5 under torch.profiler. It prints the card's name and power limit, the
 unprofiled ms per iteration, the device time of each kernel class per
 iteration, the device's busy and idle share of the profiled window and the
-peak device memory; ``--json PATH`` also writes them to PATH as JSON, and
-``--cells 0,9`` profiles only the listed cells (by their order above).
+peak device memory; ``--json PATH`` also writes them to PATH as JSON,
+``--cells 0,9`` profiles only the listed cells (by their order above), and
+``--modes highest,bf16_3x`` profiles each of them in each precision mode
+(``config.MXU_MODE``, in that order, in one call; by default the mode that
+``QOC_TPU_MXU_PRECISION`` chose). A cell whose route has no bf16_3x form
+(the d = 2^7, d = 2^10 and Lindblad d = 20 cells) raises in that mode.
 """
 
 import argparse
@@ -215,6 +219,9 @@ def main():
     parser.add_argument("--json", type=Path, help="write the results here")
     parser.add_argument("--cells", help="comma-separated cell indices "
                         "(default: all)")
+    parser.add_argument("--modes", help="comma-separated precision modes, "
+                        "each cell profiled in each (default: the "
+                        "QOC_TPU_MXU_PRECISION mode)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_grape_profile: needs a CUDA device.")
@@ -228,7 +235,15 @@ def main():
     chosen = cells()
     if args.cells:
         chosen = [chosen[int(i)] for i in args.cells.split(",")]
-    results = [profile_cell(name, build, dev) for name, build in chosen]
+    from qoc_tpu_torch import config
+    modes = args.modes.split(",") if args.modes else [config.MXU_MODE]
+    results = []
+    for mode in modes:
+        config.MXU_MODE = config.mxu_mode(torch.float32, mode)
+        for name, build in chosen:
+            result = profile_cell("{} [{}]".format(name, mode), build, dev)
+            result["mode"] = mode
+            results.append(result)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "cells": results},

@@ -11,14 +11,39 @@ complex one follows from it):
 - CPU: float64 / complex128 by default, for parity with ``qoc_tpu`` and
   the reference, which are float64 throughout.
 
-There is no process-wide precision switch: the dtype travels with the call.
-TF32 tensor-core matmuls would keep only ~3 decimal digits, so they are off
-for every float32 product the glue issues.
+One process-wide switch chooses the kernels' product precision, as
+``qoc_tpu``'s (``qoc_tpu/ops/expm_pallas.py`` ``_MXU_MODE``):
+:data:`MXU_MODE`, read at import from ``QOC_TPU_MXU_PRECISION``:
+
+- ``"highest"`` (the default): every product exact float32;
+- ``"bf16_3x"``: the opt-in reduced precision. Every product of the
+  propagation (the Taylor ladder, U P, the adjoint's T update and gU) is
+  the 3-pass split x_hi y_hi + x_hi y_lo + x_lo y_hi, on TF32 operands on
+  the card's tensor cores (about 2^-21 a product), and degree 12 takes the
+  4-product scheme ``_D12A``. The generator build, the norms, the segment
+  merge, the seeds and the weight projection stay exact.
+
+The ops read :data:`MXU_MODE` when they are called (tests and scripts may
+set it between calls), and a backward runs in its forward's mode. It
+touches float32 and complex64 work only: float64 ignores it
+(:func:`mxu_mode`). Routes without the mode's kernels yet raise
+``NotImplementedError`` in it (ROADMAP Queue 2 item 5b). TF32 stays off
+for every float32 product the glue issues: one TF32 pass keeps only ~3
+decimal digits.
 """
+
+import os
 
 import torch
 
-__all__ = ["complex_dtype", "resolve"]
+__all__ = ["MXU_MODE", "MXU_MODES", "complex_dtype", "mxu_mode", "resolve"]
+
+MXU_MODES = ("highest", "bf16_3x")
+MXU_MODE = os.environ.get("QOC_TPU_MXU_PRECISION", "highest").lower()
+if MXU_MODE not in MXU_MODES:
+    raise ValueError(
+        "QOC_TPU_MXU_PRECISION must be 'highest' or 'bf16_3x', got "
+        "{!r}".format(MXU_MODE))
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -53,3 +78,17 @@ def resolve(device=None, dtype=None):
 def complex_dtype(dtype):
     """The complex dtype paired with a real working dtype."""
     return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
+def mxu_mode(dtype, mode=None):
+    """The precision mode that work in ``dtype`` runs: ``mode`` (by default
+    :data:`MXU_MODE` as it stands now) for float32 and complex64, always
+    ``"highest"`` for float64 and complex128."""
+    if mode is None:
+        mode = MXU_MODE
+    if mode not in MXU_MODES:
+        raise ValueError("the precision mode must be 'highest' or "
+                         "'bf16_3x', got {!r}".format(mode))
+    if dtype in (torch.float64, torch.complex128):
+        return "highest"
+    return mode

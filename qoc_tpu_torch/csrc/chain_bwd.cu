@@ -42,7 +42,9 @@
 // A_t^H is built from the basis G_k^H, which stays L2-resident, 7 terms'
 // loads in flight at once, in the same phase as the T update, so one warp's
 // wait on L2 hides behind another's products; gU runs beside the value pass
-// of the ladder's first product.
+// of the ladder's first product. The bf16_3x mode (tf32 != 0) is a second
+// instantiation, AdjointTC: every product on the tensor cores as 3 x TF32,
+// and at degree 12 _D12A's 4 dual products (chain_common.cuh).
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -79,7 +81,8 @@ __global__ void __launch_bounds__(A::THREADS, 1)
     uh = A::step(b, uh, step_seed(seeds, seg, t, L, per_step),
                  pseg + (size_t)t * MAT, nullptr,
                  [&](float2* m) {  // A_t^H
-                   build_generator<A::THREADS, A::BUILD_KU>(
+                   build_generator<A::THREADS, A::BUILD_KU,
+                                   typename A::Map>(
                        m, wseg + (size_t)t * n_b, basis_h, n_b);
                  },
                  level, st, red, gseg + (size_t)t * MAT);
@@ -110,11 +113,16 @@ int launch_chain_bwd(const void* w, const void* basis_h, const void* norm,
 // f32 (batch-max inf-norm of the generators = 1-norm of A^H); prefpad
 // (S, L + 1, DP, DP) from K1; seeds (S, DP, DP), or (S, L, DP, DP) with
 // per_step != 0; gA (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP)
-// scratch. Returns the CUDA error.
+// scratch; tf32 != 0: the bf16_3x mode. Returns the CUDA error.
 extern "C" int qoc_chain_bwd(const void* w, const void* basis_h,
                              const void* norm, const void* prefpad,
                              const void* seeds, void* gA, void* stash, int S,
-                             int L, int n_b, int per_step, void* stream) {
+                             int L, int n_b, int per_step, int tf32,
+                             void* stream) {
+  if (tf32)
+    return qoc::launch_chain_bwd<qoc::AdjointTC>(
+        w, basis_h, norm, prefpad, seeds, gA, stash, S, L, n_b, per_step,
+        stream);
   return qoc::launch_chain_bwd<qoc::AdjointNTA>(
       w, basis_h, norm, prefpad, seeds, gA, stash, S, L, n_b, per_step,
       stream);

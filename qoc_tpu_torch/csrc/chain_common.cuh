@@ -17,6 +17,21 @@
 // the shared-memory reads are conflict-free; each thread accumulates its own
 // tile in registers (FP32 SIMT FMAs, no tensor cores, no TF32).
 //
+// The bf16_3x mode (QOC_TPU_MXU_PRECISION=bf16_3x, ops/chain.py): every
+// kernel here has a second instantiation (TC = true) whose products run on
+// the tensor cores as 3 x TF32 (mma.sync m16n8k8): each real product is
+// x_hi y_hi + x_hi y_lo + x_lo y_hi of operands split by cvt.rna.tf32
+// (mm_acc_tc). Its threads own the mma accumulator fragments (MmaMap), and
+// one map serves every product, epilogue and elementwise pass of an
+// instantiation. At degree 12 the mode takes the 4-product scheme _D12A in
+// place of Paterson-Stockmeyer, forward and adjoint alike. The tensor
+// cores' FP32 sums round toward zero, a bias that a chain of thousands of
+// steps would compound where a product's result is dominated by one term
+// (U P with U near I, X X in the squarings): so each k8 partial joins its
+// accumulator by a rounding FP32 add, a chain step is P + (U - I) P (T +
+// (U^H - I) T in the adjoint) and a squaring works on D = X - I, X^2 = I +
+// 2 D + D D. The plain versions (ops/chain.py) form the same sums.
+//
 // Largest dimension: DP = 64. The backward keeps 7 matrices in shared
 // memory (7 x 32 KB = 224 KB of the 227 KB a block may use), so a larger DP
 // needs another design; the Python wrapper raises ValueError for d > 64 and
@@ -34,6 +49,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace qoc {
 
@@ -74,6 +92,26 @@ static __constant__ float kD8[10] = {
     (float)-0.06254782056757438, (float)-0.024382370915357013,
     (float)0.005092363918911529, 1.0f, 1.0f, (float)2.585142563711936};
 
+// Degree-12 Taylor in 4 products (expm_pallas.py _D12A), the bf16_3x
+// mode's degree 12: lin(i) = a_i0 I + a_i1 M + a_i2 M2 + a_i3 M3 (kD12[4 i
+// ..]), M2 = M M, M3 = M2 M;  A6 = lin(2) + lin(3)^2;
+// T12 = lin(0) + (lin(1) + A6) A6. Evaluated as ops/chain.py _taylor12_4
+// does, with the constants of A6 and Y = lin(1) + A6 taken out (A6 = A6' +
+// a20 I, Y = Y' + y0 I): T12 = c0 I + lin'(0) + Y' A6' + a20 Y' + y0 A6',
+// lin' without its constant; c0 = a00 + y0 a20 rounds to 1, so exp(0) = I
+// exactly (kD12C = {c0, y0}).
+#define QOC_D12A_A00 2.50924541e+00
+#define QOC_D12A_A10 5.58758752e+00
+#define QOC_D12A_A20 -2.84603020e-01
+static __constant__ float kD12[16] = {
+    (float)QOC_D12A_A00, 2.50145758e+00f, 6.68628695e-01f, 6.22278884e-02f,
+    (float)QOC_D12A_A10, 1.71336946e+00f, 1.60849759e-01f, -1.44147961e-03f,
+    (float)QOC_D12A_A20, -2.02022795e-01f, 1.89875093e-02f, 1.23719677e-02f,
+    0.0f, 1.31810610e-01f, 2.02785554e-02f, 6.75951847e-03f};
+static __constant__ float kD12C[2] = {
+    (float)(QOC_D12A_A00 + (QOC_D12A_A10 + QOC_D12A_A20) * QOC_D12A_A20),
+    (float)(QOC_D12A_A10 + QOC_D12A_A20)};
+
 // Ladder level from the batch-max norm: 0..3 = degree 4/8/12/19 without
 // squaring, 4 = per-matrix scaling and squaring with T19.
 __device__ __forceinline__ int ladder_level(float n) {
@@ -100,7 +138,73 @@ struct TileMap {
     const int i = own(e);
     return (i / DP == i % DP) ? 1.0f : 0.0f;
   }
+  // Shared-memory layout: row-major as it is (own and the device index
+  // gown coincide).
+  static __device__ __forceinline__ int phys(int i) { return i; }
+  static __device__ __forceinline__ int gown(int e) { return own(e); }
 };
+
+// The bf16_3x mode's map: the accumulator fragments of mma.m16n8k8. Warp w
+// owns MT x NTL tiles of 16 x 8 (rows row0() + 16 mt, columns col0() +
+// 8 nt); lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8, columns
+// 2 t and 2 t + 1 of each: 32 x 16 a warp at 256 threads, 16 x 16 at 512.
+// With SW its matrices in shared memory are swizzled: the 16-byte chunk j
+// (two complex elements) of row r sits at chunk j ^ swz(r) of the row
+// (phys), so that mm_acc_tc's fragment reads of 8 rows, or of 4 rows two
+// by two, fall on distinct banks. own(e) is element e's shared-memory
+// index, gown its index in a row-major matrix in device memory. The
+// forwards (256 threads) swizzle; the adjoints (512 threads) do not: at
+// their 128-register cap the swizzle made ptxas spill 316-556 B, which
+// cost more than the conflicts (PERF.md).
+template <int NTH, bool SW = (NTH == NT)>
+struct MmaMap {
+  static constexpr int W = NTH / 32;
+  static constexpr int NTL = 2;                    // n8 tiles a warp
+  static constexpr int MT = MAT / (W * NTL * 128);  // m16 tiles a warp
+  static constexpr int WC = DP / (8 * NTL);         // warps across a row
+  static constexpr int EPT = MT * NTL * 4;
+  static_assert(MT >= 1 && W * EPT * 32 == MAT, "MmaMap: bad block size");
+  static __device__ __forceinline__ int row0() {
+    return (threadIdx.x >> 5) / WC * 16 * MT;
+  }
+  static __device__ __forceinline__ int col0() {
+    return (threadIdx.x >> 5) % WC * 8 * NTL;
+  }
+  // The chunk swizzle of row r: a permutation of each aligned group of 8
+  // chunks (128 bytes, every bank once).
+  static __device__ __forceinline__ int swz(int r) {
+    if constexpr (SW) return (r & 6) ^ ((r & 1) << 2);
+    return 0;
+  }
+  static __device__ __forceinline__ int phys(int i) {
+    if constexpr (!SW) return i;
+    const int r = i / DP, c = i % DP;
+    return r * DP + ((((c >> 1) ^ swz(r)) << 1) | (c & 1));
+  }
+  // Row-major index of fragment element e: tile e / 4, its c[e % 4].
+  static __device__ __forceinline__ int gown(int e) {
+    const int tile = e >> 2, q = e & 3, lane = threadIdx.x & 31;
+    return (row0() + 16 * (tile / NTL) + (lane >> 2) + 8 * (q >> 1)) * DP +
+           col0() + 8 * (tile % NTL) + 2 * (lane & 3) + (q & 1);
+  }
+  // phys(gown(e)), from the fragment's shape: its rows are g and g + 8
+  // past multiples of 8 (one swz(g) for all), its chunks 4 nt + t of the
+  // warp's aligned group of 8 (col0 / 2 is a multiple of 8).
+  static __device__ __forceinline__ int own(int e) {
+    const int tile = e >> 2, q = e & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    return (row0() + 16 * (tile / NTL) + g + 8 * (q >> 1)) * DP + col0() +
+           2 * ((4 * (tile % NTL) + t) ^ swz(g)) + (q & 1);
+  }
+  static __device__ __forceinline__ float eye(int e) {
+    const int i = gown(e);
+    return (i / DP == i % DP) ? 1.0f : 0.0f;
+  }
+};
+
+// The map of an instantiation: TileMap, or MmaMap in the bf16_3x mode.
+template <int NTH, bool TC>
+using MapOf = std::conditional_t<TC, MmaMap<NTH>, TileMap<NTH>>;
 
 // The forward kernels' map.
 constexpr int RPT = TileMap<NT>::RPT;
@@ -187,25 +291,161 @@ __device__ __forceinline__ void mm_acc(
   }
 }
 
-// acc = X Y
-__device__ __forceinline__ void mm(const float2* X, const float2* Y,
-                                   float2 (&acc)[EPT]) {
-  zero(acc);
-  mm_acc(X, Y, acc);
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero.
+// cvt leaves the 13 low bits of its result undefined (the mma ignores
+// them); they are cleared here, so that x - hi below is the true remainder.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
 }
 
-template <int NTH = NT>
-__device__ __forceinline__ void store(float2* Z,
-                                      const float2 (&v)[TileMap<NTH>::EPT]) {
+// x = hi + lo, hi = tf32(x), lo = tf32(x - hi): ops/chain.py _split_tf32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b on one 16 x 8 x 8 TF32 tile (FP32 accumulate).
+__device__ __forceinline__ void mma_tf32(float& c0, float& c1, float& c2,
+                                         float& c3, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += x_hi y_lo + x_lo y_hi, the small passes of the 3 x TF32 product.
+__device__ __forceinline__ void mma_small(float (&c)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(c[0], c[1], c[2], c[3], ah, bl[0], bl[1]);
+  mma_tf32(c[0], c[1], c[2], c[3], al, bh[0], bh[1]);
+}
+
+// acc += X Y in the bf16_3x mode, on the calling thread's MmaMap fragments
+// of an NTH-thread block. A k8 step of the mma takes k0 + 2 t as its k = t
+// and k0 + 2 t + 1 as its k = t + 4 (a product may order k as it likes),
+// so one float4 read gives a lane both of its X elements of a row. The real
+// and imaginary planes split separately; Zr = Xr Yr - Xi Yi and
+// Zi = Xr Yi + Xi Yr take 12 mma a tile and k8 step. The tensor cores'
+// sums round toward zero: each k8 step sums into fresh registers, the
+// small passes first and the x_hi y_hi passes last, and that partial joins
+// acc by an FP32 add that rounds to nearest, so one truncation a real
+// product and k8 step is at the partial's scale. X and Y are in MmaMap's
+// layout: swizzled, a quarter-warp's X chunks and a half-warp's Y elements
+// each fill the 32 banks once; row-major (the adjoints), X's reads of 8
+// rows share 16 banks and Y's of 4 rows 8.
+template <int NTH>
+__device__ __forceinline__ void mm_acc_tc(
+    const float2* __restrict__ X, const float2* __restrict__ Y,
+    float2 (&acc)[MmaMap<NTH>::EPT]) {
+  using T = MmaMap<NTH>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // X: rows row0 + 16 mt + 8 h + g (swz of g alone), chunk k0 / 2 + t at
+  // k0 ^ ua. Y: rows k0 + 2 t + j (swz of 2 t + j), column col0 + 8 nt + g
+  // at k0 DP + yo[j][nt].
+  const float2* xp = X + (T::row0() + g) * DP;
+  const int ua = 2 * (t ^ T::swz(g));
+  int yo[2][T::NTL];
 #pragma unroll
-  for (int e = 0; e < TileMap<NTH>::EPT; ++e) Z[TileMap<NTH>::own(e)] = v[e];
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int nt = 0; nt < T::NTL; ++nt)
+      yo[j][nt] = (2 * t + j) * DP + T::col0() +
+                  2 * ((4 * nt + (g >> 1)) ^ T::swz(2 * t + j)) + (g & 1);
+  }
+#pragma unroll 1
+  for (int k0 = 0; k0 < DP; k0 += 8) {
+    // A fragments (a0, a1, a2, a3) = rows (g, g + 8, g, g + 8) at k
+    // (t, t, t + 4, t + 4): real and imaginary, hi and lo, and the
+    // imaginary negated for Zr.
+    uint32_t arh[T::MT][4], arl[T::MT][4], aih[T::MT][4], ail[T::MT][4],
+        anh[T::MT][4], anl[T::MT][4];
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            xp + (16 * mt + 8 * h) * DP + (k0 ^ ua));
+        split_tf32(v.x, arh[mt][h], arl[mt][h]);
+        split_tf32(v.y, aih[mt][h], ail[mt][h]);
+        split_tf32(v.z, arh[mt][2 + h], arl[mt][2 + h]);
+        split_tf32(v.w, aih[mt][2 + h], ail[mt][2 + h]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        anh[mt][j] = aih[mt][j] ^ 0x80000000u;
+        anl[mt][j] = ail[mt][j] ^ 0x80000000u;
+      }
+    }
+    // B fragments (b0, b1) = rows k0 + 2 t, k0 + 2 t + 1 at column g.
+    uint32_t brh[T::NTL][2], brl[T::NTL][2], bih[T::NTL][2], bil[T::NTL][2];
+#pragma unroll
+    for (int nt = 0; nt < T::NTL; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 u = Y[k0 * DP + yo[j][nt]];
+        split_tf32(u.x, brh[nt][j], brl[nt][j]);
+        split_tf32(u.y, bih[nt][j], bil[nt][j]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < T::NTL; ++nt) {
+        float re[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float im[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_small(re, arh[mt], arl[mt], brh[nt], brl[nt]);
+        mma_small(re, anh[mt], anl[mt], bih[nt], bil[nt]);
+        mma_small(im, arh[mt], arl[mt], bih[nt], bil[nt]);
+        mma_small(im, aih[mt], ail[mt], brh[nt], brl[nt]);
+        mma_tf32(re[0], re[1], re[2], re[3], arh[mt], brh[nt][0],
+                 brh[nt][1]);
+        mma_tf32(re[0], re[1], re[2], re[3], anh[mt], bih[nt][0],
+                 bih[nt][1]);
+        mma_tf32(im[0], im[1], im[2], im[3], arh[mt], bih[nt][0],
+                 bih[nt][1]);
+        mma_tf32(im[0], im[1], im[2], im[3], aih[mt], brh[nt][0],
+                 brh[nt][1]);
+        float2* c = acc + 4 * (mt * T::NTL + nt);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          c[q].x = __fadd_rn(c[q].x, re[q]);
+          c[q].y = __fadd_rn(c[q].y, im[q]);
+        }
+      }
+    }
+  }
+}
+
+// acc += X Y on the tile of MapOf<NTH, TC>: the SIMT product (U k-pairs an
+// iteration) or, TC, the bf16_3x mode's.
+template <int NTH, bool TC, int U = 2>
+__device__ __forceinline__ void prod_acc(
+    const float2* __restrict__ X, const float2* __restrict__ Y,
+    float2 (&acc)[MapOf<NTH, TC>::EPT]) {
+  if constexpr (TC) mm_acc_tc<NTH>(X, Y, acc);
+  else mm_acc<NTH, U>(X, Y, acc);
+}
+
+// Z = v on the calling thread's elements of Map.
+template <class Map>
+__device__ __forceinline__ void store_map(float2* Z,
+                                          const float2 (&v)[Map::EPT]) {
+#pragma unroll
+  for (int e = 0; e < Map::EPT; ++e) Z[Map::own(e)] = v[e];
 }
 
 // M = sum_k w[k] G_k on the calling thread's tile; G is (n_b, DP, DP) in
 // device memory (L2-resident across the steps of every block). KU terms a
 // loop iteration (their loads in flight together), then the rest one by
 // one.
-template <int NTH = NT, int KU = 1>
+template <int NTH = NT, int KU = 1, class Map = TileMap<NTH>>
 __device__ __forceinline__ void build_generator(float2* M,
                                                 const float* __restrict__ w,
                                                 const float2* __restrict__ G,
@@ -233,28 +473,31 @@ __device__ __forceinline__ void build_generator(float2* M,
     for (int e = 0; e < T::EPT; ++e)
       v[e] = caxpy(wk, __ldg(g + T::own(e)), v[e]);
   }
-  store<NTH>(M, v);
+#pragma unroll
+  for (int e = 0; e < T::EPT; ++e) M[Map::phys(T::own(e))] = v[e];
 }
 
 // M = X for a DP x DP matrix X in device memory, on the calling thread's
-// tile (coalesced reads).
-template <int NTH = NT>
+// tile (coalesced reads), into Map's shared-memory layout.
+template <int NTH = NT, class Map = TileMap<NTH>>
 __device__ __forceinline__ void load(float2* M,
                                      const float2* __restrict__ X) {
   using T = TileMap<NTH>;
 #pragma unroll
-  for (int e = 0; e < T::EPT; ++e) M[T::own(e)] = __ldg(X + T::own(e));
+  for (int e = 0; e < T::EPT; ++e)
+    M[Map::phys(T::own(e))] = __ldg(X + T::own(e));
 }
 
 // Squaring count of M (shared memory) from its complex 1-norm:
 // s = clip(ceil(log2(max(||M||_1 / 1.0, 1))), 0, 60), as _scaling_count.
 // The first DP threads sum one column each; ends with a barrier; every
-// thread gets the same s.
+// thread gets the same s. M in Map's layout.
+template <class Map>
 __device__ __forceinline__ int scaling_count(const float2* M, float* red) {
   if (threadIdx.x < DP) {
     float s = 0.0f;
     for (int i = 0; i < DP; ++i) {
-      const float2 v = M[i * DP + threadIdx.x];
+      const float2 v = M[Map::phys(i * DP + threadIdx.x)];
       s += sqrtf(v.x * v.x + v.y * v.y);
     }
 #pragma unroll
@@ -271,160 +514,280 @@ __device__ __forceinline__ int scaling_count(const float2* M, float* red) {
 
 
 // ---------------------------------------------------------------------------
-// Forward: exp(M) by the ladder (K1, K5 forward)
+// Forward: exp(M) by the ladder (K1, K5 forward; K3 at D = 64), on NT
+// threads; TC: the bf16_3x mode (MmaMap, tensor-core products, _D12A).
 // ---------------------------------------------------------------------------
 
-// chunk(k) = c_k I + c_{k+1} M + c_{k+2} M2 + c_{k+3} M3 on element e.
-__device__ __forceinline__ float2 chunk(int k, int e, const float2* M,
-                                        const float2* M2, const float2* M3) {
-  const int i = own(e);
-  float2 v = caxpy(kC[k + 1], M[i], make_float2(kC[k] * eye(e), 0.0f));
-  v = caxpy(kC[k + 2], M2[i], v);
-  return caxpy(kC[k + 3], M3[i], v);
-}
+template <bool TC>
+struct Fwd {
+  using Map = MapOf<NT, TC>;
+  static constexpr int EP = Map::EPT;
 
-// M2 = M M, M3 = M2 M, M4 = M2 M2. Expects M written; ends with a barrier.
-__device__ __forceinline__ void powers(const float2* M, float2* M2,
-                                       float2* M3, float2* M4) {
-  float2 acc[EPT];
-  mm(M, M, acc);
-  store(M2, acc);
-  __syncthreads();
-  mm(M2, M, acc);
-  store(M3, acc);
-  mm(M2, M2, acc);
-  store(M4, acc);
-  __syncthreads();
-}
+  static __device__ __forceinline__ int own(int e) { return Map::own(e); }
+  static __device__ __forceinline__ float eye(int e) { return Map::eye(e); }
 
-// Paterson-Stockmeyer degree 19 into X (powers already formed).
-__device__ __forceinline__ void taylor19(const float2* M, const float2* M2,
-                                         const float2* M3, const float2* M4,
-                                         float2* X) {
-  float2 acc[EPT];
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) X[own(e)] = chunk(16, e, M, M2, M3);
-  __syncthreads();
-  for (int k = 12; k >= 0; k -= 4) {
-    mm(X, M4, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      X[own(e)] = cadd(acc[e], chunk(k, e, M, M2, M3));
-    __syncthreads();
+  // acc = X Y
+  static __device__ __forceinline__ void mm(const float2* X, const float2* Y,
+                                            float2 (&acc)[EP]) {
+    zero(acc);
+    prod_acc<NT, TC>(X, Y, acc);
   }
-}
 
-// exp(M) for the generator M in shared memory (written, behind a barrier).
-// Returns the buffer that holds the result; ends with a barrier.
-static __device__ float2* expm(float2* M, float2* M2, float2* M3,
-                               float2* M4, float2* X, int level, float* red) {
-  float2 acc[EPT];
-  if (level == 0) {
-    // Degree 4: M2 = M M; U = c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
+  static __device__ __forceinline__ void store(float2* Z,
+                                               const float2 (&v)[EP]) {
+    store_map<Map>(Z, v);
+  }
+
+  // chunk(k) = c_k I + c_{k+1} M + c_{k+2} M2 + c_{k+3} M3 on element e.
+  static __device__ __forceinline__ float2 chunk(int k, int e,
+                                                 const float2* M,
+                                                 const float2* M2,
+                                                 const float2* M3) {
+    const int i = own(e);
+    float2 v = caxpy(kC[k + 1], M[i], make_float2(kC[k] * eye(e), 0.0f));
+    v = caxpy(kC[k + 2], M2[i], v);
+    return caxpy(kC[k + 3], M3[i], v);
+  }
+
+  // lin'(j) of _D12A (without its constant a_j0 I) from m, m2, m3.
+  static __device__ __forceinline__ float2 lin(int j, float2 m, float2 m2,
+                                               float2 m3) {
+    const float* a = kD12 + 4 * j;
+    return caxpy(a[3], m3, caxpy(a[2], m2, cscale(a[1], m)));
+  }
+
+  // M2 = M M, M3 = M2 M, M4 = M2 M2. Expects M written; ends with a
+  // barrier.
+  static __device__ __forceinline__ void powers(const float2* M, float2* M2,
+                                                float2* M3, float2* M4) {
+    float2 acc[EP];
     mm(M, M, acc);
     store(M2, acc);
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M3[i] = caxpy(kC[4], M2[i], cscale(kC[3], M[i]));
-    }
-    __syncthreads();
-    mm(M2, M3, acc);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      float2 v = caxpy(kC[1], M[i], make_float2(kC[0] * eye(e), 0.0f));
-      X[i] = cadd(caxpy(kC[2], M2[i], v), acc[e]);
-    }
-    __syncthreads();
-    return X;
-  }
-  if (level == 1) {
-    // Degree 8 in 3 products (_D8X).
-    mm(M, M, acc);
-    store(M2, acc);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M3[i] = caxpy(kD8[1], M2[i], cscale(kD8[0], M[i]));
-    }
-    __syncthreads();
-    mm(M2, M3, acc);  // A4
+    mm(M2, M, acc);
+    store(M3, acc);
+    mm(M2, M2, acc);
     store(M4, acc);
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      const float2 m = M[i], m2 = M2[i], m4 = M4[i];
-      const float id = eye(e);
-      M3[i] = caxpy(kD8[2], m2, m4);  // left factor x3 A2 + A4
-      float2 r = caxpy(kD8[4], m, make_float2(kD8[3] * id, 0.0f));
-      r = caxpy(kD8[5], m2, r);
-      X[i] = caxpy(kD8[6], m4, r);  // right factor
-      float2 b = caxpy(kD8[8], m, make_float2(kD8[7] * id, 0.0f));
-      M2[i] = caxpy(kD8[9], m2, b);  // y0 I + y1 M + y2 A2
-    }
-    __syncthreads();
-    mm(M3, X, acc);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int i = own(e);
-      M[i] = cadd(M2[i], acc[e]);
-    }
-    __syncthreads();
-    return M;
   }
-  if (level == 2) {
-    // Degree 12, Paterson-Stockmeyer (5 products).
-    powers(M, M2, M3, M4);
+
+  // Paterson-Stockmeyer degree 19 into X (powers already formed).
+  static __device__ __forceinline__ void taylor19(const float2* M,
+                                                  const float2* M2,
+                                                  const float2* M3,
+                                                  const float2* M4,
+                                                  float2* X) {
+    float2 acc[EP];
 #pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      X[own(e)] = caxpy(kC[12], M4[own(e)], chunk(8, e, M, M2, M3));
+    for (int e = 0; e < EP; ++e) X[own(e)] = chunk(16, e, M, M2, M3);
     __syncthreads();
-    for (int k = 4; k >= 0; k -= 4) {
-      mm(M4, X, acc);
+    for (int k = 12; k >= 0; k -= 4) {
+      mm(X, M4, acc);
       __syncthreads();
 #pragma unroll
-      for (int e = 0; e < EPT; ++e)
-        X[own(e)] = cadd(chunk(k, e, M, M2, M3), acc[e]);
+      for (int e = 0; e < EP; ++e)
+        X[own(e)] = cadd(acc[e], chunk(k, e, M, M2, M3));
+      __syncthreads();
+    }
+  }
+
+  // Degree 12 in 4 products (_D12A, as kD12C says), the bf16_3x mode's:
+  // M2, then M3 whose epilogue writes lin(3) to X; lin(3)^2, whose epilogue
+  // forms A6' = lin'(2) + lin(3)^2 (M4), Y' = lin'(1) + A6' (M2) and
+  // c0 I + lin'(0) (M) from the thread's own elements of M, M2, M3 (the
+  // product reads X alone); then X = c0 I + lin'(0) + Y' A6' + a20 Y' +
+  // y0 A6'.
+  static __device__ __forceinline__ float2* taylor12_4(float2* M, float2* M2,
+                                                       float2* M3, float2* M4,
+                                                       float2* X) {
+    float2 acc[EP];
+    mm(M, M, acc);
+    store(M2, acc);
+    __syncthreads();
+    mm(M2, M, acc);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) {
+      const int i = own(e);
+      M3[i] = acc[e];
+      X[i] = lin(3, M[i], M2[i], acc[e]);
+    }
+    __syncthreads();
+    mm(X, X, acc);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) {
+      const int i = own(e);
+      const float2 m = M[i], m2 = M2[i], m3 = M3[i];
+      const float2 a6 = cadd(lin(2, m, m2, m3), acc[e]);
+      M4[i] = a6;
+      M2[i] = cadd(lin(1, m, m2, m3), a6);
+      M[i] = cadd(make_float2(kD12C[0] * eye(e), 0.0f), lin(0, m, m2, m3));
+    }
+    __syncthreads();
+    mm(M2, M4, acc);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) {
+      const int i = own(e);
+      const float2 v = caxpy(kD12C[1], M4[i], caxpy(kD12[8], M2[i], M[i]));
+      X[i] = cadd(v, acc[e]);
+    }
+    __syncthreads();
+    return X;
+  }
+
+  // exp(M) for the generator M in shared memory (written, behind a
+  // barrier). Returns the buffer that holds the result; ends with a barrier.
+  static __device__ float2* expm(float2* M, float2* M2, float2* M3,
+                                 float2* M4, float2* X, int level,
+                                 float* red) {
+    float2 acc[EP];
+    if (level == 0) {
+      // Degree 4: M2 = M M; U = c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
+      mm(M, M, acc);
+      store(M2, acc);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EP; ++e) {
+        const int i = own(e);
+        M3[i] = caxpy(kC[4], M2[i], cscale(kC[3], M[i]));
+      }
+      __syncthreads();
+      mm(M2, M3, acc);
+#pragma unroll
+      for (int e = 0; e < EP; ++e) {
+        const int i = own(e);
+        float2 v = caxpy(kC[1], M[i], make_float2(kC[0] * eye(e), 0.0f));
+        X[i] = cadd(caxpy(kC[2], M2[i], v), acc[e]);
+      }
+      __syncthreads();
+      return X;
+    }
+    if (level == 1) {
+      // Degree 8 in 3 products (_D8X).
+      mm(M, M, acc);
+      store(M2, acc);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EP; ++e) {
+        const int i = own(e);
+        M3[i] = caxpy(kD8[1], M2[i], cscale(kD8[0], M[i]));
+      }
+      __syncthreads();
+      mm(M2, M3, acc);  // A4
+      store(M4, acc);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EP; ++e) {
+        const int i = own(e);
+        const float2 m = M[i], m2 = M2[i], m4 = M4[i];
+        const float id = eye(e);
+        M3[i] = caxpy(kD8[2], m2, m4);  // left factor x3 A2 + A4
+        float2 r = caxpy(kD8[4], m, make_float2(kD8[3] * id, 0.0f));
+        r = caxpy(kD8[5], m2, r);
+        X[i] = caxpy(kD8[6], m4, r);  // right factor
+        float2 b = caxpy(kD8[8], m, make_float2(kD8[7] * id, 0.0f));
+        M2[i] = caxpy(kD8[9], m2, b);  // y0 I + y1 M + y2 A2
+      }
+      __syncthreads();
+      mm(M3, X, acc);
+#pragma unroll
+      for (int e = 0; e < EP; ++e) {
+        const int i = own(e);
+        M[i] = cadd(M2[i], acc[e]);
+      }
+      __syncthreads();
+      return M;
+    }
+    if (level == 2) {
+      if constexpr (TC) return taylor12_4(M, M2, M3, M4, X);
+      // Degree 12, Paterson-Stockmeyer (5 products).
+      powers(M, M2, M3, M4);
+#pragma unroll
+      for (int e = 0; e < EP; ++e)
+        X[own(e)] = caxpy(kC[12], M4[own(e)], chunk(8, e, M, M2, M3));
+      __syncthreads();
+      for (int k = 4; k >= 0; k -= 4) {
+        mm(M4, X, acc);
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < EP; ++e)
+          X[own(e)] = cadd(chunk(k, e, M, M2, M3), acc[e]);
+        __syncthreads();
+      }
+      return X;
+    }
+    int s = 0;
+    if (level == 4) {
+      // Per-matrix scaling to theta = 1, then T19 and s squarings.
+      s = scaling_count<Map>(M, red);
+      const float scale = exp2f(-(float)s);
+#pragma unroll
+      for (int e = 0; e < EP; ++e) M[own(e)] = cscale(scale, M[own(e)]);
+      __syncthreads();
+    }
+    powers(M, M2, M3, M4);
+    taylor19(M, M2, M3, M4, X);
+    if constexpr (TC) {
+      // The bf16_3x mode squares D = X - I: X^2 = I + 2 D + D D, so the
+      // tensor cores' truncation scales with D D (as advance; ops/chain.py
+      // _scale_and_square).
+      if (s > 0) {
+        shift(X, -1.0f);
+        for (int j = 0; j < s; ++j) {
+          mm(X, X, acc);
+          __syncthreads();
+#pragma unroll
+          for (int e = 0; e < EP; ++e) {
+            const int i = own(e);
+            X[i] = caxpy(2.0f, X[i], acc[e]);
+          }
+          __syncthreads();
+        }
+        shift(X, 1.0f);
+      }
+      return X;
+    }
+    for (int j = 0; j < s; ++j) {
+      mm(X, X, acc);
+      __syncthreads();
+      store(X, acc);
       __syncthreads();
     }
     return X;
   }
-  int s = 0;
-  if (level == 4) {
-    // Per-matrix scaling to theta = 1, then T19 and s squarings.
-    s = scaling_count(M, red);
-    const float scale = exp2f(-(float)s);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) M[own(e)] = cscale(scale, M[own(e)]);
-    __syncthreads();
-  }
-  powers(M, M2, M3, M4);
-  taylor19(M, M2, M3, M4, X);
-  for (int j = 0; j < s; ++j) {
-    mm(X, X, acc);
-    __syncthreads();
-    store(X, acc);
-    __syncthreads();
-  }
-  return X;
-}
 
-// P <- U P, also written to the prefix slot ``out`` in device memory. U and
-// P are in shared memory; ends with a barrier.
-__device__ __forceinline__ void advance(float2* P, const float2* U,
-                                        float2* __restrict__ out) {
-  float2 acc[EPT];
-  mm(U, P, acc);
-  __syncthreads();
-  store(P, acc);
-  store(out, acc);
-  __syncthreads();
-}
+  // X <- X + c I on the calling thread's elements; ends with a barrier.
+  static __device__ __forceinline__ void shift(float2* X, float c) {
+#pragma unroll
+    for (int e = 0; e < EP; ++e) X[own(e)].x += c * eye(e);
+    __syncthreads();
+  }
+
+  // P <- U P, also written to the prefix slot ``out`` in device memory. U
+  // and P are in shared memory; ends with a barrier. In the bf16_3x mode
+  // (TC) the step is P + (U - I) P (U is overwritten by U - I, exact): the
+  // tensor cores' truncation then scales with U - I, not with P, and a
+  // step with U = I leaves P exactly as it was (ops/chain.py
+  // _step_product).
+  static __device__ __forceinline__ void advance(float2* P, float2* U,
+                                                 float2* __restrict__ out) {
+    float2 acc[EP];
+    if constexpr (TC) {
+#pragma unroll
+      for (int e = 0; e < EP; ++e) U[own(e)].x -= eye(e);
+      __syncthreads();
+    }
+    mm(U, P, acc);
+    __syncthreads();
+    if constexpr (TC) {
+#pragma unroll
+      for (int e = 0; e < EP; ++e) acc[e] = cadd(P[own(e)], acc[e]);
+    }
+    store(P, acc);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) out[Map::gown(e)] = acc[e];
+    __syncthreads();
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Adjoint: dual-number exp and the adjoint step (K2, K5 adjoint; K4 at
@@ -474,14 +837,21 @@ __device__ __forceinline__ const float2* step_seed(const float2* seeds,
 // was the fastest of profiling/resident_variants.py's at the headline and
 // M4 inputs on an H100 (PERF.md).
 template <int NTH, bool BOTH_ACCUMULATORS = false, bool STASH_POWERS = false,
-          int UNROLL = 4, int BUILD_UNROLL = 7>
+          int UNROLL = 4, int BUILD_UNROLL = 7, bool TC = false>
 struct Adjoint {
-  using Map = TileMap<NTH>;
+  using Map = MapOf<NTH, TC>;
   static constexpr int THREADS = NTH;
   static constexpr int BUILD_KU = BUILD_UNROLL;  // K2's generator build
   static constexpr int EP = Map::EPT;
 
   static __device__ __forceinline__ int own(int e) { return Map::own(e); }
+
+  // Index of element e in x: the tangent output tout (device memory,
+  // row-major) or a shared-memory slot (Map's layout).
+  static __device__ __forceinline__ int at(const float2* x,
+                                           const float2* tout, int e) {
+    return x == tout ? Map::gown(e) : own(e);
+  }
 
   // Thread-private element e of stash slot ``slot``.
   static __device__ __forceinline__ float2& stash(float2* st, int slot,
@@ -502,17 +872,17 @@ struct Adjoint {
     if constexpr (BOTH_ACCUMULATORS) {
       float2 dacc[EP];
       zero(dacc);
-      mm_acc<NTH, UNROLL>(X, Y, acc);
-      mm_acc<NTH, UNROLL>(dX, Y, dacc);
-      mm_acc<NTH, UNROLL>(X, dY, dacc);
+      prod_acc<NTH, TC, UNROLL>(X, Y, acc);
+      prod_acc<NTH, TC, UNROLL>(dX, Y, dacc);
+      prod_acc<NTH, TC, UNROLL>(X, dY, dacc);
       val(acc);
       tan(dacc);
     } else {
-      mm_acc<NTH, UNROLL>(X, Y, acc);
+      prod_acc<NTH, TC, UNROLL>(X, Y, acc);
       val(acc);
       zero(acc);
-      mm_acc<NTH, UNROLL>(dX, Y, acc);
-      mm_acc<NTH, UNROLL>(X, dY, acc);
+      prod_acc<NTH, TC, UNROLL>(dX, Y, acc);
+      prod_acc<NTH, TC, UNROLL>(X, dY, acc);
       tan(acc);
     }
   }
@@ -530,12 +900,12 @@ struct Adjoint {
     } else {
       float2 acc[EP];
       zero(acc);
-      mm_acc<NTH, UNROLL>(M, M, acc);
+      prod_acc<NTH, TC, UNROLL>(M, M, acc);
       val(acc);
       __syncthreads();
       zero(acc);
-      mm_acc<NTH, UNROLL>(dM, M, acc);
-      mm_acc<NTH, UNROLL>(M, dM, acc);
+      prod_acc<NTH, TC, UNROLL>(dM, M, acc);
+      prod_acc<NTH, TC, UNROLL>(M, dM, acc);
       tan(acc);
     }
   }
@@ -597,6 +967,102 @@ struct Adjoint {
     return stash(st, 2 * j + 1, e);
   }
 
+  // lin'(j) of _D12A (without its constant a_j0 I), of values or of
+  // tangents.
+  static __device__ __forceinline__ float2 lin(int j, float2 m, float2 m2,
+                                               float2 m3) {
+    const float* a = kD12 + 4 * j;
+    return caxpy(a[3], m3, caxpy(a[2], m2, cscale(a[1], m)));
+  }
+
+  // Dual degree 12 in 4 dual products (_D12A as kD12C says), the bf16_3x
+  // mode's, in the slots of expm_dual. The epilogue of M3 = M2 M writes
+  // lin(3) (and its tangent) to B5, B6 and stashes c0 I + lin'(0),
+  // lin'(1), lin'(2) (slots 0, 2, 4; tangents 1, 3, 5); that of lin(3)^2
+  // forms A6' (B1, B2) and Y' = lin'(1) + A6' (B3, B4); the last product's
+  // value, c0 I + lin'(0) + Y' A6' + a20 Y' + y0 A6', waits in registers
+  // until its tangent pass, which reads B1, is done.
+  static __device__ float2* taylor12_4_dual(float2* B1, float2* B2,
+                                            float2* B3, float2* B4,
+                                            float2* B5, float2* B6,
+                                            float2* st,
+                                            float2* __restrict__ tout) {
+    dual_first(B1, B2,  // M2
+         [&](float2 (&a)[EP]) { store_map<Map>(B3, a); },
+         [&](float2 (&a)[EP]) { store_map<Map>(B4, a); });
+    __syncthreads();
+    dual(B3, B4, B1, B2,  // M3 = M2 M
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 m = B1[i], m2 = B3[i];
+             stash(st, 0, e) =
+                 cadd(make_float2(kD12C[0] * Map::eye(e), 0.0f),
+                      lin(0, m, m2, a[e]));
+             stash(st, 2, e) = lin(1, m, m2, a[e]);
+             stash(st, 4, e) = lin(2, m, m2, a[e]);
+             B5[i] = lin(3, m, m2, a[e]);
+           }
+         },
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 dm = B2[i], dm2 = B4[i];
+#pragma unroll
+             for (int j = 0; j < 3; ++j)
+               stash(st, 2 * j + 1, e) = lin(j, dm, dm2, a[e]);
+             B6[i] = lin(3, dm, dm2, a[e]);
+           }
+         });
+    __syncthreads();
+    dual(B5, B6, B5, B6,  // lin(3)^2
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 a6 = cadd(stash(st, 4, e), a[e]);
+             B1[i] = a6;
+             B3[i] = cadd(stash(st, 2, e), a6);
+           }
+         },
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 da6 = cadd(stash(st, 5, e), a[e]);
+             B2[i] = da6;
+             B4[i] = cadd(stash(st, 3, e), da6);
+           }
+         });
+    __syncthreads();
+    float2 x[EP];
+    dual(B3, B4, B1, B2,  // Y' A6'
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 v = caxpy(kD12C[1], B1[i],
+                                    caxpy(kD12[8], B3[i], stash(st, 0, e)));
+             x[e] = cadd(v, a[e]);
+           }
+         },
+         [&](float2 (&a)[EP]) {
+#pragma unroll
+           for (int e = 0; e < EP; ++e) {
+             const int i = own(e);
+             const float2 v = caxpy(kD12C[1], B2[i],
+                                    caxpy(kD12[8], B4[i], stash(st, 1, e)));
+             tout[Map::gown(e)] = cadd(v, a[e]);
+           }
+           __syncthreads();  // the tangent pass has read B1
+           store_map<Map>(B1, x);
+         });
+    __syncthreads();
+    return B1;
+  }
+
   // Dual exp at (M, dM) = (b[1], b[2]): M written behind a barrier, dM
   // written by the calling thread's phase (dual_first); b[3..6] are
   // scratch, b[0] is left alone. Writes the tangent L(M, dM) to tout
@@ -648,7 +1114,7 @@ struct Adjoint {
              for (int e = 0; e < EP; ++e) {
                const int i = own(e);
                const float2 dv = caxpy(kC[2], B4[i], cscale(kC[1], B2[i]));
-               tout[i] = cadd(dv, a[e]);
+               tout[Map::gown(e)] = cadd(dv, a[e]);
              }
            });
       __syncthreads();
@@ -717,17 +1183,20 @@ struct Adjoint {
 #pragma unroll
              for (int e = 0; e < EP; ++e) {
                const int i = own(e);
-               tout[i] = cadd(B2[i], a[e]);
+               tout[Map::gown(e)] = cadd(B2[i], a[e]);
              }
            });
       __syncthreads();
       return B1;
     }
+    if constexpr (TC) {
+      if (level == 2) return taylor12_4_dual(B1, B2, B3, B4, B5, B6, st, tout);
+    }
     int s = 0;
     if (level == 4) {
       // Per-matrix scaling of the value's 1-norm to theta = 1 (the tangent
       // scales with it), then dual T19 and s dual squarings.
-      s = scaling_count(B1, red);
+      s = scaling_count<Map>(B1, red);
       const float scale = exp2f(-(float)s);
 #pragma unroll
       for (int e = 0; e < EP; ++e) {
@@ -744,12 +1213,12 @@ struct Adjoint {
     const int n = d12 ? 2 : 4;  // stashed chunks
     const int top = 4 * n;
     dual_first(B1, B2,  // M2
-         [&](float2 (&a)[EP]) { store<NTH>(B3, a); },
-         [&](float2 (&a)[EP]) { store<NTH>(B4, a); });
+         [&](float2 (&a)[EP]) { store_map<Map>(B3, a); },
+         [&](float2 (&a)[EP]) { store_map<Map>(B4, a); });
     __syncthreads();
     dual(B3, B4, B3, B4,  // M4
-         [&](float2 (&a)[EP]) { store<NTH>(B5, a); },
-         [&](float2 (&a)[EP]) { store<NTH>(B6, a); });
+         [&](float2 (&a)[EP]) { store_map<Map>(B5, a); },
+         [&](float2 (&a)[EP]) { store_map<Map>(B6, a); });
     float2 x[EP];
     dual(B3, B4, B1, B2,  // M3 = M2 M: the chunks
          [&](float2 (&a)[EP]) {
@@ -772,8 +1241,8 @@ struct Adjoint {
              if (d12) a[e] = caxpy(kC[12], B6[i], a[e]);
            }
            __syncthreads();  // M, dM, M2, dM2 are dead
-           store<NTH>(B1, x);
-           store<NTH>(B2, a);
+           store_map<Map>(B1, x);
+           store_map<Map>(B2, a);
          });
     __syncthreads();
     if (d12) {
@@ -798,7 +1267,7 @@ struct Adjoint {
            [&](float2 (&a)[EP]) {
 #pragma unroll
              for (int e = 0; e < EP; ++e)
-               tout[own(e)] = cadd(get_t(st, 0, e), a[e]);
+               tout[Map::gown(e)] = cadd(get_t(st, 0, e), a[e]);
            });
       __syncthreads();
       return B1;
@@ -815,7 +1284,7 @@ struct Adjoint {
            [&](float2 (&a)[EP]) {
 #pragma unroll
              for (int e = 0; e < EP; ++e)
-               tq[own(e)] = cadd(a[e], get_t(st, j, e));
+               tq[at(tq, tout, e)] = cadd(a[e], get_t(st, j, e));
            });
       __syncthreads();
       float2* const t0 = p;
@@ -825,11 +1294,36 @@ struct Adjoint {
       q = t0;
       dq = t1;
     }
+    // The bf16_3x mode squares (D, dD) = (X - I, dX) as Fwd::expm does:
+    // (I + 2 D + D D, 2 dD + dD D + D dD).
+    if constexpr (TC) {
+      if (s > 0) {
+#pragma unroll
+        for (int e = 0; e < EP; ++e) p[own(e)].x -= Map::eye(e);
+        __syncthreads();
+      }
+    }
     for (int j = 0; j < s; ++j) {
       float2* const tq = j == s - 1 ? tout : dq;
-      dual(p, dp, p, dp,
-           [&](float2 (&a)[EP]) { store<NTH>(q, a); },
-           [&](float2 (&a)[EP]) { store<NTH>(tq, a); });
+      if constexpr (TC) {
+        dual(p, dp, p, dp,
+             [&](float2 (&a)[EP]) {
+#pragma unroll
+               for (int e = 0; e < EP; ++e) {
+                 const int i = own(e);
+                 q[i] = caxpy(2.0f, p[i], a[e]);
+               }
+             },
+             [&](float2 (&a)[EP]) {
+#pragma unroll
+               for (int e = 0; e < EP; ++e)
+                 tq[at(tq, tout, e)] = caxpy(2.0f, dp[own(e)], a[e]);
+             });
+      } else {
+        dual(p, dp, p, dp,
+             [&](float2 (&a)[EP]) { store_map<Map>(q, a); },
+             [&](float2 (&a)[EP]) { store_map<Map>(tq, a); });
+      }
       __syncthreads();
       float2* const t0 = p;
       float2* const t1 = dp;
@@ -837,6 +1331,13 @@ struct Adjoint {
       dp = dq;
       q = t0;
       dq = t1;
+    }
+    if constexpr (TC) {
+      if (s > 0) {
+#pragma unroll
+        for (int e = 0; e < EP; ++e) p[own(e)].x += Map::eye(e);
+        __syncthreads();
+      }
     }
     return p;
   }
@@ -854,13 +1355,13 @@ struct Adjoint {
     }
   }
 
-  // cp.async of X into s as it is.
+  // cp.async of X into s, in Map's layout.
   static __device__ __forceinline__ void stage(float2* s,
                                                const float2* __restrict__ X) {
 #pragma unroll
     for (int j = 0; j < MAT / 2 / NTH; ++j) {
       const int q = 2 * (threadIdx.x + NTH * j);
-      cp_async16(s + q, X + q);
+      cp_async16(s + Map::phys(q), X + q);
     }
   }
 
@@ -876,8 +1377,8 @@ struct Adjoint {
       const int r = (q & 15) + 16 * (q >> 9), c = (q >> 4) & 31;
       const float4 v =
           *reinterpret_cast<const float4*>(s + r * DP + 2 * (c ^ (r & 7)));
-      h[(2 * c) * DP + r] = make_float2(v.x, -v.y);
-      h[(2 * c + 1) * DP + r] = make_float2(v.z, -v.w);
+      h[Map::phys((2 * c) * DP + r)] = make_float2(v.x, -v.y);
+      h[Map::phys((2 * c + 1) * DP + r)] = make_float2(v.z, -v.w);
     }
   }
 
@@ -909,6 +1410,15 @@ struct Adjoint {
       c[1] = b[3];
       c[3] = b[1];
     }
+    if constexpr (TC) {
+      // The bf16_3x mode updates T as T + (U^H - I) T (Fwd::advance).
+      if (uh != nullptr) {
+        float2* d = const_cast<float2*>(uh);
+#pragma unroll
+        for (int e = 0; e < EP; ++e) d[own(e)].x -= Map::eye(e);
+        __syncthreads();
+      }
+    }
     stage_swizzled(b[5], prev);
     if (plane != nullptr) stage_swizzled(b[2], plane);
     if (seed != nullptr) stage(b[4], seed);
@@ -917,13 +1427,16 @@ struct Adjoint {
     float2 acc[EP];
     if (uh != nullptr) {
       zero(acc);
-      mm_acc<NTH, UNROLL>(uh, b[0], acc);
+      prod_acc<NTH, TC, UNROLL>(uh, b[0], acc);
     }
     cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < EP; ++e) {
       const int i = own(e);
+      if constexpr (TC) {
+        if (uh != nullptr) acc[e] = cadd(b[0][i], acc[e]);
+      }
       if (uh == nullptr) b[0][i] = b[4][i];
       else if (seed != nullptr) b[0][i] = cadd(acc[e], b[4][i]);
       else b[0][i] = acc[e];
@@ -932,13 +1445,14 @@ struct Adjoint {
     if (plane != nullptr) adjoint_of(c[1], b[2]);
     __syncthreads();
     zero(acc);
-    mm_acc<NTH, UNROLL>(b[0], b[6], acc);
-    store<NTH>(b[2], acc);
+    prod_acc<NTH, TC, UNROLL>(b[0], b[6], acc);
+    store_map<Map>(b[2], acc);
     return expm_dual(c, level, st, red, tout);
   }
 };
 
-// The kernels' design.
+// The kernels' design, and its bf16_3x mode.
 using AdjointNTA = Adjoint<NTA>;
+using AdjointTC = Adjoint<NTA, false, false, 4, 7, true>;
 
 }  // namespace qoc

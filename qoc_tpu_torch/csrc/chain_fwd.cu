@@ -20,6 +20,10 @@
 // only for the basis (L2-resident) and one 32 KB prefix write. Products are
 // native complex64 FP32 FMAs from conflict-free shared-memory reads; no
 // tensor cores (TF32 would lose the f32 accuracy the ladder is tuned for).
+// The bf16_3x mode (tf32 != 0) is a second instantiation whose products run
+// on the tensor cores as 3 x TF32, with _D12A at degree 12
+// (chain_common.cuh): 1 + 4 products a step at degree 12, where the exact
+// form takes 1 + 5.
 //
 // Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64) + RED_BYTES.
 
@@ -28,6 +32,7 @@
 namespace qoc {
 namespace {
 
+template <bool TC>
 __global__ void __launch_bounds__(NT, 1)
     chain_fwd_kernel(const float* __restrict__ w,
                      const float2* __restrict__ basis,
@@ -48,13 +53,28 @@ __global__ void __launch_bounds__(NT, 1)
   float2* pseg = prefpad + (size_t)blockIdx.x * (L + 1) * MAT;
 
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) P[own(e)] = make_float2(eye(e), 0.0f);
+  for (int e = 0; e < Fwd<TC>::EP; ++e)
+    P[Fwd<TC>::own(e)] = make_float2(Fwd<TC>::eye(e), 0.0f);
   for (int t = 0; t < L; ++t) {
-    build_generator(M, wseg + (size_t)t * n_b, basis, n_b);
+    build_generator<NT, 1, typename Fwd<TC>::Map>(M, wseg + (size_t)t * n_b,
+                                                  basis, n_b);
     __syncthreads();
-    advance(P, expm(M, M2, M3, M4, X, level, red),
-            pseg + (size_t)(t + 1) * MAT);
+    Fwd<TC>::advance(P, Fwd<TC>::expm(M, M2, M3, M4, X, level, red),
+                     pseg + (size_t)(t + 1) * MAT);
   }
+}
+
+template <bool TC>
+int launch_chain_fwd(const void* w, const void* basis, const void* norm,
+                     void* prefpad, int S, int L, int n_b, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_fwd_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  chain_fwd_kernel<TC><<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(w), static_cast<const float2*>(basis),
+      static_cast<const float*>(norm), static_cast<float2*>(prefpad), L, n_b);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -62,19 +82,16 @@ __global__ void __launch_bounds__(NT, 1)
 
 // w (S, L, n_b) f32; basis (n_b, DP, DP) complex64; norm -> 1 f32 (batch-max
 // 1-norm of the generators); prefpad (S, L + 1, DP, DP) complex64, slot 0
-// written by the caller, slots 1..L by this kernel. Returns the CUDA error.
+// written by the caller, slots 1..L by this kernel; tf32 != 0: the bf16_3x
+// mode. Returns the CUDA error.
 extern "C" int qoc_chain_fwd(const void* w, const void* basis,
                              const void* norm, void* prefpad, int S, int L,
-                             int n_b, void* stream) {
+                             int n_b, int tf32, void* stream) {
   using namespace qoc;
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  chain_fwd_kernel<<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float*>(w), static_cast<const float2*>(basis),
-      static_cast<const float*>(norm), static_cast<float2*>(prefpad), L, n_b);
-  return (int)cudaGetLastError();
+  return tf32 ? launch_chain_fwd<true>(w, basis, norm, prefpad, S, L, n_b,
+                                       stream)
+              : launch_chain_fwd<false>(w, basis, norm, prefpad, S, L, n_b,
+                                        stream);
 }
 
 extern "C" int qoc_chain_dp() { return qoc::DP; }

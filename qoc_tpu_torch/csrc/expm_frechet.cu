@@ -27,6 +27,8 @@
 // tiles of 128 x 64 panels (8 x 2 tiles of 64 x 64 at D = 192, which 128
 // does not divide): at the d = 2^7 planes on an H100 it beat K3's 8 x 2
 // and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
+// The bf16_3x mode (tf32 != 0) runs at D = 64 alone, on AdjointTC (3 x TF32
+// tensor-core products, _D12A); the tiled path refuses it.
 
 #include "expm_common.cuh"
 
@@ -37,12 +39,12 @@ namespace {
 // resident, + the 1-norm scratch.
 constexpr size_t RESIDENT_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
 
+template <class A>
 __global__ void __launch_bounds__(NTA, 1)
     frechet_resident_kernel(const float2* __restrict__ b,
                             const float2* __restrict__ g,
                             const float* __restrict__ norm,
                             float2* __restrict__ out, float2* stash, int B) {
-  using A = AdjointNTA;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   // expm_dual's slots b1..b6 (b0, the adjoint's T, is not used here).
@@ -54,8 +56,8 @@ __global__ void __launch_bounds__(NTA, 1)
   float2* st = stash + (size_t)blockIdx.x * STASH_SLOTS * MAT;
   const int level = ladder_level(__ldg(norm));
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
-    load<NTA>(buf[1], b + (size_t)m * MAT);
-    load<NTA>(buf[2], g + (size_t)m * MAT);
+    load<NTA, typename A::Map>(buf[1], b + (size_t)m * MAT);
+    load<NTA, typename A::Map>(buf[2], g + (size_t)m * MAT);
     __syncthreads();
     A::expm_dual(buf, level, st, red, out + (size_t)m * MAT);
   }
@@ -85,14 +87,18 @@ int tiled_plan(int* blocks, int* smem) {
 // b, g (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max
 // 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_frechet_plan (the Paterson-Stockmeyer chunks' stash at
-// dp = 64). dp is 64, 128, 192 or 256. Returns the CUDA error.
+// dp = 64). dp is 64, 128, 192 or 256; tf32 != 0 (the bf16_3x mode) takes
+// dp = 64 only. Returns the CUDA error.
 extern "C" int qoc_expm_frechet(const void* b, const void* g,
                                 const void* norm, void* out, void* ws, int B,
-                                int dp, int grid, void* stream) {
+                                int dp, int grid, int tf32, void* stream) {
   using namespace qoc;
+  if (tf32 && dp != 64) return (int)cudaErrorInvalidValue;
   switch (dp) {
     case 64:
-      return ex::launch<NTA>(frechet_resident_kernel, RESIDENT_SMEM, grid,
+      return ex::launch<NTA>(tf32 ? frechet_resident_kernel<AdjointTC>
+                                  : frechet_resident_kernel<AdjointNTA>,
+                             RESIDENT_SMEM, grid,
                              stream, 1, static_cast<const float2*>(b),
                              static_cast<const float2*>(g),
                              static_cast<const float*>(norm),
@@ -113,8 +119,8 @@ extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots,
   switch (dp) {
     case 64:
       *smem = (int)RESIDENT_SMEM;
-      return ex::resident_blocks(frechet_resident_kernel, RESIDENT_SMEM,
-                                 blocks, NTA);
+      return ex::resident_blocks(frechet_resident_kernel<AdjointNTA>,
+                                 RESIDENT_SMEM, blocks, NTA);
     case 128: return tiled_plan<2>(blocks, smem);
     case 192: return tiled_plan<3>(blocks, smem);
     case 256: return tiled_plan<4>(blocks, smem);

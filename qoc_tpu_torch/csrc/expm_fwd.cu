@@ -26,7 +26,10 @@
 // d = 2^7 GRAPE's planes (2000 x 128^2, degree 19) on an H100 against
 // clusters of 2 or 4 blocks a matrix (ladders that fit the L2) and 4 x 4
 // and 8 x 4 register tiles: profiling/tiled_variants.py, numbers in
-// PERF.md.
+// PERF.md. The bf16_3x mode (tf32 != 0) runs at D = 64 alone: the resident
+// ladder's second instantiation, 3 x TF32 tensor-core products with _D12A
+// (chain_common.cuh Fwd<true>); the tiled path has no such form yet and
+// refuses it.
 
 #include "expm_common.cuh"
 
@@ -36,6 +39,7 @@ namespace {
 // D = 64: M, M2, M3, M4, X resident + the 1-norm scratch.
 constexpr size_t RESIDENT_SMEM = 5 * MAT * sizeof(float2) + RED_BYTES;
 
+template <bool TC>
 __global__ void __launch_bounds__(NT, 1)
     expm_resident_kernel(const float2* __restrict__ a,
                          const float* __restrict__ norm,
@@ -50,11 +54,12 @@ __global__ void __launch_bounds__(NT, 1)
   float* red = reinterpret_cast<float*>(sm + 5 * MAT);
   const int level = ladder_level(__ldg(norm));
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
-    load(M, a + (size_t)m * MAT);
+    load<NT, typename Fwd<TC>::Map>(M, a + (size_t)m * MAT);
     __syncthreads();
-    const float2* r = expm(M, M2, M3, M4, X, level, red);
+    const float2* r = Fwd<TC>::expm(M, M2, M3, M4, X, level, red);
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) out[(size_t)m * MAT + own(e)] = r[own(e)];
+    for (int e = 0; e < Fwd<TC>::EP; ++e)
+      out[(size_t)m * MAT + Fwd<TC>::Map::gown(e)] = r[Fwd<TC>::own(e)];
     __syncthreads();
   }
 }
@@ -82,15 +87,18 @@ int tiled_plan(int* blocks, int* smem) {
 
 // a (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max 1-norm
 // of a; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
-// qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256. Returns
-// the CUDA error.
+// qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256; tf32 != 0
+// (the bf16_3x mode) takes dp = 64 only. Returns the CUDA error.
 extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
-                            void* ws, int B, int dp, int grid,
+                            void* ws, int B, int dp, int grid, int tf32,
                             void* stream) {
   using namespace qoc;
+  if (tf32 && dp != 64) return (int)cudaErrorInvalidValue;
   switch (dp) {
     case 64:
-      return ex::launch(expm_resident_kernel, RESIDENT_SMEM, grid, stream, 1,
+      return ex::launch(tf32 ? expm_resident_kernel<true>
+                             : expm_resident_kernel<false>,
+                        RESIDENT_SMEM, grid, stream, 1,
                         static_cast<const float2*>(a),
                         static_cast<const float*>(norm),
                         static_cast<float2*>(out), B);
@@ -111,7 +119,7 @@ extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots,
   switch (dp) {
     case 64:
       *smem = (int)RESIDENT_SMEM;
-      return ex::resident_blocks(expm_resident_kernel, RESIDENT_SMEM,
+      return ex::resident_blocks(expm_resident_kernel<false>, RESIDENT_SMEM,
                                  blocks);
     case 128: return tiled_plan<2>(blocks, smem);
     case 192: return tiled_plan<3>(blocks, smem);

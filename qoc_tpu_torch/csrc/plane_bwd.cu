@@ -25,7 +25,8 @@
 // Adjoint), one block of 512 threads per segment chain with 7 resident
 // matrices, two-pass dual products and the per-block stash of the
 // Paterson-Stockmeyer chunks; the plane is staged with P_{t-1} and the seed
-// while the T update runs.
+// while the T update runs. The bf16_3x mode (tf32 != 0) is K2's,
+// AdjointTC.
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -87,11 +88,15 @@ int launch_plane_bwd(const void* a, const void* norm, const void* prefpad,
 // inf-norm of the planes = 1-norm of A^H); prefpad (S, L + 1, DP, DP) from
 // the forward; seeds (S, DP, DP), or (S, L, DP, DP) with per_step != 0; gA
 // (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP) scratch. Returns the
-// CUDA error.
+// CUDA error; tf32 != 0: the bf16_3x mode.
 extern "C" int qoc_plane_bwd(const void* a, const void* norm,
                              const void* prefpad, const void* seeds, void* gA,
                              void* stash, int S, int L, int per_step,
-                             void* stream) {
+                             int tf32, void* stream) {
+  if (tf32)
+    return qoc::launch_plane_bwd<qoc::AdjointTC>(a, norm, prefpad, seeds, gA,
+                                                  stash, S, L, per_step,
+                                                  stream);
   return qoc::launch_plane_bwd<qoc::AdjointNTA>(a, norm, prefpad, seeds, gA,
                                                  stash, S, L, per_step,
                                                  stream);

@@ -17,7 +17,8 @@
 // What the design does about it: K1's, one block per segment chain with the
 // chain's working set resident in shared memory; a step touches device
 // memory for one coalesced plane read and one prefix write, where K1 reads
-// its 21-term basis from L2.
+// its 21-term basis from L2. The bf16_3x mode (tf32 != 0) is K1's: a
+// second instantiation on 3 x TF32 tensor-core products with _D12A.
 //
 // Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64) + RED_BYTES.
 
@@ -26,6 +27,7 @@
 namespace qoc {
 namespace {
 
+template <bool TC>
 __global__ void __launch_bounds__(NT, 1)
     plane_fwd_kernel(const float2* __restrict__ a,
                      const float* __restrict__ norm,
@@ -45,13 +47,27 @@ __global__ void __launch_bounds__(NT, 1)
   float2* pseg = prefpad + (size_t)blockIdx.x * (L + 1) * MAT;
 
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) P[own(e)] = make_float2(eye(e), 0.0f);
+  for (int e = 0; e < Fwd<TC>::EP; ++e)
+    P[Fwd<TC>::own(e)] = make_float2(Fwd<TC>::eye(e), 0.0f);
   for (int t = 0; t < L; ++t) {
-    load(M, aseg + (size_t)t * MAT);
+    load<NT, typename Fwd<TC>::Map>(M, aseg + (size_t)t * MAT);
     __syncthreads();
-    advance(P, expm(M, M2, M3, M4, X, level, red),
-            pseg + (size_t)(t + 1) * MAT);
+    Fwd<TC>::advance(P, Fwd<TC>::expm(M, M2, M3, M4, X, level, red),
+                     pseg + (size_t)(t + 1) * MAT);
   }
+}
+
+template <bool TC>
+int launch_plane_fwd(const void* a, const void* norm, void* prefpad, int S,
+                     int L, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      plane_fwd_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  plane_fwd_kernel<TC><<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float2*>(a), static_cast<const float*>(norm),
+      static_cast<float2*>(prefpad), L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -59,16 +75,11 @@ __global__ void __launch_bounds__(NT, 1)
 
 // a (S, L, DP, DP) complex64 planes; norm -> 1 f32 (batch-max 1-norm of the
 // planes); prefpad (S, L + 1, DP, DP) complex64, slot 0 written by the
-// caller, slots 1..L by this kernel. Returns the CUDA error.
+// caller, slots 1..L by this kernel; tf32 != 0: the bf16_3x mode. Returns
+// the CUDA error.
 extern "C" int qoc_plane_fwd(const void* a, const void* norm, void* prefpad,
-                             int S, int L, void* stream) {
+                             int S, int L, int tf32, void* stream) {
   using namespace qoc;
-  cudaError_t err = cudaFuncSetAttribute(
-      plane_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  plane_fwd_kernel<<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(a), static_cast<const float*>(norm),
-      static_cast<float2*>(prefpad), L);
-  return (int)cudaGetLastError();
+  return tf32 ? launch_plane_fwd<true>(a, norm, prefpad, S, L, stream)
+              : launch_plane_fwd<false>(a, norm, prefpad, S, L, stream);
 }

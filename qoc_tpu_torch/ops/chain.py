@@ -54,6 +54,16 @@ tensor it launches its kernel or raises. The kernels are f32: on CUDA the ops
 run in float32/complex64. On the CPU they run in the caller's dtype
 (float64 for parity with ``qoc_tpu``), with the same f32-calibrated ladder.
 
+Precision mode (``config.MXU_MODE``, ``qoc_tpu``'s
+``QOC_TPU_MXU_PRECISION``): in ``"bf16_3x"`` every float32 product of the
+ladder and the chain steps is the 3-pass TF32 split (:func:`_matmul_3x`,
+on the card's tensor cores in the kernels) and degree 12 is ``_D12A``
+(:func:`_taylor12_4`). The ops read the mode when called and run their
+backward in the forward's; each wrapper takes it as ``mode`` (None: the
+switch as it stands) and counts its launches in it (``mode_launches``).
+K6 has no such form yet: in the mode the plane op refuses K6's route
+(:data:`MODE_REFUSAL`).
+
 Gradient convention: PyTorch's ``grad`` of a complex tensor is
 dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX ops therefore
 seed their adjoint with ``conj(gbar)`` and carry a conjugated recursion;
@@ -73,6 +83,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from qoc_tpu_torch import config
 from qoc_tpu_torch.config import complex_dtype
 
 __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
@@ -83,7 +94,7 @@ __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
            "resident_block", "segment_plan", "stream_bwd",
            "stream_bwd_plain", "stream_fwd", "stream_fwd_plain",
            "stream_grid", "stream_segment_plan", "uses_stream", "KERNEL_DP",
-           "STREAM_MAX_DP", "STREAM_MIN_DP"]
+           "MODE_REFUSAL", "STREAM_MAX_DP", "STREAM_MIN_DP"]
 
 # K1/K2/K5's matrix dimension (csrc/chain_common.cuh DP): smaller d is
 # zero-padded to it (exact), larger d is refused.
@@ -105,6 +116,16 @@ _TAYLOR_COEFFS = tuple(1.0 / math.factorial(k) for k in range(20))
 _D8X = (-0.2791515105738877, -0.06978787764347194, 1.9965103670821102,
         -1.0443935504465197, -0.06254782056757438, -0.024382370915357013,
         0.005092363918911529, 1.0, 1.0, 2.585142563711936)
+# Degree-12 Taylor in 4 products (expm_pallas.py _D12A), the bf16_3x mode's
+# degree 12: rows a_i of lin(i) = a_i0 I + a_i1 M + a_i2 M2 + a_i3 M3.
+_D12A = ((2.50924541e+00, 2.50145758e+00, 6.68628695e-01, 6.22278884e-02),
+         (5.58758752e+00, 1.71336946e+00, 1.60849759e-01, -1.44147961e-03),
+         (-2.84603020e-01, -2.02022795e-01, 1.89875093e-02, 1.23719677e-02),
+         (0.0, 1.31810610e-01, 2.02785554e-02, 6.75951847e-03))
+# What a route without the bf16_3x mode's kernels says in the mode.
+MODE_REFUSAL = ("{} has no bf16_3x form yet (ROADMAP Queue 2 item 5b); run "
+                "it with QOC_TPU_MXU_PRECISION=highest (config.MXU_MODE) or "
+                "in float64")
 
 # Segment plan: at least this many steps per segment, and at most this many
 # rows (segments of all chains) when the chains alone do not fill the card:
@@ -212,15 +233,18 @@ def load_kernels():
         _build(out_dir, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    # The int before the stream of K1/K2/K5/K3/K4: 1 for the bf16_3x mode.
+    lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, cint,
+                                  ptr]
     lib.qoc_chain_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, cint,
-                                  cint, cint, cint, ptr]
-    lib.qoc_plane_fwd.argtypes = [ptr, ptr, ptr, cint, cint, ptr]
+                                  cint, cint, cint, cint, ptr]
+    lib.qoc_plane_fwd.argtypes = [ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.qoc_plane_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
-                                  cint, ptr]
-    lib.qoc_expm_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+                                  cint, cint, ptr]
+    lib.qoc_expm_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, cint,
+                                 ptr]
     lib.qoc_expm_frechet.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
-                                     cint, ptr]
+                                     cint, cint, ptr]
     lib.qoc_stream_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
                                    cint, ptr]
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
@@ -340,23 +364,87 @@ class _Dual:
     __rmul__ = __mul__
 
 
+def _matmul(x, y):
+    """The exact product, of tensors or _Duals."""
+    return x @ y
+
+
+def _tf32(x):
+    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: on the bits, half a TF32 unit added
+    to the magnitude and the 13 low bits cleared (inf and NaN kept)."""
+    bits = x.view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def _split_tf32(x):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi), for float32 or, plane
+    by plane, complex64 x: the kernels' operand split in the bf16_3x
+    mode."""
+    if x.is_complex():
+        hi, lo = _split_tf32(torch.view_as_real(x.resolve_conj()))
+        return torch.view_as_complex(hi), torch.view_as_complex(lo)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _matmul_3x(x, y):
+    """The bf16_3x mode's product x_hi y_hi + x_hi y_lo + x_lo y_hi of
+    tensors (float32 or complex64) or _Duals. Products of TF32 values are
+    exact in float32, so it differs from the kernels' tensor-core product
+    only in the order of the sums."""
+    if isinstance(x, _Dual):
+        return _Dual(_matmul_3x(x.v, y.v),
+                     _matmul_3x(x.dv, y.v) + _matmul_3x(x.v, y.dv))
+    xh, xl = _split_tf32(x)
+    yh, yl = _split_tf32(y)
+    return xh @ yh + xh @ yl + xl @ yh
+
+
+_MUL = {"highest": _matmul, "bf16_3x": _matmul_3x}
+
+
+def _step_product(u, x, mode):
+    """u x, a chain step's product (P <- U P forward, T <- U^H T in the
+    adjoint). In the bf16_3x mode it is x + (u - I) x, as the kernels form
+    it: their tensor-core sums round toward zero, and with u - I (exact)
+    that bias scales with the step, not with x; a step with u = I (a
+    padded one) leaves x exactly as it was."""
+    if mode == "bf16_3x":
+        eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+        return x + _matmul_3x(u - eye, x)
+    return u @ x
+
+
+def _mode_of(x, mode):
+    """config.mxu_mode for the dtype of x (a tensor or a _Dual)."""
+    v = x.v if isinstance(x, _Dual) else x
+    return config.mxu_mode(v.dtype, mode)
+
+
+def _refuse(what, mode):
+    if mode == "bf16_3x":
+        raise NotImplementedError(MODE_REFUSAL.format(what))
+
+
 def _where(mask, a, b):
     if isinstance(a, _Dual):
         return _Dual(torch.where(mask, a.v, b.v), torch.where(mask, a.dv, b.dv))
     return torch.where(mask, a, b)
 
 
-def _taylor4(m, eye):
+def _taylor4(m, eye, mul=_matmul):
     c = _TAYLOR_COEFFS
-    m2 = m @ m
-    return c[0] * eye + c[1] * m + c[2] * m2 + m2 @ (c[3] * m + c[4] * m2)
+    m2 = mul(m, m)
+    return c[0] * eye + c[1] * m + c[2] * m2 + mul(m2, c[3] * m + c[4] * m2)
 
 
-def _taylor8(m, eye):
+def _taylor8(m, eye, mul=_matmul):
     x1, x2, x3, x4, x5, x6, x7, y0, y1, y2 = _D8X
-    m2 = m @ m
-    m4 = m2 @ (x1 * m + x2 * m2)
-    m8 = (x3 * m2 + m4) @ (x4 * eye + x5 * m + x6 * m2 + x7 * m4)
+    m2 = mul(m, m)
+    m4 = mul(m2, x1 * m + x2 * m2)
+    m8 = mul(x3 * m2 + m4, x4 * eye + x5 * m + x6 * m2 + x7 * m4)
     return y0 * eye + y1 * m + y2 * m2 + m8
 
 
@@ -365,22 +453,48 @@ def _chunk(k, eye, m, m2, m3):
     return c[k] * eye + c[k + 1] * m + c[k + 2] * m2 + c[k + 3] * m3
 
 
-def _taylor12(m, eye):
-    m2 = m @ m
-    m3 = m2 @ m
-    m4 = m2 @ m2
+def _taylor12(m, eye, mul=_matmul):
+    m2 = mul(m, m)
+    m3 = mul(m2, m)
+    m4 = mul(m2, m2)
     x = _chunk(8, eye, m, m2, m3) + _TAYLOR_COEFFS[12] * m4
-    x = _chunk(4, eye, m, m2, m3) + m4 @ x
-    return _chunk(0, eye, m, m2, m3) + m4 @ x
+    x = _chunk(4, eye, m, m2, m3) + mul(m4, x)
+    return _chunk(0, eye, m, m2, m3) + mul(m4, x)
 
 
-def _taylor19(m, eye):
-    m2 = m @ m
-    m3 = m2 @ m
-    m4 = m2 @ m2
+def _taylor12_4(m, eye, mul=_matmul):
+    """Degree 12 in 4 products (``_D12A``; qoc_tpu expm_pallas.py
+    _taylor12_fast_m, and on _Duals _taylor12_fast_dual): the same Taylor
+    polynomial as :func:`_taylor12`, so the ladder's thresholds hold.
+    _D12A's T12 = lin(0) + (lin(1) + A6) A6, A6 = lin(2) + lin(3)^2, with
+    the constant parts of A6 and Y = lin(1) + A6 taken out (A6 = A6' +
+    a20 I, Y = Y' + y0 I, y0 = a10 + a20): T12 = c0 I + lin'(0) + Y' A6' +
+    a20 Y' + y0 A6', c0 = a00 + y0 a20. The polynomial is the same, and
+    exp(0) is I exactly in float32 (c0 rounds to 1), so zero padding stays
+    exact; _D12A as written leaves its constant 1 - 6e-9 off in float64
+    and a unit in the last place off in float32."""
+    a = _D12A
+    y0 = a[1][0] + a[2][0]
+    c0 = a[0][0] + y0 * a[2][0]
+    m2 = mul(m, m)
+    m3 = mul(m2, m)
+
+    def lin(i):           # lin(i) without its constant a_i0 I
+        return a[i][1] * m + a[i][2] * m2 + a[i][3] * m3
+
+    b4 = lin(3)           # a_30 = 0
+    a6 = lin(2) + mul(b4, b4)
+    y = lin(1) + a6
+    return c0 * eye + lin(0) + mul(y, a6) + a[2][0] * y + y0 * a6
+
+
+def _taylor19(m, eye, mul=_matmul):
+    m2 = mul(m, m)
+    m3 = mul(m2, m)
+    m4 = mul(m2, m2)
     p = _chunk(16, eye, m, m2, m3)
     for k in (12, 8, 4, 0):
-        p = p @ m4 + _chunk(k, eye, m, m2, m3)
+        p = mul(p, m4) + _chunk(k, eye, m, m2, m3)
     return p
 
 
@@ -408,29 +522,44 @@ def _squaring_count(v, theta):
     return torch.clamp(s, 0, _MAX_SQUARINGS)
 
 
-def _scale_and_square(m, approximant, theta=_THETA, max_squarings=None):
+def _scale_and_square(m, approximant, theta=_THETA, max_squarings=None,
+                      mul=_matmul):
     """exp of a batch m (a tensor, or a _Dual for the Fréchet derivative) by
     per-matrix scaling to ``theta``, ``approximant(scaled, eye)`` and masked
-    squarings: max(s) of them (a host read), or ``max_squarings``."""
+    squarings (products by ``mul``): max(s) of them (a host read), or
+    ``max_squarings``. With the bf16_3x mode's ``_matmul_3x`` the squarings
+    run on D = p - I, D <- 2 D + D D, as the kernels run them (see
+    :func:`_step_product`)."""
     v = m.v if isinstance(m, _Dual) else m
     eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
     s = _squaring_count(v, theta)
     p = approximant(m * torch.exp2(-s)[..., None, None], eye)
     n = int(s.max()) if max_squarings is None else max_squarings
+    if mul is _matmul_3x and n > 0:
+        d = p + (-1.0) * eye
+        for j in range(n):
+            d = _where((j < s)[..., None, None], 2.0 * d + mul(d, d), d)
+        return _where((s > 0)[..., None, None], d + eye, p)
     for j in range(n):
-        p = _where((j < s)[..., None, None], p @ p, p)
+        p = _where((j < s)[..., None, None], mul(p, p), p)
     return p
 
 
-def _expm_ladder(m, level):
+def _expm_ladder(m, level, mode="highest"):
     """exp of a batch of matrices m (a tensor, or a _Dual for the Fréchet
-    derivative) at ladder ``level``. The last level scales each matrix to
-    theta = 1 and always takes T19 (the kernels' rule too)."""
+    derivative) at ladder ``level``, in precision ``mode``. The last level
+    scales each matrix to theta = 1 and always takes T19 (the kernels' rule
+    too); in the bf16_3x mode every product is :func:`_matmul_3x` and
+    degree 12 is :func:`_taylor12_4`."""
+    mul = _MUL[mode]
     if level < len(_TAYLOR):
         v = m.v if isinstance(m, _Dual) else m
-        return _TAYLOR[level](m, torch.eye(v.shape[-1], dtype=v.dtype,
-                                           device=v.device))
-    return _scale_and_square(m, _taylor19)
+        taylor = (_taylor12_4 if mode == "bf16_3x" and level == 2
+                  else _TAYLOR[level])
+        return taylor(m, torch.eye(v.shape[-1], dtype=v.dtype,
+                                   device=v.device), mul)
+    return _scale_and_square(m, lambda x, eye: _taylor19(x, eye, mul),
+                             mul=mul)
 
 
 def _generators(w_t, basis):
@@ -440,16 +569,17 @@ def _generators(w_t, basis):
         -1, dp, dp)
 
 
-def _prefixes(generator, s_count, length, dp, level, like):
+def _prefixes(generator, s_count, length, dp, level, like, mode):
     """The forward recursion: prefpad (S, L+1, dp, dp) with slot 0 = I and
-    slot t+1 = exp(generator(t)) ··· exp(generator(0)) of each segment."""
+    slot t+1 = exp(generator(t)) ··· exp(generator(0)) of each segment, in
+    precision ``mode``."""
     out = torch.empty((s_count, length + 1, dp, dp), dtype=like.dtype,
                       device=like.device)
     p = torch.eye(dp, dtype=like.dtype, device=like.device).expand(
         s_count, dp, dp)
     out[:, 0] = p
     for t in range(length):
-        p = _expm_ladder(generator(t), level) @ p
+        p = _step_product(_expm_ladder(generator(t), level, mode), p, mode)
         out[:, t + 1] = p
     return out
 
@@ -461,63 +591,69 @@ def per_step_seeds(seeds):
     return seeds.dim() == 4
 
 
-def _adjoint(generator_h, length, level, prefpad, seeds):
+def _adjoint(generator_h, length, level, prefpad, seeds, mode):
     """The adjoint recursion: gA (S, L, dp, dp) from the generators' conjugate
     transposes ``generator_h(t)``, the forward's prefpad and the seeds: one a
     segment, at its last step, or one a step (:func:`per_step_seeds`), added
-    after the product, T_t = U_{t+1}^H T_{t+1} + seed_t."""
+    after the product, T_t = U_{t+1}^H T_{t+1} + seed_t; in precision
+    ``mode``."""
     per_step = per_step_seeds(seeds)
+    mul = _MUL[mode]
     out = torch.empty((seeds.shape[0], length) + seeds.shape[-2:],
                       dtype=seeds.dtype, device=seeds.device)
     t_cur = seeds[:, -1] if per_step else seeds
     uh = None
     for t in range(length - 1, -1, -1):
         if uh is not None:
-            t_cur = uh @ t_cur
+            t_cur = _step_product(uh, t_cur, mode)
             if per_step:
                 t_cur = t_cur + seeds[:, t]
-        gu = t_cur @ prefpad[:, t].mH
-        dual = _expm_ladder(_Dual(generator_h(t), gu), level)
+        gu = mul(t_cur, prefpad[:, t].mH)
+        dual = _expm_ladder(_Dual(generator_h(t), gu), level, mode)
         uh = dual.v
         out[:, t] = dual.dv
     return out
 
 
-def chain_fwd_plain(w, basis, norm):
+def chain_fwd_plain(w, basis, norm, mode=None):
     """Plain version of K1: ``w`` (S, L, n_b) real, ``basis`` (n_b, dp, dp)
-    complex, ``norm`` the batch-max 1-norm of the generators. Returns
+    complex, ``norm`` the batch-max 1-norm of the generators, ``mode`` the
+    precision mode (None: ``config.MXU_MODE``; float64 ignores it). Returns
     prefpad (S, L+1, dp, dp): slot 0 = I, slot t+1 = P_t of each segment."""
     return _prefixes(lambda t: _generators(w[:, t], basis), w.shape[0],
-                     w.shape[1], basis.shape[-1], ladder_level(norm), basis)
+                     w.shape[1], basis.shape[-1], ladder_level(norm), basis,
+                     _mode_of(basis, mode))
 
 
-def chain_bwd_plain(w, basis_h, norm, prefpad, seeds):
+def chain_bwd_plain(w, basis_h, norm, prefpad, seeds, mode=None):
     """Plain version of K2: ``basis_h`` holds G_k^H, ``norm`` is the
     batch-max inf-norm of the generators (the 1-norm of A^H), ``prefpad``
     comes from K1 and ``seeds`` is each segment's gradient at its last
     prefix (S, dp, dp), or at every prefix (S, L, dp, dp): the per-step-seed
-    mode. Returns gA (S, L, dp, dp), the gradient of every step's
-    generator."""
+    mode; ``mode`` as :func:`chain_fwd_plain`. Returns gA (S, L, dp, dp),
+    the gradient of every step's generator."""
     return _adjoint(lambda t: _generators(w[:, t], basis_h), w.shape[1],
-                    ladder_level(norm), prefpad, seeds)
+                    ladder_level(norm), prefpad, seeds,
+                    _mode_of(basis_h, mode))
 
 
-def plane_fwd_plain(a_seg, norm):
+def plane_fwd_plain(a_seg, norm, mode=None):
     """Plain version of K5 forward: ``a_seg`` (S, L, dp, dp) complex
-    generator planes, ``norm`` their batch-max 1-norm. Returns prefpad as
-    :func:`chain_fwd_plain`."""
+    generator planes, ``norm`` their batch-max 1-norm, ``mode`` as
+    :func:`chain_fwd_plain`. Returns prefpad as :func:`chain_fwd_plain`."""
     return _prefixes(lambda t: a_seg[:, t], a_seg.shape[0], a_seg.shape[1],
-                     a_seg.shape[-1], ladder_level(norm), a_seg)
+                     a_seg.shape[-1], ladder_level(norm), a_seg,
+                     _mode_of(a_seg, mode))
 
 
-def plane_bwd_plain(a_seg, norm, prefpad, seeds):
+def plane_bwd_plain(a_seg, norm, prefpad, seeds, mode=None):
     """Plain version of K5 backward: ``a_seg`` the forward's planes (the
     recursion runs on their conjugate transposes A^H), ``norm`` their
     batch-max inf-norm (the 1-norm of A^H), ``prefpad`` and ``seeds`` as
     :func:`chain_bwd_plain`. Returns gA (S, L, dp, dp), the planes'
     gradient."""
     return _adjoint(lambda t: a_seg[:, t].mH, a_seg.shape[1],
-                    ladder_level(norm), prefpad, seeds)
+                    ladder_level(norm), prefpad, seeds, _mode_of(a_seg, mode))
 
 
 # ---------------------------------------------------------------------------
@@ -537,12 +673,15 @@ def _stash(lib, s_count, device):
                         KERNEL_DP), dtype=torch.complex64, device=device)
 
 
-def chain_fwd(w, basis, norm):
+def chain_fwd(w, basis, norm, mode=None):
     """K1: same contract as :func:`chain_fwd_plain`. On a CPU tensor it is
     the plain version; on a CUDA tensor it launches ``csrc/chain_fwd.cu``
-    (float32, dp = :data:`KERNEL_DP`) or raises."""
+    (float32, dp = :data:`KERNEL_DP`) in ``mode`` or raises.
+    ``chain_fwd.launches`` counts every launch, ``chain_fwd.mode_launches``
+    those in the bf16_3x mode."""
+    mode = _mode_of(basis, mode)
     if w.device.type == "cpu":
-        return chain_fwd_plain(w, basis, norm)
+        return chain_fwd_plain(w, basis, norm, mode)
     _check_device(w, "chain_fwd")
     _check_weights(w, norm, basis)
     s_count, length, n_b = w.shape
@@ -550,18 +689,21 @@ def chain_fwd(w, basis, norm):
         raise ValueError("basis has {} terms, weights {}".format(
             basis.shape[0], n_b))
     out = _prefpad_out(s_count, length, w.device)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(w.device):
         err = load_kernels().qoc_chain_fwd(
             w.data_ptr(), basis.data_ptr(), norm.data_ptr(), out.data_ptr(),
-            s_count, length, n_b, _stream(w.device))
+            s_count, length, n_b, tf32, _stream(w.device))
     if err != 0:
         raise RuntimeError("chain forward kernel launch failed: CUDA error "
                            "{}".format(err))
     chain_fwd.launches += 1
+    chain_fwd.mode_launches += tf32
     return out
 
 
 chain_fwd.launches = 0
+chain_fwd.mode_launches = 0
 
 
 def _seed_mode(name, seeds, prefpad, s_count, length):
@@ -578,13 +720,16 @@ def _seed_mode(name, seeds, prefpad, s_count, length):
     return int(per_step)
 
 
-def chain_bwd(w, basis_h, norm, prefpad, seeds):
+def chain_bwd(w, basis_h, norm, prefpad, seeds, mode=None):
     """K2: same contract as :func:`chain_bwd_plain`. On a CPU tensor it is
     the plain version; on a CUDA tensor it launches ``csrc/chain_bwd.cu``
-    in the seeds' mode or raises. ``chain_bwd.launches`` counts every
-    launch, ``chain_bwd.step_launches`` those in the per-step-seed mode."""
+    in the seeds' mode and the precision ``mode`` or raises.
+    ``chain_bwd.launches`` counts every launch, ``chain_bwd.step_launches``
+    those in the per-step-seed mode, ``chain_bwd.mode_launches`` those in
+    the bf16_3x mode."""
+    mode = _mode_of(basis_h, mode)
     if w.device.type == "cpu":
-        return chain_bwd_plain(w, basis_h, norm, prefpad, seeds)
+        return chain_bwd_plain(w, basis_h, norm, prefpad, seeds, mode)
     _check_device(w, "chain_bwd")
     _check_weights(w, norm, basis_h, prefpad, seeds)
     s_count, length, n_b = w.shape
@@ -596,55 +741,64 @@ def chain_bwd(w, basis_h, norm, prefpad, seeds):
     out = torch.empty((s_count, length, KERNEL_DP, KERNEL_DP),
                       dtype=torch.complex64, device=w.device)
     stash = _stash(lib, s_count, w.device)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(w.device):
         err = lib.qoc_chain_bwd(
             w.data_ptr(), basis_h.data_ptr(), norm.data_ptr(),
             prefpad.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-            stash.data_ptr(), s_count, length, n_b, per_step,
+            stash.data_ptr(), s_count, length, n_b, per_step, tf32,
             _stream(w.device))
     if err != 0:
         raise RuntimeError("chain backward kernel launch failed: CUDA error "
                            "{}".format(err))
     chain_bwd.launches += 1
     chain_bwd.step_launches += per_step
+    chain_bwd.mode_launches += tf32
     return out
 
 
 chain_bwd.launches = 0
 chain_bwd.step_launches = 0
+chain_bwd.mode_launches = 0
 
 
-def plane_fwd(a_seg, norm):
+def plane_fwd(a_seg, norm, mode=None):
     """K5 forward: same contract as :func:`plane_fwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor it launches
-    ``csrc/plane_fwd.cu`` (complex64, dp = :data:`KERNEL_DP`) or raises."""
+    ``csrc/plane_fwd.cu`` (complex64, dp = :data:`KERNEL_DP`) in ``mode``
+    or raises. Counted as :func:`chain_fwd`."""
+    mode = _mode_of(a_seg, mode)
     if a_seg.device.type == "cpu":
-        return plane_fwd_plain(a_seg, norm)
+        return plane_fwd_plain(a_seg, norm, mode)
     _check_device(a_seg, "plane_fwd")
     _check_planes(a_seg, norm)
     s_count, length = a_seg.shape[:2]
     out = _prefpad_out(s_count, length, a_seg.device)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(a_seg.device):
         err = load_kernels().qoc_plane_fwd(
             a_seg.data_ptr(), norm.data_ptr(), out.data_ptr(), s_count,
-            length, _stream(a_seg.device))
+            length, tf32, _stream(a_seg.device))
     if err != 0:
         raise RuntimeError("plane forward kernel launch failed: CUDA error "
                            "{}".format(err))
     plane_fwd.launches += 1
+    plane_fwd.mode_launches += tf32
     return out
 
 
 plane_fwd.launches = 0
+plane_fwd.mode_launches = 0
 
 
-def plane_bwd(a_seg, norm, prefpad, seeds):
+def plane_bwd(a_seg, norm, prefpad, seeds, mode=None):
     """K5 backward: same contract as :func:`plane_bwd_plain`. On a CPU
     tensor it is the plain version; on a CUDA tensor it launches
-    ``csrc/plane_bwd.cu`` in the seeds' mode or raises. Counted as
-    :func:`chain_bwd`."""
+    ``csrc/plane_bwd.cu`` in the seeds' mode and the precision ``mode`` or
+    raises. Counted as :func:`chain_bwd`."""
+    mode = _mode_of(a_seg, mode)
     if a_seg.device.type == "cpu":
-        return plane_bwd_plain(a_seg, norm, prefpad, seeds)
+        return plane_bwd_plain(a_seg, norm, prefpad, seeds, mode)
     _check_device(a_seg, "plane_bwd")
     _check_planes(a_seg, norm, prefpad, seeds)
     s_count, length = a_seg.shape[:2]
@@ -652,26 +806,40 @@ def plane_bwd(a_seg, norm, prefpad, seeds):
     lib = load_kernels()
     out = torch.empty_like(a_seg)
     stash = _stash(lib, s_count, a_seg.device)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(a_seg.device):
         err = lib.qoc_plane_bwd(
             a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
             seeds.data_ptr(), out.data_ptr(), stash.data_ptr(), s_count,
-            length, per_step, _stream(a_seg.device))
+            length, per_step, tf32, _stream(a_seg.device))
     if err != 0:
         raise RuntimeError("plane backward kernel launch failed: CUDA error "
                            "{}".format(err))
     plane_bwd.launches += 1
     plane_bwd.step_launches += per_step
+    plane_bwd.mode_launches += tf32
     return out
 
 
 plane_bwd.launches = 0
 plane_bwd.step_launches = 0
+plane_bwd.mode_launches = 0
 
 
-# K6's plain versions are K5's: the same recursion at any d.
-stream_fwd_plain = plane_fwd_plain
-stream_bwd_plain = plane_bwd_plain
+# K6's plain versions are K5's: the same recursion at any d. K6 has no
+# bf16_3x form yet, so K6 and its plain versions refuse the mode.
+def stream_fwd_plain(a_seg, norm, mode=None):
+    """Plain version of K6's forward: :func:`plane_fwd_plain`; raises in
+    the bf16_3x mode (:data:`MODE_REFUSAL`)."""
+    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
+    return plane_fwd_plain(a_seg, norm, mode)
+
+
+def stream_bwd_plain(a_seg, norm, prefpad, seeds, mode=None):
+    """Plain version of K6's adjoint: :func:`plane_bwd_plain`; raises in
+    the bf16_3x mode."""
+    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
+    return plane_bwd_plain(a_seg, norm, prefpad, seeds, mode)
 
 
 @functools.cache
@@ -717,12 +885,14 @@ def _check_stream(name, a_seg, norm, *mats):
     return dp
 
 
-def stream_fwd(a_seg, norm):
+def stream_fwd(a_seg, norm, mode=None):
     """K6 forward: same contract as :func:`plane_fwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor (complex64, dp in
-    320..512) it launches ``csrc/stream_fwd.cu`` or raises."""
+    320..512) it launches ``csrc/stream_fwd.cu`` or raises. In the bf16_3x
+    ``mode`` it raises on any device (:data:`MODE_REFUSAL`)."""
     if a_seg.device.type == "cpu":
-        return stream_fwd_plain(a_seg, norm)
+        return stream_fwd_plain(a_seg, norm, mode)
+    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
     dp = _check_stream("stream_fwd", a_seg, norm)
     s_count, length = a_seg.shape[:2]
     dev = a_seg.device
@@ -746,13 +916,14 @@ def stream_fwd(a_seg, norm):
 stream_fwd.launches = 0
 
 
-def stream_bwd(a_seg, norm, prefpad, seeds):
+def stream_bwd(a_seg, norm, prefpad, seeds, mode=None):
     """K6 adjoint: same contract as :func:`plane_bwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor it launches
     ``csrc/stream_bwd.cu`` in the seeds' mode or raises. Counted as
-    :func:`chain_bwd`."""
+    :func:`chain_bwd`; refuses the bf16_3x mode as :func:`stream_fwd`."""
     if a_seg.device.type == "cpu":
-        return stream_bwd_plain(a_seg, norm, prefpad, seeds)
+        return stream_bwd_plain(a_seg, norm, prefpad, seeds, mode)
+    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
     dp = _check_stream("stream_bwd", a_seg, norm, prefpad, seeds)
     s_count, length = a_seg.shape[:2]
     per_step = _seed_mode("stream_bwd", seeds, prefpad, s_count, length)
@@ -1048,9 +1219,11 @@ def _segment_seeds(prefpad, cums, prods, dp, grad_total, grad_prefixes=None):
 class _ChainExpm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, op):
-        outputs, saved = op._forward(w)
+        mode = config.mxu_mode(w.dtype)
+        outputs, saved = op._forward(w, mode)
         ctx.set_materialize_grads(False)
         ctx.op, ctx.batched, ctx.n_steps = op, w.dim() == 3, w.shape[-2]
+        ctx.mode = mode
         ctx.save_for_backward(*saved)
         return outputs
 
@@ -1058,7 +1231,7 @@ class _ChainExpm(torch.autograd.Function):
     def backward(ctx, *grads):
         if not ctx.batched:
             grads = [None if g is None else g[None] for g in grads]
-        grad_w = ctx.op._backward(grads, *ctx.saved_tensors)
+        grad_w = ctx.op._backward(grads, *ctx.saved_tensors, mode=ctx.mode)
         if grad_w is None:
             return None, None
         grad_w = grad_w[:, :ctx.n_steps]
@@ -1087,7 +1260,8 @@ class ChainExpmPropagate:
 
     The chains share one batch-max norm, so one ladder level serves every
     row (``qoc_tpu``'s ``_exact_norm_max`` over all members), and the W̄
-    projection is one product over all rows."""
+    projection is one product over all rows. The call reads the precision
+    mode (``config.MXU_MODE``; float32 only) and its backward runs in it."""
 
     def __init__(self, basis, device, dtype, plain=False,
                  return_prefixes=False):
@@ -1124,7 +1298,7 @@ class ChainExpmPropagate:
     def __call__(self, w):
         return _ChainExpm.apply(w, self)
 
-    def _forward(self, w):
+    def _forward(self, w, mode="highest"):
         w3 = w if w.dim() == 3 else w[None]
         n_chains, n_steps = w3.shape[:2]
         s_count, length = segment_plan(n_steps, n_chains)
@@ -1134,7 +1308,7 @@ class ChainExpmPropagate:
         # Segment s of chain m owns its steps [s L, (s+1) L) and is row
         # m S + s of the kernels: a reshape, no transpose.
         w_seg = w_seg.reshape(n_chains * s_count, length, self.n_b)
-        prefpad = self._fwd(w_seg, self.basis, n1).reshape(
+        prefpad = self._fwd(w_seg, self.basis, n1, mode).reshape(
             n_chains, s_count, length + 1, self.dp, self.dp)
         outputs, cums, prods = _chain_outputs(prefpad, self.d, n_steps,
                                               self.return_prefixes)
@@ -1143,9 +1317,11 @@ class ChainExpmPropagate:
                        else outputs[0])
         return outputs, (w_seg, prefpad, cums, prods, ninf)
 
-    def _backward(self, grads, w_seg, prefpad, cums, prods, ninf):
+    def _backward(self, grads, w_seg, prefpad, cums, prods, ninf,
+                  mode="highest"):
         """The weight gradient (M, S L, n_b), padded steps included, for
-        the outputs' gradients, each with its member axis (or None)."""
+        the outputs' gradients, each with its member axis (or None), in
+        precision ``mode``."""
         n_chains, s_count, length = prefpad.shape[:3]
         rows, length, d = n_chains * s_count, length - 1, self.d
         seeds = _segment_seeds(prefpad, cums, prods, self.dp, *grads)
@@ -1154,18 +1330,21 @@ class ChainExpmPropagate:
         grad_a = self._bwd(w_seg, self.basis_h, ninf,
                            prefpad.reshape(rows, length + 1, self.dp,
                                            self.dp),
-                           seeds.reshape(rows, *seeds.shape[2:]))
+                           seeds.reshape(rows, *seeds.shape[2:]), mode)
         grad_a = torch.view_as_real(grad_a[..., :d, :d]).reshape(
             rows * length, 2 * d * d)
         return (grad_a @ self.basis_ri.T).reshape(
             n_chains, s_count * length, self.n_b)
 
 
-def _plane_route(d, device, plain):
+def _plane_route(d, device, plain, mode="highest"):
     """(padded d, segment plan, forward, adjoint) of the plane op at d on
     ``device``: K5 at padded d <= 64, K6 at 256 < padded d <= 512 (on the
-    CPU the plain versions, unpadded, on the same segment plan)."""
+    CPU the plain versions, unpadded, on the same segment plan). K6's route
+    refuses the bf16_3x ``mode`` (:data:`MODE_REFUSAL`)."""
     stream = uses_stream(d)
+    if stream:
+        _refuse("the plane op at 256 < padded d <= 512 (K6)", mode)
     plan = stream_segment_plan if stream else segment_plan
     if plain:
         fns = (plane_fwd_plain, plane_bwd_plain)
@@ -1207,7 +1386,8 @@ class PlaneChainPropagate(torch.autograd.Function):
     plain versions on any device: the reference the kernels are compared
     with. Propagation never sets it. ``return_prefixes=True`` returns
     ``(total, prefixes)`` as :class:`ChainExpmPropagate` does
-    (:func:`plane_chain_propagate_prefixes`)."""
+    (:func:`plane_chain_propagate_prefixes`). The precision mode as
+    :class:`ChainExpmPropagate`; K6's route refuses the bf16_3x mode."""
 
     @staticmethod
     def forward(ctx, a, plain=False, return_prefixes=False):
@@ -1217,7 +1397,8 @@ class PlaneChainPropagate(torch.autograd.Function):
                 and a.dtype != torch.complex64):
             raise TypeError("the plane kernels take complex64 planes; got "
                             + str(a.dtype))
-        dp, plan, fwd, bwd = _plane_route(d, a.device, plain)
+        mode = config.mxu_mode(a.dtype)
+        dp, plan, fwd, bwd = _plane_route(d, a.device, plain, mode)
         s_count, length = plan(n_steps, n_chains)
         n1, ninf = _plane_norm_max(a4)
         # Zero planes pad d and the steps: exp(0) = I exactly. Segment s of
@@ -1225,8 +1406,8 @@ class PlaneChainPropagate(torch.autograd.Function):
         a_seg = a.new_zeros((n_chains, s_count * length, dp, dp))
         a_seg[:, :n_steps, :d, :d] = a4
         a_seg = a_seg.reshape(n_chains * s_count, length, dp, dp)
-        prefpad = fwd(a_seg, n1).reshape(n_chains, s_count, length + 1, dp,
-                                         dp)
+        prefpad = fwd(a_seg, n1, mode).reshape(n_chains, s_count, length + 1,
+                                               dp, dp)
         outputs, cums, prods = _chain_outputs(prefpad, d, n_steps,
                                               return_prefixes)
         if a.dim() == 3:
@@ -1235,6 +1416,7 @@ class PlaneChainPropagate(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(a_seg, prefpad, cums, prods, ninf)
         ctx.bwd, ctx.n_steps, ctx.batched = bwd, n_steps, a.dim() == 4
+        ctx.mode = mode
         return outputs
 
     @staticmethod
@@ -1250,7 +1432,7 @@ class PlaneChainPropagate(torch.autograd.Function):
         rows = n_chains * s_count
         grad_a = ctx.bwd(a_seg, ninf,
                          prefpad.reshape(rows, length + 1, dp, dp),
-                         seeds.reshape(rows, *seeds.shape[2:]))
+                         seeds.reshape(rows, *seeds.shape[2:]), ctx.mode)
         grad_a = grad_a.reshape(n_chains, s_count * length, dp, dp)[
             :, :ctx.n_steps, :d, :d]
         return (grad_a if ctx.batched else grad_a[0]), None, None

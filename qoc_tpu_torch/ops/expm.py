@@ -15,6 +15,12 @@ the algorithm. It dispatches as ``qoc_tpu`` does (``_use_pallas``,
   gradient of the polynomial, else the dual-number Taylor chain
   (``_frechet_dual_taylor``).
 
+In the bf16_3x precision mode (``config.MXU_MODE``, float32 work) expm
+runs K3/K4 in the mode at padded d = 64 and raises
+``NotImplementedError`` above (K3/K4's tiled path and ``expm_taylor`` have
+no such form yet: ROADMAP Queue 2 item 5b); the backward runs in the
+forward's mode.
+
 :func:`expm_pade` (Padé-13 with ``torch.linalg.solve``) and
 :func:`expm_eigh` are the oracles and alternatives, as in ``qoc_tpu``.
 The port never calls ``torch.linalg.matrix_exp``. All functions batch over
@@ -23,7 +29,8 @@ leading axes.
 
 import torch
 
-from qoc_tpu_torch.ops.chain import (_Dual, _scale_and_square,
+from qoc_tpu_torch import config
+from qoc_tpu_torch.ops.chain import (_Dual, _refuse, _scale_and_square,
                                      _squaring_count, _taylor8, _taylor19)
 from qoc_tpu_torch.ops.expm_cuda import (KERNEL_MAX_DP, expm_frechet_fwd,
                                          expm_fwd, kernel_dp)
@@ -75,7 +82,9 @@ def expm_taylor(a, max_squarings=None):
     matrix scaled to 1-norm <= 1, degree 8 or 19 (:func:`_taylor_poly`),
     then its own number of squarings, masked: max(s) of them (read on the
     host), or ``max_squarings``. Differentiable by autograd through the
-    algorithm."""
+    algorithm. Exact products only: in the bf16_3x mode it raises for
+    float32 work."""
+    _refuse("expm_taylor (torch.matmul)", config.mxu_mode(a.dtype))
     return _scale_and_square(a, _taylor_poly, _THETA_TAYLOR, max_squarings)
 
 
@@ -109,15 +118,16 @@ class _Expm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a):
         ctx.save_for_backward(a)
+        ctx.mode = config.mxu_mode(a.dtype)
         if _uses_kernels(a.shape[-1]):
-            return expm_fwd(a)
+            return expm_fwd(a, ctx.mode)
         return expm_taylor(a)
 
     @staticmethod
     def backward(ctx, g):
         a, = ctx.saved_tensors
         if _uses_kernels(a.shape[-1]):
-            return expm_frechet_fwd(a.mH, g)
+            return expm_frechet_fwd(a.mH, g, ctx.mode)
         return _taylor_grad(a, g)
 
 

@@ -20,6 +20,14 @@ of 64 up to :data:`KERNEL_MAX_DP` (exact: exp of a block-diagonal matrix is
 block-diagonal). A wrapper takes its plain version only for a tensor on the
 CPU, in the caller's dtype at any d; for a CUDA tensor it launches its
 kernel (complex64, padded d <= 256) or raises.
+
+Precision mode (``config.MXU_MODE``; ops/chain.py): the wrappers take
+``mode`` (None: the switch as it stands; float64 ignores it) and count
+their launches in the bf16_3x mode (``mode_launches``). The mode runs at
+padded d = 64 alone, the resident path's second instantiation (3 x TF32
+tensor-core products, ``_D12A``); above, the tiled path has no such form
+yet, and the wrappers raise ``NotImplementedError`` on any device
+(``chain.MODE_REFUSAL``).
 """
 
 import ctypes
@@ -27,8 +35,9 @@ import functools
 
 import torch
 
-from qoc_tpu_torch.ops.chain import (_Dual, _expm_ladder, _stream,
-                                     kernel_dp, ladder_level, load_kernels)
+from qoc_tpu_torch.ops.chain import (KERNEL_DP, _Dual, _expm_ladder, _mode_of,
+                                     _refuse, _stream, kernel_dp,
+                                     ladder_level, load_kernels)
 
 __all__ = ["KERNEL_MAX_DP", "expm_frechet_fwd", "expm_frechet_plain",
            "expm_fwd", "expm_fwd_plain", "kernel_dp", "launch_grid"]
@@ -43,17 +52,26 @@ def _norm_max(a):
     return a.abs().sum(dim=-2).amax()
 
 
-def expm_fwd_plain(a):
+def expm_fwd_plain(a, mode=None):
     """Plain version of K3: exp(a) for complex a (..., d, d) by the f32
-    ladder, at the level of a's batch-max 1-norm."""
-    return _expm_ladder(a, ladder_level(_norm_max(a)))
+    ladder, at the level of a's batch-max 1-norm, in precision ``mode``."""
+    return _expm_ladder(a, ladder_level(_norm_max(a)), _mode_of(a, mode))
 
 
-def expm_frechet_plain(b, g):
+def expm_frechet_plain(b, g, mode=None):
     """Plain version of K4: the Fréchet derivative L(b, g) of exp at b in
     direction g, both complex (..., d, d), by the dual-number ladder at the
-    level of b's batch-max 1-norm."""
-    return _expm_ladder(_Dual(b, g), ladder_level(_norm_max(b))).dv
+    level of b's batch-max 1-norm, in precision ``mode``."""
+    return _expm_ladder(_Dual(b, g), ladder_level(_norm_max(b)),
+                        _mode_of(b, mode)).dv
+
+
+def _refuse_mode(d, mode):
+    """Raise NotImplementedError where the bf16_3x ``mode`` would need the
+    tiled path (padded d > 64), which has no such form yet."""
+    if kernel_dp(d) > KERNEL_DP:
+        _refuse("K3/K4 at padded d > {} (the tiled path)".format(KERNEL_DP),
+                mode)
 
 
 def _padded(x, dp):
@@ -126,9 +144,10 @@ def launch_grid(dual, dp, batch, device_index):
     return min(batch, blocks), slots
 
 
-def _launch(dual, dp, norm, *mats):
+def _launch(dual, dp, norm, *mats, tf32=0):
     """Launch K3 (mats = a) or K4 (mats = b, g) on padded (B, dp, dp)
-    inputs; returns the padded (B, dp, dp) output."""
+    inputs, in the bf16_3x mode with ``tf32`` (dp = 64 only); returns the
+    padded (B, dp, dp) output."""
     _check_kernel_inputs(dp, norm, *mats)
     x = mats[0]
     batch, dev = x.shape[0], x.device
@@ -141,42 +160,55 @@ def _launch(dual, dp, norm, *mats):
     fn = lib.qoc_expm_frechet if dual else lib.qoc_expm_fwd
     with torch.cuda.device(dev):
         err = fn(*ptrs, norm.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                 batch, dp, grid, _stream(dev))
+                 batch, dp, grid, tf32, _stream(dev))
     if err != 0:
         raise RuntimeError("K{} launch failed: CUDA error {}".format(
             4 if dual else 3, err))
     return out
 
 
-def expm_fwd(a):
+def expm_fwd(a, mode=None):
     """K3: exp(a) for a (..., d, d). On a CPU tensor it is the plain
     version; on a CUDA tensor (complex64, padded d <= 256) it launches
-    ``csrc/expm_fwd.cu`` or raises."""
+    ``csrc/expm_fwd.cu`` in ``mode`` or raises; the bf16_3x mode above
+    padded 64 raises on any device. ``expm_fwd.launches`` counts every
+    launch, ``expm_fwd.mode_launches`` those in the bf16_3x mode."""
+    mode = _mode_of(a, mode)
+    _refuse_mode(a.shape[-1], mode)
     if a.device.type == "cpu":
-        return expm_fwd_plain(a)
+        return expm_fwd_plain(a, mode)
     dp = _check("expm_fwd", a)
     d = a.shape[-1]
     x = _padded(a, dp)
-    out = _launch(False, dp, _norm_max(x), x)
+    tf32 = int(mode == "bf16_3x")
+    out = _launch(False, dp, _norm_max(x), x, tf32=tf32)
     expm_fwd.launches += 1
+    expm_fwd.mode_launches += tf32
     return out[:, :d, :d].reshape(a.shape)
 
 
 expm_fwd.launches = 0
+expm_fwd.mode_launches = 0
 
 
-def expm_frechet_fwd(b, g):
+def expm_frechet_fwd(b, g, mode=None):
     """K4: L(b, g) for b, g (..., d, d). On CPU tensors it is the plain
     version; on CUDA tensors (complex64, padded d <= 256) it launches
-    ``csrc/expm_frechet.cu`` or raises."""
+    ``csrc/expm_frechet.cu`` in ``mode`` or raises; counted and refused as
+    :func:`expm_fwd`."""
+    mode = _mode_of(b, mode)
+    _refuse_mode(b.shape[-1], mode)
     if b.device.type == "cpu":
-        return expm_frechet_plain(b, g)
+        return expm_frechet_plain(b, g, mode)
     dp = _check("expm_frechet_fwd", b, g)
     d = b.shape[-1]
     x, y = _padded(b, dp), _padded(g, dp)
-    out = _launch(True, dp, _norm_max(x), x, y)
+    tf32 = int(mode == "bf16_3x")
+    out = _launch(True, dp, _norm_max(x), x, y, tf32=tf32)
     expm_frechet_fwd.launches += 1
+    expm_frechet_fwd.mode_launches += tf32
     return out[:, :d, :d].reshape(b.shape)
 
 
 expm_frechet_fwd.launches = 0
+expm_frechet_fwd.mode_launches = 0

@@ -1077,3 +1077,223 @@ def test_lindblad_ensemble_grape_launches(cuda_device, d, launched):
     assert result.best_final_densities.shape == (4, 1, d, d)
     assert np.all(np.isfinite(result.best_final_densities))
     assert result.errors[-1] < result.errors[0]
+
+
+# The bf16_3x precision mode (config.MXU_MODE): the second instantiation of
+# K1, K2, K5 and K3/K4 at padded 64 (3 x TF32 tensor-core products, _D12A
+# at degree 12) against the plain versions in the mode.
+
+
+@pytest.fixture()
+def bf16_3x(monkeypatch):
+    from qoc_tpu_torch import config
+    monkeypatch.setattr(config, "MXU_MODE", "bf16_3x")
+
+
+def _mode_counters(*wrappers):
+    return [(fn.launches, fn.mode_launches) for fn in wrappers]
+
+
+@pytest.mark.parametrize("n_members,n_steps", ((1, 37), (3, 41), (133, 5)))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_chain_kernels_match_plain_versions(cuda_device, bf16_3x,
+                                                 n_members, n_steps,
+                                                 target_norm):
+    """K1/K2 in the mode through the chain op's trajectory form on the
+    member axis (one chain, S_m > 1 segments, one segment a chain on 133
+    rows) against the plain versions in the mode, on every ladder level
+    and in both seed modes, launched in their mode forms; the padded rows
+    exactly the identity and the padded steps leaving the last prefix
+    unchanged."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(n_members + int(10 * target_norm))
+    d, n_b = 8, 5
+    base = anti_hermitian_basis(rng, n_b, d)
+    w = rng.normal(size=(n_members, n_steps, n_b)).astype(np.float32)
+    norm1 = np.abs(np.einsum("mjk,kab->mjab", w, base)).sum(-2).max()
+    basis = base * (target_norm / norm1)
+    g_total = torch.as_tensor(
+        rng.normal(size=(n_members, d, d)).astype(np.complex64),
+        device=cuda_device)
+    g_pref = torch.as_tensor(
+        rng.normal(size=(n_members, n_steps, d, d)).astype(np.complex64),
+        device=cuda_device)
+    wt = torch.as_tensor(w, device=cuda_device)
+
+    def run(plain):
+        op = chain.ChainExpmPropagate(basis, cuda_device, torch.float32,
+                                      plain=plain, return_prefixes=True)
+        x = wt.clone().requires_grad_(True)
+        total, prefixes = op(x)
+        last, = torch.autograd.grad(total, x, g_total, retain_graph=True)
+        step, = torch.autograd.grad((total, prefixes), x, (g_total, g_pref))
+        return total.detach(), prefixes.detach(), last, step
+
+    before = _mode_counters(chain.chain_fwd, chain.chain_bwd)
+    got = run(False)
+    after = _mode_counters(chain.chain_fwd, chain.chain_bwd)
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == \
+        [(1, 1), (2, 2)]
+    want = run(True)
+    torch.cuda.synchronize()
+    for x, y, rtol in zip(got, want, (FWD_RTOL, FWD_RTOL, GRAD_RTOL,
+                                      GRAD_RTOL)):
+        assert float((x - y).abs().max() / y.abs().max()) < rtol
+    s_count, length = chain.segment_plan(n_steps, n_members)
+    op = chain.ChainExpmPropagate(basis, cuda_device, torch.float32)
+    w_seg = torch.zeros((n_members, s_count * length, n_b),
+                        device=cuda_device)
+    w_seg[:, :n_steps] = wt
+    pref = chain.chain_fwd(w_seg.reshape(-1, length, n_b), op.basis,
+                           chain._norm_max(wt, op.basis_ri, d)[0])
+    pref = pref.reshape(n_members, s_count, length + 1, 64, 64)
+    eye = torch.eye(64, dtype=torch.complex64, device=cuda_device)
+    assert torch.equal(pref[..., d:, d:], eye[d:, d:].expand_as(
+        pref[..., d:, d:]))
+    assert not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+    last = n_steps - (s_count - 1) * length
+    tail = pref[:, -1, last + 1:]
+    assert torch.equal(tail, pref[:, -1, last:last + 1].expand_as(tail))
+
+
+@pytest.mark.parametrize("d,n_chains,n_steps", ((16, 1, 37), (64, 3, 21)))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_plane_kernels_match_plain_versions(cuda_device, bf16_3x, d,
+                                                 n_chains, n_steps,
+                                                 target_norm):
+    """K5 in the mode through the plane op's trajectory form against the
+    plain versions in the mode, on every ladder level, both seed modes, one
+    chain and the member axis, launched in its mode forms."""
+    from qoc_tpu_torch.ops import chain
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        d + n_chains + int(10 * target_norm))
+    a = _member_planes(gen, n_chains, n_steps, d, target_norm, cuda_device)
+    g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                          device=cuda_device, generator=gen)
+    g_pref = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                         device=cuda_device, generator=gen)
+
+    def run(plain):
+        x = a.clone().requires_grad_(True)
+        total, prefixes = chain.plane_chain_propagate_prefixes(x, plain)
+        last, = torch.autograd.grad(total, x, g_total, retain_graph=True)
+        step, = torch.autograd.grad((total, prefixes), x, (g_total, g_pref))
+        return total.detach(), prefixes.detach(), last, step
+
+    before = _mode_counters(chain.plane_fwd, chain.plane_bwd)
+    got = run(False)
+    after = _mode_counters(chain.plane_fwd, chain.plane_bwd)
+    assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] == \
+        [(1, 1), (2, 2)]
+    want = run(True)
+    torch.cuda.synchronize()
+    for x, y, rtol in zip(got, want, (FWD_RTOL, FWD_RTOL, GRAD_RTOL,
+                                      GRAD_RTOL)):
+        assert float((x - y).abs().max() / y.abs().max()) < rtol
+
+
+@pytest.mark.parametrize("kernel", ("K2", "K5"))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_resident_adjoints_match_plain_versions(cuda_device, bf16_3x,
+                                                     kernel, target_norm):
+    """K2 and K5's adjoint in the mode (AdjointTC) at d = 17 on 37 x 5
+    segment chains, both seed modes: against the plain versions in the
+    mode, the zero padding exactly zero, and the per-step mode with seeds
+    zero but at the last step bitwise the last-step mode."""
+    rng = np.random.default_rng(int(100 * target_norm) + 17)
+    d, dp, s_count, length = 17, 64, 37, 5
+    bwd, bwd_plain, args = _resident_adjoint_inputs(
+        kernel, rng, d, s_count, length, target_norm, cuda_device)
+    before = bwd.mode_launches
+    for shape in ((s_count, d, d), (s_count, length, d, d)):
+        seeds = torch.zeros(shape[:-2] + (dp, dp), dtype=torch.complex64,
+                            device=cuda_device)
+        seeds[..., :d, :d] = torch.as_tensor(
+            (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+                np.complex64), device=cuda_device)
+        got, want = bwd(*args, seeds), bwd_plain(*args, seeds)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max() / want.abs().max()) < GRAD_RTOL
+        assert not bool(got[..., d:, :].any() or got[..., :, d:].any())
+    assert bwd.mode_launches - before == 2
+    only_last = torch.zeros_like(seeds)
+    only_last[:, -1] = seeds[:, -1]
+    assert torch.equal(bwd(*args, only_last),
+                       bwd(*args, seeds[:, -1].contiguous()))
+
+
+@pytest.mark.parametrize("d", (16, 64))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_expm_kernels_match_plain_versions(cuda_device, bf16_3x, d,
+                                                target_norm):
+    """K3/K4 at padded 64 in the mode against their plain versions in the
+    mode on every ladder level (batches 37 and 133), launched in their mode
+    forms; the padded rows exact."""
+    from qoc_tpu_torch.ops import expm_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    for batch in (37, 133):
+        a = _member_planes(gen, 1, batch, d, target_norm, cuda_device)[0]
+        g = torch.randn(a.shape, dtype=torch.complex64, device=cuda_device,
+                        generator=gen)
+        before = _mode_counters(expm_cuda.expm_fwd,
+                                expm_cuda.expm_frechet_fwd)
+        k3, k4 = expm_cuda.expm_fwd(a), expm_cuda.expm_frechet_fwd(a, g)
+        after = _mode_counters(expm_cuda.expm_fwd,
+                               expm_cuda.expm_frechet_fwd)
+        assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] \
+            == [(1, 1), (1, 1)]
+        p3 = expm_cuda.expm_fwd_plain(a)
+        p4 = expm_cuda.expm_frechet_plain(a, g)
+        torch.cuda.synchronize()
+        assert float((k3 - p3).abs().max() / p3.abs().max()) < FWD_RTOL
+        assert float((k4 - p4).abs().max() / p4.abs().max()) < GRAD_RTOL
+    if d < 64:
+        x = expm_cuda._padded(a, 64)
+        norm = expm_cuda._norm_max(x)
+        u = expm_cuda._launch(False, 64, norm, x, tf32=1)
+        dl = expm_cuda._launch(True, 64, norm, x, x, tf32=1)
+        eye = torch.eye(64 - d, dtype=u.dtype, device=u.device)
+        assert torch.equal(u[:, d:, d:], eye.expand_as(u[:, d:, d:]))
+        assert not bool(u[:, :d, d:].any() or u[:, d:, :d].any())
+        assert not bool(dl[:, d:].any() or dl[:, :, d:].any())
+
+
+def test_mode_grape_launches_mode_forms(cuda_device, bf16_3x):
+    """A GRAPE in the mode launches K1 and K2 in their mode forms only."""
+    import qoc_tpu_torch
+    from qoc_tpu_torch.ops import chain
+    d, n_c, n = 8, 2, 64
+    rng = np.random.default_rng(0)
+    h0 = rng.normal(size=(d, d))
+    ham = qoc_tpu_torch.LinearHamiltonian(h0 + h0.T,
+                                          0.3 * np.ones((n_c, d, d)))
+    initial = np.zeros((1, d, 1))
+    initial[0, 0] = 1
+    target = np.zeros((1, d, 1))
+    target[0, -1] = 1
+    before = _mode_counters(chain.chain_fwd, chain.chain_bwd)
+    result = qoc_tpu_torch.grape_schroedinger_discrete(
+        n_c, n, [qoc_tpu_torch.TargetStateInfidelity(target)], 1.0, ham,
+        initial, n, iteration_count=4, log_iteration_step=0,
+        device=cuda_device)
+    after = _mode_counters(chain.chain_fwd, chain.chain_bwd)
+    assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] == \
+        [(4, 4), (4, 4)]
+    assert result.errors[-1] < result.errors[0]
+
+
+def test_mode_refusals_on_the_card(cuda_device, bf16_3x):
+    """In the mode, K3/K4 above padded 64 and K6's route raise
+    NotImplementedError naming ROADMAP Queue 2 item 5b on the card too,
+    before anything launches."""
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.ops.expm import expm
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    from qoc_tpu_torch.ops import expm_cuda
+    wrappers = (chain.stream_fwd, expm_cuda.expm_fwd)
+    before = [fn.launches for fn in wrappers]
+    for d, call in ((65, expm), (260, chain.plane_chain_propagate)):
+        a = _member_planes(gen, 1, 2, d, 0.5, cuda_device)[0]
+        with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
+            call(a)
+    assert [fn.launches for fn in wrappers] == before
