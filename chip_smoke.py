@@ -193,9 +193,24 @@ build, for a quick check of a kernel.) Phases, one line each:
    products at 24 dp^3 FLOP over the TF32 tensor-core peak, against the
    bytes over the HBM rate), with threads, shared memory, ptxas registers
    and spills;
-39. the routes without the mode refuse it: the d = 2^7 GRAPE (K3/K4's
-   tiled path) and the Lindblad d = 20 GRAPE (K6) raise
-   NotImplementedError naming ROADMAP Queue 2 item 5b and launch nothing.
+39. the tiled kernels' cells in the mode: the d = 2^7 GRAPE (K3/K4 at
+   padded 128), the Lindblad d = 20 GRAPE (K6) and the 4-member d = 20
+   Lindblad ensemble GRAPE (K6's member axis), each with counters (the
+   mode forms launched, the exact forms not), its rate beside the exact
+   phase's, the error falling and its loss at the initial controls within
+   5e-5 (relative) of the exact kernels' (its gradient within 1e-3); then
+   the d = 20 step-cost loss in the mode (K6 per step);
+40. the tiled kernels' bf16_3x forms (3 x TF32 tensor-core products on the
+   tiled product, _D12A at degree 12) against their plain versions in the
+   mode within 1.5e-5 on every ladder level: K3/K4 at padded 128, 192 and
+   256 (also against the exact kernels and float64 matrix_exp), K6 at
+   padded 320, 384, 448 and 512 on one chain (both seed modes) and on the
+   member axis; padding and padded steps exact;
+41. their times beside the exact forms in the same call (K3/K4 at the
+   d = 2^7 planes, K6 at the d = 20 planes and a time block of the
+   4-member ensemble), the plain versions in the mode, matrix_exp, both
+   modes' bounds, design lines and every tiled TC instantiation's ptxas
+   registers and spills.
 
 Every phase prints its wall time, the summary the script's total.
 
@@ -330,7 +345,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # bf16_3x mode degree 12 takes 4 (_D12A).
 LADDER_PRODUCTS = (2, 3, 5, 7, 7)
 MODE_LADDER_PRODUCTS = (2, 3, 4, 7, 7)
-# The bf16_3x precision mode (phases 36-39). K1/K2 against their plain
+# The bf16_3x precision mode (phases 36-38). K1/K2 against their plain
 # versions in the mode: (members, steps) of one chain (S = 126 segments),
 # S_m > 1 segments a chain (2 and 5 members), 133 chains (a ragged last
 # wave) and the 512-candidate shapes; K5: (d, chains, steps); K3/K4 at
@@ -340,6 +355,18 @@ MODE_MEMBER_CASES = ((1, 1001), (2, 1001), (5, 203), (133, 37), (512, 200))
 MODE_PLANE_CASES = ((64, 1, 37), (16, 1, 2001), (64, 3, 37), (16, 133, 5))
 MODE_EXPM_CASES = ((16, 37), (64, 133), (64, 2000))
 LEVEL_NORMS = (0.03, 0.3, 1.0, 2.5, 7.0)
+# The mode on the tiled kernels (phases 39-41): K3/K4 at d = 100, 180, 256
+# (padded 128, 192, 256; batches 37, and 133 at padded 128), K6 at d = 260,
+# 330, 400, 512 (padded 320, 384, 448, 512) on one chain of 37 steps and on
+# 3 member chains of 5, each against its plain version in the mode within
+# MODE_RTOL; the cells' losses in the mode within MODE_LOSS_RTOL (relative)
+# of the exact kernels'.
+MODE_TILED_EXPM_DIMS = (100, 180, 256)
+MODE_TILED_BATCHES = (37, 133)
+MODE_STREAM_DIMS = (260, 330, 400, 512)
+MODE_STREAM_CASES = ((1, 37), (3, 5))
+MODE_RTOL = 1.5e-5
+MODE_LOSS_RTOL = 5e-5
 
 
 def _rel(got, want):
@@ -487,7 +514,8 @@ def _wrappers():
 # wrappers of kernels with a bf16_3x form those in that precision mode
 # (``mode_launches``), read as "<key> mode".
 STEP_MODES = ("K2", "K5 bwd", "K6 bwd")
-PRECISION_MODES = ("K1", "K2", "K5 fwd", "K5 bwd", "K3", "K4")
+PRECISION_MODES = ("K1", "K2", "K5 fwd", "K5 bwd", "K3", "K4", "K6 fwd",
+                   "K6 bwd")
 
 
 def reset_launches():
@@ -1491,8 +1519,7 @@ def phase_expm_timing(dev):
             threads = chain.resident_block(True)[0] if dual and dp == 64 \
                 else 256
             entry = (RESIDENT_ENTRY[False][key] if dp == 64 else
-                     ("expm_tiled_kernel",
-                      "TiledILi{}ELb{}E".format(dp // 64, int(dual))))
+                     tiled_entry(key, dp, False))
             print("phase 15 design ({} planes): ".format(label)
                   + design_line(key, entry, blocks, 1, smem, bounds[key][0],
                                 ms[key], threads), flush=True)
@@ -1940,8 +1967,7 @@ def _time_stream(label, a, launches):
     resident = chain._stream_plan(False, dp, a.device.index)[:2]
     for key, dual in (("K6 fwd", False), ("K6 bwd", True)):
         _, blocks, _, smem = chain._stream_plan(dual, dp, a.device.index)
-        entry = ("stream_{}_kernelILi{}E".format("bwd" if dual else "fwd",
-                                                 dp // 64),)
+        entry = tiled_entry(key, dp, False)
         print("phase 20 design ({} planes): ".format(label)
               + design_line(key, entry, grids[key], blocks, smem,
                             bounds[key][0], ms[key]), flush=True)
@@ -3671,25 +3697,11 @@ def _time_member_kernels(prefix, a, fwd, bwd, fwd_plain, bwd_plain, gen):
     return ms, bounds, err, (rows, length, dp, levels)
 
 
-def phase_plane_member_timing(dev):
-    """K6's member-batched forward and adjoint (both seed modes) at phase
-    32's 16-member shapes (one time block's launch: 16 chains x 20 steps,
-    5 segments a chain) and K5's at the M4 ensemble's planes (4 members x
-    2000 steps of d = 64, S_m = 32), beside their plain versions, bounds
-    (kernel_bound), grid and design line; the launches of one pass of the
-    member-batched plane op (K5's member axis is run by no entry point, as
-    in qoc_tpu); and the member merge and seed glue's device time at phase
-    32's 4 members."""
+def lindblad_member_planes(kw, pstate, dev):
+    """(params, steps) -> the planes (M, steps, d^2, d^2) of the members
+    ``params`` of the Lindblad ensemble ``kw`` over its first ``steps``
+    steps, at the initial controls, as the streamed route builds them."""
     from qoc_tpu_torch.core.schroedinger import fused_weights
-    from qoc_tpu_torch.ops import chain
-    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
-    gen = torch.Generator(device=dev).manual_seed(35)
-    n_members = LINDBLAD_MEMBERS[1]
-    kw = lindblad_ensemble_problem(n_members)
-    pstate = lindblad_pstate(kw)
-    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
-                                         kw["hamiltonian_params"],
-                                         device=dev).block
     dt = float(pstate.dt)
     rates, ops = kw["lindblad_data"](0.0)
     basis = torch.as_tensor(kw["hamiltonian"].superoperator_basis(
@@ -3698,9 +3710,8 @@ def phase_plane_member_timing(dev):
                           device=dev)
     controls = torch.as_tensor(pstate.initial_controls,
                                dtype=torch.complex64, device=dev)
+
     def member_planes(params, steps):
-        """The planes (M, steps, 400, 400) of the members ``params`` over
-        the first ``steps`` steps, at the initial controls."""
         delta = torch.as_tensor(params, dtype=torch.float32, device=dev)
         n_chains = len(params)
         w = fused_weights(controls, torch.arange(
@@ -3710,7 +3721,28 @@ def phase_plane_member_timing(dev):
                        w[None, :, 1:].expand(n_chains, steps,
                                              w.shape[-1] - 1)), dim=-1)
         return torch.einsum("mjk,kab->mjab", w.to(torch.complex64), basis)
+    return member_planes
 
+
+def phase_plane_member_timing(dev):
+    """K6's member-batched forward and adjoint (both seed modes) at phase
+    32's 16-member shapes (one time block's launch: 16 chains x 20 steps,
+    5 segments a chain) and K5's at the M4 ensemble's planes (4 members x
+    2000 steps of d = 64, S_m = 32), beside their plain versions, bounds
+    (kernel_bound), grid and design line; the launches of one pass of the
+    member-batched plane op (K5's member axis is run by no entry point, as
+    in qoc_tpu); and the member merge and seed glue's device time at phase
+    32's 4 members."""
+    from qoc_tpu_torch.ops import chain
+    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
+    gen = torch.Generator(device=dev).manual_seed(35)
+    n_members = LINDBLAD_MEMBERS[1]
+    kw = lindblad_ensemble_problem(n_members)
+    pstate = lindblad_pstate(kw)
+    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
+                                         kw["hamiltonian_params"],
+                                         device=dev).block
+    member_planes = lindblad_member_planes(kw, pstate, dev)
     with torch.no_grad():
         a = member_planes(kw["hamiltonian_params"], block)
     ms, bounds, err, (rows, length, dp, levels) = _time_member_kernels(
@@ -3722,8 +3754,7 @@ def phase_plane_member_timing(dev):
         clusters = chain.stream_grid(dual, dp, rows, dev)[0]
         _, blocks_a_cluster, _, smem = chain._stream_plan(dual, dp,
                                                           dev.index)
-        entry = ("stream_{}_kernelILi{}E".format("bwd" if dual else "fwd",
-                                                 dp // 64),)
+        entry = tiled_entry(key, dp, False)
         print("phase 35 design: " + design_line(
             key, entry, clusters, blocks_a_cluster, smem, bounds[key][0],
             ms[key]), flush=True)
@@ -3806,7 +3837,7 @@ def phase_plane_member_timing(dev):
 
 
 # ---------------------------------------------------------------------------
-# The bf16_3x precision mode (phases 36-39)
+# The bf16_3x precision mode (phases 36-41)
 # ---------------------------------------------------------------------------
 
 
@@ -4387,43 +4418,443 @@ def phase_mode_timing(dev, headline_w=None):
     return ms, bounds
 
 
-def _refused(label, call):
-    """Raise unless ``call`` in the mode raises NotImplementedError naming
-    ROADMAP Queue 2 item 5b before any kernel launches."""
+def _mode_tiled_expm(dev, gen, worst):
+    """Phase 40's K3/K4 at padded 128-256 (MODE_TILED_EXPM_DIMS) in the
+    mode, every level: against their plain versions in the mode within
+    MODE_RTOL, launched in their mode forms, the padding exact, and
+    against the exact kernels and float64 matrix_exp (the envelope)."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    for d in MODE_TILED_EXPM_DIMS:
+        for batch in MODE_TILED_BATCHES[:2 if d == MODE_TILED_EXPM_DIMS[0]
+                                         else 1]:
+            g = torch.randn((batch, d, d), dtype=torch.complex64, device=dev,
+                            generator=gen)
+            rows = []
+            for target in LEVEL_NORMS:
+                a = _random_planes(gen, batch, d, target, dev)
+                ah = a.mH.contiguous()
+                with precision(MODE):
+                    reset_launches()
+                    k3, k4 = expm_cuda.expm_fwd(a), expm_cuda.expm_frechet_fwd(
+                        ah, g)
+                    launches = read_launches()
+                    p3 = expm_cuda.expm_fwd_plain(a)
+                    p4 = expm_cuda.expm_frechet_plain(ah, g)
+                    if d < expm_cuda.kernel_dp(d):
+                        _check_expm_padding(a, tf32=1)
+                x3, x4 = expm_cuda.expm_fwd(a), expm_cuda.expm_frechet_fwd(
+                    ah, g)
+                torch.cuda.synchronize()
+                if (launches["K3 mode"], launches["K4 mode"]) != (1, 1):
+                    raise RuntimeError("K3/K4 in the mode did not launch their "
+                                       "mode forms: {}".format(launches))
+                for name, x in (("K3", k3), ("K4", k4)):
+                    if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+                        raise RuntimeError(name + " (bf16_3x) produced "
+                                           "non-finite values")
+                rel = (_rel(k3, p3), _rel(k4, p4))
+                env = (_rel(k3, x3), _rel(k4, x4))
+                level = chain.ladder_level(expm_cuda._norm_max(a))
+                rows.append("{} {:.1e} {:.1e} exact {:.1e} {:.1e}".format(
+                    level, *rel, *env))
+                if max(rel) > MODE_RTOL or env[0] > FWD_RTOL or \
+                        env[1] > GRAD_RTOL:
+                    raise RuntimeError(
+                        "K3/K4 tiled (bf16_3x) disagree with their plain "
+                        "versions in the mode or the exact kernels (d = {}, "
+                        "batch {}, level {}): {}".format(d, batch, level,
+                                                         rows[-1]))
+                worst["K3 tiled mode"] = max(worst.get("K3 tiled mode", 0.0),
+                                             float((k3 - p3).abs().max()))
+                worst["K4 tiled mode"] = max(worst.get("K4 tiled mode", 0.0),
+                                             float((k4 - p4).abs().max()))
+                if target == LEVEL_NORMS[2] and batch == MODE_TILED_BATCHES[0]:
+                    a64 = a.to(torch.complex128).requires_grad_(True)
+                    u64 = torch.linalg.matrix_exp(a64)
+                    grad64, = torch.autograd.grad(u64, a64,
+                                                  g.to(torch.complex128))
+                    f64 = (_rel(k3.to(torch.complex128), u64.detach()),
+                           _rel(k4.to(torch.complex128), grad64))
+                    rows[-1] += " f64 {:.1e} {:.1e}".format(*f64)
+                    if f64[0] > FWD_RTOL or f64[1] > GRAD_RTOL:
+                        raise RuntimeError("K3/K4 tiled (bf16_3x) disagree "
+                                           "with float64 matrix_exp")
+            print("phase 40 bf16_3x K3/K4 tiled: d={} (padded {}) batch={} "
+                  "(level, rel K3, K4 vs plain in the mode, vs the exact "
+                  "kernels[, vs float64 matrix_exp]): {}{}".format(
+                      d, expm_cuda.kernel_dp(d), batch, "; ".join(rows),
+                      "; padding exact" if d < expm_cuda.kernel_dp(d)
+                      else ""), flush=True)
+
+
+def _mode_stream_chain(dev, gen, d, n_steps, target, worst):
+    """K6 in the mode on one chain of planes at d: forward and adjoint (both
+    seed modes) against their plain versions in the mode, launched in their
+    mode forms, the padded rows and steps exact. Returns (levels, rels)."""
+    from qoc_tpu_torch.ops import chain
+    a = _stream_planes(gen, n_steps, d, target, dev)
+    a_seg, n1, ninf = _stream_inputs(a)
+    s_count, length, dp = a_seg.shape[:3]
+    seeds = {"": torch.randn((s_count, dp, dp), dtype=torch.complex64,
+                             device=dev, generator=gen),
+             " step": torch.randn((s_count, length, dp, dp),
+                                  dtype=torch.complex64, device=dev,
+                                  generator=gen)}
     with precision(MODE):
         reset_launches()
-        try:
-            call()
-        except NotImplementedError as err:
-            if "Queue 2 item 5b" not in str(err):
-                raise
-            message = str(err)
-        else:
-            raise RuntimeError(label + " ran in the bf16_3x mode; it has no "
-                               "such form and must refuse it")
+        pref = chain.stream_fwd(a_seg, n1)
+        got = {k: chain.stream_bwd(a_seg, ninf, pref, s)
+               for k, s in seeds.items()}
         launches = read_launches()
-    if any(launches.values()):
-        raise RuntimeError("{} launched {} before it refused the mode"
-                           "".format(label, launches))
-    return message
+        pref_p = chain.stream_fwd_plain(a_seg, n1)
+        want = {k: chain.stream_bwd_plain(a_seg, ninf, pref, s)
+                for k, s in seeds.items()}
+    torch.cuda.synchronize()
+    if (launches["K6 fwd mode"], launches["K6 bwd mode"],
+            launches["K6 bwd step"]) != (1, 2, 1):
+        raise RuntimeError("K6 in the mode did not launch its mode forms: "
+                           "{}".format(launches))
+    if d < dp or n_steps < s_count * length:
+        _check_padding(pref, d, n_steps)
+    rels = [_rel(pref, pref_p)] + [_rel(got[k], want[k]) for k in seeds]
+    for key, x, y in (("K6 fwd mode", pref, pref_p),
+                      ("K6 bwd mode", got[""], want[""]),
+                      ("K6 bwd mode step", got[" step"], want[" step"])):
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(key + " produced non-finite values")
+        worst[key] = max(worst.get(key, 0.0), float((x - y).abs().max()))
+    return (chain.ladder_level(n1), chain.ladder_level(ninf)), rels
 
 
-def phase_mode_refusals(dev):
-    """Phase 39: the d = 2^7 GRAPE (K3/K4's tiled path) and the Lindblad
-    d = 20 GRAPE (K6) raise NotImplementedError in the mode, naming ROADMAP
-    Queue 2 item 5b, and launch nothing."""
+def _mode_stream_members(dev, gen, d, n_chains, n_steps, target, worst):
+    """The plane op's member axis on K6 in the mode: totals, prefixes and
+    the plane gradient (both seed modes) against the plain op in the mode,
+    and every chain's padding exact. Returns the rels."""
+    from qoc_tpu_torch.ops import chain
+    a = torch.stack([_stream_planes(gen, n_steps, d, target, dev)
+                     for _ in range(n_chains)])
+    g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                          device=dev, generator=gen)
+    g_pref = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                         device=dev, generator=gen)
+    with precision(MODE):
+        reset_launches()
+        got = _plane_member_outputs(a, False, g_total, g_pref)
+        launches = read_launches()
+        want = _plane_member_outputs(a, True, g_total, g_pref)
+        _plane_member_padding(a, chain._plane_norm_max(a)[0])
+    torch.cuda.synchronize()
+    if (launches["K6 fwd mode"], launches["K6 bwd mode"],
+            launches["K6 bwd step"]) != (1, 2, 1):
+        raise RuntimeError("the plane op's member axis in the mode did not "
+                           "launch K6's mode forms: {}".format(launches))
+    for key, x, y in (("K6 member fwd mode", got[1], want[1]),
+                      ("K6 member bwd mode", got[2], want[2]),
+                      ("K6 member bwd mode step", got[3], want[3])):
+        worst[key] = max(worst.get(key, 0.0), float((x - y).abs().max()))
+    return [_rel(x, y) for x, y in zip(got, want)]
+
+
+def phase_mode_tiled_kernels(dev):
+    """Phase 40: the tiled kernels' bf16_3x forms (K3/K4 at padded 128-256,
+    K6 at padded 320-512, one chain and the member axis, both seed modes)
+    against their plain versions in the mode on every ladder level, within
+    MODE_RTOL; padding and padded steps exact. Returns the worst max |err|
+    against plain of each row."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    worst = {}
+    _mode_tiled_expm(dev, gen, worst)
+    for d in MODE_STREAM_DIMS:
+        for n_chains, n_steps in MODE_STREAM_CASES:
+            line = []
+            for target in LEVEL_NORMS:
+                if n_chains == 1:
+                    levels, rels = _mode_stream_chain(dev, gen, d, n_steps,
+                                                      target, worst)
+                    tag = "{}/{}".format(*levels)
+                else:
+                    rels = _mode_stream_members(dev, gen, d, n_chains,
+                                                n_steps, target, worst)
+                    tag = str(LEVEL_NORMS.index(target))
+                line.append("{} ".format(tag) + "/".join(
+                    "{:.1e}".format(r) for r in rels))
+                if max(rels) > MODE_RTOL:
+                    raise RuntimeError(
+                        "K6 (bf16_3x) disagrees with its plain version in the "
+                        "mode (d = {}, {} chains x {} steps, level {}): {}"
+                        "".format(d, n_chains, n_steps, tag, line[-1]))
+            print("phase 40 bf16_3x K6: d={} {} chain{} x {} steps (levels, "
+                  "rel vs plain in the mode: {}): {}; padding exact".format(
+                      d, n_chains, "s" if n_chains > 1 else "", n_steps,
+                      "prefixes/grad last-step/grad per-step" if n_chains == 1
+                      else "totals/prefixes/grad last-step/grad per-step",
+                      "; ".join(line)), flush=True)
+    print("phase 40 bf16_3x tiled kernels: max|err| vs plain in the mode {}; "
+          "all within {:.1e}".format(worst, MODE_RTOL), flush=True)
+    return worst
+
+
+def phase_mode_cells(dev, exact=None):
+    """Phase 39: the d = 2^7 GRAPE (K3/K4 tiled), the Lindblad d = 20 GRAPE
+    (K6) and the 4-member d = 20 Lindblad ensemble GRAPE (K6's member axis)
+    in the mode, 2 warm-up + 10 (ensemble 5) timed iterations with counters
+    (each kernel's mode form launched every iteration or time block, the
+    exact forms never), the error falling, and the mode's loss at the
+    initial controls within MODE_LOSS_RTOL (relative) of the exact
+    kernels'; then the d = 20 step-cost loss (K6 per step) in the mode.
+    ``exact``: {cell: exact it/s} of the earlier phases, printed beside.
+    Returns ({row: launches}, {cell: it/s})."""
     from qoc_tpu_torch import (grape_lindblad_discrete,
                                grape_schroedinger_discrete)
+    from qoc_tpu_torch.core.lindblad import build_lindblad_loss
+    from qoc_tpu_torch.core.schroedinger import build_schroedinger_loss
+    exact = exact or {}
+    iterations = WARMUP_ITERATIONS + TIMED_ITERATIONS
+    launches, rates = {}, {}
+
+    def check(label, keys, n_launch, got, result, loss_fn):
+        want = {k: n_launch for k in keys}
+        want.update({k + " mode": n_launch for k in keys})
+        _member_launches("the bf16_3x " + label, got, tuple(want), want)
+        errors = np.asarray(result.errors)
+        if not (np.all(np.isfinite(errors)) and errors[-1] < errors[0]):
+            raise RuntimeError("the bf16_3x {} GRAPE failed its checks: "
+                               "errors {}".format(label, errors))
+        with precision(MODE):
+            e_mode, g_mode = loss_fn()
+        e_exact, g_exact = loss_fn()
+        e_mode, e_exact = float(e_mode), float(e_exact)
+        gap = abs(e_mode - e_exact) / abs(e_exact)
+        grad_gap = _rel(g_mode, g_exact)
+        if gap > MODE_LOSS_RTOL or grad_gap > GRAD_RTOL:
+            raise RuntimeError("the bf16_3x {} loss is {:.2e} (relative) from "
+                               "the exact kernels', its gradient {:.2e}"
+                               "".format(label, gap, grad_gap))
+        rates[label] = result.iterations_per_s
+        print("phase 39 bf16_3x {}: {} iterations, {:.2f} it/s steady "
+              "against {} exact, error {:.6f} -> {:.6f}, loss at the initial "
+              "controls {:.9f} against {:.9f} exact (rel {:.2e}; gradient "
+              "rel {:.2e}), launches {}".format(
+                  label, result.iteration_count_ran, result.iterations_per_s,
+                  "{:.2f}".format(exact[label]) if label in exact
+                  else "(not run)", errors[0], errors[-1], e_mode, e_exact,
+                  gap, grad_gap, {k: v for k, v in got.items() if v}),
+              flush=True)
+
     pstate, hamiltonian, costs = d128_problem()
-    messages = [_refused("the d = 2^7 GRAPE", lambda: (
-        grape_schroedinger_discrete(
-            complex_controls=True, iteration_count=1, log_iteration_step=0,
-            **_problem_kw(pstate, hamiltonian, costs, dev))))]
-    messages.append(_refused("the Lindblad d = 20 GRAPE", lambda: (
-        grape_lindblad_discrete(iteration_count=1, log_iteration_step=0,
-                                device=dev, **lindblad_d20_problem()))))
-    print("phase 39 bf16_3x refusals: d = 2^7 GRAPE: {!r}; Lindblad d = 20 "
-          "GRAPE: {!r}".format(*messages), flush=True)
+    with precision(MODE):
+        reset_launches()
+        result = grape_schroedinger_discrete(
+            complex_controls=True, iteration_count=iterations,
+            log_iteration_step=0, fused_chunk=WARMUP_ITERATIONS,
+            **_problem_kw(pstate, hamiltonian, costs, dev))
+        got = read_launches()
+    check("d=2^7", ("K3", "K4"), iterations, got, result,
+          lambda: _loss_grad(build_schroedinger_loss(
+              pstate, dev, torch.float32), pstate, dev))
+    launches.update({"K3 tiled mode": got["K3 mode"],
+                     "K4 tiled mode": got["K4 mode"]})
+
+    d20_state = lindblad_d20_pstate()
+    with precision(MODE):
+        reset_launches()
+        result = grape_lindblad_discrete(
+            iteration_count=iterations, log_iteration_step=0,
+            fused_chunk=WARMUP_ITERATIONS, device=dev,
+            **lindblad_d20_problem())
+        got = read_launches()
+    check("Lindblad d=20", ("K6 fwd", "K6 bwd"), iterations, got, result,
+          lambda: _loss_grad(build_lindblad_loss(
+              d20_state, dev, torch.float32), d20_state, dev))
+    launches.update({"K6 fwd mode": got["K6 fwd mode"],
+                     "K6 bwd mode": got["K6 bwd mode"]})
+
+    n_members = LINDBLAD_MEMBERS[0]
+    kw = lindblad_ensemble_problem(n_members)
+    label = "{}-member Lindblad d=20 ensemble".format(n_members)
+    with precision(MODE):
+        result, got, blocks, _, ens_state, ens_loss = _lindblad_ensemble_run(
+            "the bf16_3x " + label, kw, dev,
+            WARMUP_ITERATIONS + LINDBLAD_TIMED, WARMUP_ITERATIONS)
+    check(label, ("K6 fwd", "K6 bwd"),
+          blocks * (WARMUP_ITERATIONS + LINDBLAD_TIMED), got, result,
+          lambda: _loss_grad(ens_loss, ens_state, dev))
+    launches.update({"K6 member fwd mode": got["K6 fwd mode"],
+                     "K6 member bwd mode": got["K6 bwd mode"]})
+
+    # The d = 20 step-cost loss (K6's adjoint per step), once.
+    step_state = lindblad_d20_pstate(d20_step_costs())
+    with precision(MODE):
+        loss = build_lindblad_loss(step_state, dev, torch.float32)
+        reset_launches()
+        _loss_grad(loss, step_state, dev)
+        torch.cuda.synchronize()
+        got = read_launches()
+    want = {"K6 fwd": 1, "K6 bwd": 1, "K6 bwd step": 1, "K6 fwd mode": 1,
+            "K6 bwd mode": 1}
+    _member_launches("the bf16_3x d = 20 step-cost loss", got, tuple(want),
+                     want)
+    launches["K6 bwd mode step"] = got["K6 bwd mode"]
+    print("phase 39 bf16_3x d = 20 step-cost loss: launches {}".format(
+        {k: v for k, v in got.items() if v}), flush=True)
+    return launches, rates
+
+
+# ptxas entry strings of the tiled kernels (K3/K4 above padded 64, K6) at
+# dp, exact or (tc) in the bf16_3x mode.
+def tiled_entry(key, dp, tc):
+    if key.startswith("K6"):
+        return ("stream_{}_kernelILi{}ELb{}E".format(
+            "bwd" if " bwd" in key else "fwd", dp // 64, int(tc)),)
+    return ("expm_tiled_kernel", "TiledILi{}ELb{}E".format(
+        dp // 64, int(key.startswith("K4"))), "ELb{}EE".format(int(tc)))
+
+
+def _stream_mode_times(prefix, a_seg, n1, ninf, absa, gen):
+    """ms of K6's forward and adjoint (both seed modes) on a_seg in the mode
+    and exact, of the plain versions in the mode, and the bounds in both
+    modes ("<prefix> fwd mode", "<prefix> bwd exact step", ...)."""
+    from qoc_tpu_torch.ops import chain
+    rows, length, dp = a_seg.shape[:3]
+    pref = chain.stream_fwd(a_seg, n1, MODE)
+    seeds = {"": torch.randn((rows, dp, dp), dtype=torch.complex64,
+                             device=a_seg.device, generator=gen),
+             " step": torch.randn((rows, length, dp, dp),
+                                  dtype=torch.complex64, device=a_seg.device,
+                                  generator=gen)}
+    ms = _mode_times((prefix + " fwd", prefix + " bwd"), chain.stream_fwd,
+                     chain.stream_bwd, chain.stream_fwd_plain,
+                     chain.stream_bwd_plain, (a_seg, n1), (a_seg, ninf, pref),
+                     seeds)
+    bounds = {}
+    for mode in (MODE, "highest"):
+        tag = " mode" if mode == MODE else " exact"
+        bounds[prefix + " fwd" + tag] = kernel_bound(
+            absa.sum(-2).amax(-1), chain.ladder_level(n1), False,
+            [a_seg, n1, pref], dp, mode=mode)
+        for suffix, x in seeds.items():
+            bounds[prefix + " bwd" + tag + suffix] = kernel_bound(
+                absa.sum(-1).amax(-1), chain.ladder_level(ninf), True,
+                [a_seg, ninf, pref, x, pref[:, 1:]], dp, mode=mode)
+    return ms, bounds
+
+
+def phase_mode_tiled_timing(dev):
+    """Phase 41: the tiled kernels' bf16_3x forms timed beside their exact
+    forms in the same call: K3/K4 at the d = 2^7 GRAPE's planes (as the
+    blocked route calls them), K6 at the d = 20 cell's planes (both seed
+    modes) and at a time block of the 4-member d = 20 ensemble (member
+    rows); with the plain versions in the mode, torch.linalg.matrix_exp
+    (K3/K4's library yardstick), the bounds of both modes, each kernel's
+    design line and every tiled TC instantiation's ptxas registers and
+    spills. Returns (ms, bounds) keyed as the kernels line reads them."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
+    gen = torch.Generator(device=dev).manual_seed(41)
+    ms, bounds = {}, {}
+    a = initial_planes(*d128_problem()[:2], dev)
+    g = torch.randn(a.shape, dtype=torch.complex64, device=dev, generator=gen)
+    ah = a.mH.contiguous()
+    dp = expm_cuda.kernel_dp(a.shape[-1])
+    ms.update({
+        "K3 tiled mode": cuda_ms(lambda: expm_cuda.expm_fwd(a, MODE), 10),
+        "K3 tiled exact": cuda_ms(lambda: expm_cuda.expm_fwd(a, "highest"),
+                                  10),
+        "K3 tiled mode plain": cuda_ms(
+            lambda: expm_cuda.expm_fwd_plain(a, MODE), 2),
+        "K3 tiled mode library": cuda_ms(lambda: torch.linalg.matrix_exp(a),
+                                         5),
+        "K4 tiled mode": cuda_ms(
+            lambda: expm_cuda.expm_frechet_fwd(ah, g, MODE), 10),
+        "K4 tiled exact": cuda_ms(
+            lambda: expm_cuda.expm_frechet_fwd(ah, g, "highest"), 10),
+        "K4 tiled mode plain": cuda_ms(
+            lambda: expm_cuda.expm_frechet_plain(ah, g, MODE), 2),
+    })
+    a_req = a.clone().requires_grad_(True)
+    u = torch.linalg.matrix_exp(a_req)
+    ms["K4 tiled mode library"] = cuda_ms(lambda: torch.autograd.grad(
+        u, a_req, g, retain_graph=True), 3)
+    del u, a_req
+    lv3 = chain.ladder_level(expm_cuda._norm_max(a))
+    lv4 = chain.ladder_level(expm_cuda._norm_max(ah))
+    for mode in (MODE, "highest"):
+        tag = " mode" if mode == MODE else " exact"
+        bounds["K3 tiled" + tag] = kernel_bound(
+            a.abs().sum(-2).amax(-1), lv3, False, [a, a], dp, chain=False,
+            mode=mode)
+        bounds["K4 tiled" + tag] = kernel_bound(
+            ah.abs().sum(-2).amax(-1), lv4, True, [ah, g, g], dp,
+            chain=False, mode=mode)
+    lines = [("d=2^7 planes, K3/K4", tuple(a.shape), lv3, lv4)]
+    designs = []
+    for key, dual in (("K3 tiled mode", False), ("K4 tiled mode", True)):
+        blocks = expm_cuda.launch_grid(dual, dp, a.shape[0], dev.index)[0]
+        smem = expm_cuda._plan(dual, dp, dev.index)[2]
+        designs.append(design_line(key, tiled_entry(key, dp, True), blocks, 1,
+                                   smem, bounds[key][0], ms[key]))
+    del a, ah, g
+    a20, _ = lindblad_d20_planes(dev)
+    a_seg, n1, ninf = _stream_inputs(a20)
+    out = _stream_mode_times("K6", a_seg, n1, ninf, a20.abs(), gen)
+    ms.update(out[0])
+    bounds.update(out[1])
+    lines.append(("d=20 planes, K6", tuple(a_seg.shape),
+                  chain.ladder_level(n1), chain.ladder_level(ninf)))
+    n_members = LINDBLAD_MEMBERS[0]
+    kw = lindblad_ensemble_problem(n_members)
+    pstate = lindblad_pstate(kw)
+    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
+                                         kw["hamiltonian_params"],
+                                         device=dev).block
+    with torch.no_grad():
+        am = lindblad_member_planes(kw, pstate, dev)(
+            kw["hamiltonian_params"], block)
+    m_seg, m1, minf = _member_stream_inputs(am)
+    out = _stream_mode_times("K6 member", m_seg, m1, minf,
+                             am.reshape(-1, *am.shape[-2:]).abs(), gen)
+    ms.update(out[0])
+    bounds.update(out[1])
+    lines.append(("{}-member d=20 time block, K6 member".format(n_members),
+                  tuple(m_seg.shape), chain.ladder_level(m1),
+                  chain.ladder_level(minf)))
+    dp = a_seg.shape[-1]
+    for key, rows in (("K6 fwd mode", a_seg.shape[0]),
+                      ("K6 bwd mode", a_seg.shape[0]),
+                      ("K6 member fwd mode", m_seg.shape[0]),
+                      ("K6 member bwd mode", m_seg.shape[0])):
+        dual = " bwd" in key
+        clusters = chain.stream_grid(dual, dp, rows, dev)[0]
+        _, per_cluster, _, smem = chain._stream_plan(dual, dp, dev.index)
+        designs.append(design_line(key, tiled_entry(key, dp, True), clusters,
+                                   per_cluster, smem, bounds[key][0],
+                                   ms[key]))
+    torch.cuda.synchronize()
+    print("phase 41 bf16_3x tiled timing ({}): ".format("; ".join(
+        "{} {} levels {}/{}".format(*x) for x in lines))
+        + ", ".join("{} {:.3f} ms".format(k, v) for k, v in ms.items()),
+        flush=True)
+    for key in sorted(k for k in bounds if " mode" in k):
+        exact = key.replace(" mode", " exact")
+        print("phase 41 bf16_3x {}: {:.3f} ms (exact {:.3f} ms, {:.2f}x), "
+              "TF32 bound {:.3f} ms ({}, {:.1f} GFLOP) = {:.0%} of its time; "
+              "exact kernel's FP32 bound {:.3f} ms = {:.0%}".format(
+                  key, ms[key], ms[exact], ms[exact] / ms[key],
+                  bounds[key][0], bounds[key][1], bounds[key][2],
+                  bounds[key][0] / ms[key], bounds[exact][0],
+                  bounds[exact][0] / ms[exact]), flush=True)
+    for line in designs:
+        print("phase 41 design: " + line, flush=True)
+    print("phase 41 ptxas (registers / spill bytes) of the tiled kernels, "
+          "exact -> bf16_3x: " + ", ".join(
+              "{} dp {} {} -> {}".format(key, dp, "/".join(map(str, ptxas_report(
+                  *tiled_entry(key, dp, False)))), "/".join(map(
+                      str, ptxas_report(*tiled_entry(key, dp, True)))))
+              for key, dps in (("K3", (128, 192, 256)), ("K4", (128, 192, 256)),
+                               ("K6 fwd", (320, 384, 448, 512)),
+                               ("K6 bwd", (320, 384, 448, 512)))
+              for dp in dps), flush=True)
+    return ms, bounds
 
 
 def run_phase(phase, *args):
@@ -4459,7 +4890,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Phases 1-35 check the exact kernels whatever QOC_TPU_MXU_PRECISION
-    # says; phases 36-39 set the bf16_3x mode where they run it.
+    # says; phases 36-41 set the bf16_3x mode where they run it.
     from qoc_tpu_torch import config
     config.MXU_MODE = "highest"
     dev = torch.device("cuda", 0)
@@ -4549,7 +4980,17 @@ def main():
     mode_ms, mode_bounds = run_phase(phase_mode_timing, dev, headline_w)
     ms.update(mode_ms)
     bounds.update(mode_bounds)
-    run_phase(phase_mode_refusals, dev)
+    cell_launches, cell_rates = run_phase(
+        phase_mode_cells, dev, {
+            "d=2^7": d128_it_s, "Lindblad d=20": d20_it_s,
+            "{}-member Lindblad d=20 ensemble".format(LINDBLAD_MEMBERS[0]):
+            lindblad_rates[(LINDBLAD_MEMBERS[0], False)]})
+    launches.update(cell_launches)
+    mode_rates.update(cell_rates)
+    worst.update(run_phase(phase_mode_tiled_kernels, dev))
+    tiled_ms, tiled_bounds = run_phase(phase_mode_tiled_timing, dev)
+    ms.update(tiled_ms)
+    bounds.update(tiled_bounds)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -4606,7 +5047,21 @@ def main():
             ("chain_fwd (bf16_3x, member-batched)", "chain_fwd.cu",
              "chain_pallas.py:236", "K1 member mode"),
             ("chain_bwd (bf16_3x, member-batched)", "chain_bwd.cu",
-             "chain_pallas.py:262", "K2 member mode"))]
+             "chain_pallas.py:262", "K2 member mode"),
+            ("expm_fwd (bf16_3x, tiled, padded 128-256)", "expm_fwd.cu",
+             "expm_pallas.py:264", "K3 tiled mode"),
+            ("expm_frechet (bf16_3x, tiled, padded 128-256)",
+             "expm_frechet.cu", "expm_pallas.py:397", "K4 tiled mode"),
+            ("stream_fwd (bf16_3x)", "stream_fwd.cu", "chain_pallas.py:442",
+             "K6 fwd mode"),
+            ("stream_bwd (bf16_3x)", "stream_bwd.cu", "chain_pallas.py:463",
+             "K6 bwd mode"),
+            ("stream_bwd (bf16_3x, per-step seeds)", "stream_bwd.cu",
+             "chain_pallas.py:463", "K6 bwd mode step"),
+            ("stream_fwd (bf16_3x, member-batched)", "stream_fwd.cu",
+             "chain_pallas.py:442", "K6 member fwd mode"),
+            ("stream_bwd (bf16_3x, member-batched)", "stream_bwd.cu",
+             "chain_pallas.py:463", "K6 member bwd mode"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "
           "blocked {:.3f} ms, plane {:.3f} ms | d=1024 backprop {:.3f} ms | "
@@ -4654,7 +5109,8 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               33: phase_lindblad_multistart, 34: phase_member_routes,
               35: phase_plane_member_timing, 36: phase_mode_kernels,
               37: phase_mode_grape, 38: phase_mode_timing,
-              39: phase_mode_refusals}
+              39: phase_mode_cells, 40: phase_mode_tiled_kernels,
+              41: phase_mode_tiled_timing}
 
 
 if __name__ == "__main__":

@@ -31,8 +31,8 @@ peak device memory; ``--json PATH`` also writes them to PATH as JSON,
 ``--cells 0,9`` profiles only the listed cells (by their order above), and
 ``--modes highest,bf16_3x`` profiles each of them in each precision mode
 (``config.MXU_MODE``, in that order, in one call; by default the mode that
-``QOC_TPU_MXU_PRECISION`` chose). A cell whose route has no bf16_3x form
-(the d = 2^7, d = 2^10 and Lindblad d = 20 cells) raises in that mode.
+``QOC_TPU_MXU_PRECISION`` chose); every cell runs in either mode (the
+d = 2^10 backprop's products on torch.matmul as the 3-pass split).
 """
 
 import argparse

@@ -26,10 +26,10 @@ One process-wide switch chooses the kernels' product precision, as
 The ops read :data:`MXU_MODE` when they are called (tests and scripts may
 set it between calls), and a backward runs in its forward's mode. It
 touches float32 and complex64 work only: float64 ignores it
-(:func:`mxu_mode`). Routes without the mode's kernels yet raise
-``NotImplementedError`` in it (ROADMAP Queue 2 item 5b). TF32 stays off
-for every float32 product the glue issues: one TF32 pass keeps only ~3
-decimal digits.
+(:func:`mxu_mode`). Every kernel (K1-K6) and ``expm_taylor`` has its mode
+form; a route in the mode never runs exact float32 in its place. TF32
+stays off for every float32 product the glue issues: one TF32 pass keeps
+only ~3 decimal digits.
 """
 
 import os

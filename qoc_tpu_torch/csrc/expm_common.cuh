@@ -47,6 +47,23 @@
 // go to L2 (ld.global.cg, cp.async.cg): another SM wrote them, and an L1
 // line of this SM may be stale.
 //
+// The bf16_3x mode (TC = true, ops/chain.py): the second instantiation of
+// Tiled runs every product of the ladder, the chain step and the adjoint's
+// T update as 3 x TF32 mma.sync.m16n8k8 on operands split by cvt.rna
+// (chain_common.cuh split_tf32, mma_tf32), each k8 partial joined to its
+// accumulator by a rounding FP32 add, as the resident kernels' mode does.
+// Its threads own the mma accumulator fragments of the panel transposed
+// (TcTile: Z^T = Y^T X^T, m along the panel's columns, n along its rows), so
+// any PR that is a multiple of 8 tiles, K6's row bands of 8 T rows too; the
+// ring's slices are swizzled by 16-byte chunks so that the fragment reads
+// are conflict-free (xoff, yoff). The tensor cores' sums round toward zero,
+// so where one term dominates it stays out of them: the ladder's slot holds
+// exp(M) - I (its last epilogue drops the identity, and the squarings run
+// on D = X - I, D' = 2 D + D D), a copy out adds I back (Epi::vid), a chain
+// step is P + (U - I) P and the adjoint's T + (U^H - I) T. Degree 12 is
+// _D12A (4 products) with its constants taken out, so exp(0) - I is 0
+// exactly and a padded step leaves P unchanged.
+//
 // Ladder rule, both designs and the plain versions (ops/chain.py
 // _expm_ladder): the level comes from the batch-max 1-norm (by pointer,
 // computed on the device by the wrapper): degree 4/8/12/19 below the
@@ -88,21 +105,23 @@ __device__ __forceinline__ Lin chunk(int k, float c4 = 0.f, int s4 = NONE) {
 }
 
 // What a product's epilogue does with each element z of Z = alpha X Y + L:
-// adds add[i] (an input), copies z (and, dual, dz) to vout (tout), and
-// sets slot post_dst[j] = post[j], where a term on the product's own slot
-// reads the new z.
+// adds add[i] (an input, or a matrix other blocks wrote), copies z (and,
+// dual, dz) to vout (tout), vid I added to the copy of z, and sets slot
+// post_dst[j] = post[j], where a term on the product's own slot reads the
+// new z.
 struct Epi {
   Lin L;
   float alpha;
   const float2* add;
   float2* vout;
   float2* tout;
+  float vid;
   int post_dst[2];
   Lin post[2];
 };
 
 __device__ __forceinline__ Epi epi(const Lin& L) {
-  return Epi{L, 1.0f, nullptr, nullptr, nullptr, {NONE, NONE}, {L, L}};
+  return Epi{L, 1.0f, nullptr, nullptr, nullptr, 0.0f, {NONE, NONE}, {L, L}};
 }
 
 __device__ __forceinline__ Epi epi_post(const Lin& L, int d0, const Lin& p0,
@@ -140,6 +159,39 @@ struct Tile {
   }
   static __device__ __forceinline__ int col(int e) {
     return j() + GJ * (e % TN);
+  }
+  static __device__ __forceinline__ bool has(int) { return true; }
+};
+
+// The bf16_3x mode's register tile of a PR x PC panel: the accumulator
+// fragments of mma.m16n8k8 on the panel transposed, Z^T = Y^T X^T (m along
+// the panel's MT = PC / 16 column tiles, n along its NN = PR / 8 row tiles).
+// Warp w takes m-tile w % MT and n-tiles w / MT + WS j (WS = warps an
+// m-tile); where WS does not divide NN the last n-tile of some warps is
+// missing (has). Lane (g, t) = (lane / 4, lane % 4) holds fragment element
+// q of each of its tiles: m = g + 8 (q / 2), n = 2 t + q % 2.
+template <int PR_, int PC_>
+struct TcTile {
+  static constexpr int PR = PR_, PC = PC_;
+  static constexpr int W = NT / 32;
+  static constexpr int MT = PC / 16;
+  static constexpr int WS = W / MT;
+  static constexpr int NN = PR / 8;
+  static constexpr int NJ = (NN + WS - 1) / WS;  // n-tiles a warp, at most
+  static constexpr int EP = 4 * NJ;
+  static_assert(W % MT == 0 && PR % 8 == 0, "TcTile: bad panel");
+  static __device__ __forceinline__ int mi() { return (threadIdx.x >> 5) % MT; }
+  static __device__ __forceinline__ int ni(int j) {
+    return (threadIdx.x >> 5) / MT + WS * j;
+  }
+  static __device__ __forceinline__ int row(int e) {
+    return 8 * ni(e >> 2) + 2 * (threadIdx.x & 3) + (e & 1);
+  }
+  static __device__ __forceinline__ int col(int e) {
+    return 16 * mi() + ((threadIdx.x & 31) >> 2) + 8 * ((e >> 1) & 1);
+  }
+  static __device__ __forceinline__ bool has(int e) {
+    return ni(e >> 2) < NN;
   }
 };
 
@@ -183,6 +235,134 @@ __device__ __forceinline__ void mm_slice(const float2* __restrict__ Xs,
   }
 }
 
+// Shared-memory index of element (r, k) of a PR x KS X slice and of
+// element (k, c) of a KS x PC Y slice in the ring: row-major, and in the
+// bf16_3x mode (SW) with each 16-byte chunk (two complex elements) XORed
+// within its aligned group of 8: chunk k / 2 of X row r by 4 (r & 1), chunk
+// c / 2 of Y row k by k & 6. Then mm_slice_tc's reads of a fragment (X: 8
+// lanes, rows g and g + 1, chunks t; Y: 16 lanes, rows 2 t, chunks g / 2)
+// fall on 32 distinct banks.
+template <bool SW, int KS>
+__device__ __forceinline__ int xoff(int r, int k) {
+  if constexpr (!SW) return r * KS + k;
+  return r * KS + ((((k >> 1) ^ ((r & 1) << 2)) << 1) | (k & 1));
+}
+
+template <bool SW, int PC>
+__device__ __forceinline__ int yoff(int k, int c) {
+  if constexpr (!SW) return k * PC + c;
+  return k * PC + ((((c >> 1) ^ (k & 6)) << 1) | (c & 1));
+}
+
+// acc += X Y for a PR x KS slice X and a KS x PC slice Y in the ring's
+// bf16_3x layout (xoff, yoff), on the calling warp's TcTile fragments: 3 x
+// TF32 mma.sync a real product (chain_common.cuh mm_acc_tc's arithmetic,
+// there on X Y, here on Y^T X^T). A k8 step takes k0 + 2 t as the mma's
+// k = t and k0 + 2 t + 1 as k = t + 4, so one float4 read gives a lane both
+// of its X elements (B fragment); the A fragment is Y's, one a warp and k8
+// step, reused over the warp's n-tiles. Zr = Yr Xr - Yi Xi, Zi = Yr Xi +
+// Yi Xr: 12 mma a tile and k8 step, summed into fresh registers (the small
+// passes first) and joined to acc by an FP32 add that rounds to nearest.
+// The n-tiles go in groups of up to 4 whose mma interleave (each tile's
+// 12 form two dependent chains, and a warp has 7 peers an SM to hide their
+// latency; groups of 2 measured 2-4% slower, PERF.md). A warp's missing
+// tile (has) is computed like the others, on rows past the panel that stay
+// inside the ring's stage, and never stored: its warp would wait at the
+// next barrier anyway.
+template <class P, int KS>
+__device__ __forceinline__ void mm_slice_tc(const float2* __restrict__ Xs,
+                                            const float2* __restrict__ Ys,
+                                            float2 (&acc)[P::EP]) {
+  constexpr int GJ = P::NJ < 4 ? P::NJ : 4;  // n-tiles interleaved
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * P::mi();
+#pragma unroll
+  for (int k0 = 0; k0 < KS; k0 += 8) {
+    // A = Y^T: a[2 h + u] = Y[k0 + 2 t + h][m0 + g + 8 u], split; the
+    // imaginary part negated for Zr.
+    uint32_t arh[4], arl[4], aih[4], ail[4], anh[4], anl[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float2 y = Ys[yoff<true, P::PC>(k0 + 2 * t + h, m0 + g + 8 * u)];
+        split_tf32(y.x, arh[2 * h + u], arl[2 * h + u]);
+        split_tf32(y.y, aih[2 * h + u], ail[2 * h + u]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      anh[q] = aih[q] ^ 0x80000000u;
+      anl[q] = ail[q] ^ 0x80000000u;
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < P::NJ; j0 += GJ) {
+      // The group's tiles u < GJ with j0 + u < NJ (known once unrolled).
+      // B = X^T: (b0, b1) = X[8 ni + g][k0 + 2 t], X[8 ni + g][k0 + 2 t + 1].
+      uint32_t brh[GJ][2], brl[GJ][2], bih[GJ][2], bil[GJ][2];
+#pragma unroll
+      for (int u = 0; u < GJ; ++u) {
+        if (j0 + u >= P::NJ) continue;
+        const float4 x = *reinterpret_cast<const float4*>(
+            Xs + xoff<true, KS>(8 * P::ni(j0 + u) + g, k0 + 2 * t));
+        split_tf32(x.x, brh[u][0], brl[u][0]);
+        split_tf32(x.y, bih[u][0], bil[u][0]);
+        split_tf32(x.z, brh[u][1], brl[u][1]);
+        split_tf32(x.w, bih[u][1], bil[u][1]);
+      }
+      float re[GJ][4], im[GJ][4];
+#pragma unroll
+      for (int u = 0; u < GJ; ++u) {
+        if (j0 + u >= P::NJ) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) re[u][q] = im[u][q] = 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ) mma_small(re[u], arh, arl, brh[u], brl[u]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ) mma_small(im[u], arh, arl, bih[u], bil[u]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ) mma_small(re[u], anh, anl, bih[u], bil[u]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ) mma_small(im[u], aih, ail, brh[u], brl[u]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ)
+          mma_tf32(re[u][0], re[u][1], re[u][2], re[u][3], arh, brh[u][0],
+                   brh[u][1]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ)
+          mma_tf32(im[u][0], im[u][1], im[u][2], im[u][3], arh, bih[u][0],
+                   bih[u][1]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ)
+          mma_tf32(re[u][0], re[u][1], re[u][2], re[u][3], anh, bih[u][0],
+                   bih[u][1]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u)
+        if (j0 + u < P::NJ)
+          mma_tf32(im[u][0], im[u][1], im[u][2], im[u][3], aih, brh[u][0],
+                   brh[u][1]);
+#pragma unroll
+      for (int u = 0; u < GJ; ++u) {
+        if (j0 + u >= P::NJ) continue;
+        float2* c = acc + 4 * (j0 + u);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          c[q].x = __fadd_rn(c[q].x, re[u][q]);
+          c[q].y = __fadd_rn(c[q].y, im[u][q]);
+        }
+      }
+    }
+  }
+}
+
 // Ring and panel geometry of a product at D = 64 T on the tile P.
 template <int T, typename P>
 struct Geometry {
@@ -204,10 +384,13 @@ struct Geometry {
 
 // CL blocks share one workspace and split each operation (see the file
 // note). The workspace holds the SLOTS ladder matrices, then any extra
-// ones of the caller (extra(j)).
-template <int T, bool DUAL, int CL, int TM = 8, int TN = 2, int GI = 8>
+// ones of the caller (extra(j), slot SLOTS + j of value()). TC: the
+// bf16_3x mode's instantiation, on the same GI TM x (NT / GI) TN panels.
+template <int T, bool DUAL, int CL, int TM = 8, int TN = 2, int GI = 8,
+          bool TC = false>
 struct Tiled {
-  using P = Tile<TM, TN, GI>;
+  using P = std::conditional_t<TC, TcTile<GI * TM, NT / GI * TN>,
+                               Tile<TM, TN, GI>>;
   using G = Geometry<T, P>;
   static constexpr int D = G::D;
   static constexpr int N = D * D;
@@ -215,6 +398,9 @@ struct Tiled {
   static constexpr int BLOCKS = CL;       // blocks sharing a workspace
   static constexpr int STRIDE = CL * NT;  // threads of the sharing blocks
   static constexpr int EP = P::EP;
+
+  // The identity the ladder's slot lacks: exp(M) - I in the mode.
+  static constexpr float ONE = TC ? 1.0f : 0.0f;
 
   float2* ws;  // the workspace of this cluster
   float2* sm;  // the ring (and a 64 x 64 staging tile outside products)
@@ -295,21 +481,23 @@ struct Tiled {
     float2* ys = st + G::XSL;
     for (int c = threadIdx.x; c < G::PR * 16; c += NT) {
       const int r = c >> 4, q = 2 * (c & 15);
-      cp_async16(xs + r * G::KS + q, x + (size_t)(r0 + r) * D + k0 + q);
+      cp_async16(xs + xoff<TC, G::KS>(r, q),
+                 x + (size_t)(r0 + r) * D + k0 + q);
     }
     if constexpr (YADJ) {
       // (y^H)[k0 + kk, c0 + j] = conj y[c0 + j, k0 + kk], through registers.
       for (int c = threadIdx.x; c < G::PC * 16; c += NT) {
         const int j = c >> 4, q = 2 * (c & 15);
         const float4 a = ld4(y + (size_t)(c0 + j) * D + k0 + q);
-        ys[q * G::PC + j] = make_float2(a.x, -a.y);
-        ys[(q + 1) * G::PC + j] = make_float2(a.z, -a.w);
+        ys[yoff<TC, G::PC>(q, j)] = make_float2(a.x, -a.y);
+        ys[yoff<TC, G::PC>(q + 1, j)] = make_float2(a.z, -a.w);
       }
     } else {
       constexpr int H = G::PC / 2;  // 16-byte chunks a row
       for (int c = threadIdx.x; c < G::KS * H; c += NT) {
         const int r = c / H, q = 2 * (c % H);
-        cp_async16(ys + r * G::PC + q, y + (size_t)(k0 + r) * D + c0 + q);
+        cp_async16(ys + yoff<TC, G::PC>(r, q),
+                   y + (size_t)(k0 + r) * D + c0 + q);
       }
     }
   }
@@ -351,7 +539,8 @@ struct Tiled {
       if (it + G::NS - 1 < n_it) start(it + G::NS - 1);
       cp_async_commit();
       const float2* st = sm + (it % G::NS) * G::STAGE;
-      mm_slice<TM, TN, GI, G::KS>(st, st + G::XSL, acc);
+      if constexpr (TC) mm_slice_tc<P, G::KS>(st, st + G::XSL, acc);
+      else mm_slice<TM, TN, GI, G::KS>(st, st + G::XSL, acc);
       const int s = it % spp;
       if (s != G::KT - 1 && s != spp - 1) continue;
       // Epilogue of the panel's value (s = KT - 1) or tangent.
@@ -360,6 +549,7 @@ struct Tiled {
       const int r0 = (p % G::RP) * G::PR, c0 = (p / G::RP) * G::PC;
 #pragma unroll
       for (int j = 0; j < EP; ++j) {
+        if (!P::has(j)) continue;
         const int gi = (r0 + P::row(j)) * D + c0 + P::col(j);
         float2 w = cscale(e.alpha, acc[j]);
         acc[j] = make_float2(0.f, 0.f);
@@ -369,9 +559,13 @@ struct Tiled {
           if (e.tout != nullptr) e.tout[gi] = w;
         } else {
           w = cadd(w, value(e.L, gi));
-          if (e.add != nullptr) w = cadd(w, __ldg(e.add + gi));
+          if (e.add != nullptr) w = cadd(w, ld(e.add + gi));
           z[gi] = w;
-          if (e.vout != nullptr) e.vout[gi] = w;
+          if (e.vout != nullptr) {
+            float2 o = w;
+            if (TC && gi / D == gi % D) o.x += e.vid;
+            e.vout[gi] = o;
+          }
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -461,18 +655,34 @@ struct Tiled {
     }
   }
 
+  // L without the identity that the mode's slot lacks.
+  __device__ static Lin drop(Lin L) {
+    L.id -= ONE;
+    return L;
+  }
+
+  // The epilogue of the ladder's last product: L and the copies out to
+  // vout and tout (where not null), vout with the mode's identity back.
+  __device__ static Epi last(const Lin& L, float2* vout, float2* tout) {
+    Epi e = epi_out(L, vout, tout);
+    e.vid = ONE;
+    return e;
+  }
+
   // The ladder on slot M (scaled and synced already); s squarings at level
   // 4. The last product also writes its value to vout and its tangent to
-  // tout (where not null). Returns the slot that holds exp(M) (and, dual,
-  // its Fréchet derivative); ends with sync(). Every elementwise pass of
-  // the ladder is a post of the product before it.
+  // tout (where not null). Returns the slot that holds exp(M), exp(M) - I
+  // in the mode (and, dual, its Fréchet derivative); ends with sync().
+  // Every elementwise pass of the ladder is a post of the product before
+  // it.
   __device__ int ladder(int level, int s, float2* vout, float2* tout) const {
     const Lin none = lin(0.0f);
     if (level == 0) {
       // Degree 4: c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2).
       gemm(M, M, M2, epi_post(none, M3, lin(0.0f, kC[3], M, kC[4], M2)));
       sync();
-      gemm(M2, M3, X, epi_out(lin(kC[0], kC[1], M, kC[2], M2), vout, tout));
+      gemm(M2, M3, X,
+           last(drop(lin(kC[0], kC[1], M, kC[2], M2)), vout, tout));
       sync();
       return X;
     }
@@ -486,12 +696,32 @@ struct Tiled {
                     lin(kD8[3], kD8[4], M, kD8[5], M2, kD8[6], M4)));
       sync();
       gemm(X, Y, M3,
-           epi_out(lin(kD8[7], kD8[8], M, kD8[9], M2), vout, tout));
+           last(drop(lin(kD8[7], kD8[8], M, kD8[9], M2)), vout, tout));
       sync();
       return M3;
     }
     gemm(M, M, M2, epi(none));
     sync();
+    if (TC && level == 2) {
+      // Degree 12 in 4 products (_D12A, chain_common.cuh kD12), its
+      // identity dropped: M3 = M2 M, its post X = lin'(3); A6' = lin'(2) +
+      // X X into Y, its posts Y' = lin'(1) + A6' into M4 and (c0 - 1) I +
+      // lin'(0) = lin'(0) into M3 (which the first post reads before); then
+      // Y' A6' + M3 + a20 Y' + y0 A6'.
+      gemm(M2, M, M3, epi_post(none, X, lin(0.0f, kD12[13], M, kD12[14], M2,
+                                            kD12[15], M3)));
+      sync();
+      gemm(X, X, Y,
+           epi_post(lin(0.0f, kD12[9], M, kD12[10], M2, kD12[11], M3), M4,
+                    lin(0.0f, kD12[5], M, kD12[6], M2, kD12[7], M3, 1.0f, Y),
+                    M3, lin(kD12C[0] - 1.0f, kD12[1], M, kD12[2], M2,
+                            kD12[3], M3)));
+      sync();
+      gemm(M4, Y, X,
+           last(lin(0.0f, 1.0f, M3, kD12[8], M4, kD12C[1], Y), vout, tout));
+      sync();
+      return X;
+    }
     // M3 and M4 in one phase: both read M and M2 only, and the post reads
     // the M3 element this thread wrote.
     gemm(M2, M, M3, epi(none));
@@ -502,7 +732,7 @@ struct Tiled {
       sync();
       gemm(M4, X, Y, epi(chunk(4)));
       sync();
-      gemm(M4, Y, X, epi_out(chunk(0), vout, tout));
+      gemm(M4, Y, X, last(chunk(0), vout, tout));
       sync();
       return X;
     }
@@ -515,12 +745,17 @@ struct Tiled {
     sync();
     gemm(X, M4, Y, epi(chunk(4)));
     sync();
-    gemm(Y, M4, X, s == 0 ? epi_out(chunk(0), vout, tout) : epi(chunk(0)));
+    gemm(Y, M4, X, s == 0 ? last(drop(chunk(0)), vout, tout)
+                          : epi(drop(chunk(0))));
     sync();
+    // The squarings: X X, or in the mode D' = 2 D + D D on D = X - I.
+    const Lin sq = lin(0.0f, 2.0f * ONE, X);
     int r = X;
     for (int j = 0; j < s; ++j) {
       const int o = r == X ? Y : X;
-      gemm(r, r, o, j == s - 1 ? epi_out(none, vout, tout) : epi(none));
+      Lin L = sq;
+      L.s[0] = TC ? r : NONE;
+      gemm(r, r, o, j == s - 1 ? last(L, vout, tout) : epi(L));
       sync();
       r = o;
     }
@@ -530,10 +765,11 @@ struct Tiled {
 
 // K3/K4's tiled form: one matrix a block, its ladder in the block's own
 // workspace; K4 on 8 x 4 register tiles of 128 x 64 panels where they tile
-// D (not at D = 192). Both chosen by measuring (expm_fwd.cu).
-template <int T, bool DUAL>
+// D (not at D = 192). Both chosen by measuring (expm_fwd.cu). TC: the
+// bf16_3x mode's instantiation on the same panels.
+template <int T, bool DUAL, bool TC = false>
 using ExpmTiled = Tiled<T, DUAL, 1, 8, DUAL && T != 3 ? 4 : 2,
-                        DUAL && T != 3 ? 16 : 8>;
+                        DUAL && T != 3 ? 16 : 8, TC>;
 
 // Batch of matrices a (B, D, D) (and tangents g for the dual form) into out:
 // exp(a), or the Fréchet derivative L(a, g), one matrix a group of
@@ -566,9 +802,9 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int T, bool DUAL>
+template <int T, bool DUAL, bool TC = false>
 constexpr size_t expm_tiled_smem() {
-  return ExpmTiled<T, DUAL>::G::SMEM;
+  return ExpmTiled<T, DUAL, TC>::G::SMEM;
 }
 
 // Sets the kernel's dynamic shared memory, then launches it on grid blocks

@@ -27,8 +27,9 @@
 // tiles of 128 x 64 panels (8 x 2 tiles of 64 x 64 at D = 192, which 128
 // does not divide): at the d = 2^7 planes on an H100 it beat K3's 8 x 2
 // and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
-// The bf16_3x mode (tf32 != 0) runs at D = 64 alone, on AdjointTC (3 x TF32
-// tensor-core products, _D12A); the tiled path refuses it.
+// The bf16_3x mode (tf32 != 0) runs each path's second instantiation (3 x
+// TF32 tensor-core products, _D12A in dual form): AdjointTC at D = 64, the
+// tiled ladder's TC form above (expm_common.cuh, on the same panels).
 
 #include "expm_common.cuh"
 
@@ -63,15 +64,22 @@ __global__ void __launch_bounds__(NTA, 1)
   }
 }
 
-template <int T>
+template <int T, bool TC>
 int tiled(const void* b, const void* g, const void* norm, void* out,
           void* ws, int B, int blocks, void* stream) {
-  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, true>>,
-                    ex::expm_tiled_smem<T, true>(), blocks, stream, 1,
+  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, true, TC>>,
+                    ex::expm_tiled_smem<T, true, TC>(), blocks, stream, 1,
                     static_cast<const float2*>(b),
                     static_cast<const float2*>(g),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+template <int T>
+int tiled(const void* b, const void* g, const void* norm, void* out,
+          void* ws, int B, int blocks, int tf32, void* stream) {
+  return tf32 ? tiled<T, true>(b, g, norm, out, ws, B, blocks, stream)
+              : tiled<T, false>(b, g, norm, out, ws, B, blocks, stream);
 }
 
 template <int T>
@@ -87,13 +95,12 @@ int tiled_plan(int* blocks, int* smem) {
 // b, g (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max
 // 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_frechet_plan (the Paterson-Stockmeyer chunks' stash at
-// dp = 64). dp is 64, 128, 192 or 256; tf32 != 0 (the bf16_3x mode) takes
-// dp = 64 only. Returns the CUDA error.
+// dp = 64). dp is 64, 128, 192 or 256; tf32 != 0 runs the bf16_3x mode's
+// instantiation. Returns the CUDA error.
 extern "C" int qoc_expm_frechet(const void* b, const void* g,
                                 const void* norm, void* out, void* ws, int B,
                                 int dp, int grid, int tf32, void* stream) {
   using namespace qoc;
-  if (tf32 && dp != 64) return (int)cudaErrorInvalidValue;
   switch (dp) {
     case 64:
       return ex::launch<NTA>(tf32 ? frechet_resident_kernel<AdjointTC>
@@ -104,9 +111,9 @@ extern "C" int qoc_expm_frechet(const void* b, const void* g,
                              static_cast<const float*>(norm),
                              static_cast<float2*>(out),
                              static_cast<float2*>(ws), B);
-    case 128: return tiled<2>(b, g, norm, out, ws, B, grid, stream);
-    case 192: return tiled<3>(b, g, norm, out, ws, B, grid, stream);
-    case 256: return tiled<4>(b, g, norm, out, ws, B, grid, stream);
+    case 128: return tiled<2>(b, g, norm, out, ws, B, grid, tf32, stream);
+    case 192: return tiled<3>(b, g, norm, out, ws, B, grid, tf32, stream);
+    case 256: return tiled<4>(b, g, norm, out, ws, B, grid, tf32, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,10 +26,11 @@
 // d = 2^7 GRAPE's planes (2000 x 128^2, degree 19) on an H100 against
 // clusters of 2 or 4 blocks a matrix (ladders that fit the L2) and 4 x 4
 // and 8 x 4 register tiles: profiling/tiled_variants.py, numbers in
-// PERF.md. The bf16_3x mode (tf32 != 0) runs at D = 64 alone: the resident
-// ladder's second instantiation, 3 x TF32 tensor-core products with _D12A
-// (chain_common.cuh Fwd<true>); the tiled path has no such form yet and
-// refuses it.
+// PERF.md. The bf16_3x mode (tf32 != 0) runs each path's second
+// instantiation, 3 x TF32 tensor-core products with _D12A at degree 12: at
+// D = 64 the resident ladder's (chain_common.cuh Fwd<true>), above it the
+// tiled ladder's (expm_common.cuh Tiled with TC, on the same panels; its
+// slot holds exp(A) - I and the last epilogue writes exp(A) out).
 
 #include "expm_common.cuh"
 
@@ -64,15 +65,22 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int T>
+template <int T, bool TC>
 int tiled(const void* a, const void* norm, void* out, void* ws, int B,
           int blocks, void* stream) {
-  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, false>>,
-                    ex::expm_tiled_smem<T, false>(), blocks, stream, 1,
+  return ex::launch(ex::expm_tiled_kernel<ex::ExpmTiled<T, false, TC>>,
+                    ex::expm_tiled_smem<T, false, TC>(), blocks, stream, 1,
                     static_cast<const float2*>(a),
                     static_cast<const float2*>(nullptr),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(out), static_cast<float2*>(ws), B);
+}
+
+template <int T>
+int tiled(const void* a, const void* norm, void* out, void* ws, int B,
+          int blocks, int tf32, void* stream) {
+  return tf32 ? tiled<T, true>(a, norm, out, ws, B, blocks, stream)
+              : tiled<T, false>(a, norm, out, ws, B, blocks, stream);
 }
 
 template <int T>
@@ -88,12 +96,11 @@ int tiled_plan(int* blocks, int* smem) {
 // a (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max 1-norm
 // of a; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256; tf32 != 0
-// (the bf16_3x mode) takes dp = 64 only. Returns the CUDA error.
+// runs the bf16_3x mode's instantiation. Returns the CUDA error.
 extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
                             void* ws, int B, int dp, int grid, int tf32,
                             void* stream) {
   using namespace qoc;
-  if (tf32 && dp != 64) return (int)cudaErrorInvalidValue;
   switch (dp) {
     case 64:
       return ex::launch(tf32 ? expm_resident_kernel<true>
@@ -102,9 +109,9 @@ extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
                         static_cast<const float2*>(a),
                         static_cast<const float*>(norm),
                         static_cast<float2*>(out), B);
-    case 128: return tiled<2>(a, norm, out, ws, B, grid, stream);
-    case 192: return tiled<3>(a, norm, out, ws, B, grid, stream);
-    case 256: return tiled<4>(a, norm, out, ws, B, grid, stream);
+    case 128: return tiled<2>(a, norm, out, ws, B, grid, tf32, stream);
+    case 192: return tiled<3>(a, norm, out, ws, B, grid, tf32, stream);
+    case 256: return tiled<4>(a, norm, out, ws, B, grid, tf32, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

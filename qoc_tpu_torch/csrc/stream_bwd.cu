@@ -38,6 +38,13 @@
 // workspace holds the twelve dual slots and the carry T (two slots,
 // written alternately); U_{t+1}^H is the value slot the
 // previous step's ladder returned.
+//
+// The bf16_3x mode (tf32 != 0): the second instantiation (Tiled with TC,
+// expm_common.cuh), every product (the T update, gU_t and the dual ladder)
+// 3 x TF32 on the tensor cores, _D12A in dual form at degree 12; the value
+// slot holds U^H - I, and the T update is T_{t+1} + (U_{t+1}^H - I) T_{t+1}
+// [+ seed_t], T_{t+1} read in the epilogue, so that a padded step carries T
+// exactly.
 
 #include "expm_common.cuh"
 
@@ -46,17 +53,17 @@ namespace {
 
 constexpr int CL = 8;  // blocks of a cluster
 
-template <int T>
-using Bwd = ex::Tiled<T, true, CL, T>;
+template <int T, bool TC>
+using Bwd = ex::Tiled<T, true, CL, T, 2, 8, TC>;
 
-template <int T>
+template <int T, bool TC>
 __global__ void __launch_bounds__(NT, 1)
     stream_bwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm,
                       const float2* __restrict__ prefpad,
                       const float2* __restrict__ seeds, float2* gA,
                       float2* ws, int S, int L, bool per_step) {
-  using K = Bwd<T>;
+  using K = Bwd<T, TC>;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
@@ -69,21 +76,21 @@ __global__ void __launch_bounds__(NT, 1)
     const float2* aseg = a + (size_t)seg * L * K::N;
     const float2* pseg = prefpad + (size_t)seg * (L + 1) * K::N;
     float2* gseg = gA + (size_t)seg * L * K::N;
-    float2* tc = k.extra(0);
-    float2* tn = k.extra(1);
+    int tc = 0;  // T_t is extra(tc), T_{t-1} goes to extra(1 - tc)
     int r = ex::X;
     for (int t = L - 1; t >= 0; --t) {
       const float2* seed = step_seed(seeds, seg, t, L, per_step, K::N);
       if (t == L - 1) {
-        k.copy(tc, seed);
+        k.copy(k.extra(tc), seed);
       } else {
-        // U_{t+1}^H T_{t+1}, plus (per-step mode) the step's seed.
+        // U_{t+1}^H T_{t+1} (TC: T_{t+1} + (U_{t+1}^H - I) T_{t+1}), plus
+        // (per-step mode) the step's seed.
         ex::Epi e = none;
+        if constexpr (TC) e.L = ex::lin(0.0f, 1.0f, K::SLOTS + tc);
         e.add = seed;
-        k.gemm_p(k.v(r), nullptr, tc, nullptr, tn, nullptr, ex::NONE, e);
-        float2* swap = tc;
-        tc = tn;
-        tn = swap;
+        k.gemm_p(k.v(r), nullptr, k.extra(tc), nullptr, k.extra(1 - tc),
+                 nullptr, ex::NONE, e);
+        tc = 1 - tc;
       }
       k.sync();
       // gU_t = 2^-s T_t P_{t-1}^H into the tangent of slot M, and the
@@ -93,8 +100,8 @@ __global__ void __launch_bounds__(NT, 1)
       const float scale = exp2f(-(float)s);
       ex::Epi e = none;
       e.alpha = scale;
-      k.template gemm_p<true>(tc, nullptr, pseg + (size_t)t * K::N, nullptr,
-                              k.t(ex::M), nullptr, ex::NONE, e);
+      k.template gemm_p<true>(k.extra(tc), nullptr, pseg + (size_t)t * K::N,
+                              nullptr, k.t(ex::M), nullptr, ex::NONE, e);
       k.load_adjoint_scaled(at, scale);
       k.sync();
       r = k.ladder(level, s, nullptr, gseg + (size_t)t * K::N);
@@ -105,8 +112,10 @@ __global__ void __launch_bounds__(NT, 1)
 template <int T>
 int launch(const void* a, const void* norm, const void* prefpad,
            const void* seeds, void* gA, void* ws, int S, int L, bool per_step,
-           int clusters, void* stream) {
-  return ex::launch(stream_bwd_kernel<T>, Bwd<T>::G::SMEM, clusters * CL,
+           int clusters, int tf32, void* stream) {
+  return ex::launch(tf32 ? stream_bwd_kernel<T, true>
+                         : stream_bwd_kernel<T, false>,
+                    Bwd<T, false>::G::SMEM, clusters * CL,
                     stream, CL, static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<const float2*>(prefpad),
@@ -117,9 +126,9 @@ int launch(const void* a, const void* norm, const void* prefpad,
 
 template <int T>
 int plan(int* clusters, int* smem) {
-  *smem = (int)Bwd<T>::G::SMEM;
-  return ex::resident_clusters(stream_bwd_kernel<T>, Bwd<T>::G::SMEM, CL,
-                               clusters);
+  *smem = (int)Bwd<T, false>::G::SMEM;
+  return ex::resident_clusters(stream_bwd_kernel<T, false>,
+                               Bwd<T, false>::G::SMEM, CL, clusters);
 }
 
 }  // namespace
@@ -129,26 +138,28 @@ int plan(int* clusters, int* smem) {
 // batch-max inf-norm (the 1-norm of A^H); prefpad (S, L + 1, dp, dp) from
 // the forward; seeds (S, dp, dp), or (S, L, dp, dp) with per_step != 0; gA
 // (S, L, dp, dp) out; ws (clusters, slots, dp, dp) scratch from
-// qoc_stream_bwd_plan. dp is 320, 384, 448 or 512. Returns the CUDA error.
+// qoc_stream_bwd_plan. dp is 320, 384, 448 or 512; tf32 != 0 runs the
+// bf16_3x mode's instantiation (on the same plan). Returns the CUDA error.
 extern "C" int qoc_stream_bwd(const void* a, const void* norm,
                               const void* prefpad, const void* seeds,
                               void* gA, void* ws, int S, int L, int dp,
-                              int clusters, int per_step, void* stream) {
+                              int clusters, int per_step, int tf32,
+                              void* stream) {
   using namespace qoc;
   const bool steps = per_step != 0;
   switch (dp) {
     case 320:
       return launch<5>(a, norm, prefpad, seeds, gA, ws, S, L, steps,
-                       clusters, stream);
+                       clusters, tf32, stream);
     case 384:
       return launch<6>(a, norm, prefpad, seeds, gA, ws, S, L, steps,
-                       clusters, stream);
+                       clusters, tf32, stream);
     case 448:
       return launch<7>(a, norm, prefpad, seeds, gA, ws, S, L, steps,
-                       clusters, stream);
+                       clusters, tf32, stream);
     case 512:
       return launch<8>(a, norm, prefpad, seeds, gA, ws, S, L, steps,
-                       clusters, stream);
+                       clusters, tf32, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,13 @@
 // product P is the prefix slot the cluster wrote the step before, so the
 // workspace holds the ladder's six matrices only. The next step's plane is
 // loaded beside the product P_t = U_t P_{t-1}, which does not read it.
+//
+// The bf16_3x mode (tf32 != 0): the second instantiation (Tiled with TC,
+// expm_common.cuh), every product 3 x TF32 on the tensor cores on the same
+// row bands, _D12A at degree 12; the ladder's slot holds U_t - I, and the
+// step is P_t = P_{t-1} + (U_t - I) P_{t-1}, P_{t-1} added in the
+// epilogue, so that the tensor cores' truncation scales with U_t - I and a
+// padded step (A_t = 0) leaves P exactly as it was.
 
 #include "expm_common.cuh"
 
@@ -35,15 +42,15 @@ namespace {
 
 constexpr int CL = 8;  // blocks of a cluster
 
-template <int T>
-using Fwd = ex::Tiled<T, false, CL, T>;
+template <int T, bool TC>
+using Fwd = ex::Tiled<T, false, CL, T, 2, 8, TC>;
 
-template <int T>
+template <int T, bool TC>
 __global__ void __launch_bounds__(NT, 1)
     stream_fwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm, float2* prefpad,
                       float2* ws, int S, int L) {
-  using K = Fwd<T>;
+  using K = Fwd<T, TC>;
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
@@ -59,11 +66,13 @@ __global__ void __launch_bounds__(NT, 1)
     k.sync();
     for (int t = 0; t < L; ++t) {
       const int r = k.ladder(level, s, nullptr, nullptr);
-      // P_t = U_t P_{t-1}: prefix slot t + 1 from slot t; the ladder's
-      // result r is never slot M, so the next plane loads beside it.
+      // P_t = U_t P_{t-1} (TC: P_{t-1} + (U_t - I) P_{t-1}): prefix slot
+      // t + 1 from slot t; the ladder's result r is never slot M, so the
+      // next plane loads beside it.
+      ex::Epi e = ex::epi(ex::lin(0.0f));
+      if constexpr (TC) e.add = pseg + (size_t)t * K::N;
       k.gemm_p(k.v(r), nullptr, pseg + (size_t)t * K::N, nullptr,
-               pseg + (size_t)(t + 1) * K::N, nullptr, ex::NONE,
-               ex::epi(ex::lin(0.0f)));
+               pseg + (size_t)(t + 1) * K::N, nullptr, ex::NONE, e);
       if (t + 1 < L) {
         const float2* an = aseg + (size_t)(t + 1) * K::N;
         s = level == 4 ? k.squarings(an) : 0;
@@ -76,9 +85,11 @@ __global__ void __launch_bounds__(NT, 1)
 
 template <int T>
 int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
-           int L, int clusters, void* stream) {
-  return ex::launch(stream_fwd_kernel<T>, Fwd<T>::G::SMEM, clusters * CL,
-                    stream, CL, static_cast<const float2*>(a),
+           int L, int clusters, int tf32, void* stream) {
+  return ex::launch(tf32 ? stream_fwd_kernel<T, true>
+                         : stream_fwd_kernel<T, false>,
+                    Fwd<T, false>::G::SMEM, clusters * CL, stream, CL,
+                    static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(prefpad), static_cast<float2*>(ws),
                     S, L);
@@ -86,9 +97,9 @@ int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
 
 template <int T>
 int plan(int* clusters, int* smem) {
-  *smem = (int)Fwd<T>::G::SMEM;
-  return ex::resident_clusters(stream_fwd_kernel<T>, Fwd<T>::G::SMEM, CL,
-                               clusters);
+  *smem = (int)Fwd<T, false>::G::SMEM;
+  return ex::resident_clusters(stream_fwd_kernel<T, false>,
+                               Fwd<T, false>::G::SMEM, CL, clusters);
 }
 
 }  // namespace
@@ -97,17 +108,21 @@ int plan(int* clusters, int* smem) {
 // a (S, L, dp, dp) complex64 planes, zero-padded; norm -> 1 f32, their
 // batch-max 1-norm; prefpad (S, L + 1, dp, dp), slot 0 = I written by the
 // caller, slots 1..L by this kernel; ws (clusters, slots, dp, dp) scratch
-// from qoc_stream_fwd_plan. dp is 320, 384, 448 or 512. Returns the CUDA
-// error.
+// from qoc_stream_fwd_plan. dp is 320, 384, 448 or 512; tf32 != 0 runs the
+// bf16_3x mode's instantiation (on the same plan). Returns the CUDA error.
 extern "C" int qoc_stream_fwd(const void* a, const void* norm, void* prefpad,
                               void* ws, int S, int L, int dp, int clusters,
-                              void* stream) {
+                              int tf32, void* stream) {
   using namespace qoc;
   switch (dp) {
-    case 320: return launch<5>(a, norm, prefpad, ws, S, L, clusters, stream);
-    case 384: return launch<6>(a, norm, prefpad, ws, S, L, clusters, stream);
-    case 448: return launch<7>(a, norm, prefpad, ws, S, L, clusters, stream);
-    case 512: return launch<8>(a, norm, prefpad, ws, S, L, clusters, stream);
+    case 320:
+      return launch<5>(a, norm, prefpad, ws, S, L, clusters, tf32, stream);
+    case 384:
+      return launch<6>(a, norm, prefpad, ws, S, L, clusters, tf32, stream);
+    case 448:
+      return launch<7>(a, norm, prefpad, ws, S, L, clusters, tf32, stream);
+    case 512:
+      return launch<8>(a, norm, prefpad, ws, S, L, clusters, tf32, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -61,8 +61,8 @@ on the card's tensor cores in the kernels) and degree 12 is ``_D12A``
 (:func:`_taylor12_4`). The ops read the mode when called and run their
 backward in the forward's; each wrapper takes it as ``mode`` (None: the
 switch as it stands) and counts its launches in it (``mode_launches``).
-K6 has no such form yet: in the mode the plane op refuses K6's route
-(:data:`MODE_REFUSAL`).
+Every kernel has its mode form (K1, K2, K5 resident; K6 tiled); a route
+in the mode runs it or raises, never the exact kernel in its place.
 
 Gradient convention: PyTorch's ``grad`` of a complex tensor is
 dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. The JAX ops therefore
@@ -94,7 +94,7 @@ __all__ = ["ChainExpmPropagate", "PlaneChainPropagate", "chain_block_plan",
            "resident_block", "segment_plan", "stream_bwd",
            "stream_bwd_plain", "stream_fwd", "stream_fwd_plain",
            "stream_grid", "stream_segment_plan", "uses_stream", "KERNEL_DP",
-           "MODE_REFUSAL", "STREAM_MAX_DP", "STREAM_MIN_DP"]
+           "STREAM_MAX_DP", "STREAM_MIN_DP"]
 
 # K1/K2/K5's matrix dimension (csrc/chain_common.cuh DP): smaller d is
 # zero-padded to it (exact), larger d is refused.
@@ -122,10 +122,6 @@ _D12A = ((2.50924541e+00, 2.50145758e+00, 6.68628695e-01, 6.22278884e-02),
          (5.58758752e+00, 1.71336946e+00, 1.60849759e-01, -1.44147961e-03),
          (-2.84603020e-01, -2.02022795e-01, 1.89875093e-02, 1.23719677e-02),
          (0.0, 1.31810610e-01, 2.02785554e-02, 6.75951847e-03))
-# What a route without the bf16_3x mode's kernels says in the mode.
-MODE_REFUSAL = ("{} has no bf16_3x form yet (ROADMAP Queue 2 item 5b); run "
-                "it with QOC_TPU_MXU_PRECISION=highest (config.MXU_MODE) or "
-                "in float64")
 
 # Segment plan: at least this many steps per segment, and at most this many
 # rows (segments of all chains) when the chains alone do not fill the card:
@@ -233,7 +229,7 @@ def load_kernels():
         _build(out_dir, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    # The int before the stream of K1/K2/K5/K3/K4: 1 for the bf16_3x mode.
+    # The int before the stream: 1 for the bf16_3x mode.
     lib.qoc_chain_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, cint,
                                   ptr]
     lib.qoc_chain_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, cint,
@@ -246,9 +242,9 @@ def load_kernels():
     lib.qoc_expm_frechet.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                                      cint, cint, ptr]
     lib.qoc_stream_fwd.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
-                                   cint, ptr]
+                                   cint, cint, ptr]
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
-                                   cint, cint, cint, ptr]
+                                   cint, cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
     lib.qoc_chain_block.argtypes = [cint, cint_p, cint_p]
     lib.qoc_chain_block.restype = None
@@ -421,11 +417,6 @@ def _mode_of(x, mode):
     """config.mxu_mode for the dtype of x (a tensor or a _Dual)."""
     v = x.v if isinstance(x, _Dual) else x
     return config.mxu_mode(v.dtype, mode)
-
-
-def _refuse(what, mode):
-    if mode == "bf16_3x":
-        raise NotImplementedError(MODE_REFUSAL.format(what))
 
 
 def _where(mask, a, b):
@@ -826,20 +817,10 @@ plane_bwd.step_launches = 0
 plane_bwd.mode_launches = 0
 
 
-# K6's plain versions are K5's: the same recursion at any d. K6 has no
-# bf16_3x form yet, so K6 and its plain versions refuse the mode.
-def stream_fwd_plain(a_seg, norm, mode=None):
-    """Plain version of K6's forward: :func:`plane_fwd_plain`; raises in
-    the bf16_3x mode (:data:`MODE_REFUSAL`)."""
-    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
-    return plane_fwd_plain(a_seg, norm, mode)
-
-
-def stream_bwd_plain(a_seg, norm, prefpad, seeds, mode=None):
-    """Plain version of K6's adjoint: :func:`plane_bwd_plain`; raises in
-    the bf16_3x mode."""
-    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
-    return plane_bwd_plain(a_seg, norm, prefpad, seeds, mode)
+# K6's plain versions are K5's: the same recursion at any d, in either
+# precision mode.
+stream_fwd_plain = plane_fwd_plain
+stream_bwd_plain = plane_bwd_plain
 
 
 @functools.cache
@@ -888,11 +869,11 @@ def _check_stream(name, a_seg, norm, *mats):
 def stream_fwd(a_seg, norm, mode=None):
     """K6 forward: same contract as :func:`plane_fwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor (complex64, dp in
-    320..512) it launches ``csrc/stream_fwd.cu`` or raises. In the bf16_3x
-    ``mode`` it raises on any device (:data:`MODE_REFUSAL`)."""
+    320..512) it launches ``csrc/stream_fwd.cu`` in ``mode`` or raises.
+    Counted as :func:`chain_fwd`."""
+    mode = _mode_of(a_seg, mode)
     if a_seg.device.type == "cpu":
         return stream_fwd_plain(a_seg, norm, mode)
-    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
     dp = _check_stream("stream_fwd", a_seg, norm)
     s_count, length = a_seg.shape[:2]
     dev = a_seg.device
@@ -902,28 +883,31 @@ def stream_fwd(a_seg, norm, mode=None):
     grid, slots = stream_grid(False, dp, s_count, dev)
     ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
                      device=dev)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(dev):
         err = load_kernels().qoc_stream_fwd(
             a_seg.data_ptr(), norm.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            s_count, length, dp, grid, _stream(dev))
+            s_count, length, dp, grid, tf32, _stream(dev))
     if err != 0:
         raise RuntimeError("K6 forward launch failed: CUDA error {}".format(
             err))
     stream_fwd.launches += 1
+    stream_fwd.mode_launches += tf32
     return out
 
 
 stream_fwd.launches = 0
+stream_fwd.mode_launches = 0
 
 
 def stream_bwd(a_seg, norm, prefpad, seeds, mode=None):
     """K6 adjoint: same contract as :func:`plane_bwd_plain`. On a CPU tensor
     it is the plain version; on a CUDA tensor it launches
-    ``csrc/stream_bwd.cu`` in the seeds' mode or raises. Counted as
-    :func:`chain_bwd`; refuses the bf16_3x mode as :func:`stream_fwd`."""
+    ``csrc/stream_bwd.cu`` in the seeds' mode and the precision ``mode`` or
+    raises. Counted as :func:`chain_bwd`."""
+    mode = _mode_of(a_seg, mode)
     if a_seg.device.type == "cpu":
         return stream_bwd_plain(a_seg, norm, prefpad, seeds, mode)
-    _refuse("K6 (the streamed chain)", _mode_of(a_seg, mode))
     dp = _check_stream("stream_bwd", a_seg, norm, prefpad, seeds)
     s_count, length = a_seg.shape[:2]
     per_step = _seed_mode("stream_bwd", seeds, prefpad, s_count, length)
@@ -932,21 +916,24 @@ def stream_bwd(a_seg, norm, prefpad, seeds, mode=None):
     grid, slots = stream_grid(True, dp, s_count, dev)
     ws = torch.empty((grid, slots, dp, dp), dtype=torch.complex64,
                      device=dev)
+    tf32 = int(mode == "bf16_3x")
     with torch.cuda.device(dev):
         err = load_kernels().qoc_stream_bwd(
             a_seg.data_ptr(), norm.data_ptr(), prefpad.data_ptr(),
             seeds.data_ptr(), out.data_ptr(), ws.data_ptr(), s_count, length,
-            dp, grid, per_step, _stream(dev))
+            dp, grid, per_step, tf32, _stream(dev))
     if err != 0:
         raise RuntimeError("K6 adjoint launch failed: CUDA error {}".format(
             err))
     stream_bwd.launches += 1
     stream_bwd.step_launches += per_step
+    stream_bwd.mode_launches += tf32
     return out
 
 
 stream_bwd.launches = 0
 stream_bwd.step_launches = 0
+stream_bwd.mode_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1337,14 +1324,11 @@ class ChainExpmPropagate:
             n_chains, s_count * length, self.n_b)
 
 
-def _plane_route(d, device, plain, mode="highest"):
+def _plane_route(d, device, plain):
     """(padded d, segment plan, forward, adjoint) of the plane op at d on
     ``device``: K5 at padded d <= 64, K6 at 256 < padded d <= 512 (on the
-    CPU the plain versions, unpadded, on the same segment plan). K6's route
-    refuses the bf16_3x ``mode`` (:data:`MODE_REFUSAL`)."""
+    CPU the plain versions, unpadded, on the same segment plan)."""
     stream = uses_stream(d)
-    if stream:
-        _refuse("the plane op at 256 < padded d <= 512 (K6)", mode)
     plan = stream_segment_plan if stream else segment_plan
     if plain:
         fns = (plane_fwd_plain, plane_bwd_plain)
@@ -1387,7 +1371,7 @@ class PlaneChainPropagate(torch.autograd.Function):
     with. Propagation never sets it. ``return_prefixes=True`` returns
     ``(total, prefixes)`` as :class:`ChainExpmPropagate` does
     (:func:`plane_chain_propagate_prefixes`). The precision mode as
-    :class:`ChainExpmPropagate`; K6's route refuses the bf16_3x mode."""
+    :class:`ChainExpmPropagate`."""
 
     @staticmethod
     def forward(ctx, a, plain=False, return_prefixes=False):
@@ -1398,7 +1382,7 @@ class PlaneChainPropagate(torch.autograd.Function):
             raise TypeError("the plane kernels take complex64 planes; got "
                             + str(a.dtype))
         mode = config.mxu_mode(a.dtype)
-        dp, plan, fwd, bwd = _plane_route(d, a.device, plain, mode)
+        dp, plan, fwd, bwd = _plane_route(d, a.device, plain)
         s_count, length = plan(n_steps, n_chains)
         n1, ninf = _plane_norm_max(a4)
         # Zero planes pad d and the steps: exp(0) = I exactly. Segment s of

@@ -16,9 +16,9 @@ the algorithm. It dispatches as ``qoc_tpu`` does (``_use_pallas``,
   (``_frechet_dual_taylor``).
 
 In the bf16_3x precision mode (``config.MXU_MODE``, float32 work) expm
-runs K3/K4 in the mode at padded d = 64 and raises
-``NotImplementedError`` above (K3/K4's tiled path and ``expm_taylor`` have
-no such form yet: ROADMAP Queue 2 item 5b); the backward runs in the
+runs K3/K4 in the mode, and :func:`expm_taylor` runs every product as the
+3-pass TF32 split on ``torch.matmul`` (``qoc_tpu``'s ``_mul``), its
+squarings on X - I as the kernels run them; the backward runs in the
 forward's mode.
 
 :func:`expm_pade` (Padé-13 with ``torch.linalg.solve``) and
@@ -30,7 +30,7 @@ leading axes.
 import torch
 
 from qoc_tpu_torch import config
-from qoc_tpu_torch.ops.chain import (_Dual, _refuse, _scale_and_square,
+from qoc_tpu_torch.ops.chain import (_MUL, _Dual, _scale_and_square,
                                      _squaring_count, _taylor8, _taylor19)
 from qoc_tpu_torch.ops.expm_cuda import (KERNEL_MAX_DP, expm_frechet_fwd,
                                          expm_fwd, kernel_dp)
@@ -55,14 +55,24 @@ def _uses_kernels(d):
     return kernel_dp(d) <= KERNEL_MAX_DP
 
 
-def _taylor_poly(m, eye):
+def _taylor_poly(m, eye, mul=_MUL["highest"]):
     """Degree 8 when the whole (scaled) batch has 1-norm <= 0.25, else
-    degree 19 (qoc_tpu expm.py _taylor_poly); ``m`` a tensor or a _Dual, the
-    degree read from its value on the host. Degree 8 is the 3-product
-    scheme of the same polynomial (ops/chain.py _taylor8)."""
+    degree 19 (qoc_tpu expm.py _taylor_poly), products by ``mul``; ``m`` a
+    tensor or a _Dual, the degree read from its value on the host. Degree 8
+    is the 3-product scheme of the same polynomial (ops/chain.py
+    _taylor8)."""
     v = m.v if isinstance(m, _Dual) else m
     small = bool(torch.abs(v).sum(dim=-2).amax() <= _THETA_TAYLOR_8)
-    return (_taylor8 if small else _taylor19)(m, eye)
+    return (_taylor8 if small else _taylor19)(m, eye, mul)
+
+
+def _taylor_core(m, max_squarings, mode):
+    """Taylor scaling and squaring of m (a tensor or a _Dual) in precision
+    ``mode``: ``_scale_and_square`` with :func:`_taylor_poly`, every product
+    by the mode's (the squarings on X - I in the bf16_3x mode)."""
+    mul = _MUL[mode]
+    return _scale_and_square(m, lambda x, eye: _taylor_poly(x, eye, mul),
+                             _THETA_TAYLOR, max_squarings, mul)
 
 
 def _pade13(m, eye):
@@ -81,11 +91,11 @@ def expm_taylor(a, max_squarings=None):
     """Solve-free Taylor scaling and squaring (qoc_tpu expm_taylor): every
     matrix scaled to 1-norm <= 1, degree 8 or 19 (:func:`_taylor_poly`),
     then its own number of squarings, masked: max(s) of them (read on the
-    host), or ``max_squarings``. Differentiable by autograd through the
-    algorithm. Exact products only: in the bf16_3x mode it raises for
-    float32 work."""
-    _refuse("expm_taylor (torch.matmul)", config.mxu_mode(a.dtype))
-    return _scale_and_square(a, _taylor_poly, _THETA_TAYLOR, max_squarings)
+    host), or ``max_squarings``. In the bf16_3x mode (float32 work) every
+    product is the 3-pass TF32 split (``qoc_tpu``'s ``_mul``). Exact
+    products are differentiable by autograd through the algorithm;
+    :func:`expm` differentiates either by the Fréchet derivative."""
+    return _taylor_core(a, max_squarings, config.mxu_mode(a.dtype))
 
 
 def expm_pade(a, max_squarings=16):
@@ -95,17 +105,21 @@ def expm_pade(a, max_squarings=16):
     return _scale_and_square(a, _pade13, _THETA_13, max_squarings)
 
 
-def _frechet_dual_taylor(b, g):
+def _frechet_dual_taylor(b, g, mode="highest"):
     """L(b, g) by the dual-number Taylor scaling-squaring chain (qoc_tpu
-    expm.py _frechet_dual_taylor): exact for any norm."""
-    return _scale_and_square(_Dual(b, g), _taylor_poly, _THETA_TAYLOR).dv
+    expm.py _frechet_dual_taylor), in precision ``mode``: exact for any
+    norm."""
+    return _taylor_core(_Dual(b, g), None, mode).dv
 
 
-def _taylor_grad(a, g):
+def _taylor_grad(a, g, mode="highest"):
     """The gradient of :func:`expm_taylor` at a for the output gradient g
     (qoc_tpu expm.py _expm_bwd, Taylor method): without squarings anywhere
     in the batch, the gradient of the polynomial; else L(a^H, g) by the dual
-    chain."""
+    chain. In the bf16_3x mode always the dual chain (the polynomial's
+    Fréchet derivative where nothing squares), its products the mode's."""
+    if mode == "bf16_3x":
+        return _frechet_dual_taylor(a.mH, g, mode)
     if not bool(_squaring_count(a, _THETA_TAYLOR).any()):
         with torch.enable_grad():
             x = a.detach().requires_grad_(True)
@@ -121,14 +135,14 @@ class _Expm(torch.autograd.Function):
         ctx.mode = config.mxu_mode(a.dtype)
         if _uses_kernels(a.shape[-1]):
             return expm_fwd(a, ctx.mode)
-        return expm_taylor(a)
+        return _taylor_core(a, None, ctx.mode)
 
     @staticmethod
     def backward(ctx, g):
         a, = ctx.saved_tensors
         if _uses_kernels(a.shape[-1]):
             return expm_frechet_fwd(a.mH, g, ctx.mode)
-        return _taylor_grad(a, g)
+        return _taylor_grad(a, g, ctx.mode)
 
 
 def expm(a):

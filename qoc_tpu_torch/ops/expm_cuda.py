@@ -23,11 +23,10 @@ kernel (complex64, padded d <= 256) or raises.
 
 Precision mode (``config.MXU_MODE``; ops/chain.py): the wrappers take
 ``mode`` (None: the switch as it stands; float64 ignores it) and count
-their launches in the bf16_3x mode (``mode_launches``). The mode runs at
-padded d = 64 alone, the resident path's second instantiation (3 x TF32
-tensor-core products, ``_D12A``); above, the tiled path has no such form
-yet, and the wrappers raise ``NotImplementedError`` on any device
-(``chain.MODE_REFUSAL``).
+their launches in the bf16_3x mode (``mode_launches``). In the mode each
+path runs its second instantiation (3 x TF32 tensor-core products,
+``_D12A`` at degree 12): the resident one at padded d = 64, the tiled one
+(its squarings on X - I) at padded 128-256.
 """
 
 import ctypes
@@ -35,9 +34,8 @@ import functools
 
 import torch
 
-from qoc_tpu_torch.ops.chain import (KERNEL_DP, _Dual, _expm_ladder, _mode_of,
-                                     _refuse, _stream, kernel_dp,
-                                     ladder_level, load_kernels)
+from qoc_tpu_torch.ops.chain import (_Dual, _expm_ladder, _mode_of, _stream,
+                                     kernel_dp, ladder_level, load_kernels)
 
 __all__ = ["KERNEL_MAX_DP", "expm_frechet_fwd", "expm_frechet_plain",
            "expm_fwd", "expm_fwd_plain", "kernel_dp", "launch_grid"]
@@ -64,14 +62,6 @@ def expm_frechet_plain(b, g, mode=None):
     level of b's batch-max 1-norm, in precision ``mode``."""
     return _expm_ladder(_Dual(b, g), ladder_level(_norm_max(b)),
                         _mode_of(b, mode)).dv
-
-
-def _refuse_mode(d, mode):
-    """Raise NotImplementedError where the bf16_3x ``mode`` would need the
-    tiled path (padded d > 64), which has no such form yet."""
-    if kernel_dp(d) > KERNEL_DP:
-        _refuse("K3/K4 at padded d > {} (the tiled path)".format(KERNEL_DP),
-                mode)
 
 
 def _padded(x, dp):
@@ -146,8 +136,8 @@ def launch_grid(dual, dp, batch, device_index):
 
 def _launch(dual, dp, norm, *mats, tf32=0):
     """Launch K3 (mats = a) or K4 (mats = b, g) on padded (B, dp, dp)
-    inputs, in the bf16_3x mode with ``tf32`` (dp = 64 only); returns the
-    padded (B, dp, dp) output."""
+    inputs, in the bf16_3x mode with ``tf32``; returns the padded
+    (B, dp, dp) output."""
     _check_kernel_inputs(dp, norm, *mats)
     x = mats[0]
     batch, dev = x.shape[0], x.device
@@ -170,11 +160,10 @@ def _launch(dual, dp, norm, *mats, tf32=0):
 def expm_fwd(a, mode=None):
     """K3: exp(a) for a (..., d, d). On a CPU tensor it is the plain
     version; on a CUDA tensor (complex64, padded d <= 256) it launches
-    ``csrc/expm_fwd.cu`` in ``mode`` or raises; the bf16_3x mode above
-    padded 64 raises on any device. ``expm_fwd.launches`` counts every
-    launch, ``expm_fwd.mode_launches`` those in the bf16_3x mode."""
+    ``csrc/expm_fwd.cu`` in ``mode`` or raises. ``expm_fwd.launches``
+    counts every launch, ``expm_fwd.mode_launches`` those in the bf16_3x
+    mode."""
     mode = _mode_of(a, mode)
-    _refuse_mode(a.shape[-1], mode)
     if a.device.type == "cpu":
         return expm_fwd_plain(a, mode)
     dp = _check("expm_fwd", a)
@@ -194,10 +183,9 @@ expm_fwd.mode_launches = 0
 def expm_frechet_fwd(b, g, mode=None):
     """K4: L(b, g) for b, g (..., d, d). On CPU tensors it is the plain
     version; on CUDA tensors (complex64, padded d <= 256) it launches
-    ``csrc/expm_frechet.cu`` in ``mode`` or raises; counted and refused as
+    ``csrc/expm_frechet.cu`` in ``mode`` or raises; counted as
     :func:`expm_fwd`."""
     mode = _mode_of(b, mode)
-    _refuse_mode(b.shape[-1], mode)
     if b.device.type == "cpu":
         return expm_frechet_plain(b, g, mode)
     dp = _check("expm_frechet_fwd", b, g)

@@ -1283,17 +1283,134 @@ def test_mode_grape_launches_mode_forms(cuda_device, bf16_3x):
 
 
 def test_mode_refusals_on_the_card(cuda_device, bf16_3x):
-    """In the mode, K3/K4 above padded 64 and K6's route raise
-    NotImplementedError naming ROADMAP Queue 2 item 5b on the card too,
-    before anything launches."""
-    from qoc_tpu_torch.ops import chain
+    """In the mode, K3/K4 above padded 64 and K6's route, which raised
+    NotImplementedError before the tiled kernels had their mode form, run
+    on the card in it: each launches its mode form once."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
     from qoc_tpu_torch.ops.expm import expm
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    from qoc_tpu_torch.ops import expm_cuda
-    wrappers = (chain.stream_fwd, expm_cuda.expm_fwd)
-    before = [fn.launches for fn in wrappers]
-    for d, call in ((65, expm), (260, chain.plane_chain_propagate)):
+    for d, call, fn in ((65, expm, expm_cuda.expm_fwd),
+                        (260, chain.plane_chain_propagate, chain.stream_fwd)):
         a = _member_planes(gen, 1, 2, d, 0.5, cuda_device)[0]
-        with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
-            call(a)
-    assert [fn.launches for fn in wrappers] == before
+        before = (fn.launches, fn.mode_launches)
+        out = call(a)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0], fn.mode_launches - before[1]) == \
+            (1, 1)
+        assert bool(torch.isfinite(torch.view_as_real(out)).all())
+
+
+# The bf16_3x mode on the tiled kernels: K3/K4 at padded 128-256 and K6 at
+# padded 320-512, against their plain versions in the mode within
+# MODE_RTOL.
+MODE_RTOL = 1.5e-5
+
+
+@pytest.mark.parametrize("d", (100, 180, 256))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_tiled_expm_kernels_match_plain_versions(cuda_device, bf16_3x,
+                                                      d, target_norm):
+    """K3/K4's tiled path in the mode (padded 128, 192, 256) against their
+    plain versions in the mode on every ladder level, launched in their
+    mode forms; the padded rows and columns exact."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    a = _member_planes(gen, 1, 37, d, target_norm, cuda_device)[0]
+    g = torch.randn(a.shape, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    before = _mode_counters(expm_cuda.expm_fwd, expm_cuda.expm_frechet_fwd)
+    k3, k4 = expm_cuda.expm_fwd(a), expm_cuda.expm_frechet_fwd(a.mH, g)
+    after = _mode_counters(expm_cuda.expm_fwd, expm_cuda.expm_frechet_fwd)
+    assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] == \
+        [(1, 1), (1, 1)]
+    p3 = expm_cuda.expm_fwd_plain(a)
+    p4 = expm_cuda.expm_frechet_plain(a.mH, g)
+    torch.cuda.synchronize()
+    assert chain.ladder_level(expm_cuda._norm_max(a)) == \
+        _LEVEL_NORMS[target_norm]
+    assert float((k3 - p3).abs().max() / p3.abs().max()) < MODE_RTOL
+    assert float((k4 - p4).abs().max() / p4.abs().max()) < MODE_RTOL
+    dp = expm_cuda.kernel_dp(d)
+    if d < dp:
+        x = expm_cuda._padded(a, dp)
+        norm = expm_cuda._norm_max(x)
+        u = expm_cuda._launch(False, dp, norm, x, tf32=1)
+        dl = expm_cuda._launch(True, dp, norm, x, x, tf32=1)
+        eye = torch.eye(dp - d, dtype=u.dtype, device=u.device)
+        assert torch.equal(u[:, d:, d:], eye.expand_as(u[:, d:, d:]))
+        assert not bool(u[:, :d, d:].any() or u[:, d:, :d].any())
+        assert not bool(dl[:, d:].any() or dl[:, :, d:].any())
+
+
+@pytest.mark.parametrize("d,n_chains,n_steps", (
+    (260, 1, 37), (330, 1, 9), (400, 1, 9), (512, 1, 9), (260, 3, 5),
+    (400, 3, 5)))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_stream_kernels_match_plain_versions(cuda_device, bf16_3x, d,
+                                                  n_chains, n_steps,
+                                                  target_norm):
+    """K6 in the mode (padded 320, 384, 448, 512) through the plane op's
+    trajectory form, one chain and the member axis, against the plain
+    versions in the mode on every ladder level and in both seed modes,
+    launched in its mode forms; the padded rows and steps exact."""
+    from qoc_tpu_torch.ops import chain
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        d + n_chains + int(10 * target_norm))
+    a = _member_planes(gen, n_chains, n_steps, d, target_norm, cuda_device)
+    g_total = torch.randn((n_chains, d, d), dtype=torch.complex64,
+                          device=cuda_device, generator=gen)
+    g_pref = torch.randn((n_chains, n_steps, d, d), dtype=torch.complex64,
+                         device=cuda_device, generator=gen)
+
+    def run(plain):
+        x = a.clone().requires_grad_(True)
+        total, prefixes = chain.plane_chain_propagate_prefixes(x, plain)
+        last, = torch.autograd.grad(total, x, g_total, retain_graph=True)
+        step, = torch.autograd.grad((total, prefixes), x, (g_total, g_pref))
+        return total.detach(), prefixes.detach(), last, step
+
+    before = _mode_counters(chain.stream_fwd, chain.stream_bwd)
+    got = run(False)
+    after = _mode_counters(chain.stream_fwd, chain.stream_bwd)
+    assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] == \
+        [(1, 1), (2, 2)]
+    want = run(True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max() / y.abs().max()) < MODE_RTOL
+    dp = chain.kernel_dp(d)
+    s_count, length = chain.stream_segment_plan(n_steps, n_chains)
+    a_seg = torch.zeros((n_chains, s_count * length, dp, dp),
+                        dtype=torch.complex64, device=cuda_device)
+    a_seg[:, :n_steps, :d, :d] = a
+    pref = chain.stream_fwd(a_seg.reshape(-1, length, dp, dp),
+                            chain._plane_norm_max(a)[0])
+    pref = pref.reshape(n_chains, s_count, length + 1, dp, dp)
+    eye = torch.eye(dp - d, dtype=torch.complex64, device=cuda_device)
+    assert torch.equal(pref[..., d:, d:], eye.expand_as(pref[..., d:, d:]))
+    assert not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+    last = n_steps - (s_count - 1) * length
+    tail = pref[:, -1, last + 1:]
+    assert torch.equal(tail, pref[:, -1, last:last + 1].expand_as(tail))
+
+
+@pytest.mark.parametrize("d", (260, 400))
+def test_mode_stream_backward_keeps_its_forward_mode(cuda_device,
+                                                     monkeypatch, d):
+    """K6's adjoint runs in its forward's precision mode whatever the
+    switch says by the backward: a forward in the mode launches the mode's
+    adjoint after the switch went back to highest, and the reverse."""
+    from qoc_tpu_torch import config
+    from qoc_tpu_torch.ops import chain
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    a = _member_planes(gen, 1, 4, d, 0.3, cuda_device)[0]
+    for mode, other, tf32 in (("bf16_3x", "highest", 1),
+                              ("highest", "bf16_3x", 0)):
+        monkeypatch.setattr(config, "MXU_MODE", mode)
+        x = a.clone().requires_grad_(True)
+        total = chain.plane_chain_propagate(x)
+        monkeypatch.setattr(config, "MXU_MODE", other)
+        before = (chain.stream_bwd.launches, chain.stream_bwd.mode_launches)
+        torch.autograd.grad(total.abs().sum(), x)
+        assert (chain.stream_bwd.launches - before[0],
+                chain.stream_bwd.mode_launches - before[1]) == (1, tf32)

@@ -103,9 +103,9 @@ def _jax_loss(problem, magnus):
     from qoc_tpu_torch.core.common import strip_controls
     shape = (problem.n_steps, problem.n_c)
     jax_loss = jax_build_loss(problem.pstate("jax", magnus))
-    (want, _), g_want = jax.value_and_grad(
+    (want, _), g_want = jax.jit(jax.value_and_grad(
         lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(strip_controls(True, problem.controls)))
+        has_aux=True))(jnp.asarray(strip_controls(True, problem.controls)))
     return float(want), np.asarray(g_want)
 
 

@@ -24,7 +24,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import Problem, anti_hermitian_basis, f32_exact
+from torch_parity import (LindbladProblem, Problem, anti_hermitian_basis,
+                          f32_exact)
 
 torch.set_num_threads(1)
 
@@ -183,22 +184,41 @@ def test_d12a_matches_qoc_tpu_and_taylor12(exact_jax_dot, norm):
     assert _rel(dual.dv.numpy(), ps.dv.numpy()) < 1e-8
 
 
+def _mode_expm_case(level, norm):
+    rng = np.random.default_rng(40 + level)
+    d = 8
+    a = anti_hermitian_basis(rng, 3, d) + 0.3 * rng.normal(size=(3, d, d))
+    return (a * (norm / np.abs(a).sum(-2).max())).astype(np.complex64)
+
+
+@pytest.fixture(scope="module")
+def jax_mode_expm():
+    """qoc_tpu's XLA expm_taylor under _MXU_MODE = "bf16_3x" on every level's
+    input, traced once for all of them (the mode is read at trace time)."""
+    import qoc_tpu.ops.expm_pallas as ep
+    from qoc_tpu.ops.expm import expm_taylor as jax_expm_taylor
+    old = ep._MXU_MODE
+    jax.clear_caches()
+    ep._MXU_MODE = "bf16_3x"
+    try:
+        return {level: np.asarray(jax_expm_taylor(jnp.asarray(
+            _mode_expm_case(level, norm)))) for level, norm in LEVEL_NORMS}
+    finally:
+        ep._MXU_MODE = old
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("level,norm", LEVEL_NORMS)
-def test_mode_expm_matches_qoc_tpu_xla_mode(monkeypatch, bf16_3x, level,
+def test_mode_expm_matches_qoc_tpu_xla_mode(jax_mode_expm, bf16_3x, level,
                                             norm):
     """The port's expm (K3's plain version, d = 8) in the mode and complex64
     against qoc_tpu's XLA expm_taylor under _MXU_MODE = "bf16_3x", both
     within their mode's envelope of scipy.linalg.expm: 1e-5 for the port's
     3 x TF32, 1e-3 for the JAX package's 3 x bf16."""
-    import qoc_tpu.ops.expm_pallas as ep
-    from qoc_tpu.ops.expm import expm_taylor as jax_expm_taylor
     from qoc_tpu_torch.ops import expm_cuda
     from qoc_tpu_torch.ops.chain import ladder_level
     from qoc_tpu_torch.ops.expm import expm
-    rng = np.random.default_rng(40 + level)
-    d = 8
-    a = anti_hermitian_basis(rng, 3, d) + 0.3 * rng.normal(size=(3, d, d))
-    a = (a * (norm / np.abs(a).sum(-2).max())).astype(np.complex64)
+    a = _mode_expm_case(level, norm)
     want = np.stack([scipy.linalg.expm(x.astype(np.complex128)) for x in a])
     at = torch.as_tensor(a)
     assert ladder_level(expm_cuda._norm_max(at)) == level
@@ -209,13 +229,7 @@ def test_mode_expm_matches_qoc_tpu_xla_mode(monkeypatch, bf16_3x, level,
     assert np.array_equal(got, expm_cuda.expm_fwd_plain(at).numpy())
     exact = expm_cuda.expm_fwd_plain(at, "highest").numpy()
     assert _rel(exact, want) < MODE_FWD_RTOL
-    monkeypatch.setattr(ep, "_MXU_MODE", "bf16_3x")
-    jax.clear_caches()
-    try:
-        jax_got = np.asarray(jax_expm_taylor(jnp.asarray(a)))
-    finally:
-        monkeypatch.setattr(ep, "_MXU_MODE", "highest")
-        jax.clear_caches()
+    jax_got = jax_mode_expm[level]
     assert jax_got.dtype == np.complex64
     assert _rel(jax_got, want) < 1e-3
     assert _rel(got, jax_got) < 1e-3
@@ -375,60 +389,224 @@ def test_mode_grape_matches_qoc_tpu(bf16_3x):
                                rtol=0, atol=1e-4)
 
 
-def _refusal_calls():
-    """The routes without the mode's kernels, each as a call that takes the
-    complex dtype: K3/K4's tiled path (expm at d = 65, padded 128),
-    expm_taylor on torch.matmul, and K6's route of the plane op (d = 260,
-    padded 320)."""
+def _planes(rng, d, n=1, norm=0.5):
+    """n anti-Hermitian planes at d, each of 1-norm about ``norm``."""
+    return anti_hermitian_basis(rng, n, d) * (norm / d)
+
+
+def _expm64(a):
+    return np.stack([scipy.linalg.expm(x) for x in a.reshape(
+        -1, *a.shape[-2:])]).reshape(a.shape)
+
+
+def _frechet64(b, g):
+    d = b.shape[-1]
+    return np.stack([scipy.linalg.expm(np.block([[x, y], [0 * x, x]]))[:d, d:]
+                     for x, y in zip(b, g)])
+
+
+def _chain64(a):
+    """(prefixes, total) of exp(a_{B-1}) ... exp(a_0), float64."""
+    p = np.eye(a.shape[-1])
+    out = []
+    for u in _expm64(a):
+        p = u @ p
+        out.append(p)
+    return np.stack(out), p
+
+
+def _mode_route_calls():
+    """The routes whose kernels first had no bf16_3x form, each as the call
+    that raised in the mode then, with its float64 oracle: K3/K4's tiled path
+    (expm and K4's wrapper at d = 65, padded 128), expm_taylor on
+    torch.matmul (qoc_tpu's _mul), and K6's route (the plane op and K6's
+    wrapper at d = 260, padded 320)."""
     from qoc_tpu_torch.ops import chain, expm_cuda
     from qoc_tpu_torch.ops.expm import expm, expm_taylor
     rng = np.random.default_rng(5)
+    a65, g65 = _planes(rng, 65, 2), _planes(rng, 65, 2)
+    a8 = _planes(rng, 8, 3, norm=3.0)
+    a260 = _planes(rng, 260, 2, norm=0.6)
+    c64 = torch.complex64
+    pref64 = _chain64(a260)[0]
 
-    def planes(d, cdtype):
-        a = anti_hermitian_basis(rng, 1, d) * (0.5 / d)
-        return torch.as_tensor(a).to(cdtype)
+    def k6_wrapper():
+        seg = torch.as_tensor(a260).to(c64)[None]
+        return chain.stream_fwd(seg, chain._plane_norm_max(seg)[0])[0, 1:]
 
     return {
-        "expm padded 128": lambda c: expm(planes(65, c)),
-        "K4 wrapper padded 128": lambda c: expm_cuda.expm_frechet_fwd(
-            planes(65, c), planes(65, c)),
-        "expm_taylor": lambda c: expm_taylor(planes(8, c)),
-        "plane op padded 320": lambda c: chain.plane_chain_propagate(
-            planes(260, c)),
-        "K6 wrapper": lambda c: chain.stream_fwd(
-            planes(260, c)[None], torch.tensor(0.5, dtype=torch.float64)),
+        "expm padded 128": (lambda: expm(torch.as_tensor(a65).to(c64)),
+                            lambda: _expm64(a65)),
+        "K4 wrapper padded 128": (
+            lambda: expm_cuda.expm_frechet_fwd(torch.as_tensor(a65).to(c64),
+                                               torch.as_tensor(g65).to(c64)),
+            lambda: _frechet64(a65, g65)),
+        "expm_taylor": (lambda: expm_taylor(torch.as_tensor(a8).to(c64)),
+                        lambda: _expm64(a8)),
+        "plane op padded 320": (
+            lambda: chain.plane_chain_propagate(torch.as_tensor(a260).to(c64)),
+            lambda: pref64[-1]),
+        "K6 wrapper": (k6_wrapper, lambda: pref64),
     }
 
 
-@pytest.mark.parametrize("case", sorted(_refusal_calls()))
+@pytest.mark.parametrize("case", sorted(_mode_route_calls()))
 def test_routes_without_the_mode_refuse_it(bf16_3x, case):
-    """In the mode, complex64 work on a route without the mode's kernels
-    raises NotImplementedError naming ROADMAP Queue 2 item 5b; nothing runs
-    exact float32 in its place. The same call in complex128 runs."""
-    call = _refusal_calls()[case]
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
-        call(torch.complex64)
-    out = call(torch.complex128)
-    assert bool(torch.isfinite(torch.view_as_real(out)).all())
+    """The calls that raised NotImplementedError in the mode before the
+    tiled kernels had their mode form now run in it: complex64 work in the
+    mode within MODE_FWD_RTOL of float64 (scipy's expm, the block identity
+    for K4, an expm product for the chain), on the mode's plain versions
+    (the products differ from the exact f32 ones)."""
+    from qoc_tpu_torch import config
+    call, oracle = _mode_route_calls()[case]
+    got = call()
+    assert got.dtype == torch.complex64
+    assert _rel(got.numpy(), oracle()) < MODE_FWD_RTOL
+    config.MXU_MODE = "highest"   # the fixture restores it
+    assert not torch.equal(got, call())
 
 
 def test_grape_refuses_the_mode_on_the_blocked_route(bf16_3x):
     """The entry point at d = 65 (the blocked route, K3/K4 at padded 128)
-    raises in the mode in float32 and runs in float64."""
+    runs in the mode in float32: its errors and controls within the mode's
+    envelope of the float64 run."""
     import qoc_tpu_torch
     problem = Problem(d=65, n_c=1, n_steps=3)
     args = (problem.n_c, problem.n_steps, problem.torch_costs,
             problem.evolution_time, problem.torch_hamiltonian,
             problem.torch_initial, problem.n_steps)
-    kwargs = dict(complex_controls=True, iteration_count=1,
+    kwargs = dict(complex_controls=True, iteration_count=2,
                   log_iteration_step=0,
                   initial_controls=problem.torch_controls, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
-        qoc_tpu_torch.grape_schroedinger_discrete(*args, dtype=torch.float32,
-                                                  **kwargs)
-    result = qoc_tpu_torch.grape_schroedinger_discrete(
+    got = qoc_tpu_torch.grape_schroedinger_discrete(
+        *args, dtype=torch.float32, **kwargs)
+    want = qoc_tpu_torch.grape_schroedinger_discrete(
         *args, dtype=torch.float64, **kwargs)
-    assert np.isfinite(result.best_error)
+    assert got.iteration_count_ran == want.iteration_count_ran == 2
+    np.testing.assert_allclose(got.errors, want.errors, rtol=0,
+                               atol=MODE_FWD_RTOL)
+    np.testing.assert_allclose(got.best_controls, want.best_controls,
+                               rtol=0, atol=MODE_GRAD_RTOL)
+
+
+def test_mode_squarings_on_d_form(bf16_3x):
+    """Level 4 in the mode squares D = X - I (D' = 2 D + D D), masked per
+    matrix: a batch with 0 and 6 squarings, exp and its Fréchet derivative
+    (K3/K4's plain versions) within the mode's envelope of float64; the
+    squarings' result differs from squaring X itself only by the order of
+    the sums."""
+    from qoc_tpu_torch.ops import expm_cuda
+    from qoc_tpu_torch.ops.chain import (_matmul_3x, _squaring_count,
+                                         _taylor19, ladder_level)
+    rng = np.random.default_rng(44)
+    d = 6
+    a = anti_hermitian_basis(rng, 2, d) + 0.2 * rng.normal(size=(2, d, d))
+    a = a * (np.array([0.5, 40.0]) / np.abs(a).sum(-2).max(-1))[:, None,
+                                                                  None]
+    g = rng.normal(size=(2, d, d)) + 1j * rng.normal(size=(2, d, d))
+    at = torch.as_tensor(a).to(torch.complex64)
+    gt = torch.as_tensor(g).to(torch.complex64)
+    assert ladder_level(expm_cuda._norm_max(at)) == 4
+    assert _squaring_count(at, 1.0).tolist() == [0, 6]
+    got = expm_cuda.expm_fwd_plain(at)
+    assert _rel(got.numpy(), _expm64(a)) < MODE_FWD_RTOL
+    assert _rel(expm_cuda.expm_frechet_plain(at, gt).numpy(),
+                _frechet64(a, g)) < MODE_GRAD_RTOL
+    # Squaring X: the same exp to the mode's rounding, another sum.
+    eye = torch.eye(d, dtype=torch.complex64)
+    x = _taylor19(at[1] / 64, eye, _matmul_3x)
+    for _ in range(6):
+        x = _matmul_3x(x, x)
+    assert _rel(got[1].numpy(), x.numpy()) < MODE_FWD_RTOL
+    assert not torch.equal(got[1], x)
+
+
+def test_mode_d12a_dual_on_the_tiled_sizes(bf16_3x):
+    """K4's plain version in the mode at degree 12 (the dual _D12A) at
+    d = 65 (padded 128): within the mode's envelope of the float64 Fréchet
+    derivative, and of the dual Paterson-Stockmeyer Taylor-12 in the mode,
+    which it replaces."""
+    from qoc_tpu_torch.ops import expm_cuda
+    from qoc_tpu_torch.ops.chain import (_Dual, _matmul_3x, _taylor12,
+                                         ladder_level)
+    rng = np.random.default_rng(12)
+    d = 65
+    b = anti_hermitian_basis(rng, 2, d) + 0.2 * rng.normal(size=(2, d, d))
+    b = b * (1.0 / np.abs(b).sum(-2).max())
+    g = rng.normal(size=(2, d, d)) + 1j * rng.normal(size=(2, d, d))
+    bt = torch.as_tensor(b).to(torch.complex64)
+    gt = torch.as_tensor(g).to(torch.complex64)
+    assert ladder_level(expm_cuda._norm_max(bt)) == 2
+    got = expm_cuda.expm_frechet_plain(bt, gt)
+    assert _rel(got.numpy(), _frechet64(b, g)) < MODE_GRAD_RTOL
+    ps = _taylor12(_Dual(bt, gt), torch.eye(d, dtype=torch.complex64),
+                   _matmul_3x).dv
+    assert _rel(got.numpy(), ps.numpy()) < MODE_GRAD_RTOL
+
+
+def test_mode_lindblad_grape_on_the_k6_route_matches_qoc_tpu(bf16_3x,
+                                                             capsys):
+    """grape_lindblad_discrete at d = 17 (superoperator 289, padded 320:
+    K6's route) in the mode, float32, 2 steps and 2 Adam iterations,
+    against qoc_tpu's float64 run: errors, best controls and densities."""
+    import qoc_tpu
+    import qoc_tpu_torch
+    from qoc_tpu.models import LindbladMethod as JaxMethod
+    from qoc_tpu_torch.models import LindbladMethod
+    problem = LindbladProblem(d=17, n_steps=2, evolution_time=0.15)
+    common = dict(complex_controls=True, iteration_count=2,
+                  initial_controls=problem.controls,
+                  max_control_norms=problem.max_control_norms)
+    want = qoc_tpu.grape_lindblad_discrete(
+        problem.n_c, problem.n_steps, problem.jax_costs,
+        problem.evolution_time, problem.initial, problem.n_steps,
+        hamiltonian=problem.jax_hamiltonian,
+        lindblad_data=problem.jax_lindblad, method=JaxMethod.MAGNUS_EXPM,
+        log_iteration_step=0, **common)
+    got = qoc_tpu_torch.grape_lindblad_discrete(
+        problem.n_c, problem.n_steps, problem.torch_costs,
+        problem.evolution_time, problem.torch_initial, problem.n_steps,
+        hamiltonian=problem.torch_hamiltonian,
+        lindblad_data=problem.torch_lindblad,
+        method=LindbladMethod.MAGNUS_EXPM, device="cpu", dtype=torch.float32,
+        log_iteration_step=1, **common)
+    assert "Lindblad propagation path = streamed chain" in \
+        capsys.readouterr().out
+    assert got.iteration_count_ran == 2
+    np.testing.assert_allclose(got.errors, np.asarray(want.errors), rtol=0,
+                               atol=MODE_FWD_RTOL)
+    np.testing.assert_allclose(got.best_controls, want.best_controls,
+                               rtol=0, atol=MODE_GRAD_RTOL)
+    np.testing.assert_allclose(got.best_final_densities,
+                               np.asarray(want.best_final_densities),
+                               rtol=0, atol=MODE_FWD_RTOL)
+
+
+def test_mode_padded_steps_are_exact_at_padded_320(bf16_3x):
+    """K6's plain versions in the mode at padded 320 (d = 260 zero-padded,
+    as the card runs them): the padded rows and columns of every prefix
+    exactly the identity's, the prefixes after the last real step bitwise
+    the last real one (P + (U - I) P with U = I), and the adjoint's padded
+    steps carrying T unchanged (zero gradient outside d, the same gradient
+    on every padded step)."""
+    from qoc_tpu_torch.ops import chain
+    rng = np.random.default_rng(320)
+    d, dp = 260, 320
+    a = torch.zeros((1, 4, dp, dp), dtype=torch.complex64)
+    a[0, :2, :d, :d] = torch.as_tensor(_planes(rng, d, 2, norm=0.02))
+    norm = chain._plane_norm_max(a)[0]
+    assert chain.ladder_level(norm) == 0
+    pref = chain.stream_fwd(a, norm)
+    eye = torch.eye(dp - d, dtype=torch.complex64)
+    assert torch.equal(pref[..., d:, d:], eye.expand_as(pref[..., d:, d:]))
+    assert not bool(pref[..., :d, d:].any() or pref[..., d:, :d].any())
+    assert torch.equal(pref[0, 3:], pref[0, 2:3].expand_as(pref[0, 3:]))
+    seeds = torch.zeros((1, dp, dp), dtype=torch.complex64)
+    seeds[0, :d, :d] = torch.as_tensor(_planes(rng, d, 1)[0])
+    grad = chain.stream_bwd(a, chain._plane_norm_max(a)[1], pref, seeds)
+    assert not bool(grad[..., d:, :].any() or grad[..., :, d:].any())
+    assert torch.equal(grad[0, 3], grad[0, 2])
+    assert bool(grad[0, 1].abs().max() > 0)
 
 
 @pytest.mark.parametrize("level", range(5))

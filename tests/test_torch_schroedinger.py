@@ -41,9 +41,9 @@ def _jax_reference():
     problem = Problem()
     shape = (problem.n_steps, problem.n_c)
     jax_loss = jax_build_loss(problem.jax_pstate())
-    (want, _), g_want = jax.value_and_grad(
+    (want, _), g_want = jax.jit(jax.value_and_grad(
         lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(strip_controls(True, problem.controls)))
+        has_aux=True))(jnp.asarray(strip_controls(True, problem.controls)))
     return float(want), np.asarray(g_want)
 
 
@@ -246,9 +246,9 @@ def _loss_and_gradient_both(problem, magnus, **port_kwargs):
     shape = (problem.n_steps, problem.n_c)
     flat = strip_controls(True, problem.controls)
     jax_loss = jax_build_loss(problem.jax_pstate(magnus=magnus))
-    (want, _), g_want = jax.value_and_grad(
+    (want, _), g_want = jax.jit(jax.value_and_grad(
         lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-        has_aux=True)(jnp.asarray(flat))
+        has_aux=True))(jnp.asarray(flat))
     loss = build_schroedinger_loss(problem.torch_pstate(magnus=magnus),
                                    torch.device("cpu"), torch.float64,
                                    log_path=True, **port_kwargs)

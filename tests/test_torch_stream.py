@@ -140,7 +140,7 @@ def test_plane_op_matches_chain_reference():
         total = chain_expm_propagate_reference(ww, basis64)
         return jnp.sum(jnp.abs(total - tgt) ** 2), total
 
-    (_, want), g_want = jax.value_and_grad(loss, has_aux=True)(
+    (_, want), g_want = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         jnp.asarray(w.astype(np.float64)))
     got, g_got = _port_loss_and_grad(basis, w, tgt)
     assert _rel(got, want) < 1e-6
@@ -251,9 +251,9 @@ def test_d300_schroedinger_matches_jax(case, path, capsys):
         shape = (problem.n_steps, problem.n_c)
         flat = strip_controls(True, problem.controls)
         jax_loss = jax_build_loss(problem.jax_pstate(magnus="M2"))
-        (want, _), g_want = jax.value_and_grad(
+        (want, _), g_want = jax.jit(jax.value_and_grad(
             lambda f: jax_loss(slap_controls_jax(True, f, shape)),
-            has_aux=True)(jnp.asarray(flat))
+            has_aux=True))(jnp.asarray(flat))
         got, g_got = _port_loss(problem, "M2")
         assert "propagation path = " + path in capsys.readouterr().out
     assert got == pytest.approx(float(want), rel=1e-6)
