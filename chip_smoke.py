@@ -4488,17 +4488,26 @@ def _mode_tiled_expm(dev, gen, worst):
 
 
 def _mode_stream_chain(dev, gen, d, n_steps, target, worst):
-    """K6 in the mode on one chain of planes at d: forward and adjoint (both
-    seed modes) against their plain versions in the mode, launched in their
-    mode forms, the padded rows and steps exact. Returns (levels, rels)."""
-    from qoc_tpu_torch.ops import chain
+    """K6 in the mode on one chain of random planes at d (see
+    _mode_stream_check). Returns (levels, rels)."""
     a = _stream_planes(gen, n_steps, d, target, dev)
-    a_seg, n1, ninf = _stream_inputs(a)
+    return _mode_stream_check(*_stream_inputs(a), d, n_steps, gen, worst)
+
+
+def _mode_stream_check(a_seg, n1, ninf, d, n_steps, gen, worst,
+                       prefix="K6", n_chains=1):
+    """K6 in the mode on a_seg (n_chains chains of n_steps steps at d, as
+    rows): forward and adjoint (both seed modes) against their plain
+    versions in the mode, launched in their mode forms, every chain's padded
+    rows and steps exact; the worst max |err| folded into ``worst`` under
+    "<prefix> fwd mode", "<prefix> bwd mode" and "<prefix> bwd mode step".
+    Returns (levels, rels)."""
+    from qoc_tpu_torch.ops import chain
     s_count, length, dp = a_seg.shape[:3]
     seeds = {"": torch.randn((s_count, dp, dp), dtype=torch.complex64,
-                             device=dev, generator=gen),
+                             device=a_seg.device, generator=gen),
              " step": torch.randn((s_count, length, dp, dp),
-                                  dtype=torch.complex64, device=dev,
+                                  dtype=torch.complex64, device=a_seg.device,
                                   generator=gen)}
     with precision(MODE):
         reset_launches()
@@ -4514,12 +4523,14 @@ def _mode_stream_chain(dev, gen, d, n_steps, target, worst):
             launches["K6 bwd step"]) != (1, 2, 1):
         raise RuntimeError("K6 in the mode did not launch its mode forms: "
                            "{}".format(launches))
-    if d < dp or n_steps < s_count * length:
-        _check_padding(pref, d, n_steps)
+    if d < dp or n_steps * n_chains < s_count * length:
+        for p in pref.reshape(n_chains, -1, *pref.shape[1:]):
+            _check_padding(p, d, n_steps)
     rels = [_rel(pref, pref_p)] + [_rel(got[k], want[k]) for k in seeds]
-    for key, x, y in (("K6 fwd mode", pref, pref_p),
-                      ("K6 bwd mode", got[""], want[""]),
-                      ("K6 bwd mode step", got[" step"], want[" step"])):
+    for key, x, y in ((prefix + " fwd mode", pref, pref_p),
+                      (prefix + " bwd mode", got[""], want[""]),
+                      (prefix + " bwd mode step", got[" step"],
+                       want[" step"])):
         if not bool(torch.isfinite(torch.view_as_real(x)).all()):
             raise RuntimeError(key + " produced non-finite values")
         worst[key] = max(worst.get(key, 0.0), float((x - y).abs().max()))
@@ -4555,14 +4566,96 @@ def _mode_stream_members(dev, gen, d, n_chains, n_steps, target, worst):
     return [_rel(x, y) for x, y in zip(got, want)]
 
 
+def mode_path_inputs(dev):
+    """The tiled mode kernels' inputs on the slice's main path: the d = 2^7
+    GRAPE's planes at its initial controls (2000 x 128^2, as the blocked
+    route hands them to K3, their adjoints to K4) with a random cotangent;
+    K6's segments of the Lindblad d = 20 planes (15 x 7 at padded 448) and
+    of a time block of the 4-member d = 20 ensemble (member rows), with
+    their norms. Returns {"d128": (a, ah, g), "d20": (a_seg, n1, ninf, d,
+    steps, |a|), "member": (a_seg, n1, ninf, d, steps, |a|, chains)}."""
+    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
+    gen = torch.Generator(device=dev).manual_seed(41)
+    a = initial_planes(*d128_problem()[:2], dev)
+    g = torch.randn(a.shape, dtype=torch.complex64, device=dev, generator=gen)
+    a20, _ = lindblad_d20_planes(dev)
+    kw = lindblad_ensemble_problem(LINDBLAD_MEMBERS[0])
+    pstate = lindblad_pstate(kw)
+    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
+                                         kw["hamiltonian_params"],
+                                         device=dev).block
+    with torch.no_grad():
+        am = lindblad_member_planes(kw, pstate, dev)(
+            kw["hamiltonian_params"], block)
+    return {"d128": (a, a.mH.contiguous(), g),
+            "d20": _stream_inputs(a20) + (a20.shape[-1], a20.shape[0],
+                                          a20.abs()),
+            "member": _member_stream_inputs(am) + (
+                am.shape[-1], am.shape[1],
+                am.reshape(-1, *am.shape[-2:]).abs(), am.shape[0])}
+
+
+def _mode_main_path(dev, gen, worst):
+    """Phase 40 on the main path's inputs (mode_path_inputs): K3/K4's mode
+    forms on the d = 2^7 planes, K6's on the d = 20 planes and the
+    ensemble's member time block (both seed modes, padded steps exact),
+    each against its plain version in the mode within MODE_RTOL."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    inputs = mode_path_inputs(dev)
+    a, ah, g = inputs.pop("d128")
+    with precision(MODE):
+        reset_launches()
+        k3, k4 = expm_cuda.expm_fwd(a), expm_cuda.expm_frechet_fwd(ah, g)
+        launches = read_launches()
+        p3, p4 = expm_cuda.expm_fwd_plain(a), expm_cuda.expm_frechet_plain(
+            ah, g)
+    torch.cuda.synchronize()
+    if (launches["K3 mode"], launches["K4 mode"]) != (1, 1):
+        raise RuntimeError("K3/K4 on the d = 2^7 planes did not launch their "
+                           "mode forms: {}".format(launches))
+    rels = {}
+    for key, x, y in (("K3 tiled mode", k3, p3), ("K4 tiled mode", k4, p4)):
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(key + " produced non-finite values")
+        rels[key] = _rel(x, y)
+        worst[key] = max(worst.get(key, 0.0), float((x - y).abs().max()))
+    lines = ["d=2^7 planes {} levels {}/{}: K3 {:.1e}, K4 {:.1e}".format(
+        tuple(a.shape), chain.ladder_level(expm_cuda._norm_max(a)),
+        chain.ladder_level(expm_cuda._norm_max(ah)), rels["K3 tiled mode"],
+        rels["K4 tiled mode"])]
+    del a, ah, g, k3, k4, p3, p4
+    for name, prefix in (("d20", "K6"), ("member", "K6 member")):
+        a_seg, n1, ninf, d, n_steps = inputs[name][:5]
+        n_chains = inputs[name][6] if name == "member" else 1
+        levels, got = _mode_stream_check(a_seg, n1, ninf, d, n_steps, gen,
+                                         worst, prefix, n_chains)
+        rels.update({prefix + k: r for k, r in zip(
+            (" fwd mode", " bwd mode", " bwd mode step"), got)})
+        lines.append("{} {} x {} steps on {} levels {}/{}: prefixes {:.1e}, "
+                     "grad last-step {:.1e}, per-step {:.1e}".format(
+                         prefix, n_chains, n_steps, tuple(a_seg.shape),
+                         *levels, *got))
+    print("phase 40 bf16_3x tiled kernels on the main path's inputs (rel vs "
+          "plain in the mode): {}; padded steps exact".format(
+              "; ".join(lines)), flush=True)
+    bad = {k: r for k, r in rels.items() if r > MODE_RTOL}
+    if bad:
+        raise RuntimeError("the tiled mode kernels disagree with their plain "
+                           "versions in the mode on the main path's inputs: "
+                           "{}".format(bad))
+
+
 def phase_mode_tiled_kernels(dev):
-    """Phase 40: the tiled kernels' bf16_3x forms (K3/K4 at padded 128-256,
-    K6 at padded 320-512, one chain and the member axis, both seed modes)
-    against their plain versions in the mode on every ladder level, within
-    MODE_RTOL; padding and padded steps exact. Returns the worst max |err|
+    """Phase 40: the tiled kernels' bf16_3x forms against their plain
+    versions in the mode within MODE_RTOL, on the main path's inputs (the
+    d = 2^7 planes, the d = 20 planes, the ensemble's member time block) and
+    on every ladder level (K3/K4 at padded 128-256, K6 at padded 320-512,
+    one chain and the member axis, both seed modes); padding and padded
+    steps exact. Returns the worst max |err|
     against plain of each row."""
     gen = torch.Generator(device=dev).manual_seed(40)
     worst = {}
+    _mode_main_path(dev, gen, worst)
     _mode_tiled_expm(dev, gen, worst)
     for d in MODE_STREAM_DIMS:
         for n_chains, n_steps in MODE_STREAM_CASES:
@@ -4749,12 +4842,10 @@ def phase_mode_tiled_timing(dev):
     design line and every tiled TC instantiation's ptxas registers and
     spills. Returns (ms, bounds) keyed as the kernels line reads them."""
     from qoc_tpu_torch.ops import chain, expm_cuda
-    from qoc_tpu_torch.parallel import build_lindblad_ensemble_loss
     gen = torch.Generator(device=dev).manual_seed(41)
     ms, bounds = {}, {}
-    a = initial_planes(*d128_problem()[:2], dev)
-    g = torch.randn(a.shape, dtype=torch.complex64, device=dev, generator=gen)
-    ah = a.mH.contiguous()
+    inputs = mode_path_inputs(dev)
+    a, ah, g = inputs.pop("d128")
     dp = expm_cuda.kernel_dp(a.shape[-1])
     ms.update({
         "K3 tiled mode": cuda_ms(lambda: expm_cuda.expm_fwd(a, MODE), 10),
@@ -4794,25 +4885,14 @@ def phase_mode_tiled_timing(dev):
         designs.append(design_line(key, tiled_entry(key, dp, True), blocks, 1,
                                    smem, bounds[key][0], ms[key]))
     del a, ah, g
-    a20, _ = lindblad_d20_planes(dev)
-    a_seg, n1, ninf = _stream_inputs(a20)
-    out = _stream_mode_times("K6", a_seg, n1, ninf, a20.abs(), gen)
+    a_seg, n1, ninf, _, _, absa = inputs["d20"]
+    out = _stream_mode_times("K6", a_seg, n1, ninf, absa, gen)
     ms.update(out[0])
     bounds.update(out[1])
     lines.append(("d=20 planes, K6", tuple(a_seg.shape),
                   chain.ladder_level(n1), chain.ladder_level(ninf)))
-    n_members = LINDBLAD_MEMBERS[0]
-    kw = lindblad_ensemble_problem(n_members)
-    pstate = lindblad_pstate(kw)
-    block = build_lindblad_ensemble_loss(pstate, kw["hamiltonian"],
-                                         kw["hamiltonian_params"],
-                                         device=dev).block
-    with torch.no_grad():
-        am = lindblad_member_planes(kw, pstate, dev)(
-            kw["hamiltonian_params"], block)
-    m_seg, m1, minf = _member_stream_inputs(am)
-    out = _stream_mode_times("K6 member", m_seg, m1, minf,
-                             am.reshape(-1, *am.shape[-2:]).abs(), gen)
+    m_seg, m1, minf, _, _, absm, n_members = inputs["member"]
+    out = _stream_mode_times("K6 member", m_seg, m1, minf, absm, gen)
     ms.update(out[0])
     bounds.update(out[1])
     lines.append(("{}-member d=20 time block, K6 member".format(n_members),

@@ -467,7 +467,8 @@ def test_routes_without_the_mode_refuse_it(bf16_3x, case):
 
 
 def test_grape_refuses_the_mode_on_the_blocked_route(bf16_3x):
-    """The entry point at d = 65 (the blocked route, K3/K4 at padded 128)
+    """The entry point at d = 65 (the blocked route, K3/K4 at padded 128),
+    which refused the mode before the tiled kernels had their mode form,
     runs in the mode in float32: its errors and controls within the mode's
     envelope of the float64 run."""
     import qoc_tpu_torch
