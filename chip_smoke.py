@@ -4794,13 +4794,36 @@ def phase_mode_cells(dev, exact=None):
 
 
 # ptxas entry strings of the tiled kernels (K3/K4 above padded 64, K6) at
-# dp, exact or (tc) in the bf16_3x mode.
+# dp, exact or (tc) in the bf16_3x mode (K3/K4's form 2, K6's form 1).
 def tiled_entry(key, dp, tc):
     if key.startswith("K6"):
-        return ("stream_{}_kernelILi{}ELb{}E".format(
+        return ("stream_{}_kernelILi{}ELi{}E".format(
             "bwd" if " bwd" in key else "fwd", dp // 64, int(tc)),)
     return ("expm_tiled_kernel", "TiledILi{}ELb{}E".format(
-        dp // 64, int(key.startswith("K4"))), "ELb{}EE".format(int(tc)))
+        dp // 64, int(key.startswith("K4"))), "ELi{}EE".format(2 * int(tc)))
+
+
+def tc_design(key, dp):
+    """(shared-memory bytes a block, the product's design) of a tiled
+    kernel's bf16_3x form, from the kernels' own layout
+    (expm_cuda.tc_layout)."""
+    from qoc_tpu_torch.ops import expm_cuda
+    kernel = {"K3": 3, "K4": 4}.get(key[:2], 7 if " bwd" in key else 6)
+    rows, stages, raw, split, smem, ring = expm_cuda.tc_layout(kernel, dp)
+    if not stages:
+        return smem, (
+            "PR 11's form, 3 x TF32 mma.sync m16n8k8 on the {} x 64 panels "
+            "transposed, fragments split at every read, a {}-stage raw "
+            "cp.async ring ({} B a stage); the wgmma form measured slower at "
+            "these shapes (profiling/tiled_variants.py)".format(rows, ring,
+                                                                raw))
+    return smem, (
+        "wgmma m64n{}k8 TF32 (A and B from shared memory, the panel "
+        "transposed), warpgroup 0 the real part and 1 the imaginary; each "
+        "k-slice ({} B raw) loaded by all 256 threads into registers and "
+        "split once into one of {} split stages ({} B: TF32 hi/lo planes, "
+        "K-major, 128-byte swizzle) while the last slice's wgmma run"
+        "".format(rows, raw, stages, split))
 
 
 def _stream_mode_times(prefix, a_seg, n1, ninf, absa, gen):
@@ -4881,9 +4904,10 @@ def phase_mode_tiled_timing(dev):
     designs = []
     for key, dual in (("K3 tiled mode", False), ("K4 tiled mode", True)):
         blocks = expm_cuda.launch_grid(dual, dp, a.shape[0], dev.index)[0]
-        smem = expm_cuda._plan(dual, dp, dev.index)[2]
+        smem, product = tc_design(key, dp)
         designs.append(design_line(key, tiled_entry(key, dp, True), blocks, 1,
-                                   smem, bounds[key][0], ms[key]))
+                                   smem, bounds[key][0], ms[key])
+                       + "; " + product)
     del a, ah, g
     a_seg, n1, ninf, _, _, absa = inputs["d20"]
     out = _stream_mode_times("K6", a_seg, n1, ninf, absa, gen)
@@ -4905,10 +4929,11 @@ def phase_mode_tiled_timing(dev):
                       ("K6 member bwd mode", m_seg.shape[0])):
         dual = " bwd" in key
         clusters = chain.stream_grid(dual, dp, rows, dev)[0]
-        _, per_cluster, _, smem = chain._stream_plan(dual, dp, dev.index)
+        per_cluster = chain._stream_plan(dual, dp, dev.index)[1]
+        smem, product = tc_design(key, dp)
         designs.append(design_line(key, tiled_entry(key, dp, True), clusters,
                                    per_cluster, smem, bounds[key][0],
-                                   ms[key]))
+                                   ms[key]) + "; " + product)
     torch.cuda.synchronize()
     print("phase 41 bf16_3x tiled timing ({}): ".format("; ".join(
         "{} {} levels {}/{}".format(*x) for x in lines))
@@ -5132,15 +5157,15 @@ def main():
              "expm_pallas.py:264", "K3 tiled mode"),
             ("expm_frechet (bf16_3x, tiled, padded 128-256)",
              "expm_frechet.cu", "expm_pallas.py:397", "K4 tiled mode"),
-            ("stream_fwd (bf16_3x)", "stream_fwd.cu", "chain_pallas.py:442",
+            ("stream_fwd (bf16_3x, wgmma)", "stream_fwd.cu", "chain_pallas.py:442",
              "K6 fwd mode"),
-            ("stream_bwd (bf16_3x)", "stream_bwd.cu", "chain_pallas.py:463",
+            ("stream_bwd (bf16_3x, wgmma)", "stream_bwd.cu", "chain_pallas.py:463",
              "K6 bwd mode"),
-            ("stream_bwd (bf16_3x, per-step seeds)", "stream_bwd.cu",
+            ("stream_bwd (bf16_3x, wgmma, per-step seeds)", "stream_bwd.cu",
              "chain_pallas.py:463", "K6 bwd mode step"),
-            ("stream_fwd (bf16_3x, member-batched)", "stream_fwd.cu",
+            ("stream_fwd (bf16_3x, wgmma, member-batched)", "stream_fwd.cu",
              "chain_pallas.py:442", "K6 member fwd mode"),
-            ("stream_bwd (bf16_3x, member-batched)", "stream_bwd.cu",
+            ("stream_bwd (bf16_3x, wgmma, member-batched)", "stream_bwd.cu",
              "chain_pallas.py:463", "K6 member bwd mode"))]
     print("summary: card {} | build {:.1f} s | headline GRAPE {:.2f} it/s | "
           "M4 GRAPE {:.2f} it/s | d=128 GRAPE {:.2f} it/s | M4 loss+gradient "

@@ -1,15 +1,20 @@
-// Issue rate of the tensor-core instruction the bf16_3x mode's kernels use,
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, measured alone, beside
-// the FP32 FMA rate of the exact kernels. Built and timed by
-// profiling/mma_rate.py.
+// Issue rate of the tensor-core instructions the bf16_3x mode's kernels use,
+// measured alone, beside the FP32 FMA rate of the exact kernels. Built and
+// timed by profiling/mma_rate.py.
 //
-// Each warp runs ITER rounds of CHAINS independent mma (or FMA) chains on
-// register operands: no memory traffic in the loop, enough independent
-// instructions to cover the pipeline's latency. The result is written once
-// so that the compiler keeps the work.
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (the resident kernels'
+// and PR 11's tiled form): each warp runs ITER rounds of CHAINS independent
+// mma (or FMA) chains on register operands, no memory traffic in the loop,
+// enough independent instructions to cover the pipeline's latency.
+// wgmma.mma_async m64nNk8 TF32 (the tiled kernels' form, expm_common.cuh's
+// wgmma_tf32, N = 40-64): each warpgroup runs ITER rounds of WG_BATCH wgmma
+// into one accumulator, both operands in shared memory by descriptor (an
+// A plane of 64 and a B plane of N 32-deep rows, 128-byte swizzle, the
+// four k8 steps in turn), then a commit and a wait, as the tiled kernels
+// issue a k-slice. The results are written once so that the compiler keeps
+// the work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "../qoc_tpu_torch/csrc/expm_common.cuh"
 
 namespace {
 
@@ -59,19 +64,63 @@ __global__ void ffma_kernel(float* out, int iters) {
   if (s == 1.2345f) out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+constexpr int WG_BATCH = 24;  // wgmma a round: a k-slice's, per warpgroup
+
+template <int N>
+__global__ void wgmma_tf32_kernel(float* out, int iters) {
+  using namespace qoc::ex;
+  __shared__ __align__(1024) uint32_t planes[(64 + N) * 32 + 256];
+  const uint32_t base = (smem_u32(planes) + 1023u) & ~1023u;
+  uint32_t* p = planes + (base - smem_u32(planes)) / 4;
+  for (int i = threadIdx.x; i < (64 + N) * 32; i += blockDim.x)
+    p[i] = (0x3F800000u + (i * 2654435761u & 0x7FE000u)) ^
+           (i & 1 ? 0x80000000u : 0u);
+  fence_proxy_async();
+  __syncthreads();
+  float d[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) d[j] = 0.0f;
+  const uint32_t a = base, b = base + 64 * 128;
+  for (int it = 0; it < iters; ++it) {
+    reg_fence(d);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < WG_BATCH; ++u) {
+      const uint32_t o = 32 * (u & 3);
+      wgmma_tf32<N, 1>(d, gmma_desc(a + o), gmma_desc(b + o), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(d);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) s += d[j];
+  if (s == 1.2345f) out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 }  // namespace
 
-// Launches blocks x threads of the kernel (kind 0: mma.sync TF32, kind 1:
-// FP32 FMA) for iters rounds on the stream. Per warp and round: CHAINS mma
-// (2 x 16 x 8 x 8 FLOP each), or 4 CHAINS FMA per thread (2 FLOP each).
+// Launches blocks x threads of the kernel for iters rounds on the stream:
+// kind 0 mma.sync TF32 (per warp and round CHAINS mma, 2 x 16 x 8 x 8 FLOP
+// each), kind 1 FP32 FMA (4 CHAINS FMA a thread, 2 FLOP each), kinds 40,
+// 48, 56, 64 wgmma m64nNk8 TF32 with N = kind (per warpgroup and round
+// WG_BATCH wgmma, 2 x 64 x N x 8 FLOP each; threads a multiple of 128).
 extern "C" int qoc_rate_launch(int kind, float* out, int iters, int blocks,
                                int threads, void* stream) {
-  if (kind == 0)
-    mma_tf32_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(out,
-                                                                  iters);
-  else
-    ffma_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case 0: mma_tf32_kernel<<<blocks, threads, 0, s>>>(out, iters); break;
+    case 1: ffma_kernel<<<blocks, threads, 0, s>>>(out, iters); break;
+    case 40: wgmma_tf32_kernel<40><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 48: wgmma_tf32_kernel<48><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 56: wgmma_tf32_kernel<56><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 64: wgmma_tf32_kernel<64><<<blocks, threads, 0, s>>>(out, iters); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int qoc_rate_chains() { return CHAINS; }
+
+extern "C" int qoc_rate_wg_batch() { return WG_BATCH; }

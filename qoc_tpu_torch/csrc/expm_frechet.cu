@@ -29,7 +29,9 @@
 // and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
 // The bf16_3x mode (tf32 != 0) runs each path's second instantiation (3 x
 // TF32 tensor-core products, _D12A in dual form): AdjointTC at D = 64, the
-// tiled ladder's TC form above (expm_common.cuh, on the same panels).
+// tiled ladder's TC form above (expm_common.cuh Product<2>, PR 11's
+// mma.sync form on the same panels: the wgmma form measured slower at the
+// d = 2^7 planes, PERF.md).
 
 #include "expm_common.cuh"
 

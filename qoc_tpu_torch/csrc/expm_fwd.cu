@@ -28,9 +28,11 @@
 // and 8 x 4 register tiles: profiling/tiled_variants.py, numbers in
 // PERF.md. The bf16_3x mode (tf32 != 0) runs each path's second
 // instantiation, 3 x TF32 tensor-core products with _D12A at degree 12: at
-// D = 64 the resident ladder's (chain_common.cuh Fwd<true>), above it the
-// tiled ladder's (expm_common.cuh Tiled with TC, on the same panels; its
-// slot holds exp(A) - I and the last epilogue writes exp(A) out).
+// D = 64 the resident ladder's (chain_common.cuh Fwd<true>, mma.sync),
+// above it the tiled ladder's (expm_common.cuh Tiled with TC = 2, PR 11's
+// mma.sync form on the same panels: the wgmma form measured slower at the
+// d = 2^7 planes, PERF.md; its slot holds exp(A) - I and the last epilogue
+// writes exp(A) out).
 
 #include "expm_common.cuh"
 
@@ -131,6 +133,31 @@ extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots,
     case 128: return tiled_plan<2>(blocks, smem);
     case 192: return tiled_plan<3>(blocks, smem);
     case 256: return tiled_plan<4>(blocks, smem);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The design of the tiled bf16_3x forms, for chip_smoke.py's design lines:
+// kernel 3 (K3), 4 (K4) at dp 128-256, 6 (K6 forward) or 7 (K6 adjoint) at
+// dp 320-512; out gets product_layout's six numbers (expm_common.cuh).
+// Returns 0, or cudaErrorInvalidValue.
+extern "C" int qoc_tiled_tc_layout(int kernel, int dp, int* out) {
+  using namespace qoc::ex;
+  switch (kernel * 1000 + dp) {
+    case 3128: product_layout<ExpmTiled<2, false, true>>(out); return 0;
+    case 3192: product_layout<ExpmTiled<3, false, true>>(out); return 0;
+    case 3256: product_layout<ExpmTiled<4, false, true>>(out); return 0;
+    case 4128: product_layout<ExpmTiled<2, true, true>>(out); return 0;
+    case 4192: product_layout<ExpmTiled<3, true, true>>(out); return 0;
+    case 4256: product_layout<ExpmTiled<4, true, true>>(out); return 0;
+    case 6320: product_layout<StreamTiled<5, false, 1>>(out); return 0;
+    case 6384: product_layout<StreamTiled<6, false, 1>>(out); return 0;
+    case 6448: product_layout<StreamTiled<7, false, 1>>(out); return 0;
+    case 6512: product_layout<StreamTiled<8, false, 1>>(out); return 0;
+    case 7320: product_layout<StreamTiled<5, true, 1>>(out); return 0;
+    case 7384: product_layout<StreamTiled<6, true, 1>>(out); return 0;
+    case 7448: product_layout<StreamTiled<7, true, 1>>(out); return 0;
+    case 7512: product_layout<StreamTiled<8, true, 1>>(out); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -39,9 +39,10 @@
 // written alternately); U_{t+1}^H is the value slot the
 // previous step's ladder returned.
 //
-// The bf16_3x mode (tf32 != 0): the second instantiation (Tiled with TC,
+// The bf16_3x mode (tf32 != 0): the second form (Tiled with TC = 1,
 // expm_common.cuh), every product (the T update, gU_t and the dual ladder)
-// 3 x TF32 on the tensor cores, _D12A in dual form at degree 12; the value
+// 3 x TF32 on wgmma, _D12A in dual form at degree 12 (gU_t's P_{t-1}^H is
+// copied into the ring as it is, and its split conjugates it); the value
 // slot holds U^H - I, and the T update is T_{t+1} + (U_{t+1}^H - I) T_{t+1}
 // [+ seed_t], T_{t+1} read in the epilogue, so that a padded step carries T
 // exactly.
@@ -49,14 +50,14 @@
 #include "expm_common.cuh"
 
 namespace qoc {
-namespace {
+namespace bwd {
 
-constexpr int CL = 8;  // blocks of a cluster
+constexpr int CL = ex::STREAM_CL;  // blocks of a cluster
 
-template <int T, bool TC>
-using Bwd = ex::Tiled<T, true, CL, T, 2, 8, TC>;
+template <int T, int TC>
+using Bwd = ex::StreamTiled<T, true, TC>;
 
-template <int T, bool TC>
+template <int T, int TC>
 __global__ void __launch_bounds__(NT, 1)
     stream_bwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm,
@@ -68,7 +69,8 @@ __global__ void __launch_bounds__(NT, 1)
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
   const K k{ws + (size_t)cluster * (K::SLOTS + 2) * K::N, sm,
-            reinterpret_cast<float*>(sm + (size_t)K::G::NS * K::G::STAGE),
+            reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                     K::G::RED),
             (int)(blockIdx.x % CL)};
   const int level = ladder_level(__ldg(norm));
   const ex::Epi none = ex::epi(ex::lin(0.0f));
@@ -80,22 +82,57 @@ __global__ void __launch_bounds__(NT, 1)
     int r = ex::X;
     for (int t = L - 1; t >= 0; --t) {
       const float2* seed = step_seed(seeds, seg, t, L, per_step, K::N);
+      const float2* at = aseg + (size_t)t * K::N;
+      float2* gt = gseg + (size_t)t * K::N;
+      // U_{t+1}^H T_{t+1} (TC: T_{t+1} + (U_{t+1}^H - I) T_{t+1}), plus
+      // (per-step mode) the step's seed.
+      ex::Epi et = none;
+      if constexpr (TC) et.L = ex::lin(0.0f, 1.0f, K::SLOTS + tc);
+      et.add = seed;
+      if constexpr (TC) {
+        // The T update, gU_t and the ladder's products through one run().
+        int s = 0;
+        for (int j = 0;; ++j) {
+          typename K::Op o;
+          bool sy = true;
+          if (j == 0) {
+            o = typename K::Op{k.v(r), nullptr, k.extra(tc), nullptr,
+                               k.extra(1 - tc), nullptr, ex::NONE, false,
+                               et};
+          } else if (j == 1) {
+            s = level == 4 ? k.template squarings<true>(at) : 0;
+            ex::Epi e = none;
+            e.alpha = exp2f(-(float)s);
+            o = typename K::Op{k.extra(tc), nullptr, pseg + (size_t)t * K::N,
+                               nullptr, k.t(ex::M), nullptr, ex::NONE, true,
+                               e};
+          } else {
+            int n;
+            const int rr = k.ladder_pick(level, s, j - 2, nullptr, gt, o, sy,
+                                         n);
+            if (j - 2 == n) {
+              r = rr;
+              break;
+            }
+          }
+          if (j == 0 && t == L - 1) k.copy(k.extra(tc), seed);
+          else k.run(o);
+          if (j == 0 && t < L - 1) tc = 1 - tc;
+          if (j == 1) k.load_adjoint_scaled(at, exp2f(-(float)s));
+          if (sy) k.sync();
+        }
+        continue;
+      }
       if (t == L - 1) {
         k.copy(k.extra(tc), seed);
       } else {
-        // U_{t+1}^H T_{t+1} (TC: T_{t+1} + (U_{t+1}^H - I) T_{t+1}), plus
-        // (per-step mode) the step's seed.
-        ex::Epi e = none;
-        if constexpr (TC) e.L = ex::lin(0.0f, 1.0f, K::SLOTS + tc);
-        e.add = seed;
         k.gemm_p(k.v(r), nullptr, k.extra(tc), nullptr, k.extra(1 - tc),
-                 nullptr, ex::NONE, e);
+                 nullptr, ex::NONE, et);
         tc = 1 - tc;
       }
       k.sync();
       // gU_t = 2^-s T_t P_{t-1}^H into the tangent of slot M, and the
       // value of slot M = 2^-s A_t^H beside it.
-      const float2* at = aseg + (size_t)t * K::N;
       const int s = level == 4 ? k.template squarings<true>(at) : 0;
       const float scale = exp2f(-(float)s);
       ex::Epi e = none;
@@ -104,19 +141,17 @@ __global__ void __launch_bounds__(NT, 1)
                               nullptr, k.t(ex::M), nullptr, ex::NONE, e);
       k.load_adjoint_scaled(at, scale);
       k.sync();
-      r = k.ladder(level, s, nullptr, gseg + (size_t)t * K::N);
+      r = k.ladder(level, s, nullptr, gt);
     }
   }
 }
 
-template <int T>
-int launch(const void* a, const void* norm, const void* prefpad,
-           const void* seeds, void* gA, void* ws, int S, int L, bool per_step,
-           int clusters, int tf32, void* stream) {
-  return ex::launch(tf32 ? stream_bwd_kernel<T, true>
-                         : stream_bwd_kernel<T, false>,
-                    Bwd<T, false>::G::SMEM, clusters * CL,
-                    stream, CL, static_cast<const float2*>(a),
+template <int T, int TC>
+int launch_form(const void* a, const void* norm, const void* prefpad,
+                const void* seeds, void* gA, void* ws, int S, int L,
+                bool per_step, int clusters, void* stream) {
+  return ex::launch(stream_bwd_kernel<T, TC>, Bwd<T, TC>::G::SMEM,
+                    clusters * CL, stream, CL, static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<const float2*>(prefpad),
                     static_cast<const float2*>(seeds),
@@ -125,27 +160,47 @@ int launch(const void* a, const void* norm, const void* prefpad,
 }
 
 template <int T>
-int plan(int* clusters, int* smem) {
-  *smem = (int)Bwd<T, false>::G::SMEM;
-  return ex::resident_clusters(stream_bwd_kernel<T, false>,
-                               Bwd<T, false>::G::SMEM, CL, clusters);
+int launch(const void* a, const void* norm, const void* prefpad,
+           const void* seeds, void* gA, void* ws, int S, int L, bool per_step,
+           int clusters, int tf32, void* stream) {
+  return tf32 ? launch_form<T, 1>(a, norm, prefpad, seeds, gA, ws, S, L,
+                                  per_step, clusters, stream)
+              : launch_form<T, 0>(a, norm, prefpad, seeds, gA, ws, S, L,
+                                  per_step, clusters, stream);
 }
 
-}  // namespace
+// The clusters both forms keep resident; the exact form's shared memory.
+template <int T>
+int plan(int* clusters, int* smem) {
+  *smem = (int)Bwd<T, 0>::G::SMEM;
+  int tc = 0;
+  int err = ex::resident_clusters(stream_bwd_kernel<T, 0>,
+                                  Bwd<T, 0>::G::SMEM, CL, clusters);
+  if (err == 0)
+    err = ex::resident_clusters(stream_bwd_kernel<T, 1>, Bwd<T, 1>::G::SMEM,
+                                CL, &tc);
+  if (tc < *clusters) *clusters = tc;
+  return err;
+}
+
+}  // namespace bwd
 }  // namespace qoc
+
+#ifndef QOC_KERNELS_ONLY  // (profiling/tiled_variants.cu)
 
 // a (S, L, dp, dp) complex64, the forward's planes; norm -> 1 f32, their
 // batch-max inf-norm (the 1-norm of A^H); prefpad (S, L + 1, dp, dp) from
 // the forward; seeds (S, dp, dp), or (S, L, dp, dp) with per_step != 0; gA
 // (S, L, dp, dp) out; ws (clusters, slots, dp, dp) scratch from
 // qoc_stream_bwd_plan. dp is 320, 384, 448 or 512; tf32 != 0 runs the
-// bf16_3x mode's instantiation (on the same plan). Returns the CUDA error.
+// bf16_3x mode's form (on the same plan). Returns the CUDA error.
 extern "C" int qoc_stream_bwd(const void* a, const void* norm,
                               const void* prefpad, const void* seeds,
                               void* gA, void* ws, int S, int L, int dp,
                               int clusters, int per_step, int tf32,
                               void* stream) {
   using namespace qoc;
+  using namespace qoc::bwd;
   const bool steps = per_step != 0;
   switch (dp) {
     case 320:
@@ -168,6 +223,7 @@ extern "C" int qoc_stream_bwd(const void* a, const void* norm,
 extern "C" int qoc_stream_bwd_plan(int dp, int* clusters, int* blocks,
                                    int* slots, int* smem) {
   using namespace qoc;
+  using namespace qoc::bwd;
   *blocks = CL;
   *slots = 2 * ex::NV + 2;
   switch (dp) {
@@ -178,3 +234,5 @@ extern "C" int qoc_stream_bwd_plan(int dp, int* clusters, int* blocks,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // QOC_KERNELS_ONLY

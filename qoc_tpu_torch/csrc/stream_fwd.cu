@@ -28,9 +28,11 @@
 // workspace holds the ladder's six matrices only. The next step's plane is
 // loaded beside the product P_t = U_t P_{t-1}, which does not read it.
 //
-// The bf16_3x mode (tf32 != 0): the second instantiation (Tiled with TC,
-// expm_common.cuh), every product 3 x TF32 on the tensor cores on the same
-// row bands, _D12A at degree 12; the ladder's slot holds U_t - I, and the
+// The bf16_3x mode (tf32 != 0): the second form (Tiled with TC = 1,
+// expm_common.cuh), every product 3 x TF32 on wgmma on the same row bands
+// (the band's D / 8 rows are wgmma's N: 40-64), _D12A at degree 12, with
+// two split stages and the warpgroups' staging in 128-153 KB of shared
+// memory a block; the ladder's slot holds U_t - I, and the
 // step is P_t = P_{t-1} + (U_t - I) P_{t-1}, P_{t-1} added in the
 // epilogue, so that the tensor cores' truncation scales with U_t - I and a
 // padded step (A_t = 0) leaves P exactly as it was.
@@ -38,14 +40,23 @@
 #include "expm_common.cuh"
 
 namespace qoc {
-namespace {
+namespace fwd {
 
-constexpr int CL = 8;  // blocks of a cluster
+constexpr int CL = ex::STREAM_CL;  // blocks of a cluster
 
-template <int T, bool TC>
-using Fwd = ex::Tiled<T, false, CL, T, 2, 8, TC>;
+template <int T, int TC>
+using Fwd = ex::StreamTiled<T, false, TC>;
 
-template <int T, bool TC>
+// Slot M = the next step's plane t + 1 scaled by 2^-s, s its squarings.
+template <class K>
+__device__ __forceinline__ void load_next(const K& k, const float2* aseg,
+                                          int t, int level, int& s) {
+  const float2* an = aseg + (size_t)(t + 1) * K::N;
+  s = level == 4 ? k.squarings(an) : 0;
+  k.load_scaled(an, nullptr, exp2f(-(float)s));
+}
+
+template <int T, int TC>
 __global__ void __launch_bounds__(NT, 1)
     stream_fwd_kernel(const float2* __restrict__ a,
                       const float* __restrict__ norm, float2* prefpad,
@@ -55,7 +66,8 @@ __global__ void __launch_bounds__(NT, 1)
   float2* sm = reinterpret_cast<float2*>(smem4);
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
   const K k{ws + (size_t)cluster * K::SLOTS * K::N, sm,
-            reinterpret_cast<float*>(sm + (size_t)K::G::NS * K::G::STAGE),
+            reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                     K::G::RED),
             (int)(blockIdx.x % CL)};
   const int level = ladder_level(__ldg(norm));
   for (int seg = cluster; seg < S; seg += clusters) {
@@ -65,30 +77,49 @@ __global__ void __launch_bounds__(NT, 1)
     k.load_scaled(aseg, nullptr, exp2f(-(float)s));
     k.sync();
     for (int t = 0; t < L; ++t) {
-      const int r = k.ladder(level, s, nullptr, nullptr);
       // P_t = U_t P_{t-1} (TC: P_{t-1} + (U_t - I) P_{t-1}): prefix slot
       // t + 1 from slot t; the ladder's result r is never slot M, so the
       // next plane loads beside it.
       ex::Epi e = ex::epi(ex::lin(0.0f));
-      if constexpr (TC) e.add = pseg + (size_t)t * K::N;
-      k.gemm_p(k.v(r), nullptr, pseg + (size_t)t * K::N, nullptr,
-               pseg + (size_t)(t + 1) * K::N, nullptr, ex::NONE, e);
-      if (t + 1 < L) {
-        const float2* an = aseg + (size_t)(t + 1) * K::N;
-        s = level == 4 ? k.squarings(an) : 0;
-        k.load_scaled(an, nullptr, exp2f(-(float)s));
+      const float2* prev = pseg + (size_t)t * K::N;
+      float2* next = pseg + (size_t)(t + 1) * K::N;
+      if constexpr (TC) {
+        // The ladder's products and then the step's, through one run().
+        e.add = prev;
+        const int sj = s;
+        for (int j = 0;; ++j) {
+          typename K::Op o;
+          bool sy;
+          int n;
+          const int r = k.ladder_pick(level, sj, j, nullptr, nullptr, o, sy,
+                                      n);
+          if (j > n) break;
+          if (j == n)
+            o = typename K::Op{k.v(r), nullptr, prev, nullptr, next,
+                               nullptr, ex::NONE, false, e};
+          k.run(o);
+          if (j < n) {
+            if (sy) k.sync();
+            continue;
+          }
+          if (t + 1 < L) load_next(k, aseg, t, level, s);
+          k.sync();
+        }
+      } else {
+        const int r = k.ladder(level, s, nullptr, nullptr);
+        k.gemm_p(k.v(r), nullptr, prev, nullptr, next, nullptr, ex::NONE, e);
+        if (t + 1 < L) load_next(k, aseg, t, level, s);
+        k.sync();
       }
-      k.sync();
     }
   }
 }
 
-template <int T>
-int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
-           int L, int clusters, int tf32, void* stream) {
-  return ex::launch(tf32 ? stream_fwd_kernel<T, true>
-                         : stream_fwd_kernel<T, false>,
-                    Fwd<T, false>::G::SMEM, clusters * CL, stream, CL,
+template <int T, int TC>
+int launch_form(const void* a, const void* norm, void* prefpad, void* ws,
+                int S, int L, int clusters, void* stream) {
+  return ex::launch(stream_fwd_kernel<T, TC>, Fwd<T, TC>::G::SMEM,
+                    clusters * CL, stream, CL,
                     static_cast<const float2*>(a),
                     static_cast<const float*>(norm),
                     static_cast<float2*>(prefpad), static_cast<float2*>(ws),
@@ -96,24 +127,43 @@ int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
 }
 
 template <int T>
-int plan(int* clusters, int* smem) {
-  *smem = (int)Fwd<T, false>::G::SMEM;
-  return ex::resident_clusters(stream_fwd_kernel<T, false>,
-                               Fwd<T, false>::G::SMEM, CL, clusters);
+int launch(const void* a, const void* norm, void* prefpad, void* ws, int S,
+           int L, int clusters, int tf32, void* stream) {
+  return tf32 ? launch_form<T, 1>(a, norm, prefpad, ws, S, L, clusters,
+                                  stream)
+              : launch_form<T, 0>(a, norm, prefpad, ws, S, L, clusters,
+                                  stream);
 }
 
-}  // namespace
+// The clusters both forms keep resident; the exact form's shared memory.
+template <int T>
+int plan(int* clusters, int* smem) {
+  *smem = (int)Fwd<T, 0>::G::SMEM;
+  int tc = 0;
+  int err = ex::resident_clusters(stream_fwd_kernel<T, 0>,
+                                  Fwd<T, 0>::G::SMEM, CL, clusters);
+  if (err == 0)
+    err = ex::resident_clusters(stream_fwd_kernel<T, 1>, Fwd<T, 1>::G::SMEM,
+                                CL, &tc);
+  if (tc < *clusters) *clusters = tc;
+  return err;
+}
+
+}  // namespace fwd
 }  // namespace qoc
+
+#ifndef QOC_KERNELS_ONLY  // (profiling/tiled_variants.cu)
 
 // a (S, L, dp, dp) complex64 planes, zero-padded; norm -> 1 f32, their
 // batch-max 1-norm; prefpad (S, L + 1, dp, dp), slot 0 = I written by the
 // caller, slots 1..L by this kernel; ws (clusters, slots, dp, dp) scratch
 // from qoc_stream_fwd_plan. dp is 320, 384, 448 or 512; tf32 != 0 runs the
-// bf16_3x mode's instantiation (on the same plan). Returns the CUDA error.
+// bf16_3x mode's form (on the same plan). Returns the CUDA error.
 extern "C" int qoc_stream_fwd(const void* a, const void* norm, void* prefpad,
                               void* ws, int S, int L, int dp, int clusters,
                               int tf32, void* stream) {
   using namespace qoc;
+  using namespace qoc::fwd;
   switch (dp) {
     case 320:
       return launch<5>(a, norm, prefpad, ws, S, L, clusters, tf32, stream);
@@ -133,6 +183,7 @@ extern "C" int qoc_stream_fwd(const void* a, const void* norm, void* prefpad,
 extern "C" int qoc_stream_fwd_plan(int dp, int* clusters, int* blocks,
                                    int* slots, int* smem) {
   using namespace qoc;
+  using namespace qoc::fwd;
   *blocks = CL;
   *slots = ex::NV;
   switch (dp) {
@@ -143,3 +194,5 @@ extern "C" int qoc_stream_fwd_plan(int dp, int* clusters, int* blocks,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // QOC_KERNELS_ONLY

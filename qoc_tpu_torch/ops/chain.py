@@ -252,12 +252,13 @@ def load_kernels():
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
     lib.qoc_stream_bwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
+    lib.qoc_tiled_tc_layout.argtypes = [cint, cint, cint_p]
     for fn in (lib.qoc_chain_fwd, lib.qoc_chain_bwd, lib.qoc_plane_fwd,
                lib.qoc_plane_bwd, lib.qoc_chain_dp, lib.qoc_chain_stash_slots,
                lib.qoc_expm_fwd, lib.qoc_expm_frechet, lib.qoc_expm_fwd_plan,
                lib.qoc_expm_frechet_plan, lib.qoc_stream_fwd,
                lib.qoc_stream_bwd, lib.qoc_stream_fwd_plan,
-               lib.qoc_stream_bwd_plan):
+               lib.qoc_stream_bwd_plan, lib.qoc_tiled_tc_layout):
         fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(

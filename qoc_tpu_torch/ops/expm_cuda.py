@@ -127,6 +127,19 @@ def _plan(dual, dp, device_index):
     return tuple(x.value for x in out)
 
 
+def tc_layout(kernel, dp):
+    """(panel rows, split stages, bytes of a raw k-slice, bytes of a split
+    stage, shared-memory bytes a block, raw ring stages) of the tiled
+    bf16_3x form of K3 (``kernel`` 3), K4 (4), K6's forward (6) or adjoint
+    (7) at dp, as the kernels' source defines them (``csrc/expm_fwd.cu``
+    qoc_tiled_tc_layout); no split stages: PR 11's mma.sync form."""
+    out = (ctypes.c_int * 6)()
+    if load_kernels().qoc_tiled_tc_layout(kernel, dp, out) != 0:
+        raise ValueError("no tiled bf16_3x form for kernel {} at dp {}"
+                         .format(kernel, dp))
+    return tuple(out)
+
+
 def launch_grid(dual, dp, batch, device_index):
     """(blocks, workspace matrices a block) of one K3 (K4 with ``dual``)
     launch on ``batch`` matrices: at most one block a matrix."""

@@ -1342,6 +1342,35 @@ def test_mode_tiled_expm_kernels_match_plain_versions(cuda_device, bf16_3x,
         assert not bool(dl[:, d:].any() or dl[:, :, d:].any())
 
 
+@pytest.mark.parametrize("d,batch", ((128, 1), (128, 133), (192, 1),
+                                     (192, 133), (250, 2)))
+def test_mode_tiled_expm_ragged_batches(cuda_device, bf16_3x, d, batch):
+    """K3/K4's tiled mode forms on ragged batches (one matrix, and 133: a
+    round of the card's resident blocks and one more), at padded 128, 192
+    (whose exact K4 has another panel shape) and 256, levels 2 and 4,
+    against their plain versions in the mode; the mode forms launched and
+    the exact ones not."""
+    from qoc_tpu_torch.ops import expm_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(d + batch)
+    for target_norm in (1.0, 7.0):
+        a = _member_planes(gen, 1, batch, d, target_norm, cuda_device)[0]
+        g = torch.randn(a.shape, dtype=torch.complex64, device=cuda_device,
+                        generator=gen)
+        before = _mode_counters(expm_cuda.expm_fwd,
+                                expm_cuda.expm_frechet_fwd)
+        k3 = expm_cuda.expm_fwd(a)
+        k4 = expm_cuda.expm_frechet_fwd(a.mH, g)
+        after = _mode_counters(expm_cuda.expm_fwd,
+                               expm_cuda.expm_frechet_fwd)
+        assert [(x[0] - y[0], x[1] - y[1]) for x, y in zip(after, before)] \
+            == [(1, 1), (1, 1)]
+        p3 = expm_cuda.expm_fwd_plain(a)
+        p4 = expm_cuda.expm_frechet_plain(a.mH, g)
+        torch.cuda.synchronize()
+        assert float((k3 - p3).abs().max() / p3.abs().max()) < MODE_RTOL
+        assert float((k4 - p4).abs().max() / p4.abs().max()) < MODE_RTOL
+
+
 @pytest.mark.parametrize("d,n_chains,n_steps", (
     (260, 1, 37), (330, 1, 9), (400, 1, 9), (512, 1, 9), (260, 3, 5),
     (400, 3, 5)))
@@ -1353,6 +1382,27 @@ def test_mode_stream_kernels_match_plain_versions(cuda_device, bf16_3x, d,
     trajectory form, one chain and the member axis, against the plain
     versions in the mode on every ladder level and in both seed modes,
     launched in its mode forms; the padded rows and steps exact."""
+    _check_mode_stream(cuda_device, d, n_chains, n_steps, target_norm)
+
+
+@pytest.mark.parametrize("dp", (320, 384, 448, 512))
+@pytest.mark.parametrize("n_chains,n_steps", ((1, 6), (2, 4)))
+def test_mode_stream_band_widths(cuda_device, bf16_3x, dp, n_chains,
+                                 n_steps):
+    """K6's mode form at each row band its wgmma takes as N (dp / 8 = 40,
+    48, 56, 64 rows), one chain and the member axis, both seed modes, at
+    levels 1 and 4 (squarings), d a few rows short of dp: as
+    test_mode_stream_kernels_match_plain_versions."""
+    for target_norm in (0.3, 7.0):
+        _check_mode_stream(cuda_device, dp - 3, n_chains, n_steps,
+                           target_norm)
+
+
+def _check_mode_stream(cuda_device, d, n_chains, n_steps, target_norm):
+    """K6's mode forms through the plane op (n_chains chains of n_steps
+    steps at d) against its plain version in the mode, totals, prefixes
+    and both seed modes' gradients within MODE_RTOL; the mode forms
+    launched and the exact ones not; padded rows and steps exact."""
     from qoc_tpu_torch.ops import chain
     gen = torch.Generator(device=cuda_device).manual_seed(
         d + n_chains + int(10 * target_norm))
