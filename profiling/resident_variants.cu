@@ -1,24 +1,33 @@
-// Variants of the resident adjoint (K2 and K5's adjoint,
+// Variants of the resident adjoint (K2, K5's adjoint and K4 at D = 64:
 // qoc_tpu_torch/csrc/chain_common.cuh Adjoint) for
-// profiling/resident_variants.py: the same kernels, chain_bwd_kernel and
-// plane_bwd_kernel, on other Adjoint shapes (threads a block, dual products
-// accumulated in one pass or two, chunks or powers stashed, k-pairs a loop
-// iteration of the products, basis terms a loop iteration of K2's generator
-// build), each behind a
-// C entry with the package's arguments (qoc_chain_bwd, qoc_plane_bwd). The
-// package builds only Adjoint<512>; this file is built by the script alone.
+// profiling/resident_variants.py: the package's kernels, chain_bwd_kernel,
+// plane_bwd_kernel and frechet_resident_kernel, on other Adjoint shapes
+// (threads a block, dual products accumulated in one pass or two, chunks or
+// powers stashed, k-pairs a loop iteration of the exact product, basis terms
+// a loop iteration of K2's generator build, the bf16_3x mode's product form,
+// and the ablation of the step's elementwise passes), each behind C entries
+// with the package's arguments (qoc_chain_bwd, qoc_plane_bwd, and
+// qoc_expm_frechet's at dp = 64). The script builds one variant a
+// translation unit (QOC_ONE_VARIANT and that variant's line), all at once;
+// built as it stands, the file holds every variant.
 
+#define QOC_KERNELS_ONLY
 #include "../qoc_tpu_torch/csrc/chain_bwd.cu"
+#include "../qoc_tpu_torch/csrc/expm_frechet.cu"
 #include "../qoc_tpu_torch/csrc/plane_bwd.cu"
 
-#define VARIANT(NAME, NTH, BOTH_ACCUMULATORS, STASH_POWERS, UNROLL, KU)      \
+// NAME: Adjoint<NTH, BOTH_ACCUMULATORS, STASH_POWERS, UNROLL, KU, TC,
+// ABLATE>.
+#define VARIANT(NAME, NTH, BOTH_ACCUMULATORS, STASH_POWERS, UNROLL, KU, TC,  \
+                ABLATE)                                                      \
+  using NAME##_adjoint = qoc::Adjoint<NTH, BOTH_ACCUMULATORS, STASH_POWERS,  \
+                                      UNROLL, KU, TC, ABLATE>;               \
   extern "C" int NAME##_chain(const void* w, const void* basis_h,            \
                               const void* norm, const void* prefpad,         \
                               const void* seeds, void* gA, void* stash,      \
                               int S, int L, int n_b, int per_step,           \
                               void* stream) {                                \
-    return qoc::launch_chain_bwd<                                            \
-        qoc::Adjoint<NTH, BOTH_ACCUMULATORS, STASH_POWERS, UNROLL, KU>>(     \
+    return qoc::launch_chain_bwd<NAME##_adjoint>(                            \
         w, basis_h, norm, prefpad, seeds, gA, stash, S, L, n_b, per_step,    \
         stream);                                                             \
   }                                                                          \
@@ -26,24 +35,48 @@
                               const void* prefpad, const void* seeds,        \
                               void* gA, void* stash, int S, int L,           \
                               int per_step, void* stream) {                  \
-    return qoc::launch_plane_bwd<                                            \
-        qoc::Adjoint<NTH, BOTH_ACCUMULATORS, STASH_POWERS, UNROLL, KU>>(     \
+    return qoc::launch_plane_bwd<NAME##_adjoint>(                            \
         a, norm, prefpad, seeds, gA, stash, S, L, per_step, stream);         \
+  }                                                                          \
+  extern "C" int NAME##_frechet(const void* b, const void* g,                \
+                                const void* norm, void* out, void* ws,       \
+                                int B, int grid, void* stream) {             \
+    return qoc::resident<NAME##_adjoint>(b, g, norm, out, ws, B, grid,       \
+                                         stream);                            \
   }
 
-// 512 threads (the package's), two-pass dual products, chunks stashed, 4
-// k-pairs an iteration of the products, 7 basis terms an iteration of K2's
-// generator build.
-VARIANT(t512_twopass_chunks_u4_k7, 512, false, false, 4, 7)
-VARIANT(t512_twopass_chunks_u4_k3, 512, false, false, 4, 3)
-VARIANT(t512_twopass_chunks_u4_k1, 512, false, false, 4, 1)
-VARIANT(t512_twopass_chunks_u2_k7, 512, false, false, 2, 7)
-VARIANT(t512_twopass_chunks_u8_k7, 512, false, false, 8, 7)
-VARIANT(t256_twopass_chunks_u2_k7, 256, false, false, 2, 7)
-VARIANT(t256_twopass_chunks_u4_k7, 256, false, false, 4, 7)
-VARIANT(t512_onepass_chunks_u4_k7, 512, true, false, 4, 7)
-VARIANT(t256_onepass_chunks_u2_k7, 256, true, false, 2, 7)
-VARIANT(t512_twopass_powers_u4_k7, 512, false, true, 4, 7)
+#ifndef QOC_ONE_VARIANT
+
+// Exact (TC 0). 512 threads (the package's), two-pass dual products,
+// chunks stashed, 4 k-pairs an iteration of the products, 7 basis terms an
+// iteration of K2's generator build.
+VARIANT(t512_twopass_chunks_u4_k7, 512, false, false, 4, 7, 0, 0)
+VARIANT(t512_twopass_chunks_u4_k3, 512, false, false, 4, 3, 0, 0)
+VARIANT(t512_twopass_chunks_u4_k1, 512, false, false, 4, 1, 0, 0)
+VARIANT(t512_twopass_chunks_u2_k7, 512, false, false, 2, 7, 0, 0)
+VARIANT(t512_twopass_chunks_u8_k7, 512, false, false, 8, 7, 0, 0)
+VARIANT(t256_twopass_chunks_u2_k7, 256, false, false, 2, 7, 0, 0)
+VARIANT(t256_twopass_chunks_u4_k7, 256, false, false, 4, 7, 0, 0)
+VARIANT(t512_onepass_chunks_u4_k7, 512, true, false, 4, 7, 0, 0)
+VARIANT(t256_onepass_chunks_u2_k7, 256, true, false, 2, 7, 0, 0)
+VARIANT(t512_twopass_powers_u4_k7, 512, false, true, 4, 7, 0, 0)
 // The first design's shape: 256 threads, both accumulators, powers stashed,
 // 2 k-pairs and one basis term an iteration.
-VARIANT(t256_onepass_powers_u2_k1, 256, true, true, 2, 1)
+VARIANT(t256_onepass_powers_u2_k1, 256, true, true, 2, 1, 0, 0)
+
+// The bf16_3x mode (chain_common.cuh's Adjoint note: TC 1 AdjointTC1, TC 3
+// AdjointTC3, TC 2 TC 3 with the pipelined k-loop) on 512 and 256 threads,
+// a shorter build, and forms with their elementwise passes reduced to
+// stores (ABLATE 1).
+VARIANT(tc1_t512_k7, 512, false, false, 4, 7, 1, 0)
+VARIANT(tc3_t512_k7, 512, false, false, 4, 7, 3, 0)
+VARIANT(tc3_t512_k3, 512, false, false, 4, 3, 3, 0)
+VARIANT(tc2_t512_k7, 512, false, false, 4, 7, 2, 0)
+VARIANT(tc1_t256_k7, 256, false, false, 4, 7, 1, 0)
+VARIANT(tc3_t256_k7, 256, false, false, 4, 7, 3, 0)
+VARIANT(tc2_t256_k7, 256, false, false, 4, 7, 2, 0)
+VARIANT(tc1_t512_k7_products, 512, false, false, 4, 7, 1, 1)
+VARIANT(tc3_t512_k7_products, 512, false, false, 4, 7, 3, 1)
+VARIANT(tc2_t256_k7_products, 256, false, false, 4, 7, 2, 1)
+
+#endif  // QOC_ONE_VARIANT

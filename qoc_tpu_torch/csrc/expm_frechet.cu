@@ -28,7 +28,7 @@
 // does not divide): at the d = 2^7 planes on an H100 it beat K3's 8 x 2
 // and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
 // The bf16_3x mode (tf32 != 0) runs each path's second instantiation (3 x
-// TF32 tensor-core products, _D12A in dual form): AdjointTC at D = 64, the
+// TF32 tensor-core products, _D12A in dual form): AdjointTC3 at D = 64, the
 // tiled ladder's TC form above (expm_common.cuh Product<2>, PR 11's
 // mma.sync form on the same panels: the wgmma form measured slower at the
 // d = 2^7 planes, PERF.md).
@@ -40,10 +40,10 @@ namespace {
 
 // D = 64: (value, tangent) and four scratch matrices of the dual ladder
 // resident, + the 1-norm scratch.
-constexpr size_t RESIDENT_SMEM = 6 * MAT * sizeof(float2) + RED_BYTES;
+constexpr size_t RESIDENT_SMEM = DUAL_SMEM;
 
 template <class A>
-__global__ void __launch_bounds__(NTA, 1)
+__global__ void __launch_bounds__(A::THREADS, 1)
     frechet_resident_kernel(const float2* __restrict__ b,
                             const float2* __restrict__ g,
                             const float* __restrict__ norm,
@@ -59,11 +59,23 @@ __global__ void __launch_bounds__(NTA, 1)
   float2* st = stash + (size_t)blockIdx.x * STASH_SLOTS * MAT;
   const int level = ladder_level(__ldg(norm));
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
-    load<NTA, typename A::Map>(buf[1], b + (size_t)m * MAT);
-    load<NTA, typename A::Map>(buf[2], g + (size_t)m * MAT);
+    load<A::THREADS, typename A::Map>(buf[1], b + (size_t)m * MAT);
+    load<A::THREADS, typename A::Map>(buf[2], g + (size_t)m * MAT);
     __syncthreads();
     A::expm_dual(buf, level, st, red, out + (size_t)m * MAT);
   }
+}
+
+template <class A>
+int resident(const void* b, const void* g, const void* norm, void* out,
+             void* ws, int B, int grid, void* stream) {
+  return ex::launch<A::THREADS>(frechet_resident_kernel<A>, RESIDENT_SMEM,
+                                grid, stream, 1,
+                                static_cast<const float2*>(b),
+                                static_cast<const float2*>(g),
+                                static_cast<const float*>(norm),
+                                static_cast<float2*>(out),
+                                static_cast<float2*>(ws), B);
 }
 
 template <int T, bool TC>
@@ -94,25 +106,24 @@ int tiled_plan(int* blocks, int* smem) {
 }  // namespace
 }  // namespace qoc
 
+#ifndef QOC_KERNELS_ONLY  // (profiling/resident_variants.cu)
+
 // b, g (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max
 // 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_frechet_plan (the Paterson-Stockmeyer chunks' stash at
 // dp = 64). dp is 64, 128, 192 or 256; tf32 != 0 runs the bf16_3x mode's
-// instantiation. Returns the CUDA error.
+// instantiation (at dp = 64, tf32 = 2 its other form, chain_common.cuh
+// with_adjoint). Returns the CUDA error.
 extern "C" int qoc_expm_frechet(const void* b, const void* g,
                                 const void* norm, void* out, void* ws, int B,
                                 int dp, int grid, int tf32, void* stream) {
   using namespace qoc;
   switch (dp) {
     case 64:
-      return ex::launch<NTA>(tf32 ? frechet_resident_kernel<AdjointTC>
-                                  : frechet_resident_kernel<AdjointNTA>,
-                             RESIDENT_SMEM, grid,
-                             stream, 1, static_cast<const float2*>(b),
-                             static_cast<const float2*>(g),
-                             static_cast<const float*>(norm),
-                             static_cast<float2*>(out),
-                             static_cast<float2*>(ws), B);
+      return with_adjoint(tf32, [&](auto form) {
+        return resident<typename decltype(form)::type>(b, g, norm, out, ws,
+                                                       B, grid, stream);
+      });
     case 128: return tiled<2>(b, g, norm, out, ws, B, grid, tf32, stream);
     case 192: return tiled<3>(b, g, norm, out, ws, B, grid, tf32, stream);
     case 256: return tiled<4>(b, g, norm, out, ws, B, grid, tf32, stream);
@@ -136,3 +147,5 @@ extern "C" int qoc_expm_frechet_plan(int dp, int* blocks, int* slots,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // QOC_KERNELS_ONLY

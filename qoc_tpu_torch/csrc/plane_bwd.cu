@@ -25,8 +25,8 @@
 // Adjoint), one block of 512 threads per segment chain with 7 resident
 // matrices, two-pass dual products and the per-block stash of the
 // Paterson-Stockmeyer chunks; the plane is staged with P_{t-1} and the seed
-// while the T update runs. The bf16_3x mode (tf32 != 0) is K2's,
-// AdjointTC.
+// while the T update runs. The bf16_3x mode (tf32 != 0) runs K2's,
+// AdjointTC3, the faster of its two forms here too.
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -84,20 +84,22 @@ int launch_plane_bwd(const void* a, const void* norm, const void* prefpad,
 }  // namespace
 }  // namespace qoc
 
+#ifndef QOC_KERNELS_ONLY  // (profiling/resident_variants.cu)
+
 // a (S, L, DP, DP) complex64, the forward's planes; norm -> 1 f32 (batch-max
 // inf-norm of the planes = 1-norm of A^H); prefpad (S, L + 1, DP, DP) from
 // the forward; seeds (S, DP, DP), or (S, L, DP, DP) with per_step != 0; gA
 // (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP) scratch. Returns the
-// CUDA error; tf32 != 0: the bf16_3x mode.
+// CUDA error; tf32: 1 the bf16_3x mode, 2 its other form (chain_common.cuh
+// with_adjoint).
 extern "C" int qoc_plane_bwd(const void* a, const void* norm,
                              const void* prefpad, const void* seeds, void* gA,
                              void* stash, int S, int L, int per_step,
                              int tf32, void* stream) {
-  if (tf32)
-    return qoc::launch_plane_bwd<qoc::AdjointTC>(a, norm, prefpad, seeds, gA,
-                                                  stash, S, L, per_step,
-                                                  stream);
-  return qoc::launch_plane_bwd<qoc::AdjointNTA>(a, norm, prefpad, seeds, gA,
-                                                 stash, S, L, per_step,
-                                                 stream);
+  return qoc::with_adjoint(tf32, [&](auto form) {
+    return qoc::launch_plane_bwd<typename decltype(form)::type>(
+        a, norm, prefpad, seeds, gA, stash, S, L, per_step, stream);
+  });
 }
+
+#endif  // QOC_KERNELS_ONLY

@@ -246,8 +246,7 @@ def load_kernels():
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
                                    cint, cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
-    lib.qoc_chain_block.argtypes = [cint, cint_p, cint_p]
-    lib.qoc_chain_block.restype = None
+    lib.qoc_chain_block.argtypes = [cint, cint, cint_p, cint_p, cint_p]
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
@@ -258,7 +257,8 @@ def load_kernels():
                lib.qoc_expm_fwd, lib.qoc_expm_frechet, lib.qoc_expm_fwd_plan,
                lib.qoc_expm_frechet_plan, lib.qoc_stream_fwd,
                lib.qoc_stream_bwd, lib.qoc_stream_fwd_plan,
-               lib.qoc_stream_bwd_plan, lib.qoc_tiled_tc_layout):
+               lib.qoc_stream_bwd_plan, lib.qoc_tiled_tc_layout,
+               lib.qoc_chain_block):
         fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(
@@ -266,13 +266,24 @@ def load_kernels():
     return lib
 
 
-def resident_block(adjoint):
-    """(threads, dynamic shared-memory bytes) a block of the resident chain
-    kernels: the forward's (K1, K5) or, ``adjoint``, K2's and K5's."""
-    threads, smem = ctypes.c_int(), ctypes.c_int()
-    load_kernels().qoc_chain_block(int(adjoint), ctypes.byref(threads),
-                                   ctypes.byref(smem))
-    return threads.value, smem.value
+_RESIDENT_KERNELS = {"K1": 1, "K5 fwd": 1, "K2": 2, "K5 bwd": 5, "K4": 4}
+
+
+def resident_block(kernel, tf32=0):
+    """(threads, dynamic shared-memory bytes, product form) a block of a
+    resident kernel, ``kernel`` one of "K1", "K5 fwd" (the forwards' block),
+    "K2", "K5 bwd" or "K4" (at dp = 64, whose shared memory is the dual
+    ladder's six slots), as its C entry launches it for ``tf32``: 0 exact, 1
+    the bf16_3x mode, 2 the mode's other adjoint form (csrc/chain_common.cuh
+    with_adjoint). The form is csrc/chain_common.cuh MapOf's: 0 exact, 1
+    mm_acc_tc, 3 mm_acc_3x."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = load_kernels().qoc_chain_block(_RESIDENT_KERNELS[kernel], tf32,
+                                         *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError("qoc_chain_block failed: CUDA error {}".format(
+            err))
+    return tuple(x.value for x in out)
 
 
 def _check_norm(norm, dev):
