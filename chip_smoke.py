@@ -220,7 +220,6 @@ the kernels; the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import contextlib
-import ctypes
 import json
 import subprocess
 import sys
@@ -619,38 +618,30 @@ RESIDENT_ENTRY = {
     for tc in (False, True)}
 ADJOINT_KERNEL = {"K2": "chain_bwd_kernel", "K5 bwd": "plane_bwd_kernel",
                   "K4": "frechet_resident_kernel"}
-# The resident adjoint's instantiations by product form (chain_common.cuh
-# AdjointNTA, and the bf16_3x mode's two forms).
-ADJOINT_FORMS = {0: "AdjointNTA", 1: "AdjointTC1", 3: "AdjointTC3"}
 
 
 def adjoint_entry(key, tf32):
     """ptxas entry strings of the resident adjoint ``key`` (K2, "K5 bwd", K4
     at dp = 64) as its C entry launches it for ``tf32`` (0 exact, 1 the
-    mode's form, 2 the mode's other form)."""
+    bf16_3x mode: chain_common.cuh AdjointNTA, AdjointTC)."""
     from qoc_tpu_torch.ops import chain
-    threads, _, form = chain.resident_block(key, tf32)
+    threads = chain.resident_block(key, tf32)[0]
     return (ADJOINT_KERNEL[key],
-            "AdjointILi{}ELb0ELb0ELi4ELi7ELi{}ELi0EE".format(threads, form))
+            "AdjointILi{}ELb0ELb0ELi4ELi7ELb{}ELb0EE".format(
+                threads, int(bool(tf32))))
 
 
-def resident_design_line(key, s_count, bound_ms, ms, tf32=None):
+def resident_design_line(key, s_count, bound_ms, ms):
     """design_line of a resident chain kernel launched on s_count segment
-    chains, one block each (a key ending in " mode": its bf16_3x form;
-    ``tf32`` = 2: the adjoint's other form)."""
+    chains, one block each (a key ending in " mode": its bf16_3x form)."""
     from qoc_tpu_torch.ops import chain
     tc = key.endswith(" mode")
     base = key.replace(" mode", "").replace(" step", "").replace(
         " member", "")
-    if tf32 is None:
-        tf32 = int(tc)
-    threads, smem, form = chain.resident_block(base, tf32)
-    if base in ADJOINT_KERNEL:
-        name = "{} ({})".format(key, ADJOINT_FORMS[form]) if tf32 else key
-        return design_line(name, adjoint_entry(base, tf32), s_count, 1, smem,
-                           bound_ms, ms, threads)
-    return design_line(key, RESIDENT_ENTRY[tc][base], s_count, 1, smem,
-                       bound_ms, ms, threads)
+    threads, smem = chain.resident_block(base, int(tc))
+    entry = (adjoint_entry(base, int(tc)) if base in ADJOINT_KERNEL else
+             RESIDENT_ENTRY[tc][base])
+    return design_line(key, entry, s_count, 1, smem, bound_ms, ms, threads)
 
 
 def phase_device():
@@ -3873,17 +3864,19 @@ def _mode_check(label, rels, env):
                                "{} / {}".format(label, name, fwd, grad))
 
 
-def _adjoint_check(label, rels):
-    """Raise where a resident adjoint's bf16_3x form (K2, K5's adjoint, K4
-    at padded 64) is further than MODE_RTOL (relative) from its plain
-    version in the mode."""
+def _adjoint_check(adjoint, kernel, label, rels):
+    """Raise where a resident adjoint's bf16_3x form (``kernel``: K2, K5's
+    adjoint, K4 at padded 64) is further than MODE_RTOL (relative) from its
+    plain version in the mode on the case ``label``; adjoint[kernel] keeps
+    the worst (rel, label)."""
+    adjoint[kernel] = max(adjoint.get(kernel, (0.0, "")), (max(rels), label))
     if max(rels) > MODE_RTOL:
         raise RuntimeError("{}: the bf16_3x adjoint is {} from its plain "
                            "version in the mode, above {}".format(
                                label, max(rels), MODE_RTOL))
 
 
-def _mode_member_kernels(dev, rng, gen, worst):
+def _mode_member_kernels(dev, rng, gen, worst, adjoint):
     """Phase 36's K1/K2: the trajectory op on MODE_MEMBER_CASES and at
     d = 16 against float64 matrix_exp products."""
     from qoc_tpu_torch.ops import chain
@@ -3919,7 +3912,7 @@ def _mode_member_kernels(dev, rng, gen, worst):
             label = "{} members x {} steps, level {}".format(
                 n_members, n_steps, LEVEL_NORMS.index(target))
             _mode_check(label, (rels[:2], rels[2:]), (env[:2], env[2:]))
-            _adjoint_check(label, rels[2:])
+            _adjoint_check(adjoint, "K2" + tag, label, rels[2:])
             for key, x, y in (("K1" + tag + " mode", got[1], want[1]),
                               ("K2" + tag + " mode", got[2], want[2]),
                               ("K2" + tag + " mode step", got[3], want[3])):
@@ -3950,7 +3943,7 @@ def _mode_member_kernels(dev, rng, gen, worst):
     return rel
 
 
-def _mode_headline(dev, headline_w, worst):
+def _mode_headline(dev, headline_w, worst, adjoint):
     """Phase 36 at the headline's own shapes: K1 and K2 (both seed modes)
     against their plain versions in the mode and the exact kernels."""
     from qoc_tpu_torch.ops import chain
@@ -3986,7 +3979,7 @@ def _mode_headline(dev, headline_w, worst):
                     ([], [rel]) if grad else ([rel], []),
                     ([], [env]) if grad else ([env], []))
         if grad:
-            _adjoint_check("headline shapes, " + key, [rel])
+            _adjoint_check(adjoint, "K2", "headline shapes, " + key, [rel])
         worst[key] = max(worst.get(key, 0.0), float((k - p).abs().max()))
         rows.append("{} max|err| {:.3e} (rel {:.2e}), rel vs exact {:.2e}"
                     "".format(key, float((k - p).abs().max()), rel, env))
@@ -3995,7 +3988,7 @@ def _mode_headline(dev, headline_w, worst):
                       chain.ladder_level(ninf), "; ".join(rows)), flush=True)
 
 
-def _mode_plane_kernels(dev, rng, gen, worst):
+def _mode_plane_kernels(dev, rng, gen, worst, adjoint):
     """Phase 36's K5: the plane op's trajectory form on MODE_PLANE_CASES
     and against float64 matrix_exp products."""
     from qoc_tpu_torch.ops import chain
@@ -4029,7 +4022,7 @@ def _mode_plane_kernels(dev, rng, gen, worst):
             label = "K5 d = {}, {} chains x {} steps, level {}".format(
                 d, n_chains, n_steps, LEVEL_NORMS.index(target))
             _mode_check(label, (rels[:2], rels[2:]), (env[:2], env[2:]))
-            _adjoint_check(label, rels[2:])
+            _adjoint_check(adjoint, "K5 bwd", label, rels[2:])
             for key, x, y in (("K5 fwd mode", got[1], want[1]),
                               ("K5 bwd mode", got[2], want[2]),
                               ("K5 bwd mode step", got[3], want[3])):
@@ -4056,7 +4049,7 @@ def _mode_plane_kernels(dev, rng, gen, worst):
     return rel
 
 
-def _mode_expm_kernels(dev, gen, worst):
+def _mode_expm_kernels(dev, gen, worst, adjoint):
     """Phase 36's K3/K4 at padded 64 on MODE_EXPM_CASES, every level:
     against their plain versions in the mode and the exact kernels, the
     padding exact, and at batch 37 against float64 matrix_exp and its
@@ -4094,7 +4087,7 @@ def _mode_expm_kernels(dev, gen, worst):
                 env3, env4 = max(env3, f64[0]), max(env4, f64[1])
             _mode_check("K3/K4 d = {}, batch {}, level {}".format(
                 d, batch, level), ([rel3], [rel4]), ([env3], [env4]))
-            _adjoint_check("K4 d = {}, batch {}, level {}".format(
+            _adjoint_check(adjoint, "K4", "d = {}, batch {}, level {}".format(
                 d, batch, level), [rel4])
             worst["K3 mode"] = max(worst.get("K3 mode", 0.0), err3)
             worst["K4 mode"] = max(worst.get("K4 mode", 0.0), err4)
@@ -4114,15 +4107,20 @@ def phase_mode_kernels(dev, headline_w=None):
         headline_w = headline_weights(table3_problem(1)[0], dev)
     rng = np.random.default_rng(36)
     gen = torch.Generator(device=dev).manual_seed(36)
-    worst = {}
-    f64_chain = _mode_member_kernels(dev, rng, gen, worst)
-    _mode_headline(dev, headline_w, worst)
-    f64_plane = _mode_plane_kernels(dev, rng, gen, worst)
-    _mode_expm_kernels(dev, gen, worst)
+    worst, adjoint = {}, {}
+    f64_chain = _mode_member_kernels(dev, rng, gen, worst, adjoint)
+    _mode_headline(dev, headline_w, worst, adjoint)
+    f64_plane = _mode_plane_kernels(dev, rng, gen, worst, adjoint)
+    _mode_expm_kernels(dev, gen, worst, adjoint)
     print("phase 36 bf16_3x: chain op 3 members x 37 steps and plane op 37 "
           "steps at d = 16 vs float64 matrix_exp products rel {:.2e} / "
           "{:.2e}; max|err| vs plain {}".format(f64_chain, f64_plane, worst),
           flush=True)
+    print("phase 36 bf16_3x resident adjoints, worst rel vs plain in the "
+          "mode (MODE_RTOL {:.1e}): {}".format(MODE_RTOL, "; ".join(
+              "{} {:.6e} ({}; margin {:.1%})".format(
+                  kernel, rel, label, 1 - rel / MODE_RTOL)
+              for kernel, (rel, label) in adjoint.items())), flush=True)
     return worst
 
 
@@ -4273,59 +4271,6 @@ def phase_mode_grape(dev, exact_it_s=None):
     return launches, rates
 
 
-def other_form(key, *args):
-    """The bf16_3x mode's other form of the resident adjoint ``key`` (K2,
-    "K5 bwd", K4 at dp = 64; chain_common.cuh AdjointTC1) on its
-    wrapper's arguments, launched through the kernels' C entry with tf32 =
-    2 and counted nowhere: the form phase 38 times beside the one the
-    wrappers launch."""
-    from qoc_tpu_torch.ops import chain, expm_cuda
-    if key == "K4":
-        b, g = args
-        return expm_cuda._launch(True, D, expm_cuda._norm_max(b), b, g,
-                                 tf32=2)
-    lib = chain.load_kernels()
-    seeds = args[-1]
-    s_count, length = args[0].shape[:2]
-    per_step = int(chain.per_step_seeds(seeds))
-    if key == "K2":
-        fn, ints = lib.qoc_chain_bwd, (s_count, length, args[0].shape[2],
-                                       per_step)
-    else:
-        fn, ints = lib.qoc_plane_bwd, (s_count, length, per_step)
-    out = torch.empty((s_count, length, D, D), dtype=torch.complex64,
-                      device=seeds.device)
-    stash = chain._stash(lib, s_count, seeds.device)
-    with torch.cuda.device(seeds.device):
-        err = fn(*[x.data_ptr() for x in args], out.data_ptr(),
-                 stash.data_ptr(), *ints, 2, chain._stream(seeds.device))
-    if err:
-        raise RuntimeError("{}'s other bf16_3x form failed to launch: CUDA "
-                           "error {}".format(key, err))
-    return out
-
-
-def _form_times(label, key, wrapper, args):
-    """Phase 38's a b b a of a resident adjoint's two bf16_3x forms on the
-    same inputs: the form its wrapper launches (a) and other_form (b); the
-    printed line, the a times and the b times."""
-    from qoc_tpu_torch.ops import chain
-
-    def run_a():
-        return wrapper(*args, MODE)
-
-    def run_b():
-        return other_form(key, *args)
-    times = [cuda_ms(f, 10) for f in (run_a, run_b, run_b, run_a)]
-    diff = float((run_a() - run_b()).abs().max())
-    names = [ADJOINT_FORMS[chain.resident_block(key, tf32)[2]]
-             for tf32 in (1, 2)]
-    return ("phase 38 bf16_3x forms, {} ({}): {} (launched) {:.3f}, {:.3f} "
-            "ms; {} {:.3f}, {:.3f} ms (a b b a); max|diff| {:.1e}".format(
-                label, key, names[0], times[0], times[3], names[1],
-                times[1], times[2], diff)), times[::3], times[1:3]
-
-
 def _mode_times(prefix, fwd, bwd, fwd_plain, bwd_plain, fwd_args, bwd_args,
                 seeds):
     """ms of the forward and adjoint wrappers in the mode and exact, and of
@@ -4393,7 +4338,7 @@ def phase_mode_timing(dev, headline_w=None):
     if headline_w is None:
         headline_w = headline_weights(table3_problem(1)[0], dev)
     gen = torch.Generator(device=dev).manual_seed(38)
-    ms, bounds, lines, forms = {}, {}, [], {}
+    ms, bounds, lines = {}, {}, []
     op = chain.ChainExpmPropagate(table3_basis(), dev, torch.float32)
     ms_op, w_ms = multistart_weights(dev)
     n_starts = w_ms.shape[0]
@@ -4416,10 +4361,6 @@ def phase_mode_timing(dev, headline_w=None):
             keys, chain.chain_fwd, chain.chain_bwd, chain.chain_fwd_plain,
             chain.chain_bwd_plain, (w_seg, the_op.basis, n1),
             (w_seg, the_op.basis_h, ninf, pref), seeds))
-        for suffix, s in seeds.items():
-            forms[keys[1] + " mode" + suffix] = _form_times(
-                label + suffix.replace(" step", ", per-step seeds"), "K2",
-                chain.chain_bwd, (w_seg, the_op.basis_h, ninf, pref, s))
         a = torch.einsum("jk,kab->jab", w_seg.reshape(-1, the_op.n_b).to(
             torch.complex64), the_op.basis)
         absa = a.abs()
@@ -4448,10 +4389,6 @@ def phase_mode_timing(dev, headline_w=None):
         ("K5 fwd", "K5 bwd"), chain.plane_fwd, chain.plane_bwd,
         chain.plane_fwd_plain, chain.plane_bwd_plain, (a_seg, n1),
         (a_seg, ninf, pref), seeds))
-    for suffix, s in seeds.items():
-        forms["K5 bwd mode" + suffix] = _form_times(
-            "M4 planes" + suffix.replace(" step", ", per-step seeds"),
-            "K5 bwd", chain.plane_bwd, (a_seg, ninf, pref, s))
     step_norms = a_seg.reshape(-1, D, D).abs()
     for mode in (MODE, "highest"):
         tag = " mode" if mode == MODE else " exact"
@@ -4482,8 +4419,6 @@ def phase_mode_timing(dev, headline_w=None):
         "K4 mode plain": cuda_ms(
             lambda: expm_cuda.expm_frechet_plain(ah, g, MODE), 2),
     })
-    forms["K4 mode"] = _form_times("M4 planes", "K4",
-                                   expm_cuda.expm_frechet_fwd, (ah, g))
     a_req = a.clone().requires_grad_(True)
     u = torch.linalg.matrix_exp(a_req)
     ms["K4 mode library"] = cuda_ms(lambda: torch.autograd.grad(
@@ -4512,36 +4447,20 @@ def phase_mode_timing(dev, headline_w=None):
                   key, ms[key], ms[exact], bounds[key][0], bounds[key][1],
                   bounds[key][2], bounds[key][0] / ms[key], bounds[exact][0],
                   bounds[exact][0] / ms[exact]), flush=True)
-    for key, (line, a_ms, b_ms) in forms.items():
-        print(line + "; bound {:.3f} ms: {:.0%} / {:.0%} of it".format(
-            bounds[key][0], bounds[key][0] / min(a_ms),
-            bounds[key][0] / min(b_ms)), flush=True)
-        ms[key + " other form"] = min(b_ms)
     for key, s_count in (("K1 mode", lines[0][1]), ("K2 mode", lines[0][1]),
                          ("K5 fwd mode", lines[2][1]),
                          ("K5 bwd mode", lines[2][1])):
         print("phase 38 design: " + resident_design_line(
             key, s_count, bounds[key][0], ms[key]), flush=True)
-    for key, s_count in (("K2 mode", lines[0][1]),
-                         ("K2 member mode", lines[1][1]),
-                         ("K5 bwd mode", lines[2][1])):
-        print("phase 38 design, other form: " + resident_design_line(
-            key, s_count, bounds[key][0], ms[key + " other form"], tf32=2),
-            flush=True)
     for key, dual in (("K3 mode", False), ("K4 mode", True)):
         blocks = expm_cuda.launch_grid(dual, D, a.shape[0], dev.index)[0]
         smem = expm_cuda._plan(dual, D, dev.index)[2]
-        for tf32 in (1, 2) if dual else (1,):
-            name, entry, threads = key, RESIDENT_ENTRY[True]["K3"], 256
-            if dual:
-                threads, _, form = chain.resident_block("K4", tf32)
-                entry = adjoint_entry("K4", tf32)
-                name = "{} ({})".format(key, ADJOINT_FORMS[form])
-            t = ms[key] if tf32 == 1 else ms[key + " other form"]
-            print("phase 38 design{}: ".format(
-                ", other form" if tf32 == 2 else "") + design_line(
-                    name, entry, blocks, 1, smem, bounds[key][0], t,
-                    threads), flush=True)
+        threads, entry = ((chain.resident_block("K4", 1)[0],
+                           adjoint_entry("K4", 1)) if dual else
+                          (256, RESIDENT_ENTRY[True]["K3"]))
+        print("phase 38 design: " + design_line(
+            key, entry, blocks, 1, smem, bounds[key][0], ms[key], threads),
+            flush=True)
     return ms, bounds
 
 
@@ -5223,9 +5142,6 @@ def main():
     tiled_ms, tiled_bounds = run_phase(phase_mode_tiled_timing, dev)
     ms.update(tiled_ms)
     bounds.update(tiled_bounds)
-    from qoc_tpu_torch.ops import chain
-    forms = {key: ADJOINT_FORMS[chain.resident_block(key, 1)[2]]
-             for key in ADJOINT_KERNEL}
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -5265,26 +5181,24 @@ def main():
              "chain_pallas.py:718", "K5 member bwd"),
             ("chain_fwd (bf16_3x)", "chain_fwd.cu", "chain_pallas.py:236",
              "K1 mode"),
-            ("chain_bwd (bf16_3x, {})".format(forms["K2"]), "chain_bwd.cu",
-             "chain_pallas.py:262", "K2 mode"),
-            ("chain_bwd (bf16_3x, {}, per-step seeds)".format(forms["K2"]),
-             "chain_bwd.cu", "chain_pallas.py:262", "K2 mode step"),
+            ("chain_bwd (bf16_3x)", "chain_bwd.cu", "chain_pallas.py:262",
+             "K2 mode"),
+            ("chain_bwd (bf16_3x, per-step seeds)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 mode step"),
             ("plane_fwd (bf16_3x)", "plane_fwd.cu", "chain_pallas.py:695",
              "K5 fwd mode"),
-            ("plane_bwd (bf16_3x, {})".format(forms["K5 bwd"]),
-             "plane_bwd.cu", "chain_pallas.py:718", "K5 bwd mode"),
-            ("plane_bwd (bf16_3x, {}, per-step seeds)".format(
-                forms["K5 bwd"]), "plane_bwd.cu", "chain_pallas.py:718",
-             "K5 bwd mode step"),
+            ("plane_bwd (bf16_3x)", "plane_bwd.cu", "chain_pallas.py:718",
+             "K5 bwd mode"),
+            ("plane_bwd (bf16_3x, per-step seeds)", "plane_bwd.cu",
+             "chain_pallas.py:718", "K5 bwd mode step"),
             ("expm_fwd (bf16_3x, padded 64)", "expm_fwd.cu",
              "expm_pallas.py:264", "K3 mode"),
-            ("expm_frechet (bf16_3x, padded 64, {})".format(forms["K4"]),
-             "expm_frechet.cu", "expm_pallas.py:397", "K4 mode"),
+            ("expm_frechet (bf16_3x, padded 64)", "expm_frechet.cu",
+             "expm_pallas.py:397", "K4 mode"),
             ("chain_fwd (bf16_3x, member-batched)", "chain_fwd.cu",
              "chain_pallas.py:236", "K1 member mode"),
-            ("chain_bwd (bf16_3x, {}, member-batched)".format(
-                forms["K2"]), "chain_bwd.cu", "chain_pallas.py:262",
-             "K2 member mode"),
+            ("chain_bwd (bf16_3x, member-batched)", "chain_bwd.cu",
+             "chain_pallas.py:262", "K2 member mode"),
             ("expm_fwd (bf16_3x, tiled, padded 128-256)", "expm_fwd.cu",
              "expm_pallas.py:264", "K3 tiled mode"),
             ("expm_frechet (bf16_3x, tiled, padded 128-256)",

@@ -4,9 +4,9 @@
 // plane_bwd_kernel and frechet_resident_kernel, on other Adjoint shapes
 // (threads a block, dual products accumulated in one pass or two, chunks or
 // powers stashed, k-pairs a loop iteration of the exact product, basis terms
-// a loop iteration of K2's generator build, the bf16_3x mode's product form,
-// and the ablation of the step's elementwise passes), each behind C entries
-// with the package's arguments (qoc_chain_bwd, qoc_plane_bwd, and
+// a loop iteration of K2's generator build, the bf16_3x mode, and the
+// ablation of the step's elementwise passes), each behind C entries with
+// the package's arguments (qoc_chain_bwd, qoc_plane_bwd, and
 // qoc_expm_frechet's at dp = 64). The script builds one variant a
 // translation unit (QOC_ONE_VARIANT and that variant's line), all at once;
 // built as it stands, the file holds every variant.
@@ -47,36 +47,29 @@
 
 #ifndef QOC_ONE_VARIANT
 
-// Exact (TC 0). 512 threads (the package's), two-pass dual products,
+// Exact (TC false). 512 threads (the package's), two-pass dual products,
 // chunks stashed, 4 k-pairs an iteration of the products, 7 basis terms an
 // iteration of K2's generator build.
-VARIANT(t512_twopass_chunks_u4_k7, 512, false, false, 4, 7, 0, 0)
-VARIANT(t512_twopass_chunks_u4_k3, 512, false, false, 4, 3, 0, 0)
-VARIANT(t512_twopass_chunks_u4_k1, 512, false, false, 4, 1, 0, 0)
-VARIANT(t512_twopass_chunks_u2_k7, 512, false, false, 2, 7, 0, 0)
-VARIANT(t512_twopass_chunks_u8_k7, 512, false, false, 8, 7, 0, 0)
-VARIANT(t256_twopass_chunks_u2_k7, 256, false, false, 2, 7, 0, 0)
-VARIANT(t256_twopass_chunks_u4_k7, 256, false, false, 4, 7, 0, 0)
-VARIANT(t512_onepass_chunks_u4_k7, 512, true, false, 4, 7, 0, 0)
-VARIANT(t256_onepass_chunks_u2_k7, 256, true, false, 2, 7, 0, 0)
-VARIANT(t512_twopass_powers_u4_k7, 512, false, true, 4, 7, 0, 0)
+VARIANT(t512_twopass_chunks_u4_k7, 512, false, false, 4, 7, false, false)
+VARIANT(t512_twopass_chunks_u4_k3, 512, false, false, 4, 3, false, false)
+VARIANT(t512_twopass_chunks_u4_k1, 512, false, false, 4, 1, false, false)
+VARIANT(t512_twopass_chunks_u2_k7, 512, false, false, 2, 7, false, false)
+VARIANT(t512_twopass_chunks_u8_k7, 512, false, false, 8, 7, false, false)
+VARIANT(t256_twopass_chunks_u2_k7, 256, false, false, 2, 7, false, false)
+VARIANT(t256_twopass_chunks_u4_k7, 256, false, false, 4, 7, false, false)
+VARIANT(t512_onepass_chunks_u4_k7, 512, true, false, 4, 7, false, false)
+VARIANT(t256_onepass_chunks_u2_k7, 256, true, false, 2, 7, false, false)
+VARIANT(t512_twopass_powers_u4_k7, 512, false, true, 4, 7, false, false)
 // The first design's shape: 256 threads, both accumulators, powers stashed,
 // 2 k-pairs and one basis term an iteration.
-VARIANT(t256_onepass_powers_u2_k1, 256, true, true, 2, 1, 0, 0)
+VARIANT(t256_onepass_powers_u2_k1, 256, true, true, 2, 1, false, false)
 
-// The bf16_3x mode (chain_common.cuh's Adjoint note: TC 1 AdjointTC1, TC 3
-// AdjointTC3, TC 2 TC 3 with the pipelined k-loop) on 512 and 256 threads,
-// a shorter build, and forms with their elementwise passes reduced to
-// stores (ABLATE 1).
-VARIANT(tc1_t512_k7, 512, false, false, 4, 7, 1, 0)
-VARIANT(tc3_t512_k7, 512, false, false, 4, 7, 3, 0)
-VARIANT(tc3_t512_k3, 512, false, false, 4, 3, 3, 0)
-VARIANT(tc2_t512_k7, 512, false, false, 4, 7, 2, 0)
-VARIANT(tc1_t256_k7, 256, false, false, 4, 7, 1, 0)
-VARIANT(tc3_t256_k7, 256, false, false, 4, 7, 3, 0)
-VARIANT(tc2_t256_k7, 256, false, false, 4, 7, 2, 0)
-VARIANT(tc1_t512_k7_products, 512, false, false, 4, 7, 1, 1)
-VARIANT(tc3_t512_k7_products, 512, false, false, 4, 7, 3, 1)
-VARIANT(tc2_t256_k7_products, 256, false, false, 4, 7, 2, 1)
+// The bf16_3x mode (TC true): the package's AdjointTC, on 256 threads, with
+// a shorter build, and with its elementwise passes reduced to stores
+// (ABLATE true).
+VARIANT(tc_t512_k7, 512, false, false, 4, 7, true, false)
+VARIANT(tc_t512_k3, 512, false, false, 4, 3, true, false)
+VARIANT(tc_t256_k7, 256, false, false, 4, 7, true, false)
+VARIANT(tc_t512_k7_products, 512, false, false, 4, 7, true, true)
 
 #endif  // QOC_ONE_VARIANT

@@ -1,7 +1,7 @@
 """The resident adjoint (K2, K5's adjoint, K4 at padded 64) on other Adjoint
 shapes, at the main paths' inputs.
 
-    python3 profiling/resident_variants.py [--exact]
+    python3 profiling/resident_variants.py [--exact] [--baseline DIR]
 
 Builds the variants of ``profiling/resident_variants.cu`` (nvcc, sm_90a,
 one translation unit a variant and one for K1/K5's forwards, all started
@@ -20,10 +20,14 @@ prefixes from the forward kernel of the same mode):
 - K4 at padded 64 on the M4 planes (2000 matrices), as the blocked route
   calls it (at A^H).
 
-Each variant is first held against the plain version in its mode
-(relative max error, within chip_smoke.MODE_RTOL in the mode, GRAD_RTOL
-exact) and, in the mode, against the package's first form (max |diff|: the
-two forms form the same sums); the ablations (``_products``: every
+``--baseline DIR`` adds the resident adjoint of another checkout of the
+repo at DIR (an earlier commit unpacked by ``git archive``): its package
+entries (``qoc_chain_bwd``, ``qoc_plane_bwd``, ``qoc_expm_frechet`` at
+dp = 64, one translation unit each, built beside the variants) in the same
+mode, timed first in the a b b a as the variant ``baseline``. Each variant
+is first held against the plain version in its mode (relative max error,
+within chip_smoke.MODE_RTOL in the mode, GRAD_RTOL exact) and against the
+first variant listed (max |diff|); the ablations (``_products``: every
 elementwise pass of the step reduced to a store) are timed only. Prints the
 card, each case's bound (chip_smoke.py ``kernel_bound``), and per variant
 its threads, dynamic shared memory, ptxas registers and spill of each
@@ -92,12 +96,49 @@ def _ptxas(log):
     return report
 
 
-def build(names, table):
+# The baseline's C entries (--baseline), by kind: its source in csrc/ and
+# the entry's parameters (pointers, ints) before its tf32 and stream.
+BASELINE = {
+    "chain": ("chain_bwd.cu", "qoc_chain_bwd",
+              "const void* w, const void* basis_h, const void* norm, "
+              "const void* prefpad, const void* seeds, void* gA, void* stash, "
+              "int S, int L, int n_b, int per_step",
+              "w, basis_h, norm, prefpad, seeds, gA, stash, S, L, n_b, "
+              "per_step"),
+    "plane": ("plane_bwd.cu", "qoc_plane_bwd",
+              "const void* a, const void* norm, const void* prefpad, "
+              "const void* seeds, void* gA, void* stash, int S, int L, "
+              "int per_step",
+              "a, norm, prefpad, seeds, gA, stash, S, L, per_step"),
+    "frechet": ("expm_frechet.cu", "qoc_expm_frechet",
+                "const void* b, const void* g, const void* norm, void* out, "
+                "void* ws, int B, int grid",
+                "b, g, norm, out, ws, B, {dp}, grid"),
+}
+
+
+def baseline_units(root, tf32):
+    """{unit: source text}: the baseline checkout's C entries of each kind
+    behind the variants' names (baseline_chain, ...), in the mode tf32."""
+    units = {}
+    for kind, (source, entry, params, call) in BASELINE.items():
+        units["baseline_" + kind] = (
+            '#include "{}"\nextern "C" int baseline_{}({}, void* stream) '
+            '{{\n  return {}({}, {}, stream);\n}}\n'.format(
+                Path(root).resolve() / "qoc_tpu_torch" / "csrc" / source,
+                kind, params, entry, call.format(dp=D), tf32))
+    return units
+
+
+def build(names, table, baseline=None):
     """(library of K1/K5's forwards, {name: (library, ptxas report)}): one
-    nvcc a translation unit, all started together."""
+    nvcc a translation unit, all started together; ``baseline``: the units
+    of baseline_units, loaded as the variant "baseline" (its libraries one
+    a kind, its ptxas report theirs together)."""
     OUT.mkdir(parents=True, exist_ok=True)
     units = {"forwards": '#include "{}"\n#include "{}"\n'.format(
         CSRC / "chain_fwd.cu", CSRC / "plane_fwd.cu")}
+    units.update(baseline or {})
     for name in names:
         units[name] = '#define QOC_ONE_VARIANT\n#include "{}"\n{}\n'.format(
             SOURCE, table[name][0])
@@ -119,8 +160,20 @@ def build(names, table):
                              logs[u][-3000:] for u in failed)))
     libs = {unit: ctypes.CDLL(str(OUT / "lib{}.so".format(unit)))
             for unit in units}
-    return libs.pop("forwards"), {name: (libs[name], _ptxas(logs[name]))
-                                  for name in names}
+    out = {name: (libs[name], _ptxas(logs[name])) for name in names}
+    if baseline:
+        out["baseline"] = ({unit.split("_", 1)[1]: libs[unit]
+                            for unit in baseline},
+                           _ptxas("".join(logs[unit] for unit in baseline)))
+    return libs.pop("forwards"), out
+
+
+def _adjoint_tc(entry):
+    """The TC argument (0 or 1) of the Adjoint in a ptxas entry line's
+    mangled name, or None."""
+    m = re.search(r"AdjointILi\d+ELb[01]ELb[01]ELi\d+ELi\d+ELb([01])E",
+                  entry)
+    return int(m.group(1)) if m else None
 
 
 SASS_OPS = ("HMMA", "LDS", "LDS.64", "LDS.128", "STS", "STS.64", "STS.128",
@@ -259,7 +312,8 @@ def launcher(lib, name, case, stream, sms):
     """A no-argument launch of variant ``name`` on ``case``'s inputs and
     its output tensor."""
     kind, args, ints, _, _ = case
-    fn = getattr(lib, "{}_{}".format(name, kind))
+    fn = getattr(lib[kind] if isinstance(lib, dict) else lib,
+                 "{}_{}".format(name, kind))
     x = args[0]
     if kind == "frechet":
         grid = min(ints[0], sms)
@@ -291,6 +345,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--exact", action="store_true",
                         help="the exact variants (TC 0) in the exact mode")
+    parser.add_argument("--baseline", metavar="DIR",
+                        help="also time the resident adjoint of the checkout "
+                        "at DIR (first, as the variant baseline)")
     parser.add_argument("--sass", action="store_true",
                         help="also print static SASS instruction counts of "
                         "each variant's K2 kernel (cuobjdump)")
@@ -304,7 +361,11 @@ def main():
     table = variants()
     names = [n for n, (_, shape) in table.items()
              if (shape["tc"] == 0) == args.exact]
-    fwd_lib, libs = build(names, table)
+    baseline = args.baseline and baseline_units(args.baseline,
+                                                int(not args.exact))
+    fwd_lib, libs = build(names, table, baseline)
+    if baseline:
+        table["baseline"] = (None, {"threads": "baseline", "ablate": 0})
     if args.sass:
         for name in names:
             counts = sass_counts(OUT / "lib{}.so".format(name),
@@ -317,6 +378,8 @@ def main():
     todo = cases(fwd_lib, dev, mode, stream)
     tol = chip_smoke.GRAD_RTOL if args.exact else chip_smoke.MODE_RTOL
     runs, rels, diffs, first, failed = {}, {}, {}, {}, []
+    if baseline:
+        names.insert(0, "baseline")
     for name in names:
         shape = table[name][1]
         for case_name, case in todo.items():
@@ -352,7 +415,10 @@ def main():
         shape = table[name][1]
         regs = []
         for kind, kernel in KERNELS.items():
-            found = [v for k, v in libs[name][1].items() if kernel in k]
+            # (The baseline's units hold both modes' Adjoint: the one of
+            # this mode, by its mangled TC argument.)
+            found = [v for k, v in libs[name][1].items() if kernel in k and (
+                name != "baseline" or _adjoint_tc(k) == int(not args.exact))]
             regs.append("{} {} registers / {} B spilled, {} B shared".format(
                 kind, *(found[0] if found else (None, None)), SMEM[kind]))
         rows = []

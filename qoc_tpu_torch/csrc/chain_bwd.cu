@@ -43,12 +43,12 @@
 // loads in flight at once, in the same phase as the T update, so one warp's
 // wait on L2 hides behind another's products; gU runs beside the value pass
 // of the ladder's first product. The bf16_3x mode (tf32 != 0) is a second
-// instantiation, AdjointTC3: every product on the tensor cores as 3 x TF32
+// instantiation, AdjointTC: every product on the tensor cores as 3 x TF32
 // (mma.sync m16n8k8 on the same 512 threads, each warp a 16 x 16 tile,
 // operands split by 4 integer instructions, the tangent pass one product
 // of depth 2 DP), at degree 12 _D12A's 4 dual products, the ladder leaving
 // U^H - I for the next step's T update, epilogues in 16-byte accesses
-// (chain_common.cuh; the faster of its two forms, PERF.md).
+// (chain_common.cuh).
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -119,8 +119,7 @@ int launch_chain_bwd(const void* w, const void* basis_h, const void* norm,
 // f32 (batch-max inf-norm of the generators = 1-norm of A^H); prefpad
 // (S, L + 1, DP, DP) from K1; seeds (S, DP, DP), or (S, L, DP, DP) with
 // per_step != 0; gA (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP)
-// scratch; tf32: 1 the bf16_3x mode, 2 its other form (chain_common.cuh
-// with_adjoint). Returns the CUDA error.
+// scratch; tf32 != 0: the bf16_3x mode. Returns the CUDA error.
 extern "C" int qoc_chain_bwd(const void* w, const void* basis_h,
                              const void* norm, const void* prefpad,
                              const void* seeds, void* gA, void* stash, int S,

@@ -204,11 +204,9 @@ struct MmaMap {
   }
 };
 
-// The map of an instantiation: TileMap, or MmaMap in the bf16_3x mode (TC
-// != 0, the form of its product: 1 mm_acc_tc, 2 mm_acc_3x pipelined, 3
-// mm_acc_3x not).
-template <int NTH, int TC>
-using MapOf = std::conditional_t<TC != 0, MmaMap<NTH>, TileMap<NTH>>;
+// The map of an instantiation: TileMap, or MmaMap in the bf16_3x mode (TC).
+template <int NTH, bool TC>
+using MapOf = std::conditional_t<TC, MmaMap<NTH>, TileMap<NTH>>;
 
 // The forward kernels' map.
 constexpr int RPT = TileMap<NT>::RPT;
@@ -445,10 +443,10 @@ __device__ __forceinline__ void split_3x(float x, uint32_t& hi,
 // differs is the work around the mma: each operand element is split by
 // split_3x; the imaginary part of B (Y, NTL x 2 values a lane) is negated
 // for Zr in place of A's (MT x 4), in its own registers once Zi's mma have
-// read it; and with PIPE the k-loop is pipelined, the next k8 step's
-// fragments loaded into registers while this step's mma issue (24 more
-// registers a thread: at 512 threads it is slower, PERF.md).
-template <class T, bool PIPE = true>
+// read it. (A k-loop pipelined by one k8 step, its fragments loaded
+// while this step's mma issue, needs 24 more registers a thread and was
+// slower at 512 threads and at 256, PERF.md.)
+template <class T>
 __device__ __forceinline__ void mm_acc_3x(
     const float2* __restrict__ X0, const float2* __restrict__ Y0,
     const float2* __restrict__ X1, const float2* __restrict__ Y1,
@@ -469,12 +467,13 @@ __device__ __forceinline__ void mm_acc_3x(
                   2 * ((4 * nt + (g >> 1)) ^ T::swz(2 * t + j)) + (g & 1);
   }
   const int steps = X1 == nullptr ? KS : 2 * KS;
-  float4 xv[T::MT][2];
-  float2 yv[T::NTL][2];
-  auto fetch = [&](int s) {
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
     const int k0 = 8 * (s % KS);
     const float2* X = (s < KS ? X0 : X1) + xo + (k0 ^ ua);
     const float2* Y = (s < KS ? Y0 : Y1) + k0 * DP;
+    float4 xv[T::MT][2];
+    float2 yv[T::NTL][2];
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
@@ -487,11 +486,6 @@ __device__ __forceinline__ void mm_acc_3x(
 #pragma unroll
       for (int j = 0; j < 2; ++j) yv[nt][j] = Y[yo[j][nt]];
     }
-  };
-  if constexpr (PIPE) fetch(0);
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    if constexpr (!PIPE) fetch(s);
     // A fragments (a0, a1, a2, a3) = rows (g, g + 8, g, g + 8) at k
     // (t, t, t + 4, t + 4), real and imaginary, hi and lo.
     uint32_t arh[T::MT][4], arl[T::MT][4], aih[T::MT][4], ail[T::MT][4];
@@ -516,7 +510,6 @@ __device__ __forceinline__ void mm_acc_3x(
         split_3x(yv[nt][j].y, bih[nt][j], bil[nt][j]);
       }
     }
-    if constexpr (PIPE) fetch(s + 1 < steps ? s + 1 : s);
     // Each partial's mma in mm_acc_tc's order; Zi's use B's imaginary part
     // as it is, then it is negated in place for the rest of Zr's.
 #pragma unroll
@@ -558,14 +551,12 @@ __device__ __forceinline__ void mm_acc_3x(
 }
 
 // acc += X Y on the tile of MapOf<NTH, TC>: the SIMT product (U k-pairs an
-// iteration) or, TC, the bf16_3x mode's in form TC.
-template <int NTH, int TC, int U = 2>
+// iteration) or, TC, the bf16_3x mode's mm_acc_tc (the forwards').
+template <int NTH, bool TC, int U = 2>
 __device__ __forceinline__ void prod_acc(
     const float2* __restrict__ X, const float2* __restrict__ Y,
     float2 (&acc)[MapOf<NTH, TC>::EPT]) {
-  if constexpr (TC >= 2)
-    mm_acc_3x<MapOf<NTH, TC>, TC == 2>(X, Y, nullptr, nullptr, acc);
-  else if constexpr (TC) mm_acc_tc<NTH>(X, Y, acc);
+  if constexpr (TC) mm_acc_tc<NTH>(X, Y, acc);
   else mm_acc<NTH, U>(X, Y, acc);
 }
 
@@ -973,28 +964,27 @@ __device__ __forceinline__ const float2* step_seed(const float2* seeds,
 // was the fastest of profiling/resident_variants.py's at the headline and
 // M4 inputs on an H100 (PERF.md).
 //
-// The bf16_3x mode (TC != 0) has product forms whose sums agree to the
-// bit: TC = 1 (AdjointTC1) runs mm_acc_tc, every fragment split where it
-// is read; TC = 3 (AdjointTC3) runs mm_acc_3x (4 instructions a split in
-// place of 5, B's imaginary part negated in place, a tangent pass as one
-// product of depth 2 DP), leaves U^H - I as the ladder's value (exit_v),
-// so that the next step needs no pass to form it, and goes over its
-// epilogues' elements two by two in 16-byte accesses (get2, put2); TC = 2
-// is TC = 3 with mm_acc_3x's k-loop pipelined, which needs the registers
-// of 256 threads. Both forms the kernels launch run 512 threads, 16 x 16
-// an mma tile a warp, on row-major slots: on 256 threads (MmaMap's
-// swizzled 32 x 16 tiles) the products ran faster, but the elementwise
-// passes, on half the warps, slower (PERF.md). ABLATE = 1 (for
-// profiling/resident_variants.py alone) reduces every elementwise pass of
-// the step to a store of the product's accumulator (the results are then
+// The bf16_3x mode (TC) runs mm_acc_3x (the sums of mm_acc_tc to the bit,
+// with 4 instructions a split in place of 5, B's imaginary part negated in
+// place, a tangent pass as one product of depth 2 DP), leaves U^H - I as
+// the ladder's value (exit_v), so that the next step needs no pass to form
+// it, and goes over its epilogues' elements two by two in 16-byte accesses
+// (get2, put2). It runs 512 threads, 16 x 16 an mma tile a warp, on
+// row-major slots: on 256 threads (MmaMap's swizzled 32 x 16 tiles) the
+// products ran faster, but the elementwise passes, on half the warps,
+// slower; and this form was 14-17% faster than the first one, mm_acc_tc
+// with every fragment split where it is read, at every entry's main-path
+// inputs (PERF.md). ABLATE (never set by the kernels, only by
+// profiling/resident_variants.py) reduces every elementwise pass of the
+// step to a store of the product's accumulator (the results are then
 // garbage): what is left is the step's products, barriers, staging,
 // transposes and generator build.
 template <int NTH, bool BOTH_ACCUMULATORS = false, bool STASH_POWERS = false,
-          int UNROLL = 4, int BUILD_UNROLL = 7, int TC = 0, int ABLATE = 0>
+          int UNROLL = 4, int BUILD_UNROLL = 7, bool TC = false,
+          bool ABLATE = false>
 struct Adjoint {
   using Map = MapOf<NTH, TC>;
   static constexpr int THREADS = NTH;
-  static constexpr int FORM = TC;
   static constexpr int BUILD_KU = BUILD_UNROLL;  // K2's generator build
   static constexpr int EP = Map::EPT;
 
@@ -1013,17 +1003,26 @@ struct Adjoint {
     return st[(size_t)slot * MAT + e * NTH + threadIdx.x];
   }
 
+  // acc += X Y: the SIMT product (UNROLL k-pairs an iteration) or, TC,
+  // mm_acc_3x.
+  static __device__ __forceinline__ void prod(const float2* X,
+                                              const float2* Y,
+                                              float2 (&acc)[EP]) {
+    if constexpr (TC) mm_acc_3x<Map>(X, Y, nullptr, nullptr, acc);
+    else mm_acc<NTH, UNROLL>(X, Y, acc);
+  }
+
   // acc += dX Y + X dY, a dual product's tangent pass.
   static __device__ __forceinline__ void tangent(const float2* dX,
                                                  const float2* Y,
                                                  const float2* X,
                                                  const float2* dY,
                                                  float2 (&acc)[EP]) {
-    if constexpr (TC >= 2) {
-      mm_acc_3x<Map, TC == 2>(dX, Y, X, dY, acc);
+    if constexpr (TC) {
+      mm_acc_3x<Map>(dX, Y, X, dY, acc);
     } else {
-      prod_acc<NTH, TC, UNROLL>(dX, Y, acc);
-      prod_acc<NTH, TC, UNROLL>(X, dY, acc);
+      prod(dX, Y, acc);
+      prod(X, dY, acc);
     }
   }
 
@@ -1048,13 +1047,13 @@ struct Adjoint {
     if constexpr (BOTH_ACCUMULATORS) {
       float2 dacc[EP];
       zero(dacc);
-      prod_acc<NTH, TC, UNROLL>(X, Y, acc);
-      prod_acc<NTH, TC, UNROLL>(dX, Y, dacc);
-      prod_acc<NTH, TC, UNROLL>(X, dY, dacc);
+      prod(X, Y, acc);
+      prod(dX, Y, dacc);
+      prod(X, dY, dacc);
       val(acc);
       tan(dacc);
     } else {
-      prod_acc<NTH, TC, UNROLL>(X, Y, acc);
+      prod(X, Y, acc);
       epilogue(val, acc, X);
       zero(acc);
       tangent(dX, Y, X, dY, acc);
@@ -1075,7 +1074,7 @@ struct Adjoint {
     } else {
       float2 acc[EP];
       zero(acc);
-      prod_acc<NTH, TC, UNROLL>(M, M, acc);
+      prod(M, M, acc);
       epilogue(val, acc, M);
       __syncthreads();
       zero(acc);
@@ -1150,43 +1149,33 @@ struct Adjoint {
   }
 
   // Element e of the value the dual ladder leaves in its slot: exp(M), or
-  // with TC >= 2 exp(M) - I, the operand of the next step's T update (T +
+  // with TC exp(M) - I, the operand of the next step's T update (T +
   // (U^H - I) T), rounded as that step would round it, so that the step
   // needs no pass and barrier of its own to form it.
   static __device__ __forceinline__ float2 exit_v(float2 v, int e) {
-    if constexpr (TC >= 2) v.x -= Map::eye(e);
+    if constexpr (TC) v.x -= Map::eye(e);
     return v;
   }
 
-  // Elements e and e + 1 (e even) of slot x, columns 2 t and 2 t + 1 of an
-  // mma fragment, adjacent and 16-byte aligned in MmaMap's layout: with TC
-  // >= 2 one 16-byte access (half the instructions, and on the adjoints'
-  // row-major slots half the bank conflicts of two 8-byte ones), else two.
+  // Elements e and e + 1 (e even) of slot x in the bf16_3x mode, columns
+  // 2 t and 2 t + 1 of an mma fragment, adjacent and 16-byte aligned in
+  // MmaMap's layout: one 16-byte access (half the instructions, and on the
+  // adjoints' row-major slots half the bank conflicts of two 8-byte ones).
   static __device__ __forceinline__ void get2(const float2* x, int e,
                                               float2 (&v)[2]) {
-    if constexpr (TC >= 2) {
-      const float4 q = *reinterpret_cast<const float4*>(x + own(e));
-      v[0] = make_float2(q.x, q.y);
-      v[1] = make_float2(q.z, q.w);
-    } else {
-      v[0] = x[own(e)];
-      v[1] = x[own(e + 1)];
-    }
+    const float4 q = *reinterpret_cast<const float4*>(x + own(e));
+    v[0] = make_float2(q.x, q.y);
+    v[1] = make_float2(q.z, q.w);
   }
   static __device__ __forceinline__ void put2(float2* x, int e,
                                               const float2 (&v)[2]) {
-    if constexpr (TC >= 2) {
-      *reinterpret_cast<float4*>(x + own(e)) =
-          make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
-    } else {
-      x[own(e)] = v[0];
-      x[own(e + 1)] = v[1];
-    }
+    *reinterpret_cast<float4*>(x + own(e)) =
+        make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
   }
-  // Z = v on the calling thread's elements (put2 by pairs).
+  // Z = v on the calling thread's elements (with TC put2 by pairs).
   static __device__ __forceinline__ void put(float2* Z,
                                              const float2 (&v)[EP]) {
-    if constexpr (TC >= 2) {
+    if constexpr (TC) {
 #pragma unroll
       for (int e = 0; e < EP; e += 2) put2(Z, e, {v[e], v[e + 1]});
     } else {
@@ -1318,7 +1307,7 @@ struct Adjoint {
   // written by the calling thread's phase (dual_first); b[3..6] are
   // scratch, b[0] is left alone. Writes the tangent L(M, dM) to tout
   // (device memory) from the last product's epilogue and returns the slot
-  // (b[1] or b[3]) that holds exp(M) (with TC >= 2 exp(M) - I, exit_v).
+  // (b[1] or b[3]) that holds exp(M) (with TC exp(M) - I, exit_v).
   // Ends with a barrier.
   static __device__ float2* expm_dual(float2* const* b, int level,
                                       float2* st, float* red,
@@ -1668,16 +1657,6 @@ struct Adjoint {
       c[1] = b[3];
       c[3] = b[1];
     }
-    if constexpr (TC == 1 && !ABLATE) {
-      // The bf16_3x mode updates T as T + (U^H - I) T (Fwd::advance); with
-      // TC >= 2 the ladder left U^H - I in uh (exit_v).
-      if (uh != nullptr) {
-        float2* d = const_cast<float2*>(uh);
-#pragma unroll
-        for (int e = 0; e < EP; ++e) d[own(e)].x -= Map::eye(e);
-        __syncthreads();
-      }
-    }
     stage_swizzled(b[5], prev);
     if (plane != nullptr) stage_swizzled(b[2], plane);
     if (seed != nullptr) stage(b[4], seed);
@@ -1686,11 +1665,13 @@ struct Adjoint {
     float2 acc[EP];
     if (uh != nullptr) {
       zero(acc);
-      prod_acc<NTH, TC, UNROLL>(uh, b[0], acc);
+      prod(uh, b[0], acc);
     }
     cp_async_wait<0>();
     __syncthreads();
-    if constexpr (TC >= 2) {
+    if constexpr (TC) {
+      // T + (U^H - I) T (Fwd::advance): the ladder left U^H - I in uh
+      // (exit_v).
 #pragma unroll
       for (int e = 0; e < EP; e += 2) {
         float2 t[2], sd[2];
@@ -1720,9 +1701,6 @@ struct Adjoint {
           b[0][i] = acc[e];
           continue;
         }
-        if constexpr (TC) {
-          if (uh != nullptr) acc[e] = cadd(b[0][i], acc[e]);
-        }
         if (uh == nullptr) b[0][i] = b[4][i];
         else if (seed != nullptr) b[0][i] = cadd(acc[e], b[4][i]);
         else b[0][i] = acc[e];
@@ -1732,31 +1710,25 @@ struct Adjoint {
     if (plane != nullptr) adjoint_of(c[1], b[2]);
     __syncthreads();
     zero(acc);
-    prod_acc<NTH, TC, UNROLL>(b[0], b[6], acc);
+    prod(b[0], b[6], acc);
     put(b[2], acc);
     return expm_dual(c, level, st, red, tout);
   }
 };
 
-// The kernels' design, and its bf16_3x mode's two forms (see the struct
-// note). The mode's adjoints (K2, K5's, K4 at D = 64) launch AdjointTC3,
-// which measured faster than AdjointTC1 at every one's main-path inputs on
-// an H100 (profiling/resident_variants.py, PERF.md); AdjointTC1 stays so
-// that chip_smoke.py can time the two a b b a in one call.
+// The kernels' design, exact and in the bf16_3x mode.
 using AdjointNTA = Adjoint<NTA>;
-using AdjointTC1 = Adjoint<NTA, false, false, 4, 7, 1>;
-using AdjointTC3 = Adjoint<NTA, false, false, 4, 7, 3>;
+using AdjointTC = Adjoint<NTA, false, false, 4, 7, true>;
 
-// launch(Form<A>{}) on the Adjoint A that a resident adjoint's entry runs
-// for tf32: 0 AdjointNTA, 1 (the bf16_3x mode) AdjointTC3, 2 AdjointTC1.
+// launch(Form<A>{}) on the Adjoint A that a resident adjoint's entry runs:
+// AdjointTC where tf32 != 0 (the bf16_3x mode), else AdjointNTA.
 template <class A>
 struct Form {
   using type = A;
 };
 template <class Launch>
 int with_adjoint(int tf32, Launch launch) {
-  if (tf32 == 1) return launch(Form<AdjointTC3>{});
-  if (tf32 == 2) return launch(Form<AdjointTC1>{});
+  if (tf32) return launch(Form<AdjointTC>{});
   return launch(Form<AdjointNTA>{});
 }
 

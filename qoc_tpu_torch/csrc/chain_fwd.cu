@@ -96,25 +96,21 @@ extern "C" int qoc_chain_fwd(const void* w, const void* basis,
 
 extern "C" int qoc_chain_dp() { return qoc::DP; }
 
-// Threads, dynamic shared memory and product form (chain_common.cuh MapOf:
-// 0 exact, 1 mm_acc_tc, 3 mm_acc_3x) of a block of a resident kernel:
+// Threads and dynamic shared memory of a block of a resident kernel:
 // kernel 1 the forwards (K1, K5's, K3 at D = 64), 2 K2, 5 K5's adjoint, 4
-// K4 at D = 64; tf32 as the kernels take it (1 the bf16_3x mode, 2 the
-// adjoints' other form). Returns the CUDA error.
-extern "C" int qoc_chain_block(int kernel, int tf32, int* threads, int* smem,
-                               int* form) {
+// K4 at D = 64; tf32 as the kernels take it (!= 0: the bf16_3x mode).
+// Returns the CUDA error.
+extern "C" int qoc_chain_block(int kernel, int tf32, int* threads,
+                               int* smem) {
   using namespace qoc;
   auto adjoint = [&](auto f) {
-    using A = typename decltype(f)::type;
-    *threads = A::THREADS;
-    *form = A::FORM;
+    *threads = decltype(f)::type::THREADS;
     return 0;
   };
   switch (kernel) {
     case 1:
       *threads = NT;
       *smem = (int)FWD_SMEM;
-      *form = tf32 != 0;
       return 0;
     case 2: *smem = (int)BWD_SMEM; return with_adjoint(tf32, adjoint);
     case 5: *smem = (int)BWD_SMEM; return with_adjoint(tf32, adjoint);

@@ -28,7 +28,7 @@
 // does not divide): at the d = 2^7 planes on an H100 it beat K3's 8 x 2
 // and a 4 x 4 tile (profiling/tiled_variants.py, numbers in PERF.md).
 // The bf16_3x mode (tf32 != 0) runs each path's second instantiation (3 x
-// TF32 tensor-core products, _D12A in dual form): AdjointTC3 at D = 64, the
+// TF32 tensor-core products, _D12A in dual form): AdjointTC at D = 64, the
 // tiled ladder's TC form above (expm_common.cuh Product<2>, PR 11's
 // mma.sync form on the same panels: the wgmma form measured slower at the
 // d = 2^7 planes, PERF.md).
@@ -112,8 +112,7 @@ int tiled_plan(int* blocks, int* smem) {
 // 1-norm of b; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_frechet_plan (the Paterson-Stockmeyer chunks' stash at
 // dp = 64). dp is 64, 128, 192 or 256; tf32 != 0 runs the bf16_3x mode's
-// instantiation (at dp = 64, tf32 = 2 its other form, chain_common.cuh
-// with_adjoint). Returns the CUDA error.
+// instantiation. Returns the CUDA error.
 extern "C" int qoc_expm_frechet(const void* b, const void* g,
                                 const void* norm, void* out, void* ws, int B,
                                 int dp, int grid, int tf32, void* stream) {

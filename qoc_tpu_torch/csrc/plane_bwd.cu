@@ -26,7 +26,7 @@
 // matrices, two-pass dual products and the per-block stash of the
 // Paterson-Stockmeyer chunks; the plane is staged with P_{t-1} and the seed
 // while the T update runs. The bf16_3x mode (tf32 != 0) runs K2's,
-// AdjointTC3, the faster of its two forms here too.
+// AdjointTC.
 //
 // Shared memory: 7 x DP^2 complex64 + RED_BYTES.
 
@@ -90,8 +90,7 @@ int launch_plane_bwd(const void* a, const void* norm, const void* prefpad,
 // inf-norm of the planes = 1-norm of A^H); prefpad (S, L + 1, DP, DP) from
 // the forward; seeds (S, DP, DP), or (S, L, DP, DP) with per_step != 0; gA
 // (S, L, DP, DP) out; stash (S, STASH_SLOTS, DP, DP) scratch. Returns the
-// CUDA error; tf32: 1 the bf16_3x mode, 2 its other form (chain_common.cuh
-// with_adjoint).
+// CUDA error; tf32 != 0: the bf16_3x mode.
 extern "C" int qoc_plane_bwd(const void* a, const void* norm,
                              const void* prefpad, const void* seeds, void* gA,
                              void* stash, int S, int L, int per_step,

@@ -246,7 +246,7 @@ def load_kernels():
     lib.qoc_stream_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, cint, cint,
                                    cint, cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
-    lib.qoc_chain_block.argtypes = [cint, cint, cint_p, cint_p, cint_p]
+    lib.qoc_chain_block.argtypes = [cint, cint, cint_p, cint_p]
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
@@ -270,14 +270,12 @@ _RESIDENT_KERNELS = {"K1": 1, "K5 fwd": 1, "K2": 2, "K5 bwd": 5, "K4": 4}
 
 
 def resident_block(kernel, tf32=0):
-    """(threads, dynamic shared-memory bytes, product form) a block of a
-    resident kernel, ``kernel`` one of "K1", "K5 fwd" (the forwards' block),
-    "K2", "K5 bwd" or "K4" (at dp = 64, whose shared memory is the dual
-    ladder's six slots), as its C entry launches it for ``tf32``: 0 exact, 1
-    the bf16_3x mode, 2 the mode's other adjoint form (csrc/chain_common.cuh
-    with_adjoint). The form is csrc/chain_common.cuh MapOf's: 0 exact, 1
-    mm_acc_tc, 3 mm_acc_3x."""
-    out = [ctypes.c_int() for _ in range(3)]
+    """(threads, dynamic shared-memory bytes) a block of a resident kernel,
+    ``kernel`` one of "K1", "K5 fwd" (the forwards' block), "K2", "K5 bwd"
+    or "K4" (at dp = 64, whose shared memory is the dual ladder's six
+    slots), as its C entry launches it for ``tf32`` (0 exact, 1 the bf16_3x
+    mode)."""
+    out = [ctypes.c_int() for _ in range(2)]
     err = load_kernels().qoc_chain_block(_RESIDENT_KERNELS[kernel], tf32,
                                          *map(ctypes.byref, out))
     if err != 0:
