@@ -177,8 +177,11 @@ build, for a quick check of a kernel.) Phases, one line each:
    and 5 members, 133 and 512 chains and at the headline's own shapes; K5
    at d = 64 and 16, one chain and on the member axis; K3/K4 at padded 64
    (d = 16 and 64, batches 37, 133 and 2000); the padded rows and steps
-   exactly the identity; each also against the exact-f32 kernel and
-   float64 matrix_exp products, within the mode's envelope;
+   exactly the identity; the resident forwards (K1, K5's, K3: FwdTC) and
+   adjoints (K2, K5's, K4: AdjointTC) each within MODE_RTOL of its plain
+   version, the worst printed with its margin; each also against the
+   exact-f32 kernel and float64 matrix_exp products, within the mode's
+   envelope;
 37. the slice at full width in the mode: the Table-3 headline GRAPE (2
    warm-up + 10 timed iterations) with counters (the mode forms of K1 and
    K2 launched, the exact forms not), its rate beside phase 5's, its loss
@@ -192,7 +195,7 @@ build, for a quick check of a kernel.) Phases, one line each:
    plain version in the mode and the mode's bound (the ladder's complex
    products at 24 dp^3 FLOP over the TF32 tensor-core peak, against the
    bytes over the HBM rate), with threads, shared memory, ptxas registers
-   and spills;
+   and spills, and the resident forward form's design;
 39. the tiled kernels' cells in the mode: the d = 2^7 GRAPE (K3/K4 at
    padded 128), the Lindblad d = 20 GRAPE (K6) and the 4-member d = 20
    Lindblad ensemble GRAPE (K6's member axis), each with counters (the
@@ -220,6 +223,7 @@ the kernels; the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -609,13 +613,14 @@ def design_line(name, entry, clusters, blocks, smem, bound_ms, ms,
 
 
 # ptxas entry strings of the resident kernels, exact and (True) in the
-# bf16_3x mode; the adjoints' (K2, K5 bwd, K4 at dp = 64) by the Adjoint
-# they launch (adjoint_entry).
+# bf16_3x mode: the forwards' by the form they launch (chain_common.cuh Fwd,
+# FwdTC), the adjoints' (K2, K5 bwd, K4 at dp = 64) by their Adjoint
+# (adjoint_entry).
 RESIDENT_ENTRY = {
-    tc: {"K1": ("chain_fwd_kernelILb{}E".format(int(tc)),),
-         "K5 fwd": ("plane_fwd_kernelILb{}E".format(int(tc)),),
-         "K3": ("expm_resident_kernelILb{}E".format(int(tc)),)}
-    for tc in (False, True)}
+    tc: {"K1": ("chain_fwd_kernel", form),
+         "K5 fwd": ("plane_fwd_kernel", form),
+         "K3": ("expm_resident_kernel", form)}
+    for tc, form in ((False, "3FwdE"), (True, "FwdTC"))}
 ADJOINT_KERNEL = {"K2": "chain_bwd_kernel", "K5 bwd": "plane_bwd_kernel",
                   "K4": "frechet_resident_kernel"}
 
@@ -3864,19 +3869,20 @@ def _mode_check(label, rels, env):
                                "{} / {}".format(label, name, fwd, grad))
 
 
-def _adjoint_check(adjoint, kernel, label, rels):
-    """Raise where a resident adjoint's bf16_3x form (``kernel``: K2, K5's
-    adjoint, K4 at padded 64) is further than MODE_RTOL (relative) from its
-    plain version in the mode on the case ``label``; adjoint[kernel] keeps
-    the worst (rel, label)."""
-    adjoint[kernel] = max(adjoint.get(kernel, (0.0, "")), (max(rels), label))
+def _resident_check(worst, kernel, label, rels):
+    """Raise where a resident kernel's bf16_3x form (``kernel``: K1, K5's
+    forward, K3 at padded 64 (FwdTC); K2, K5's adjoint, K4 at padded 64
+    (AdjointTC)) is further than MODE_RTOL (relative) from its plain version
+    in the mode on the case ``label``; worst[kernel] keeps the worst (rel,
+    label)."""
+    worst[kernel] = max(worst.get(kernel, (0.0, "")), (max(rels), label))
     if max(rels) > MODE_RTOL:
-        raise RuntimeError("{}: the bf16_3x adjoint is {} from its plain "
-                           "version in the mode, above {}".format(
-                               label, max(rels), MODE_RTOL))
+        raise RuntimeError("{}: the bf16_3x {} is {} from its plain version "
+                           "in the mode, above {}".format(
+                               label, kernel, max(rels), MODE_RTOL))
 
 
-def _mode_member_kernels(dev, rng, gen, worst, adjoint):
+def _mode_member_kernels(dev, rng, gen, worst, adjoint, forward):
     """Phase 36's K1/K2: the trajectory op on MODE_MEMBER_CASES and at
     d = 16 against float64 matrix_exp products."""
     from qoc_tpu_torch.ops import chain
@@ -3912,7 +3918,8 @@ def _mode_member_kernels(dev, rng, gen, worst, adjoint):
             label = "{} members x {} steps, level {}".format(
                 n_members, n_steps, LEVEL_NORMS.index(target))
             _mode_check(label, (rels[:2], rels[2:]), (env[:2], env[2:]))
-            _adjoint_check(adjoint, "K2" + tag, label, rels[2:])
+            _resident_check(forward, "K1" + tag, label, rels[:2])
+            _resident_check(adjoint, "K2" + tag, label, rels[2:])
             for key, x, y in (("K1" + tag + " mode", got[1], want[1]),
                               ("K2" + tag + " mode", got[2], want[2]),
                               ("K2" + tag + " mode step", got[3], want[3])):
@@ -3943,7 +3950,7 @@ def _mode_member_kernels(dev, rng, gen, worst, adjoint):
     return rel
 
 
-def _mode_headline(dev, headline_w, worst, adjoint):
+def _mode_headline(dev, headline_w, worst, adjoint, forward):
     """Phase 36 at the headline's own shapes: K1 and K2 (both seed modes)
     against their plain versions in the mode and the exact kernels."""
     from qoc_tpu_torch.ops import chain
@@ -3978,8 +3985,8 @@ def _mode_headline(dev, headline_w, worst, adjoint):
         _mode_check("headline shapes, " + key,
                     ([], [rel]) if grad else ([rel], []),
                     ([], [env]) if grad else ([env], []))
-        if grad:
-            _adjoint_check(adjoint, "K2", "headline shapes, " + key, [rel])
+        _resident_check(adjoint if grad else forward, key[:2],
+                        "headline shapes, " + key, [rel])
         worst[key] = max(worst.get(key, 0.0), float((k - p).abs().max()))
         rows.append("{} max|err| {:.3e} (rel {:.2e}), rel vs exact {:.2e}"
                     "".format(key, float((k - p).abs().max()), rel, env))
@@ -3988,7 +3995,7 @@ def _mode_headline(dev, headline_w, worst, adjoint):
                       chain.ladder_level(ninf), "; ".join(rows)), flush=True)
 
 
-def _mode_plane_kernels(dev, rng, gen, worst, adjoint):
+def _mode_plane_kernels(dev, rng, gen, worst, adjoint, forward):
     """Phase 36's K5: the plane op's trajectory form on MODE_PLANE_CASES
     and against float64 matrix_exp products."""
     from qoc_tpu_torch.ops import chain
@@ -4022,7 +4029,8 @@ def _mode_plane_kernels(dev, rng, gen, worst, adjoint):
             label = "K5 d = {}, {} chains x {} steps, level {}".format(
                 d, n_chains, n_steps, LEVEL_NORMS.index(target))
             _mode_check(label, (rels[:2], rels[2:]), (env[:2], env[2:]))
-            _adjoint_check(adjoint, "K5 bwd", label, rels[2:])
+            _resident_check(forward, "K5 fwd", label, rels[:2])
+            _resident_check(adjoint, "K5 bwd", label, rels[2:])
             for key, x, y in (("K5 fwd mode", got[1], want[1]),
                               ("K5 bwd mode", got[2], want[2]),
                               ("K5 bwd mode step", got[3], want[3])):
@@ -4049,7 +4057,7 @@ def _mode_plane_kernels(dev, rng, gen, worst, adjoint):
     return rel
 
 
-def _mode_expm_kernels(dev, gen, worst, adjoint):
+def _mode_expm_kernels(dev, gen, worst, adjoint, forward):
     """Phase 36's K3/K4 at padded 64 on MODE_EXPM_CASES, every level:
     against their plain versions in the mode and the exact kernels, the
     padding exact, and at batch 37 against float64 matrix_exp and its
@@ -4087,8 +4095,9 @@ def _mode_expm_kernels(dev, gen, worst, adjoint):
                 env3, env4 = max(env3, f64[0]), max(env4, f64[1])
             _mode_check("K3/K4 d = {}, batch {}, level {}".format(
                 d, batch, level), ([rel3], [rel4]), ([env3], [env4]))
-            _adjoint_check(adjoint, "K4", "d = {}, batch {}, level {}".format(
-                d, batch, level), [rel4])
+            label = "d = {}, batch {}, level {}".format(d, batch, level)
+            _resident_check(forward, "K3", label, [rel3])
+            _resident_check(adjoint, "K4", label, [rel4])
             worst["K3 mode"] = max(worst.get("K3 mode", 0.0), err3)
             worst["K4 mode"] = max(worst.get("K4 mode", 0.0), err4)
         print("phase 36 bf16_3x K3/K4: d={} (padded 64) batch={} (level, rel "
@@ -4107,20 +4116,23 @@ def phase_mode_kernels(dev, headline_w=None):
         headline_w = headline_weights(table3_problem(1)[0], dev)
     rng = np.random.default_rng(36)
     gen = torch.Generator(device=dev).manual_seed(36)
-    worst, adjoint = {}, {}
-    f64_chain = _mode_member_kernels(dev, rng, gen, worst, adjoint)
-    _mode_headline(dev, headline_w, worst, adjoint)
-    f64_plane = _mode_plane_kernels(dev, rng, gen, worst, adjoint)
-    _mode_expm_kernels(dev, gen, worst, adjoint)
+    worst, adjoint, forward = {}, {}, {}
+    f64_chain = _mode_member_kernels(dev, rng, gen, worst, adjoint, forward)
+    _mode_headline(dev, headline_w, worst, adjoint, forward)
+    f64_plane = _mode_plane_kernels(dev, rng, gen, worst, adjoint, forward)
+    _mode_expm_kernels(dev, gen, worst, adjoint, forward)
     print("phase 36 bf16_3x: chain op 3 members x 37 steps and plane op 37 "
           "steps at d = 16 vs float64 matrix_exp products rel {:.2e} / "
           "{:.2e}; max|err| vs plain {}".format(f64_chain, f64_plane, worst),
           flush=True)
-    print("phase 36 bf16_3x resident adjoints, worst rel vs plain in the "
-          "mode (MODE_RTOL {:.1e}): {}".format(MODE_RTOL, "; ".join(
-              "{} {:.6e} ({}; margin {:.1%})".format(
-                  kernel, rel, label, 1 - rel / MODE_RTOL)
-              for kernel, (rel, label) in adjoint.items())), flush=True)
+    for what, table in (("forwards (FwdTC; K1, K5 fwd: total and "
+                         "prefixes)", forward),
+                        ("adjoints (AdjointTC)", adjoint)):
+        print("phase 36 bf16_3x resident {}, worst rel vs plain in the mode "
+              "(MODE_RTOL {:.1e}): {}".format(what, MODE_RTOL, "; ".join(
+                  "{} {:.6e} ({}; margin {:.1%})".format(
+                      kernel, rel, label, 1 - rel / MODE_RTOL)
+                  for kernel, (rel, label) in table.items())), flush=True)
     return worst
 
 
@@ -4181,7 +4193,8 @@ def phase_mode_grape(dev, exact_it_s=None):
     gap = float(abs(e_mode.double() - e_exact.double()))
     print("phase 37 bf16_3x headline: {:.2f} it/s against {} it/s exact "
           "(phase 5, same call); vs float64 plain route: {}; loss gap to the "
-          "exact kernels {:.3e} (rel {:.2e})".format(
+          "exact kernels {:.3e} (rel {:.2e}; 6.557e-7 with the forward form "
+          "before FwdTC, PERF.md)".format(
               rates["headline"], "{:.2f}".format(exact_it_s)
               if exact_it_s is not None else "(not run)", check, gap,
               gap / abs(float(e_exact))), flush=True)
@@ -4452,6 +4465,21 @@ def phase_mode_timing(dev, headline_w=None):
                          ("K5 bwd mode", lines[2][1])):
         print("phase 38 design: " + resident_design_line(
             key, s_count, bounds[key][0], ms[key]), flush=True)
+    shape = (ctypes.c_int * 4)()
+    chain.load_kernels().qoc_forward_form(shape)
+    ku, passes, early, pair = shape
+    print("phase 38 design: the mode's resident forward form (K1, K5 fwd, K3 "
+          "at padded 64): FwdTC, 3 x TF32 mma.sync products (mm_acc_3x); "
+          "K1's generator build {} basis terms in flight in {} pass(es), {}, "
+          "{}; elementwise passes fused into the epilogues in 16-byte "
+          "accesses, the ladder leaving U - I; a degree-12 step 4 + 1 "
+          "products and 4 + 1 barriers (chain step, prefix write and next "
+          "generator in one phase)".format(
+              ku, passes,
+              "half the warps building before the step's product" if early
+              else "every warp building after the step's product",
+              "two steps' generators a build every other step (a seventh "
+              "slot)" if pair else "one generator a step"), flush=True)
     for key, dual in (("K3 mode", False), ("K4 mode", True)):
         blocks = expm_cuda.launch_grid(dual, D, a.shape[0], dev.index)[0]
         smem = expm_cuda._plan(dual, D, dev.index)[2]
@@ -5179,23 +5207,23 @@ def main():
              "chain_pallas.py:695", "K5 member fwd"),
             ("plane_bwd (member-batched)", "plane_bwd.cu",
              "chain_pallas.py:718", "K5 member bwd"),
-            ("chain_fwd (bf16_3x)", "chain_fwd.cu", "chain_pallas.py:236",
+            ("chain_fwd (bf16_3x, FwdTC)", "chain_fwd.cu", "chain_pallas.py:236",
              "K1 mode"),
             ("chain_bwd (bf16_3x)", "chain_bwd.cu", "chain_pallas.py:262",
              "K2 mode"),
             ("chain_bwd (bf16_3x, per-step seeds)", "chain_bwd.cu",
              "chain_pallas.py:262", "K2 mode step"),
-            ("plane_fwd (bf16_3x)", "plane_fwd.cu", "chain_pallas.py:695",
+            ("plane_fwd (bf16_3x, FwdTC)", "plane_fwd.cu", "chain_pallas.py:695",
              "K5 fwd mode"),
             ("plane_bwd (bf16_3x)", "plane_bwd.cu", "chain_pallas.py:718",
              "K5 bwd mode"),
             ("plane_bwd (bf16_3x, per-step seeds)", "plane_bwd.cu",
              "chain_pallas.py:718", "K5 bwd mode step"),
-            ("expm_fwd (bf16_3x, padded 64)", "expm_fwd.cu",
+            ("expm_fwd (bf16_3x, padded 64, FwdTC)", "expm_fwd.cu",
              "expm_pallas.py:264", "K3 mode"),
             ("expm_frechet (bf16_3x, padded 64)", "expm_frechet.cu",
              "expm_pallas.py:397", "K4 mode"),
-            ("chain_fwd (bf16_3x, member-batched)", "chain_fwd.cu",
+            ("chain_fwd (bf16_3x, FwdTC, member-batched)", "chain_fwd.cu",
              "chain_pallas.py:236", "K1 member mode"),
             ("chain_bwd (bf16_3x, member-batched)", "chain_bwd.cu",
              "chain_pallas.py:262", "K2 member mode"),

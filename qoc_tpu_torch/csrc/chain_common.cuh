@@ -18,13 +18,14 @@
 // tile in registers (FP32 SIMT FMAs, no tensor cores, no TF32).
 //
 // The bf16_3x mode (QOC_TPU_MXU_PRECISION=bf16_3x, ops/chain.py): every
-// kernel here has a second instantiation (TC = true) whose products run on
-// the tensor cores as 3 x TF32 (mma.sync m16n8k8): each real product is
-// x_hi y_hi + x_hi y_lo + x_lo y_hi of operands split by cvt.rna.tf32
-// (mm_acc_tc). Its threads own the mma accumulator fragments (MmaMap), and
-// one map serves every product, epilogue and elementwise pass of an
-// instantiation. At degree 12 the mode takes the 4-product scheme _D12A in
-// place of Paterson-Stockmeyer, forward and adjoint alike. The tensor
+// kernel here has a second form (FwdTC, the Adjoint with TC = true) whose
+// products run on the tensor cores as 3 x TF32 (mma.sync m16n8k8): each
+// real product is x_hi y_hi + x_hi y_lo + x_lo y_hi of operands split to
+// TF32 by rounding to nearest, ties away from zero (mm_acc_3x). Its threads
+// own the mma accumulator fragments (MmaMap), and one map serves every
+// product, epilogue and elementwise pass of a form. At degree 12 the mode
+// takes the 4-product scheme _D12A in place of Paterson-Stockmeyer,
+// forward and adjoint alike. The tensor
 // cores' FP32 sums round toward zero, a bias that a chain of thousands of
 // steps would compound where a product's result is dominated by one term
 // (U P with U near I, X X in the squarings): so each k8 partial joins its
@@ -152,7 +153,7 @@ struct TileMap {
 // 2 t and 2 t + 1 of each: 32 x 16 a warp at 256 threads, 16 x 16 at 512.
 // With SW its matrices in shared memory are swizzled: the 16-byte chunk j
 // (two complex elements) of row r sits at chunk j ^ swz(r) of the row
-// (phys), so that mm_acc_tc's fragment reads of 8 rows, or of 4 rows two
+// (phys), so that mm_acc_3x's fragment reads of 8 rows, or of 4 rows two
 // by two, fall on distinct banks. own(e) is element e's shared-memory
 // index, gown its index in a row-major matrix in device memory. The
 // forwards (256 threads) swizzle; the adjoints (512 threads) do not: at
@@ -227,6 +228,12 @@ __device__ __forceinline__ float2 cscale(float s, float2 a) {
 // s * a + b
 __device__ __forceinline__ float2 caxpy(float s, float2 a, float2 b) {
   return make_float2(fmaf(s, a.x, b.x), fmaf(s, a.y, b.y));
+}
+
+// s * a + b on two complex elements (four floats).
+__device__ __forceinline__ float4 axpy4(float s, float4 a, float4 b) {
+  return make_float4(fmaf(s, a.x, b.x), fmaf(s, a.y, b.y), fmaf(s, a.z, b.z),
+                     fmaf(s, a.w, b.w));
 }
 
 template <int N>
@@ -329,102 +336,6 @@ __device__ __forceinline__ void mma_small(float (&c)[4],
   mma_tf32(c[0], c[1], c[2], c[3], al, bh[0], bh[1]);
 }
 
-// acc += X Y in the bf16_3x mode, on the calling thread's MmaMap fragments
-// of an NTH-thread block. A k8 step of the mma takes k0 + 2 t as its k = t
-// and k0 + 2 t + 1 as its k = t + 4 (a product may order k as it likes),
-// so one float4 read gives a lane both of its X elements of a row. The real
-// and imaginary planes split separately; Zr = Xr Yr - Xi Yi and
-// Zi = Xr Yi + Xi Yr take 12 mma a tile and k8 step. The tensor cores'
-// sums round toward zero: each k8 step sums into fresh registers, the
-// small passes first and the x_hi y_hi passes last, and that partial joins
-// acc by an FP32 add that rounds to nearest, so one truncation a real
-// product and k8 step is at the partial's scale. X and Y are in MmaMap's
-// layout: swizzled, a quarter-warp's X chunks and a half-warp's Y elements
-// each fill the 32 banks once; row-major (the adjoints), X's reads of 8
-// rows share 16 banks and Y's of 4 rows 8.
-template <int NTH>
-__device__ __forceinline__ void mm_acc_tc(
-    const float2* __restrict__ X, const float2* __restrict__ Y,
-    float2 (&acc)[MmaMap<NTH>::EPT]) {
-  using T = MmaMap<NTH>;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  // X: rows row0 + 16 mt + 8 h + g (swz of g alone), chunk k0 / 2 + t at
-  // k0 ^ ua. Y: rows k0 + 2 t + j (swz of 2 t + j), column col0 + 8 nt + g
-  // at k0 DP + yo[j][nt].
-  const float2* xp = X + (T::row0() + g) * DP;
-  const int ua = 2 * (t ^ T::swz(g));
-  int yo[2][T::NTL];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int nt = 0; nt < T::NTL; ++nt)
-      yo[j][nt] = (2 * t + j) * DP + T::col0() +
-                  2 * ((4 * nt + (g >> 1)) ^ T::swz(2 * t + j)) + (g & 1);
-  }
-#pragma unroll 1
-  for (int k0 = 0; k0 < DP; k0 += 8) {
-    // A fragments (a0, a1, a2, a3) = rows (g, g + 8, g, g + 8) at k
-    // (t, t, t + 4, t + 4): real and imaginary, hi and lo, and the
-    // imaginary negated for Zr.
-    uint32_t arh[T::MT][4], arl[T::MT][4], aih[T::MT][4], ail[T::MT][4],
-        anh[T::MT][4], anl[T::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            xp + (16 * mt + 8 * h) * DP + (k0 ^ ua));
-        split_tf32(v.x, arh[mt][h], arl[mt][h]);
-        split_tf32(v.y, aih[mt][h], ail[mt][h]);
-        split_tf32(v.z, arh[mt][2 + h], arl[mt][2 + h]);
-        split_tf32(v.w, aih[mt][2 + h], ail[mt][2 + h]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        anh[mt][j] = aih[mt][j] ^ 0x80000000u;
-        anl[mt][j] = ail[mt][j] ^ 0x80000000u;
-      }
-    }
-    // B fragments (b0, b1) = rows k0 + 2 t, k0 + 2 t + 1 at column g.
-    uint32_t brh[T::NTL][2], brl[T::NTL][2], bih[T::NTL][2], bil[T::NTL][2];
-#pragma unroll
-    for (int nt = 0; nt < T::NTL; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float2 u = Y[k0 * DP + yo[j][nt]];
-        split_tf32(u.x, brh[nt][j], brl[nt][j]);
-        split_tf32(u.y, bih[nt][j], bil[nt][j]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < T::NTL; ++nt) {
-        float re[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float im[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_small(re, arh[mt], arl[mt], brh[nt], brl[nt]);
-        mma_small(re, anh[mt], anl[mt], bih[nt], bil[nt]);
-        mma_small(im, arh[mt], arl[mt], bih[nt], bil[nt]);
-        mma_small(im, aih[mt], ail[mt], brh[nt], brl[nt]);
-        mma_tf32(re[0], re[1], re[2], re[3], arh[mt], brh[nt][0],
-                 brh[nt][1]);
-        mma_tf32(re[0], re[1], re[2], re[3], anh[mt], bih[nt][0],
-                 bih[nt][1]);
-        mma_tf32(im[0], im[1], im[2], im[3], arh[mt], bih[nt][0],
-                 bih[nt][1]);
-        mma_tf32(im[0], im[1], im[2], im[3], aih[mt], brh[nt][0],
-                 brh[nt][1]);
-        float2* c = acc + 4 * (mt * T::NTL + nt);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          c[q].x = __fadd_rn(c[q].x, re[q]);
-          c[q].y = __fadd_rn(c[q].y, im[q]);
-        }
-      }
-    }
-  }
-}
-
 // x = hi + lo as split_tf32 forms them, by integer rounding on the bits
 // (half a TF32 unit added to the magnitude, as ops/chain.py _tf32): hi with
 // its 13 low bits cleared, so that x - hi is the true remainder, lo with
@@ -438,14 +349,24 @@ __device__ __forceinline__ void split_3x(float x, uint32_t& hi,
 
 // acc += X0 Y0 (+ X1 Y1: with X1, the product of depth 2 DP [X0 X1]
 // [Y0; Y1] a dual product's tangent pass is) in the bf16_3x mode, on the
-// calling thread's fragments of the MmaMap T: mm_acc_tc's sums, term for
-// term and in its order, so its result is mm_acc_tc's to the bit. What
-// differs is the work around the mma: each operand element is split by
-// split_3x; the imaginary part of B (Y, NTL x 2 values a lane) is negated
-// for Zr in place of A's (MT x 4), in its own registers once Zi's mma have
-// read it. (A k-loop pipelined by one k8 step, its fragments loaded
-// while this step's mma issue, needs 24 more registers a thread and was
-// slower at 512 threads and at 256, PERF.md.)
+// calling thread's fragments of the MmaMap T. A k8 step of the mma takes
+// k0 + 2 t as its k = t and k0 + 2 t + 1 as its k = t + 4 (a product may
+// order k as it likes), so one float4 read gives a lane both of its X
+// elements of a row. Each operand element is split by split_3x
+// (ops/chain.py _split_tf32); Zr = Xr Yr - Xi Yi and Zi = Xr Yi + Xi Yr
+// take 12 mma a tile and k8 step. The tensor cores' sums round toward
+// zero: each k8 step sums into fresh registers, the small passes first and
+// the x_hi y_hi passes last, and that partial joins acc by an FP32 add that
+// rounds to nearest, so one truncation a real product and k8 step is at the
+// partial's scale. Zi's mma read B's imaginary part (Y, NTL x 2 values a
+// lane) as it is; it is then negated in its own registers for Zr's, where
+// negating A's would take MT x 4. X and Y are in T's layout: swizzled (the
+// forwards), a quarter-warp's X chunks and a half-warp's Y elements each
+// fill the 32 banks once; row-major (the adjoints), X's reads of 8 rows
+// share 16 banks and Y's of 4 rows 8. (A k-loop pipelined by one k8 step,
+// its fragments loaded while this step's mma issue, needs 24 more
+// registers a thread and was slower at 512 threads and at 256, for the
+// adjoints and the forwards, PERF.md.)
 template <class T>
 __device__ __forceinline__ void mm_acc_3x(
     const float2* __restrict__ X0, const float2* __restrict__ Y0,
@@ -453,9 +374,9 @@ __device__ __forceinline__ void mm_acc_3x(
     float2 (&acc)[T::EPT]) {
   constexpr int KS = DP / 8;  // k8 steps of a DP-deep product
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  // X: rows row0 + 16 mt + 8 h + g, chunk k0 / 2 + t at k0 ^ ua. Y: rows
-  // k0 + 2 t + j, column col0 + 8 nt + g at k0 DP + yo[j][nt] (as
-  // mm_acc_tc).
+  // X: rows row0 + 16 mt + 8 h + g (swz of g alone), chunk k0 / 2 + t at
+  // k0 ^ ua. Y: rows k0 + 2 t + j (swz of 2 t + j), column col0 + 8 nt + g
+  // at k0 DP + yo[j][nt].
   const int xo = (T::row0() + g) * DP;
   const int ua = 2 * (t ^ T::swz(g));
   int yo[2][T::NTL];
@@ -510,8 +431,8 @@ __device__ __forceinline__ void mm_acc_3x(
         split_3x(yv[nt][j].y, bih[nt][j], bil[nt][j]);
       }
     }
-    // Each partial's mma in mm_acc_tc's order; Zi's use B's imaginary part
-    // as it is, then it is negated in place for the rest of Zr's.
+    // Each partial's mma: Zi's use B's imaginary part as it is, then it is
+    // negated in place for the rest of Zr's.
 #pragma unroll
     for (int nt = 0; nt < T::NTL; ++nt) {
       float re[T::MT][4], im[T::MT][4];
@@ -548,16 +469,6 @@ __device__ __forceinline__ void mm_acc_3x(
       }
     }
   }
-}
-
-// acc += X Y on the tile of MapOf<NTH, TC>: the SIMT product (U k-pairs an
-// iteration) or, TC, the bf16_3x mode's mm_acc_tc (the forwards').
-template <int NTH, bool TC, int U = 2>
-__device__ __forceinline__ void prod_acc(
-    const float2* __restrict__ X, const float2* __restrict__ Y,
-    float2 (&acc)[MapOf<NTH, TC>::EPT]) {
-  if constexpr (TC) mm_acc_tc<NTH>(X, Y, acc);
-  else mm_acc<NTH, U>(X, Y, acc);
 }
 
 // Z = v on the calling thread's elements of Map.
@@ -641,13 +552,31 @@ __device__ __forceinline__ int scaling_count(const float2* M, float* red) {
 
 
 // ---------------------------------------------------------------------------
-// Forward: exp(M) by the ladder (K1, K5 forward; K3 at D = 64), on NT
-// threads; TC: the bf16_3x mode (MmaMap, tensor-core products, _D12A).
+// Forward: exp(M) by the ladder and the chain step (K1, K5 forward; K3 at
+// D = 64), on NT threads: Fwd exact, FwdTC in the bf16_3x mode. The kernels
+// take a form F and call F::chain (K1, K5) or F::expm_batch (K3).
 // ---------------------------------------------------------------------------
 
-template <bool TC>
+// Where a forward chain's generators come from: a weighted sum of a basis
+// (K1: w (L, n_b) of the block's chain, basis (n_b, DP, DP)), or planes
+// (K5: a (L, DP, DP) of the block's chain).
+struct BasisSource {
+  static constexpr bool PLANES = false;
+  const float* w;
+  const float2* basis;
+  int n_b;
+};
+struct PlaneSource {
+  static constexpr bool PLANES = true;
+  const float2* a;
+};
+
+// The exact form: TileMap<NT>, SIMT products, Paterson-Stockmeyer at degree
+// 12.
 struct Fwd {
-  using Map = MapOf<NT, TC>;
+  using Map = TileMap<NT>;
+  static constexpr int THREADS = NT;
+  static constexpr size_t SMEM = FWD_SMEM;
   static constexpr int EP = Map::EPT;
 
   static __device__ __forceinline__ int own(int e) { return Map::own(e); }
@@ -657,7 +586,7 @@ struct Fwd {
   static __device__ __forceinline__ void mm(const float2* X, const float2* Y,
                                             float2 (&acc)[EP]) {
     zero(acc);
-    prod_acc<NT, TC>(X, Y, acc);
+    mm_acc<NT, 2>(X, Y, acc);
   }
 
   static __device__ __forceinline__ void store(float2* Z,
@@ -674,13 +603,6 @@ struct Fwd {
     float2 v = caxpy(kC[k + 1], M[i], make_float2(kC[k] * eye(e), 0.0f));
     v = caxpy(kC[k + 2], M2[i], v);
     return caxpy(kC[k + 3], M3[i], v);
-  }
-
-  // lin'(j) of _D12A (without its constant a_j0 I) from m, m2, m3.
-  static __device__ __forceinline__ float2 lin(int j, float2 m, float2 m2,
-                                               float2 m3) {
-    const float* a = kD12 + 4 * j;
-    return caxpy(a[3], m3, caxpy(a[2], m2, cscale(a[1], m)));
   }
 
   // M2 = M M, M3 = M2 M, M4 = M2 M2. Expects M written; ends with a
@@ -716,49 +638,6 @@ struct Fwd {
         X[own(e)] = cadd(acc[e], chunk(k, e, M, M2, M3));
       __syncthreads();
     }
-  }
-
-  // Degree 12 in 4 products (_D12A, as kD12C says), the bf16_3x mode's:
-  // M2, then M3 whose epilogue writes lin(3) to X; lin(3)^2, whose epilogue
-  // forms A6' = lin'(2) + lin(3)^2 (M4), Y' = lin'(1) + A6' (M2) and
-  // c0 I + lin'(0) (M) from the thread's own elements of M, M2, M3 (the
-  // product reads X alone); then X = c0 I + lin'(0) + Y' A6' + a20 Y' +
-  // y0 A6'.
-  static __device__ __forceinline__ float2* taylor12_4(float2* M, float2* M2,
-                                                       float2* M3, float2* M4,
-                                                       float2* X) {
-    float2 acc[EP];
-    mm(M, M, acc);
-    store(M2, acc);
-    __syncthreads();
-    mm(M2, M, acc);
-#pragma unroll
-    for (int e = 0; e < EP; ++e) {
-      const int i = own(e);
-      M3[i] = acc[e];
-      X[i] = lin(3, M[i], M2[i], acc[e]);
-    }
-    __syncthreads();
-    mm(X, X, acc);
-#pragma unroll
-    for (int e = 0; e < EP; ++e) {
-      const int i = own(e);
-      const float2 m = M[i], m2 = M2[i], m3 = M3[i];
-      const float2 a6 = cadd(lin(2, m, m2, m3), acc[e]);
-      M4[i] = a6;
-      M2[i] = cadd(lin(1, m, m2, m3), a6);
-      M[i] = cadd(make_float2(kD12C[0] * eye(e), 0.0f), lin(0, m, m2, m3));
-    }
-    __syncthreads();
-    mm(M2, M4, acc);
-#pragma unroll
-    for (int e = 0; e < EP; ++e) {
-      const int i = own(e);
-      const float2 v = caxpy(kD12C[1], M4[i], caxpy(kD12[8], M2[i], M[i]));
-      X[i] = cadd(v, acc[e]);
-    }
-    __syncthreads();
-    return X;
   }
 
   // exp(M) for the generator M in shared memory (written, behind a
@@ -825,7 +704,6 @@ struct Fwd {
       return M;
     }
     if (level == 2) {
-      if constexpr (TC) return taylor12_4(M, M2, M3, M4, X);
       // Degree 12, Paterson-Stockmeyer (5 products).
       powers(M, M2, M3, M4);
 #pragma unroll
@@ -853,26 +731,6 @@ struct Fwd {
     }
     powers(M, M2, M3, M4);
     taylor19(M, M2, M3, M4, X);
-    if constexpr (TC) {
-      // The bf16_3x mode squares D = X - I: X^2 = I + 2 D + D D, so the
-      // tensor cores' truncation scales with D D (as advance; ops/chain.py
-      // _scale_and_square).
-      if (s > 0) {
-        shift(X, -1.0f);
-        for (int j = 0; j < s; ++j) {
-          mm(X, X, acc);
-          __syncthreads();
-#pragma unroll
-          for (int e = 0; e < EP; ++e) {
-            const int i = own(e);
-            X[i] = caxpy(2.0f, X[i], acc[e]);
-          }
-          __syncthreads();
-        }
-        shift(X, 1.0f);
-      }
-      return X;
-    }
     for (int j = 0; j < s; ++j) {
       mm(X, X, acc);
       __syncthreads();
@@ -882,39 +740,596 @@ struct Fwd {
     return X;
   }
 
-  // X <- X + c I on the calling thread's elements; ends with a barrier.
-  static __device__ __forceinline__ void shift(float2* X, float c) {
-#pragma unroll
-    for (int e = 0; e < EP; ++e) X[own(e)].x += c * eye(e);
-    __syncthreads();
-  }
-
   // P <- U P, also written to the prefix slot ``out`` in device memory. U
-  // and P are in shared memory; ends with a barrier. In the bf16_3x mode
-  // (TC) the step is P + (U - I) P (U is overwritten by U - I, exact): the
-  // tensor cores' truncation then scales with U - I, not with P, and a
-  // step with U = I leaves P exactly as it was (ops/chain.py
-  // _step_product).
+  // and P are in shared memory; ends with a barrier.
   static __device__ __forceinline__ void advance(float2* P, float2* U,
                                                  float2* __restrict__ out) {
     float2 acc[EP];
-    if constexpr (TC) {
-#pragma unroll
-      for (int e = 0; e < EP; ++e) U[own(e)].x -= eye(e);
-      __syncthreads();
-    }
     mm(U, P, acc);
     __syncthreads();
-    if constexpr (TC) {
-#pragma unroll
-      for (int e = 0; e < EP; ++e) acc[e] = cadd(P[own(e)], acc[e]);
-    }
     store(P, acc);
 #pragma unroll
     for (int e = 0; e < EP; ++e) out[Map::gown(e)] = acc[e];
     __syncthreads();
   }
+
+  // The chain P_t = exp(A_t) P_{t-1} from P_0 = I, A_t from src, P_t
+  // written to out + t MAT (t = 1..L). sm: P, M, M2, M3, M4, X and red.
+  template <class Src>
+  static __device__ __forceinline__ void chain(float2* sm, const Src& src,
+                                               int L, int level,
+                                               float2* __restrict__ out) {
+    float2* P = sm;
+    float2* M = sm + MAT;
+    float* red = reinterpret_cast<float*>(sm + 6 * MAT);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) P[own(e)] = make_float2(eye(e), 0.0f);
+    for (int t = 0; t < L; ++t) {
+      if constexpr (Src::PLANES)
+        load<NT, Map>(M, src.a + (size_t)t * MAT);
+      else
+        build_generator<NT, 1, Map>(M, src.w + (size_t)t * src.n_b,
+                                    src.basis, src.n_b);
+      __syncthreads();
+      advance(P, expm(M, sm + 2 * MAT, sm + 3 * MAT, sm + 4 * MAT,
+                      sm + 5 * MAT, level, red),
+              out + (size_t)(t + 1) * MAT);
+    }
+  }
+
+  // out[i] = exp(a[i]) for i = blockIdx.x, + gridDim.x, ... < B (DP x DP
+  // each). sm: M, M2, M3, M4, X and red.
+  static __device__ __forceinline__ void expm_batch(
+      float2* sm, const float2* __restrict__ a, float2* __restrict__ out,
+      int B, int level) {
+    float2* M = sm;
+    float* red = reinterpret_cast<float*>(sm + 5 * MAT);
+    for (int m = blockIdx.x; m < B; m += gridDim.x) {
+      load<NT, Map>(M, a + (size_t)m * MAT);
+      __syncthreads();
+      const float2* r = expm(M, sm + MAT, sm + 2 * MAT, sm + 3 * MAT,
+                             sm + 4 * MAT, level, red);
+#pragma unroll
+      for (int e = 0; e < EP; ++e)
+        out[(size_t)m * MAT + Map::gown(e)] = r[own(e)];
+      __syncthreads();
+    }
+  }
 };
+
+// The bf16_3x mode's form, on NT threads and MmaMap<NT>'s swizzled
+// fragments (32 x 16 a warp, 16 elements a thread). Its sums are the
+// mode's (ops/chain.py): 3 x TF32 products with one rounding add of each
+// k8 partial, _D12A at degree 12, squarings on D = X - I, the chain step
+// P + (U - I) P; its products are mm_acc_3x's.
+//
+// Phases. Every epilogue writes only slots that no thread reads in the
+// same phase (or its own elements of a slot that only it reads), so a
+// product and the elementwise pass after it share a phase, and the passes
+// go over a thread's elements two by two in 16-byte accesses: degree 4, 8
+// and 12 take 2, 3 and 4 barriers. The ladder's last epilogue hands its
+// value to fin: the chain keeps U - I (rounded as the step would form it,
+// so that the step needs no pass of its own), K3 writes exp(M) out.
+//
+// Step. One phase forms P + (U - I) P into a free slot and the prefix in
+// device memory, and brings the next step's generator into another free
+// slot; the slots then rotate (chain). A plane is staged by cp.async
+// issued before the product. A basis sum is built (build, KU terms' loads
+// in flight, in PASSES passes over a thread's chunks) before the product by
+// the first half of the warps when EARLY, after it by the rest, so that a
+// scheduler's two warps wait on L2 and issue mma side by side. With PAIR a
+// seventh slot holds a generator across a step: every other step one pass
+// over the basis builds the next two steps' generators, half the basis
+// reads a step.
+//
+// ABLATE (never set by the kernels, only by profiling/resident_variants.py)
+// reduces every elementwise pass to a store of the product's accumulator
+// (the results are then garbage): what is left is the step's products,
+// barriers, generator build or staging and prefix write.
+template <int KU, int PASSES, bool EARLY, bool PAIR, bool ABLATE = false>
+struct FwdTC {
+  using Map = MmaMap<NT>;
+  static constexpr int THREADS = NT;
+  static constexpr int SLOTS = PAIR ? 7 : 6;  // the chain's
+  static constexpr size_t SMEM = SLOTS * MAT * sizeof(float2) + RED_BYTES;
+  static constexpr int EP = Map::EPT;
+  // The shape, for the design lines (qoc_forward_form).
+  static constexpr int SHAPE[4] = {KU, PASSES, EARLY, PAIR};
+
+  static __device__ __forceinline__ int own(int e) { return Map::own(e); }
+  static __device__ __forceinline__ float eye(int e) { return Map::eye(e); }
+
+  // f(e) for e = 0, 2, .., EP - 2: elements e and e + 1 are columns 2 t
+  // and 2 t + 1 of an mma fragment, adjacent and 16-byte aligned in Map's
+  // layout and, at gown(e), in a row-major matrix.
+  template <class F>
+  static __device__ __forceinline__ void pairs(F f) {
+#pragma unroll
+    for (int e = 0; e < EP; e += 2) f(e);
+  }
+  static __device__ __forceinline__ void get2(const float2* x, int e,
+                                              float2 (&v)[2]) {
+    const float4 q = *reinterpret_cast<const float4*>(x + own(e));
+    v[0] = make_float2(q.x, q.y);
+    v[1] = make_float2(q.z, q.w);
+  }
+  static __device__ __forceinline__ void put2(float2* x, int e,
+                                              const float2 (&v)[2]) {
+    *reinterpret_cast<float4*>(x + own(e)) =
+        make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+  }
+  // Elements e, e + 1 to the row-major matrix z in device memory.
+  static __device__ __forceinline__ void out2(float2* z, int e,
+                                              const float2 (&v)[2]) {
+    *reinterpret_cast<float4*>(z + Map::gown(e)) =
+        make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+  }
+  static __device__ __forceinline__ void put(float2* x,
+                                             const float2 (&v)[EP]) {
+    pairs([&](int e) { put2(x, e, {v[e], v[e + 1]}); });
+  }
+
+  // acc = X Y
+  static __device__ __forceinline__ void mm(const float2* X, const float2* Y,
+                                            float2 (&acc)[EP]) {
+    zero(acc);
+    mm_acc_3x<Map>(X, Y, nullptr, nullptr, acc);
+  }
+
+  // epi(), or with ABLATE a store of acc to the slot x.
+  template <class E>
+  static __device__ __forceinline__ void epilogue(E epi,
+                                                  const float2 (&acc)[EP],
+                                                  float2* x) {
+    if constexpr (ABLATE) put(x, acc);
+    else epi();
+  }
+
+  // c_k I + c_{k+1} m + c_{k+2} m2 + c_{k+3} m3 on element e.
+  static __device__ __forceinline__ float2 chunk(int k, int e, float2 m,
+                                                 float2 m2, float2 m3) {
+    float2 v = caxpy(kC[k + 1], m, make_float2(kC[k] * eye(e), 0.0f));
+    v = caxpy(kC[k + 2], m2, v);
+    return caxpy(kC[k + 3], m3, v);
+  }
+
+  // lin'(j) of _D12A (without its constant a_j0 I) from m, m2, m3.
+  static __device__ __forceinline__ float2 lin(int j, float2 m, float2 m2,
+                                               float2 m3) {
+    const float* a = kD12 + 4 * j;
+    return caxpy(a[3], m3, caxpy(a[2], m2, cscale(a[1], m)));
+  }
+
+  // exp(M) for the generator M in shared memory (written, behind a
+  // barrier); M2, M3, M4 and X are scratch. The last epilogue calls
+  // fin(R, e, v) with exp(M)'s elements e, e + 1 of the calling thread (v)
+  // and R, a slot that no thread reads in that phase (M at level 1, else
+  // X); returns R. Ends with a barrier.
+  template <class Fin>
+  static __device__ __forceinline__ float2* expm(float2* M, float2* M2,
+                                                 float2* M3, float2* M4,
+                                                 float2* X, int level,
+                                                 float* red, Fin fin) {
+    float2 acc[EP];
+    if (level == 0) {
+      // Degree 4: M2 = M M and Y = c3 M + c4 M2 (its epilogue);
+      // c0 I + c1 M + c2 M2 + M2 Y.
+      mm(M, M, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], y[2];
+          get2(M, e, m);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            y[u] = caxpy(kC[4], acc[e + u], cscale(kC[3], m[u]));
+          put2(M2, e, {acc[e], acc[e + 1]});
+          put2(M3, e, y);
+        });
+      }, acc, M2);
+      __syncthreads();
+      mm(M2, M3, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], m2[2], v[2];
+          get2(M, e, m);
+          get2(M2, e, m2);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            v[u] = caxpy(kC[1], m[u], make_float2(kC[0] * eye(e + u), 0.0f));
+            v[u] = cadd(caxpy(kC[2], m2[u], v[u]), acc[e + u]);
+          }
+          fin(X, e, v);
+        });
+      }, acc, X);
+      __syncthreads();
+      return X;
+    }
+    if (level == 1) {
+      // Degree 8 in 3 products (_D8X): A2 = M M and Y = x1 M + x2 A2;
+      // A4 = A2 Y, whose epilogue forms the factors x3 A2 + A4 (M4) and
+      // x4 I + x5 M + x6 A2 + x7 A4 (X), and y0 I + y1 M + y2 A2 (M, the
+      // thread's own elements); their product plus that sum.
+      mm(M, M, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], y[2];
+          get2(M, e, m);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            y[u] = caxpy(kD8[1], acc[e + u], cscale(kD8[0], m[u]));
+          put2(M2, e, {acc[e], acc[e + 1]});
+          put2(M3, e, y);
+        });
+      }, acc, M2);
+      __syncthreads();
+      mm(M2, M3, acc);  // A4
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], m2[2], l[2], r[2], b[2];
+          get2(M, e, m);
+          get2(M2, e, m2);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float id = eye(e + u);
+            const float2 a4 = acc[e + u];
+            l[u] = caxpy(kD8[2], m2[u], a4);
+            float2 q = caxpy(kD8[4], m[u], make_float2(kD8[3] * id, 0.0f));
+            q = caxpy(kD8[5], m2[u], q);
+            r[u] = caxpy(kD8[6], a4, q);
+            const float2 c =
+                caxpy(kD8[8], m[u], make_float2(kD8[7] * id, 0.0f));
+            b[u] = caxpy(kD8[9], m2[u], c);
+          }
+          put2(M4, e, l);
+          put2(X, e, r);
+          put2(M, e, b);
+        });
+      }, acc, M4);
+      __syncthreads();
+      mm(M4, X, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 b[2], v[2];
+          get2(M, e, b);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) v[u] = cadd(b[u], acc[e + u]);
+          fin(M, e, v);
+        });
+      }, acc, M);
+      __syncthreads();
+      return M;
+    }
+    if (level == 2) {
+      // Degree 12 in 4 products (_D12A, as kD12C says): M2 = M M; M3 =
+      // M2 M, whose epilogue writes lin(3) to X; lin(3)^2, whose epilogue
+      // forms A6' = lin'(2) + lin(3)^2 (M4), Y' = lin'(1) + A6' (M2) and
+      // c0 I + lin'(0) (M, the thread's own elements); then c0 I +
+      // lin'(0) + Y' A6' + a20 Y' + y0 A6'.
+      mm(M, M, acc);
+      epilogue([&] { put(M2, acc); }, acc, M2);
+      __syncthreads();
+      mm(M2, M, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], m2[2], l3[2];
+          get2(M, e, m);
+          get2(M2, e, m2);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) l3[u] = lin(3, m[u], m2[u], acc[e + u]);
+          put2(M3, e, {acc[e], acc[e + 1]});
+          put2(X, e, l3);
+        });
+      }, acc, M3);
+      __syncthreads();
+      mm(X, X, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], m2[2], m3[2], a6[2], y[2], c[2];
+          get2(M, e, m);
+          get2(M2, e, m2);
+          get2(M3, e, m3);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            a6[u] = cadd(lin(2, m[u], m2[u], m3[u]), acc[e + u]);
+            y[u] = cadd(lin(1, m[u], m2[u], m3[u]), a6[u]);
+            c[u] = cadd(make_float2(kD12C[0] * eye(e + u), 0.0f),
+                        lin(0, m[u], m2[u], m3[u]));
+          }
+          put2(M4, e, a6);
+          put2(M2, e, y);
+          put2(M, e, c);
+        });
+      }, acc, M4);
+      __syncthreads();
+      mm(M2, M4, acc);
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 a6[2], y[2], c[2], v[2];
+          get2(M4, e, a6);
+          get2(M2, e, y);
+          get2(M, e, c);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            v[u] = cadd(caxpy(kD12C[1], a6[u], caxpy(kD12[8], y[u], c[u])),
+                        acc[e + u]);
+          fin(X, e, v);
+        });
+      }, acc, X);
+      __syncthreads();
+      return X;
+    }
+    // Degree 19 by Paterson-Stockmeyer; at level 4 after per-matrix
+    // scaling to theta = 1, and followed by s squarings.
+    int s = 0;
+    if (level == 4) {
+      s = scaling_count<Map>(M, red);
+      const float scale = exp2f(-(float)s);
+      pairs([&](int e) {
+        float2 m[2];
+        get2(M, e, m);
+        m[0] = cscale(scale, m[0]);
+        m[1] = cscale(scale, m[1]);
+        put2(M, e, m);
+      });
+      __syncthreads();
+    }
+    // M2 = M M; M3 = M2 M, whose epilogue writes the top chunk
+    // c16 I + c17 M + c18 M2 + c19 M3 to X; M4 = M2 M2.
+    mm(M, M, acc);
+    epilogue([&] { put(M2, acc); }, acc, M2);
+    __syncthreads();
+    mm(M2, M, acc);
+    epilogue([&] {
+      pairs([&](int e) {
+        float2 m[2], m2[2], x[2];
+        get2(M, e, m);
+        get2(M2, e, m2);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          x[u] = chunk(16, e + u, m[u], m2[u], acc[e + u]);
+        put2(M3, e, {acc[e], acc[e + 1]});
+        put2(X, e, x);
+      });
+    }, acc, M3);
+    mm(M2, M2, acc);
+    epilogue([&] { put(M4, acc); }, acc, M4);
+    __syncthreads();
+    for (int k = 12; k >= 0; k -= 4) {
+      mm(X, M4, acc);
+      __syncthreads();
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 m[2], m2[2], m3[2], v[2];
+          get2(M, e, m);
+          get2(M2, e, m2);
+          get2(M3, e, m3);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            v[u] = cadd(acc[e + u], chunk(k, e + u, m[u], m2[u], m3[u]));
+          if (k == 0 && s == 0) {
+            fin(X, e, v);
+            return;
+          }
+          if (k == 0) {
+            // The squarings work on D = X - I: X^2 = I + 2 D + D D, so
+            // the tensor cores' truncation scales with D D (ops/chain.py
+            // _scale_and_square).
+            v[0].x += -1.0f * eye(e);
+            v[1].x += -1.0f * eye(e + 1);
+          }
+          put2(X, e, v);
+        });
+      }, acc, X);
+      __syncthreads();
+    }
+    for (int j = 0; j < s; ++j) {
+      mm(X, X, acc);
+      __syncthreads();
+      epilogue([&] {
+        pairs([&](int e) {
+          float2 d[2], v[2];
+          get2(X, e, d);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) v[u] = caxpy(2.0f, d[u], acc[e + u]);
+          if (j + 1 < s) {
+            put2(X, e, v);
+            return;
+          }
+          v[0].x += 1.0f * eye(e);
+          v[1].x += 1.0f * eye(e + 1);
+          fin(X, e, v);
+        });
+      }, acc, X);
+      __syncthreads();
+    }
+    return X;
+  }
+
+  // s = X (DP x DP in device memory) by cp.async in 16-byte chunks, into
+  // Map's layout; the caller waits (cp_async_wait) before its barrier.
+  static __device__ __forceinline__ void stage(float2* s,
+                                               const float2* __restrict__ X) {
+#pragma unroll
+    for (int j = 0; j < MAT / 2 / NT; ++j) {
+      const int q = 2 * (threadIdx.x + NT * j);
+      cp_async16(s + Map::phys(q), X + q);
+    }
+    cp_async_commit();
+  }
+
+  // G0 = sum_k w0[k] B_k (and, TWO, G1 = sum_k w1[k] B_k from the same
+  // loads) into Map's layout, B (n_b, DP, DP) in device memory
+  // (L2-resident across the steps of every block): each thread sums the
+  // 16-byte chunks threadIdx.x + NT c (c < 8) of every term, in PASSES
+  // passes over its chunks, KU terms' loads in flight together; each
+  // element sums its terms in order from zero, as build_generator does.
+  template <bool TWO>
+  static __device__ __forceinline__ void build(float2* G0, float2* G1,
+                                               const float* __restrict__ w0,
+                                               const float* __restrict__ w1,
+                                               const float2* __restrict__ B,
+                                               int n_b) {
+    constexpr int CP = MAT / 2 / NT / PASSES;  // chunks a pass
+    constexpr int TERM = MAT / 2;              // chunks a term
+    constexpr int NG = TWO ? 2 : 1;
+    float2* const G[2] = {G0, G1};
+    const float* const w[2] = {w0, w1};
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      const float4* b =
+          reinterpret_cast<const float4*>(B) + threadIdx.x + NT * CP * pass;
+      float4 v[NG][CP];
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+#pragma unroll
+        for (int c = 0; c < CP; ++c)
+          v[j][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      int k = 0;
+      for (; k + KU <= n_b; k += KU) {
+        float4 g[KU][CP];
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+#pragma unroll
+          for (int c = 0; c < CP; ++c)
+            g[u][c] = __ldg(b + (size_t)(k + u) * TERM + NT * c);
+        }
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            const float wk = __ldg(w[j] + k + u);
+#pragma unroll
+            for (int c = 0; c < CP; ++c) v[j][c] = axpy4(wk, g[u][c], v[j][c]);
+          }
+        }
+      }
+      for (; k < n_b; ++k) {
+        float4 g[CP];
+#pragma unroll
+        for (int c = 0; c < CP; ++c)
+          g[c] = __ldg(b + (size_t)k * TERM + NT * c);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const float wk = __ldg(w[j] + k);
+#pragma unroll
+          for (int c = 0; c < CP; ++c) v[j][c] = axpy4(wk, g[c], v[j][c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+#pragma unroll
+        for (int c = 0; c < CP; ++c) {
+          const int q = 2 * (threadIdx.x + NT * (CP * pass + c));
+          *reinterpret_cast<float4*>(G[j] + Map::phys(q)) = v[j][c];
+        }
+      }
+    }
+  }
+
+  // The chain P_t = exp(A_t) P_{t-1} from P_0 = I, A_t from src, P_t
+  // written to out + t MAT (t = 1..L). sm: SLOTS slots and red; P starts in
+  // slot 0, A_0 in 1 (with pairs A_1 in 6). A step: the ladder (leaving
+  // U - I), then one phase that forms P + (U - I) P (ops/chain.py
+  // _step_product; a step with U = I leaves P exactly as it was) into slot
+  // m2 and the prefix, and brings A_{t+1} into slot m3 (with pairs, every
+  // other step, A_{t+1} into m3 and A_{t+2} into h, and in between A_{t+1}
+  // is already in h); then P = m2, M = m3 (or h), and the old P and M are
+  // scratch.
+  template <class Src>
+  static __device__ __forceinline__ void chain(float2* sm, const Src& src,
+                                               int L, int level,
+                                               float2* __restrict__ out) {
+    constexpr bool TWO = PAIR && !Src::PLANES;
+    float* red = reinterpret_cast<float*>(sm + SLOTS * MAT);
+    const bool early = EARLY && (threadIdx.x >> 5) < NT / 64;
+    // A_t into slot g (TWO: and A_{t+1} into slot g2 where t + 1 < L):
+    // part 0 before the step's product, part 1 after it.
+    auto next = [&](int g, int g2, int t, int part) {
+      if constexpr (Src::PLANES) {
+        if (part == 0) stage(sm + g * MAT, src.a + (size_t)t * MAT);
+        else cp_async_wait<0>();
+      } else if ((part == 0) == early) {
+        const float* w = src.w + (size_t)t * src.n_b;
+        if (TWO && t + 1 < L)
+          build<TWO>(sm + g * MAT, sm + g2 * MAT, w, w + src.n_b, src.basis,
+                     src.n_b);
+        else
+          build<false>(sm + g * MAT, nullptr, w, nullptr, src.basis,
+                       src.n_b);
+      }
+    };
+    pairs([&](int e) {
+      put2(sm, e, {make_float2(eye(e), 0.0f), make_float2(eye(e + 1), 0.0f)});
+    });
+    next(1, 6, 0, 0);
+    next(1, 6, 0, 1);
+    __syncthreads();
+    // Slots: M4 and X are 4 and 5; h (TWO) holds A_{t+1} where have.
+    int p = 0, m = 1, m2 = 2, m3 = 3, h = 6;
+    bool have = TWO;
+    for (int t = 0; t < L; ++t) {
+      float2* const U = expm(
+          sm + m * MAT, sm + m2 * MAT, sm + m3 * MAT, sm + 4 * MAT,
+          sm + 5 * MAT, level, red, [&](float2* r, int e, float2 (&v)[2]) {
+            v[0].x -= eye(e);
+            v[1].x -= eye(e + 1);
+            put2(r, e, v);
+          });
+      const float2* P = sm + p * MAT;
+      float2* const Pn = sm + m2 * MAT;
+      float2* const z = out + (size_t)(t + 1) * MAT;
+      const bool fetch = t + 1 < L && !have;
+      if (fetch) next(m3, h, t + 1, 0);
+      float2 acc[EP];
+      mm(U, P, acc);
+      pairs([&](int e) {
+        float2 v[2] = {acc[e], acc[e + 1]};
+        if constexpr (!ABLATE) {
+          float2 q[2];
+          get2(P, e, q);
+          v[0] = cadd(q[0], v[0]);
+          v[1] = cadd(q[1], v[1]);
+        }
+        put2(Pn, e, v);
+        out2(z, e, v);
+      });
+      if (fetch) next(m3, h, t + 1, 1);
+      __syncthreads();
+      const int p0 = p, m0 = m;
+      p = m2;
+      if (have) {
+        m = h;
+        h = m3;
+      } else {
+        m = m3;
+      }
+      m2 = p0;
+      m3 = m0;
+      have = TWO && !have;
+    }
+  }
+
+  // out[i] = exp(a[i]) for i = blockIdx.x, + gridDim.x, ... < B (DP x DP
+  // each), the last epilogue writing out. sm: five slots and red.
+  static __device__ __forceinline__ void expm_batch(
+      float2* sm, const float2* __restrict__ a, float2* __restrict__ out,
+      int B, int level) {
+    float* red = reinterpret_cast<float*>(sm + 5 * MAT);
+    for (int i = blockIdx.x; i < B; i += gridDim.x) {
+      stage(sm, a + (size_t)i * MAT);
+      cp_async_wait<0>();
+      __syncthreads();
+      float2* const z = out + (size_t)i * MAT;
+      expm(sm, sm + MAT, sm + 2 * MAT, sm + 3 * MAT, sm + 4 * MAT, level,
+           red, [&](float2*, int e, float2 (&v)[2]) { out2(z, e, v); });
+    }
+  }
+};
+
+// The package's mode form (the fastest of profiling/resident_variants.py's
+// at every forward entry's main-path inputs on an H100, PERF.md).
+using FwdMode = FwdTC<7, 2, true, true>;
 
 // ---------------------------------------------------------------------------
 // Adjoint: dual-number exp and the adjoint step (K2, K5 adjoint; K4 at
@@ -964,17 +1379,17 @@ __device__ __forceinline__ const float2* step_seed(const float2* seeds,
 // was the fastest of profiling/resident_variants.py's at the headline and
 // M4 inputs on an H100 (PERF.md).
 //
-// The bf16_3x mode (TC) runs mm_acc_3x (the sums of mm_acc_tc to the bit,
-// with 4 instructions a split in place of 5, B's imaginary part negated in
-// place, a tangent pass as one product of depth 2 DP), leaves U^H - I as
+// The bf16_3x mode (TC) runs mm_acc_3x (4 instructions a split, B's
+// imaginary part negated in place, a tangent pass as one product of depth
+// 2 DP), leaves U^H - I as
 // the ladder's value (exit_v), so that the next step needs no pass to form
 // it, and goes over its epilogues' elements two by two in 16-byte accesses
 // (get2, put2). It runs 512 threads, 16 x 16 an mma tile a warp, on
 // row-major slots: on 256 threads (MmaMap's swizzled 32 x 16 tiles) the
 // products ran faster, but the elementwise passes, on half the warps,
-// slower; and this form was 14-17% faster than the first one, mm_acc_tc
-// with every fragment split where it is read, at every entry's main-path
-// inputs (PERF.md). ABLATE (never set by the kernels, only by
+// slower; and this form was 14-17% faster than the first one, whose
+// product split every fragment by cvt.rna.tf32 where it read it, at every
+// entry's main-path inputs (PERF.md). ABLATE (never set by the kernels, only by
 // profiling/resident_variants.py) reduces every elementwise pass of the
 // step to a store of the product's accumulator (the results are then
 // garbage): what is left is the step's products, barriers, staging,
@@ -1730,6 +2145,15 @@ template <class Launch>
 int with_adjoint(int tf32, Launch launch) {
   if (tf32) return launch(Form<AdjointTC>{});
   return launch(Form<AdjointNTA>{});
+}
+
+// launch(Form<F>{}) on the forward form F that a resident forward's entry
+// (K1, K5's forward, K3 at D = 64) runs: FwdMode where tf32 != 0 (the
+// bf16_3x mode), else Fwd.
+template <class Launch>
+int with_forward(int tf32, Launch launch) {
+  if (tf32) return launch(Form<FwdMode>{});
+  return launch(Form<Fwd>{});
 }
 
 }  // namespace qoc

@@ -20,58 +20,42 @@
 // only for the basis (L2-resident) and one 32 KB prefix write. Products are
 // native complex64 FP32 FMAs from conflict-free shared-memory reads; no
 // tensor cores (TF32 would lose the f32 accuracy the ladder is tuned for).
-// The bf16_3x mode (tf32 != 0) is a second instantiation whose products run
-// on the tensor cores as 3 x TF32, with _D12A at degree 12
-// (chain_common.cuh): 1 + 4 products a step at degree 12, where the exact
-// form takes 1 + 5.
+// The bf16_3x mode (tf32 != 0) runs the second form, FwdTC
+// (chain_common.cuh): products on the tensor cores as 3 x TF32 with _D12A
+// at degree 12 (1 + 4 products a step at degree 12, where the exact form
+// takes 1 + 5), elementwise passes fused into the products' epilogues, the
+// chain step and the next step's generator build in one phase, half the
+// warps building before the step's product and half after it.
 //
-// Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64) + RED_BYTES.
+// Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64; FwdTC a seventh
+// slot, the generator built a step ahead) + RED_BYTES.
 
 #include "chain_common.cuh"
 
 namespace qoc {
 namespace {
 
-template <bool TC>
-__global__ void __launch_bounds__(NT, 1)
+template <class F>
+__global__ void __launch_bounds__(F::THREADS, 1)
     chain_fwd_kernel(const float* __restrict__ w,
                      const float2* __restrict__ basis,
                      const float* __restrict__ norm,
                      float2* __restrict__ prefpad, int L, int n_b) {
   extern __shared__ float4 smem4[];
-  float2* sm = reinterpret_cast<float2*>(smem4);
-  float2* P = sm;
-  float2* M = sm + MAT;
-  float2* M2 = sm + 2 * MAT;
-  float2* M3 = sm + 3 * MAT;
-  float2* M4 = sm + 4 * MAT;
-  float2* X = sm + 5 * MAT;
-  float* red = reinterpret_cast<float*>(sm + 6 * MAT);
-
   const int level = ladder_level(__ldg(norm));
-  const float* wseg = w + (size_t)blockIdx.x * L * n_b;
-  float2* pseg = prefpad + (size_t)blockIdx.x * (L + 1) * MAT;
-
-#pragma unroll
-  for (int e = 0; e < Fwd<TC>::EP; ++e)
-    P[Fwd<TC>::own(e)] = make_float2(Fwd<TC>::eye(e), 0.0f);
-  for (int t = 0; t < L; ++t) {
-    build_generator<NT, 1, typename Fwd<TC>::Map>(M, wseg + (size_t)t * n_b,
-                                                  basis, n_b);
-    __syncthreads();
-    Fwd<TC>::advance(P, Fwd<TC>::expm(M, M2, M3, M4, X, level, red),
-                     pseg + (size_t)(t + 1) * MAT);
-  }
+  F::chain(reinterpret_cast<float2*>(smem4),
+           BasisSource{w + (size_t)blockIdx.x * L * n_b, basis, n_b}, L,
+           level, prefpad + (size_t)blockIdx.x * (L + 1) * MAT);
 }
 
-template <bool TC>
+template <class F>
 int launch_chain_fwd(const void* w, const void* basis, const void* norm,
                      void* prefpad, int S, int L, int n_b, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      chain_fwd_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
+      chain_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)F::SMEM);
   if (err != cudaSuccess) return (int)err;
-  chain_fwd_kernel<TC><<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
+  chain_fwd_kernel<F><<<S, F::THREADS, F::SMEM, (cudaStream_t)stream>>>(
       static_cast<const float*>(w), static_cast<const float2*>(basis),
       static_cast<const float*>(norm), static_cast<float2*>(prefpad), L, n_b);
   return (int)cudaGetLastError();
@@ -80,6 +64,8 @@ int launch_chain_fwd(const void* w, const void* basis, const void* norm,
 }  // namespace
 }  // namespace qoc
 
+#ifndef QOC_KERNELS_ONLY  // (profiling/resident_variants.cu)
+
 // w (S, L, n_b) f32; basis (n_b, DP, DP) complex64; norm -> 1 f32 (batch-max
 // 1-norm of the generators); prefpad (S, L + 1, DP, DP) complex64, slot 0
 // written by the caller, slots 1..L by this kernel; tf32 != 0: the bf16_3x
@@ -87,34 +73,46 @@ int launch_chain_fwd(const void* w, const void* basis, const void* norm,
 extern "C" int qoc_chain_fwd(const void* w, const void* basis,
                              const void* norm, void* prefpad, int S, int L,
                              int n_b, int tf32, void* stream) {
-  using namespace qoc;
-  return tf32 ? launch_chain_fwd<true>(w, basis, norm, prefpad, S, L, n_b,
-                                       stream)
-              : launch_chain_fwd<false>(w, basis, norm, prefpad, S, L, n_b,
-                                        stream);
+  return qoc::with_forward(tf32, [&](auto form) {
+    return qoc::launch_chain_fwd<typename decltype(form)::type>(
+        w, basis, norm, prefpad, S, L, n_b, stream);
+  });
 }
 
 extern "C" int qoc_chain_dp() { return qoc::DP; }
 
+// The mode's forward form (chain_common.cuh FwdMode), for chip_smoke.py's
+// design lines: out gets the basis terms in flight and passes of its
+// generator build, whether half the warps build before the step's product
+// (0/1) and whether a build makes two steps' generators (0/1). Returns 0.
+extern "C" int qoc_forward_form(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = qoc::FwdMode::SHAPE[i];
+  return 0;
+}
+
 // Threads and dynamic shared memory of a block of a resident kernel:
-// kernel 1 the forwards (K1, K5's, K3 at D = 64), 2 K2, 5 K5's adjoint, 4
-// K4 at D = 64; tf32 as the kernels take it (!= 0: the bf16_3x mode).
-// Returns the CUDA error.
+// kernel 1 the forwards (K1, K5's; K3 at D = 64 takes the threads, its
+// shared memory is expm_fwd.cu's RESIDENT_SMEM), 2 K2, 5 K5's adjoint, 4 K4
+// at D = 64; tf32 as the kernels take it (!= 0: the bf16_3x mode). Returns
+// the CUDA error.
 extern "C" int qoc_chain_block(int kernel, int tf32, int* threads,
                                int* smem) {
   using namespace qoc;
-  auto adjoint = [&](auto f) {
+  auto shape = [&](auto f) {
     *threads = decltype(f)::type::THREADS;
     return 0;
   };
   switch (kernel) {
     case 1:
-      *threads = NT;
-      *smem = (int)FWD_SMEM;
-      return 0;
-    case 2: *smem = (int)BWD_SMEM; return with_adjoint(tf32, adjoint);
-    case 5: *smem = (int)BWD_SMEM; return with_adjoint(tf32, adjoint);
-    case 4: *smem = (int)DUAL_SMEM; return with_adjoint(tf32, adjoint);
+      return with_forward(tf32, [&](auto f) {
+        *smem = (int)decltype(f)::type::SMEM;
+        return shape(f);
+      });
+    case 2: *smem = (int)BWD_SMEM; return with_adjoint(tf32, shape);
+    case 5: *smem = (int)BWD_SMEM; return with_adjoint(tf32, shape);
+    case 4: *smem = (int)DUAL_SMEM; return with_adjoint(tf32, shape);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // QOC_KERNELS_ONLY

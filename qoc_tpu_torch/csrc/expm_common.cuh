@@ -728,7 +728,7 @@ __device__ __forceinline__ int yoff(int k, int c) {
 
 // acc += X Y for a PR x KS slice X and a KS x PC slice Y in the ring's
 // bf16_3x layout (xoff, yoff), on the calling warp's TcTile fragments: 3 x
-// TF32 mma.sync a real product (chain_common.cuh mm_acc_tc's arithmetic,
+// TF32 mma.sync a real product (chain_common.cuh mm_acc_3x's arithmetic,
 // there on X Y, here on Y^T X^T). A k8 step takes k0 + 2 t as the mma's
 // k = t and k0 + 2 t + 1 as k = t + 4, so one float4 read gives a lane both
 // of its X elements (B fragment); the A fragment is Y's, one a warp and k8

@@ -28,7 +28,7 @@
 // and 8 x 4 register tiles: profiling/tiled_variants.py, numbers in
 // PERF.md. The bf16_3x mode (tf32 != 0) runs each path's second
 // instantiation, 3 x TF32 tensor-core products with _D12A at degree 12: at
-// D = 64 the resident ladder's (chain_common.cuh Fwd<true>, mma.sync),
+// D = 64 the resident ladder's (chain_common.cuh FwdTC, mma.sync),
 // above it the tiled ladder's (expm_common.cuh Tiled with TC = 2, PR 11's
 // mma.sync form on the same panels: the wgmma form measured slower at the
 // d = 2^7 planes, PERF.md; its slot holds exp(A) - I and the last epilogue
@@ -42,29 +42,23 @@ namespace {
 // D = 64: M, M2, M3, M4, X resident + the 1-norm scratch.
 constexpr size_t RESIDENT_SMEM = 5 * MAT * sizeof(float2) + RED_BYTES;
 
-template <bool TC>
-__global__ void __launch_bounds__(NT, 1)
+template <class F>
+__global__ void __launch_bounds__(F::THREADS, 1)
     expm_resident_kernel(const float2* __restrict__ a,
                          const float* __restrict__ norm,
                          float2* __restrict__ out, int B) {
   extern __shared__ float4 smem4[];
-  float2* sm = reinterpret_cast<float2*>(smem4);
-  float2* M = sm;
-  float2* M2 = sm + MAT;
-  float2* M3 = sm + 2 * MAT;
-  float2* M4 = sm + 3 * MAT;
-  float2* X = sm + 4 * MAT;
-  float* red = reinterpret_cast<float*>(sm + 5 * MAT);
-  const int level = ladder_level(__ldg(norm));
-  for (int m = blockIdx.x; m < B; m += gridDim.x) {
-    load<NT, typename Fwd<TC>::Map>(M, a + (size_t)m * MAT);
-    __syncthreads();
-    const float2* r = Fwd<TC>::expm(M, M2, M3, M4, X, level, red);
-#pragma unroll
-    for (int e = 0; e < Fwd<TC>::EP; ++e)
-      out[(size_t)m * MAT + Fwd<TC>::Map::gown(e)] = r[Fwd<TC>::own(e)];
-    __syncthreads();
-  }
+  F::expm_batch(reinterpret_cast<float2*>(smem4), a, out, B,
+                ladder_level(__ldg(norm)));
+}
+
+template <class F>
+int resident(const void* a, const void* norm, void* out, int B, int grid,
+             void* stream) {
+  return ex::launch<F::THREADS>(expm_resident_kernel<F>, RESIDENT_SMEM, grid,
+                                stream, 1, static_cast<const float2*>(a),
+                                static_cast<const float*>(norm),
+                                static_cast<float2*>(out), B);
 }
 
 template <int T, bool TC>
@@ -95,6 +89,8 @@ int tiled_plan(int* blocks, int* smem) {
 }  // namespace
 }  // namespace qoc
 
+#ifndef QOC_KERNELS_ONLY  // (profiling/resident_variants.cu)
+
 // a (B, dp, dp) complex64, zero-padded; norm -> 1 f32, the batch-max 1-norm
 // of a; out (B, dp, dp); ws (grid, slots, dp, dp) scratch from
 // qoc_expm_fwd_plan (none at dp = 64). dp is 64, 128, 192 or 256; tf32 != 0
@@ -105,12 +101,10 @@ extern "C" int qoc_expm_fwd(const void* a, const void* norm, void* out,
   using namespace qoc;
   switch (dp) {
     case 64:
-      return ex::launch(tf32 ? expm_resident_kernel<true>
-                             : expm_resident_kernel<false>,
-                        RESIDENT_SMEM, grid, stream, 1,
-                        static_cast<const float2*>(a),
-                        static_cast<const float*>(norm),
-                        static_cast<float2*>(out), B);
+      return with_forward(tf32, [&](auto form) {
+        return resident<typename decltype(form)::type>(a, norm, out, B, grid,
+                                                       stream);
+      });
     case 128: return tiled<2>(a, norm, out, ws, B, grid, tf32, stream);
     case 192: return tiled<3>(a, norm, out, ws, B, grid, tf32, stream);
     case 256: return tiled<4>(a, norm, out, ws, B, grid, tf32, stream);
@@ -128,7 +122,7 @@ extern "C" int qoc_expm_fwd_plan(int dp, int* blocks, int* slots,
   switch (dp) {
     case 64:
       *smem = (int)RESIDENT_SMEM;
-      return ex::resident_blocks(expm_resident_kernel<false>, RESIDENT_SMEM,
+      return ex::resident_blocks(expm_resident_kernel<Fwd>, RESIDENT_SMEM,
                                  blocks);
     case 128: return tiled_plan<2>(blocks, smem);
     case 192: return tiled_plan<3>(blocks, smem);
@@ -161,3 +155,5 @@ extern "C" int qoc_tiled_tc_layout(int kernel, int dp, int* out) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // QOC_KERNELS_ONLY

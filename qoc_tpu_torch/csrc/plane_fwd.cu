@@ -17,54 +17,38 @@
 // What the design does about it: K1's, one block per segment chain with the
 // chain's working set resident in shared memory; a step touches device
 // memory for one coalesced plane read and one prefix write, where K1 reads
-// its 21-term basis from L2. The bf16_3x mode (tf32 != 0) is K1's: a
-// second instantiation on 3 x TF32 tensor-core products with _D12A.
+// its 21-term basis from L2. The bf16_3x mode (tf32 != 0) is K1's form,
+// FwdTC, with each step's plane staged by cp.async while the chain step's
+// product runs.
 //
-// Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64) + RED_BYTES.
+// Shared memory: P, M, M2, M3, M4, X (6 x DP^2 complex64) + RED_BYTES; the
+// mode's form (FwdTC) reserves K1's seventh slot too, unused here.
 
 #include "chain_common.cuh"
 
 namespace qoc {
 namespace {
 
-template <bool TC>
-__global__ void __launch_bounds__(NT, 1)
+template <class F>
+__global__ void __launch_bounds__(F::THREADS, 1)
     plane_fwd_kernel(const float2* __restrict__ a,
                      const float* __restrict__ norm,
                      float2* __restrict__ prefpad, int L) {
   extern __shared__ float4 smem4[];
-  float2* sm = reinterpret_cast<float2*>(smem4);
-  float2* P = sm;
-  float2* M = sm + MAT;
-  float2* M2 = sm + 2 * MAT;
-  float2* M3 = sm + 3 * MAT;
-  float2* M4 = sm + 4 * MAT;
-  float2* X = sm + 5 * MAT;
-  float* red = reinterpret_cast<float*>(sm + 6 * MAT);
-
   const int level = ladder_level(__ldg(norm));
-  const float2* aseg = a + (size_t)blockIdx.x * L * MAT;
-  float2* pseg = prefpad + (size_t)blockIdx.x * (L + 1) * MAT;
-
-#pragma unroll
-  for (int e = 0; e < Fwd<TC>::EP; ++e)
-    P[Fwd<TC>::own(e)] = make_float2(Fwd<TC>::eye(e), 0.0f);
-  for (int t = 0; t < L; ++t) {
-    load<NT, typename Fwd<TC>::Map>(M, aseg + (size_t)t * MAT);
-    __syncthreads();
-    Fwd<TC>::advance(P, Fwd<TC>::expm(M, M2, M3, M4, X, level, red),
-                     pseg + (size_t)(t + 1) * MAT);
-  }
+  F::chain(reinterpret_cast<float2*>(smem4),
+           PlaneSource{a + (size_t)blockIdx.x * L * MAT}, L, level,
+           prefpad + (size_t)blockIdx.x * (L + 1) * MAT);
 }
 
-template <bool TC>
+template <class F>
 int launch_plane_fwd(const void* a, const void* norm, void* prefpad, int S,
                      int L, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      plane_fwd_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
+      plane_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)F::SMEM);
   if (err != cudaSuccess) return (int)err;
-  plane_fwd_kernel<TC><<<S, NT, FWD_SMEM, (cudaStream_t)stream>>>(
+  plane_fwd_kernel<F><<<S, F::THREADS, F::SMEM, (cudaStream_t)stream>>>(
       static_cast<const float2*>(a), static_cast<const float*>(norm),
       static_cast<float2*>(prefpad), L);
   return (int)cudaGetLastError();
@@ -73,13 +57,18 @@ int launch_plane_fwd(const void* a, const void* norm, void* prefpad, int S,
 }  // namespace
 }  // namespace qoc
 
+#ifndef QOC_KERNELS_ONLY  // (profiling/resident_variants.cu)
+
 // a (S, L, DP, DP) complex64 planes; norm -> 1 f32 (batch-max 1-norm of the
 // planes); prefpad (S, L + 1, DP, DP) complex64, slot 0 written by the
 // caller, slots 1..L by this kernel; tf32 != 0: the bf16_3x mode. Returns
 // the CUDA error.
 extern "C" int qoc_plane_fwd(const void* a, const void* norm, void* prefpad,
                              int S, int L, int tf32, void* stream) {
-  using namespace qoc;
-  return tf32 ? launch_plane_fwd<true>(a, norm, prefpad, S, L, stream)
-              : launch_plane_fwd<false>(a, norm, prefpad, S, L, stream);
+  return qoc::with_forward(tf32, [&](auto form) {
+    return qoc::launch_plane_fwd<typename decltype(form)::type>(
+        a, norm, prefpad, S, L, stream);
+  });
 }
+
+#endif  // QOC_KERNELS_ONLY

@@ -247,6 +247,7 @@ def load_kernels():
                                    cint, cint, cint, cint, ptr]
     cint_p = ctypes.POINTER(cint)
     lib.qoc_chain_block.argtypes = [cint, cint, cint_p, cint_p]
+    lib.qoc_forward_form.argtypes = [cint_p]
     lib.qoc_expm_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_expm_frechet_plan.argtypes = [cint, cint_p, cint_p, cint_p]
     lib.qoc_stream_fwd_plan.argtypes = [cint, cint_p, cint_p, cint_p, cint_p]
@@ -258,7 +259,7 @@ def load_kernels():
                lib.qoc_expm_frechet_plan, lib.qoc_stream_fwd,
                lib.qoc_stream_bwd, lib.qoc_stream_fwd_plan,
                lib.qoc_stream_bwd_plan, lib.qoc_tiled_tc_layout,
-               lib.qoc_chain_block):
+               lib.qoc_chain_block, lib.qoc_forward_form):
         fn.restype = cint
     if lib.qoc_chain_dp() != KERNEL_DP:
         raise RuntimeError("chain kernel library DP {} != {}".format(

@@ -1258,6 +1258,89 @@ def test_mode_expm_kernels_match_plain_versions(cuda_device, bf16_3x, d,
         assert not bool(dl[:, d:].any() or dl[:, :, d:].any())
 
 
+# chip_smoke.py MODE_RTOL: the mode's resident kernels against their plain
+# versions in the mode (relative to the plain result's largest magnitude).
+MODE_RTOL = 1.5e-5
+
+
+def _mode_forward_case(entry, gen, target_norm, dev):
+    """(kernel wrapper, plain version, its inputs, the real steps of each
+    chain or None) of one entry of the mode's forward form (FwdTC) at d =
+    64: K1 on one segment chain or 133 (S = 1, 133), on 5 members x 41
+    steps as the chain op's member rows, K5's forward on 3 chains, or K3 at
+    padded 64 on a ragged batch of 37 at d = 16. The chains end in two
+    zero (padded) steps."""
+    from qoc_tpu_torch.ops import chain, expm_cuda
+    dp = chain.KERNEL_DP
+    if entry == "K3":
+        a = _member_planes(gen, 1, 37, 16, target_norm, dev)[0]
+        return expm_cuda.expm_fwd, expm_cuda.expm_fwd_plain, (a,), None
+    if entry == "K5":
+        a = _member_planes(gen, 3, 23, dp, target_norm, dev)
+        a[:, -2:] = 0
+        return (chain.plane_fwd, chain.plane_fwd_plain,
+                (a, chain._plane_norm_max(a)[0]), 21)
+    n_b = 5
+    h = torch.randn((n_b, dp, dp), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    basis = -0.5j * (h + h.mH)
+    if entry == "K1 members":
+        n_members, n_steps = 5, 41
+        s_count, length = chain.segment_plan(n_steps, n_members)
+        w = torch.zeros((n_members, s_count * length, n_b), device=dev)
+        w[:, :n_steps - 2] = torch.randn((n_members, n_steps - 2, n_b),
+                                         device=dev, generator=gen)
+        w = w.reshape(n_members * s_count, length, n_b)
+        real = None
+    else:
+        s_count, length = (1, 29) if entry == "K1 S=1" else (133, 7)
+        w = torch.randn((s_count, length, n_b), device=dev, generator=gen)
+        w[:, -2:] = 0
+        real = length - 2
+    a = torch.einsum("slk,kab->slab", w.to(torch.complex64), basis)
+    basis = basis * (target_norm / a.abs().sum(-2).amax())
+    basis_ri = torch.view_as_real(basis).reshape(n_b, -1)
+    norm = chain._norm_max(w.reshape(-1, n_b), basis_ri, dp)[0]
+    return chain.chain_fwd, chain.chain_fwd_plain, (w, basis, norm), real
+
+
+@pytest.mark.parametrize("entry", ("K1 S=1", "K1 S=133", "K1 members", "K5",
+                                   "K3"))
+@pytest.mark.parametrize("target_norm", tuple(_LEVEL_NORMS))
+def test_mode_forward_form_matches_plain_versions(cuda_device, bf16_3x,
+                                                  entry, target_norm):
+    """Every entry of the mode's forward form (FwdTC) against its plain
+    version in the mode within MODE_RTOL on every ladder level, launched
+    once in the mode's form and never in the exact one; padded steps
+    leave the prefix exactly as it was, K3's padding is exact."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        len(entry) + int(10 * target_norm))
+    fwd, plain, args, real = _mode_forward_case(entry, gen, target_norm,
+                                                cuda_device)
+    before = (fwd.launches, fwd.mode_launches)
+    got = fwd(*args)
+    assert (fwd.launches - before[0], fwd.mode_launches - before[1]) == \
+        (1, 1)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) < MODE_RTOL
+    if real is not None:
+        tail = got[:, real + 1:]
+        assert torch.equal(tail, got[:, real:real + 1].expand_as(tail))
+    if entry == "K1 members":
+        # The member rows' padded steps: each member's last segment ends
+        # in zero steps, so its last prefix is its last real one.
+        rows = got.reshape(5, -1, *got.shape[1:])
+        assert torch.equal(rows[:, -1, -1], rows[:, -1, -3])
+    if entry == "K3":
+        from qoc_tpu_torch.ops import expm_cuda
+        x = expm_cuda._padded(args[0], 64)
+        u = expm_cuda._launch(False, 64, expm_cuda._norm_max(x), x, tf32=1)
+        eye = torch.eye(48, dtype=u.dtype, device=u.device)
+        assert torch.equal(u[:, 16:, 16:], eye.expand_as(u[:, 16:, 16:]))
+        assert not bool(u[:, :16, 16:].any() or u[:, 16:, :16].any())
+
+
 def test_mode_grape_launches_mode_forms(cuda_device, bf16_3x):
     """A GRAPE in the mode launches K1 and K2 in their mode forms only."""
     import qoc_tpu_torch
