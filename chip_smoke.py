@@ -213,7 +213,19 @@ build, for a quick check of a kernel.) Phases, one line each:
    d = 2^7 planes, K6 at the d = 20 planes and a time block of the
    4-member ensemble), the plain versions in the mode, matrix_exp, both
    modes' bounds, design lines and every tiled TC instantiation's ptxas
-   registers and spills.
+   registers and spills;
+42. the adaptive RKDP5 integrator (qoc_tpu's default Lindblad method,
+   plain torch, no kernel), through the entry points called without a
+   method: examples/1_transmon_pi_decoherence.py's problem (d = 2, T1 =
+   1000, 11 control points, one interval, T = 10) in float64 at atol 1e-12
+   and rkdp5_max_steps 16384, 5 Adam iterations, finite and falling and
+   within 1e-9 of the same run on the CPU; in float32 at atol 1e-8, its
+   first error within 1e-5 of float64's; the d = 20 cell's evolve in
+   float64 against the CPU, with its gap to MAGNUS_EXPM (K6); a 4-member
+   ensemble whose members each equal their single-member run within 1e-12
+   (float64), and a 16-candidate multistart in float32 for 3 iterations;
+   the CPU runs in a spawned process beside the card's; each line with the
+   attempts an interval, host reads a loss and it/s.
 
 Every phase prints its wall time, the summary the script's total.
 
@@ -371,6 +383,24 @@ MODE_STREAM_DIMS = (260, 330, 400, 512)
 MODE_STREAM_CASES = ((1, 37), (3, 5))
 MODE_RTOL = 1.5e-5
 MODE_LOSS_RTOL = 5e-5
+
+# Phase 42: the adaptive RKDP5 integrator (qoc_tpu's default Lindblad
+# method), plain torch on the card, taken by the entry points without a
+# method argument. Example 1 at the reference's atol and rkdp5_max_steps
+# in float64, and at atol 1e-8 in float32, whose first error must lie
+# within RKDP5_F32_TOL of float64's; the d = 20 cell's evolve in float64;
+# the lanes (members, candidates) at RKDP5_LANE_ATOL.
+RKDP5_MAX_STEPS = 16384
+RKDP5_ITERATIONS = 5
+RKDP5_F32_ATOL = 1e-8
+RKDP5_F32_ITERATIONS = 2
+RKDP5_F32_TOL = 1e-5
+RKDP5_CPU_TOL = 1e-9
+RKDP5_MEMBERS = 4
+RKDP5_LANE_ATOL = 1e-10
+RKDP5_LANE_TOL = 1e-12
+RKDP5_CANDIDATES = 16
+RKDP5_MS_ITERATIONS = 3
 
 
 def _rel(got, want):
@@ -5036,6 +5066,217 @@ def phase_mode_tiled_timing(dev):
     return ms, bounds
 
 
+def example1_problem():
+    """examples/1_transmon_pi_decoherence.py's problem against the port: d
+    = 2, H = σz/2 + c a + conj(c) a^H, T1 = 1000 on a, |0><0| to |1><1|,
+    11 control points, one interval (2 system points), T = 10, maximum
+    norm 5 and the flat initial controls the example's call makes; the
+    keyword arguments of grape_lindblad_discrete, without ``method``
+    (RKDP5, the default)."""
+    from qoc_tpu_torch import ConstantLindblad, LinearHamiltonian
+    from qoc_tpu_torch.core.common import initialize_controls
+    a = np.array([[0, 1], [0, 0]], dtype=complex)
+    kw = lindblad_problem(2, 11, 2, 10.0)
+    del kw["method"]
+    controls, norms = initialize_controls(True, 1, 11, 10.0, None,
+                                          np.array([5.0]))
+    kw.update(hamiltonian=LinearHamiltonian(np.diag([0.5, -0.5]) + 0j,
+                                            a[None]),
+              lindblad_data=ConstantLindblad(np.array([1e-3]), a[None]),
+              initial_controls=controls, max_control_norms=norms)
+    return kw
+
+
+def _rkdp5_counted(run, evaluations):
+    """(run's result, its line of counts): the integrator's attempts and
+    busy attempts an interval and host reads a loss (and gradient), from
+    ``ops/rkdp5.py``'s counters around ``run()`` (``evaluations`` losses),
+    and its wall time."""
+    from qoc_tpu_torch.ops import rkdp5
+    rkdp5.reset_counts()
+    start = time.perf_counter()
+    result = run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = dict(rkdp5.counts)
+    line = ("{:.1f} attempts an interval ({:.1f} busy), {:.1f} host reads "
+            "a loss, {:.1f} s".format(
+                counts["attempts"] / counts["integrations"],
+                counts["busy"] / counts["integrations"],
+                counts["host_reads"] / evaluations, seconds))
+    return result, line
+
+
+def _example1_grape(device, dtype, atol, iterations):
+    """(result, counts line) of example 1's RKDP5 GRAPE (no ``method``)."""
+    from qoc_tpu_torch import grape_lindblad_discrete
+    return _rkdp5_counted(lambda: grape_lindblad_discrete(
+        iteration_count=iterations, log_iteration_step=0, fused_chunk=1,
+        atol=atol, rkdp5_max_steps=RKDP5_MAX_STEPS, device=device,
+        dtype=dtype, **example1_problem()), iterations)
+
+
+def _d20_evolve(device, method=None):
+    """(result, counts line) of evolve_lindblad_discrete on the d = 20
+    cell at its initial controls: RKDP5 in float64, or ``method``."""
+    from qoc_tpu_torch import evolve_lindblad_discrete
+    d20 = lindblad_d20_problem()
+    kw = {k: d20[k] for k in ("evolution_time", "initial_densities",
+                              "system_eval_count", "costs", "hamiltonian",
+                              "lindblad_data")}
+    if method is not None:
+        return evolve_lindblad_discrete(controls=d20["initial_controls"],
+                                        device=device, method=method, **kw)
+    return _rkdp5_counted(lambda: evolve_lindblad_discrete(
+        controls=d20["initial_controls"], device=device,
+        dtype=torch.float64, **kw), 1)
+
+
+def _rkdp5_cpu_references():
+    """Phase 42's CPU runs, in a process of their own beside the card's:
+    example 1's float64 GRAPE and the d = 20 evolve, as
+    ((errors, it/s, line), (error, final densities, line))."""
+    torch.set_num_threads(1)
+    grape, grape_line = _example1_grape("cpu", torch.float64, 1e-12,
+                                        RKDP5_ITERATIONS)
+    evolved, evolve_line = _d20_evolve("cpu")
+    return ((np.asarray(grape.errors), grape.iterations_per_s, grape_line),
+            (evolved.error, evolved.final_densities, evolve_line))
+
+
+def phase_rkdp5(dev, card=None):
+    """Phase 42: the adaptive RKDP5 integrator, qoc_tpu's default Lindblad
+    method, through the public entry points called without ``method``
+    (plain torch on the card; no kernel of csrc/ runs). (a) example 1 in
+    float64 at the reference's atol 1e-12 and rkdp5_max_steps 16384, 5
+    Adam iterations, the errors finite, falling and within RKDP5_CPU_TOL of
+    the same run on the CPU; (b) the same at atol 1e-8 in float32, its
+    first error within RKDP5_F32_TOL of (a)'s; (c) evolve_lindblad_discrete
+    on the d = 20 cell in float64 against the CPU, with the gap to the
+    MAGNUS_EXPM route (K6, float32); (d) a 4-member ensemble at d = 2 in
+    float64, each member's error equal to its single-member run within
+    RKDP5_LANE_TOL (the lanes independent), then a 16-candidate multistart
+    in float32 at atol 1e-8 for 3 iterations. The CPU runs go in a spawned
+    process beside the card's. Every line has the integrator's attempts an
+    interval, host reads a loss, it/s and the card. Returns the it/s of
+    the summary."""
+    import concurrent.futures
+    import multiprocessing
+    from qoc_tpu_torch import (EnsembleLinearHamiltonian,
+                               grape_lindblad_multistart)
+    from qoc_tpu_torch.models import LindbladMethod
+    from qoc_tpu_torch.parallel.ensemble import build_chain_loss
+    if card is None:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(_rkdp5_cpu_references)
+        card_runs = {}
+        for label, dtype, atol, iterations in (
+                ("float64", torch.float64, 1e-12, RKDP5_ITERATIONS),
+                ("float32", torch.float32, RKDP5_F32_ATOL,
+                 RKDP5_F32_ITERATIONS)):
+            result, line = _example1_grape(dev, dtype, atol, iterations)
+            card_runs[label] = result
+            errors = np.asarray(result.errors)
+            print("phase 42 example 1 RKDP5 GRAPE, card {} (atol {:g}): {} "
+                  "iterations, {:.2f} it/s steady, errors {}; {} | {}".format(
+                      label, atol, iterations, result.iterations_per_s,
+                      np.array2string(errors, precision=12), line, card),
+                  flush=True)
+            if not (result.iteration_count_ran == iterations
+                    and np.all(np.isfinite(errors))
+                    and np.all(np.diff(errors) < 0)):
+                raise RuntimeError("example 1 RKDP5 GRAPE ({}) did not run "
+                                   "finite and falling".format(label))
+        evolved, line = _d20_evolve(dev)
+        print("phase 42 d=20 RKDP5 evolve, card float64 ({} intervals): "
+              "error {:.12f}; {} | {}".format(
+                  D20_POINTS - 1, evolved.error, line, card), flush=True)
+        magnus = _d20_evolve(dev, LindbladMethod.MAGNUS_EXPM)
+        (cpu_errors, cpu_it_s, grape_line), (cpu_error, cpu_densities,
+                                             evolve_line) = cpu_future.result()
+    print("phase 42 example 1 RKDP5 GRAPE, cpu float64 (atol 1e-12): {} "
+          "iterations, {:.2f} it/s steady, errors {}; {}".format(
+              RKDP5_ITERATIONS, cpu_it_s,
+              np.array2string(cpu_errors, precision=12), grape_line),
+          flush=True)
+    gap_cpu = float(np.abs(card_runs["float64"].errors - cpu_errors).max())
+    gap_f32 = abs(float(card_runs["float32"].errors[0])
+                  - float(card_runs["float64"].errors[0]))
+    print("phase 42 example 1: card vs cpu float64 errors max|diff| {:.3e} "
+          "(limit {:g}); float32 atol {:g} vs float64 first error |diff| "
+          "{:.3e} (limit {:g})".format(gap_cpu, RKDP5_CPU_TOL,
+                                       RKDP5_F32_ATOL, gap_f32,
+                                       RKDP5_F32_TOL), flush=True)
+    if gap_cpu > RKDP5_CPU_TOL or gap_f32 > RKDP5_F32_TOL:
+        raise RuntimeError("example 1 RKDP5 disagrees across devices or "
+                           "dtypes")
+    gap = float(np.abs(evolved.final_densities - cpu_densities).max())
+    gap_magnus = float(np.abs(evolved.final_densities
+                              - magnus.final_densities).max())
+    print("phase 42 d=20 RKDP5 evolve, cpu float64: error {:.12f}; {}; card "
+          "vs cpu densities max|diff| {:.3e} (limit {:g}); vs MAGNUS_EXPM "
+          "(K6, float32) max|diff| {:.3e}, error {:.3e}".format(
+              cpu_error, evolve_line, gap, RKDP5_CPU_TOL, gap_magnus,
+              abs(magnus.error - evolved.error)), flush=True)
+    if not (np.all(np.isfinite(evolved.final_densities))
+            and gap <= RKDP5_CPU_TOL and gap_magnus < 1e-3):
+        raise RuntimeError("the d = 20 RKDP5 evolve disagrees")
+    # (d) Lanes: members, then candidates.
+    kw = example1_problem()
+    h0 = np.diag([0.5, -0.5]).astype(complex)
+    a = np.array([[0, 1], [0, 0]], dtype=complex)
+    members = dict(kw, method=LindbladMethod.RKDP5,
+                   hamiltonian=EnsembleLinearHamiltonian(h0, a[None],
+                                                         h0[None]),
+                   hamiltonian_params=np.linspace(
+                       -EXAMPLE6_DELTA, EXAMPLE6_DELTA,
+                       RKDP5_MEMBERS).reshape(-1, 1))
+    pstate = lindblad_pstate(members)
+    pstate.atol = RKDP5_LANE_ATOL
+    controls = torch.as_tensor(members["initial_controls"],
+                               dtype=torch.complex128, device=dev)[None]
+    params = members["hamiltonian_params"]
+    with torch.no_grad():
+        together, line = _rkdp5_counted(lambda: build_chain_loss(
+            pstate, members["hamiltonian"], params, dev, torch.float64)(
+                controls)[0][0].cpu().numpy(), 1)
+        alone = np.array([float(build_chain_loss(
+            pstate, members["hamiltonian"], params[m:m + 1], dev,
+            torch.float64)(controls)[0][0, 0]) for m in range(RKDP5_MEMBERS)])
+    lane_gap = float(np.abs(together - alone).max())
+    print("phase 42 {}-member RKDP5 ensemble loss (d=2, float64, atol {:g}): "
+          "errors {}, each against its member alone max|diff| {:.3e} (limit "
+          "{:g}); {} | {}".format(
+              RKDP5_MEMBERS, RKDP5_LANE_ATOL,
+              np.array2string(together, precision=12), lane_gap,
+              RKDP5_LANE_TOL, line, card), flush=True)
+    if lane_gap > RKDP5_LANE_TOL or len(set(together.tolist())) < 2:
+        raise RuntimeError("the RKDP5 lanes are not independent on the card")
+    result, line = _rkdp5_counted(lambda: grape_lindblad_multistart(
+        n_starts=RKDP5_CANDIDATES, iteration_count=RKDP5_MS_ITERATIONS,
+        log_iteration_step=0, fused_chunk=1, atol=RKDP5_F32_ATOL,
+        device=dev, **kw), RKDP5_MS_ITERATIONS)
+    print("phase 42 {}-candidate RKDP5 multistart (d=2, float32, atol {:g}):"
+          " {} iterations, {:.2f} cand-it/s steady, best error {:.8f}; {} | "
+          "{}".format(RKDP5_CANDIDATES, RKDP5_F32_ATOL, RKDP5_MS_ITERATIONS,
+                      result.iterations_per_s, result.best_error, line, card),
+          flush=True)
+    if not (np.all(np.isfinite(result.errors))
+            and result.iteration_count_ran == RKDP5_MS_ITERATIONS):
+        raise RuntimeError("the RKDP5 multistart failed its checks")
+    return {"example 1 float64": card_runs["float64"].iterations_per_s,
+            "example 1 float32": card_runs["float32"].iterations_per_s,
+            "{}-candidate multistart".format(RKDP5_CANDIDATES):
+            result.iterations_per_s}
+
+
 def run_phase(phase, *args):
     """Call a phase and print its wall time (host clock)."""
     start = time.perf_counter()
@@ -5170,6 +5411,7 @@ def main():
     tiled_ms, tiled_bounds = run_phase(phase_mode_tiled_timing, dev)
     ms.update(tiled_ms)
     bounds.update(tiled_bounds)
+    rkdp5_rates = run_phase(phase_rkdp5, dev, card)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -5249,7 +5491,7 @@ def main():
           "| Lindblad d=20 step-cost GRAPE {:.2f} it/s | ensemble GRAPE "
           "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {} | Lindblad "
           "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | bf16_3x "
-          "mode: {} | total {:.1f} s".format(
+          "mode: {} | RKDP5 (plain torch): {} | total {:.1f} s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
@@ -5268,6 +5510,9 @@ def main():
               ", ".join("{} {:.2f} {}".format(
                   k, v, "cand-it/s" if k.startswith("multistart") else
                   "it/s") for k, v in mode_rates.items()),
+              ", ".join("{} {:.2f} {}".format(
+                  k, v, "cand-it/s" if k.endswith("multistart") else "it/s")
+                  for k, v in rkdp5_rates.items()),
               time.perf_counter() - start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5289,7 +5534,7 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               35: phase_plane_member_timing, 36: phase_mode_kernels,
               37: phase_mode_grape, 38: phase_mode_timing,
               39: phase_mode_cells, 40: phase_mode_tiled_kernels,
-              41: phase_mode_tiled_timing}
+              41: phase_mode_tiled_timing, 42: phase_rkdp5}
 
 
 if __name__ == "__main__":

@@ -17,9 +17,9 @@ per-step-seed mode), the 4- and 16-member ensembles of chip_smoke's phase
 27 (K1/K2's member axis; 16 members also with ForbidStates), the
 512-candidate multistart of its phase 29, and the 4- and 16-member d = 20
 Lindblad ensembles of its phase 32 and the 16-candidate d = 20 Lindblad
-multistart of its phase 33 (K6's member axis), all built as
-chip_smoke.py
-builds them, it runs one GRAPE iteration the way core/graperunner.py does
+multistart of its phase 33 (K6's member axis), and Lindblad example 1
+under RKDP5 in float32 at atol 1e-8 (the adaptive integrator of phase 42,
+plain torch, no kernel), all built as chip_smoke.py builds them, it runs one GRAPE iteration the way core/graperunner.py does
 (clip, loss, gradient, Adam update; chip_smoke.make_iteration), or one
 iteration of the multistart runner (chip_smoke.make_multistart_iteration):
 2 warm-up iterations, then 10
@@ -108,6 +108,15 @@ def multistart_cell(n_starts):
         pstate, ham, None, n_starts, dev)
 
 
+def rkdp5_cell():
+    """Example 1 (chip_smoke.example1_problem) under RKDP5 at atol 1e-8."""
+    from qoc_tpu_torch.models import LindbladMethod
+    pstate = chip_smoke.lindblad_pstate(dict(
+        chip_smoke.example1_problem(), method=LindbladMethod.RKDP5))
+    pstate.atol = chip_smoke.RKDP5_F32_ATOL
+    return grape_cell(pstate, build_lindblad_loss)
+
+
 def cells():
     """(name, dev -> iteration) of every cell, in the order of --cells."""
     return [
@@ -142,6 +151,8 @@ def cells():
          lindblad_ensemble_cell(16)),
         ("Lindblad multistart d=20, 16 candidates (streamed, K6 member "
          "axis)", lindblad_multistart_cell(16)),
+        ("Lindblad example 1 RKDP5, atol 1e-8 (plain torch)",
+         rkdp5_cell()),
     ]
 
 

@@ -5,8 +5,11 @@ kernels for the NVIDIA H100. It imports ``torch`` and never ``jax``; each
 module mirrors its ``qoc_tpu`` counterpart by path. Ported so far: the
 Schrödinger path with a ``LinearHamiltonian`` or any torch Hamiltonian
 callable, Magnus M2/M4/M6, the state costs (``TargetStateInfidelity`` and
-the step costs ``TargetStateInfidelityTime``, ``ForbidStates``), intermediate
-states, ``grape_unitary`` and Adam, and the Lindblad path under
+the step costs ``TargetStateInfidelityTime``, ``ForbidStates``), the
+control costs (``ControlNorm``, ``ControlArea``, ``ControlVariation``,
+``ControlBandwidthMax``), intermediate states, ``grape_unitary``, Adam and
+SGD, and the Lindblad path under both methods, the adaptive
+``LindbladMethod.RKDP5`` (the default; ``ops/rkdp5.py``, plain torch) and
 ``LindbladMethod.MAGNUS_EXPM`` (``ConstantLindblad``, the density costs
 ``TargetDensityInfidelity``, ``TargetDensityInfidelityTime``,
 ``ForbidDensities``, intermediate densities), and on one card the
@@ -19,7 +22,8 @@ tree product (``ops/expm.py``; up to padded d = 256 on the card,
 them at the superoperator's dimension d². Every entry point takes ``device`` and
 ``dtype``: by default the current CUDA device in float32 (the kernels'
 type), raising ``RuntimeError`` where there is none; ``device="cpu"`` runs
-float64 (parity with ``qoc_tpu``).
+float64 (parity with ``qoc_tpu``). The Lindblad entry points under RKDP5,
+which launch no kernel, take float64 on CUDA too.
 """
 
 from qoc_tpu_torch import config  # noqa: F401  (TF32 off for the glue)
@@ -27,7 +31,9 @@ from qoc_tpu_torch.core import (evolve_lindblad_discrete,
                                 evolve_schroedinger_discrete,
                                 grape_lindblad_discrete,
                                 grape_schroedinger_discrete, grape_unitary)
-from qoc_tpu_torch.costs import (ForbidDensities, ForbidStates,
+from qoc_tpu_torch.costs import (ControlArea, ControlBandwidthMax,
+                                 ControlNorm, ControlVariation,
+                                 ForbidDensities, ForbidStates,
                                  TargetDensityInfidelity,
                                  TargetDensityInfidelityTime,
                                  TargetStateInfidelity,
@@ -37,7 +43,7 @@ from qoc_tpu_torch.models import (ConstantLindblad,
                                   LinearHamiltonian)
 from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
                                     expm_taylor)
-from qoc_tpu_torch.optim import Adam
+from qoc_tpu_torch.optim import SGD, Adam
 from qoc_tpu_torch.parallel import (build_ensemble_loss,
                                     build_lindblad_ensemble_loss,
                                     grape_lindblad_ensemble,
@@ -50,11 +56,16 @@ __version__ = "0.1.0"
 __all__ = [
     "Adam",
     "ConstantLindblad",
+    "ControlArea",
+    "ControlBandwidthMax",
+    "ControlNorm",
+    "ControlVariation",
     "EnsembleLinearHamiltonian",
     "ForbidDensities",
     "ForbidStates",
     "LindbladMethod",
     "LinearHamiltonian",
+    "SGD",
     "TargetDensityInfidelity",
     "TargetDensityInfidelityTime",
     "TargetStateInfidelity",

@@ -7,7 +7,9 @@ complex one follows from it):
 - ``device=None`` is the current CUDA device; without one the call raises
   ``RuntimeError`` rather than run on the CPU. The CPU runs only when asked
   for (``device="cpu"``).
-- CUDA: float32 / complex64, the only type the chain kernels compute in.
+- CUDA: float32 / complex64, the only type the chain kernels compute in;
+  the Lindblad entry points under RKDP5, which run no kernel, also take
+  float64 there.
 - CPU: float64 / complex128 by default, for parity with ``qoc_tpu`` and
   the reference, which are float64 throughout.
 
@@ -49,12 +51,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve(device=None, dtype=None):
+def resolve(device=None, dtype=None, float64_ok=False):
     """(torch.device, real dtype) for an entry point's arguments.
 
     ``device=None`` is the current CUDA device, and raises
     ``RuntimeError`` where there is none. ``dtype=None`` is float64 on the
-    CPU and float32 on CUDA; CUDA takes only float32 (the kernels' type)."""
+    CPU and float32 on CUDA; CUDA takes only float32 (the kernels' type),
+    and float64 too with ``float64_ok``, for a path that runs no kernel
+    (the Lindblad entry points under RKDP5, ``qoc_tpu``'s x64 mode)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -69,7 +73,7 @@ def resolve(device=None, dtype=None):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError("dtype must be torch.float32 or torch.float64, got "
                         + str(dtype))
-    if device.type == "cuda" and dtype != torch.float32:
+    if device.type == "cuda" and dtype != torch.float32 and not float64_ok:
         raise TypeError("on CUDA the port computes in float32 (the chain "
                         "kernels' type), got " + str(dtype))
     return device, dtype

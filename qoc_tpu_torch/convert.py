@@ -11,7 +11,9 @@ tensors on the requested device.
 import numpy as np
 import torch
 
-from qoc_tpu_torch.costs import (ForbidDensities, ForbidStates,
+from qoc_tpu_torch.costs import (ControlArea, ControlBandwidthMax,
+                                 ControlNorm, ControlVariation,
+                                 ForbidDensities, ForbidStates,
                                  TargetDensityInfidelity,
                                  TargetDensityInfidelityTime,
                                  TargetStateInfidelity,
@@ -20,7 +22,9 @@ from qoc_tpu_torch.models import (ConstantLindblad,
                                   EnsembleLinearHamiltonian,
                                   LinearHamiltonian)
 
-__all__ = ["adam_state", "constant_lindblad", "controls", "densities",
+__all__ = ["adam_state", "constant_lindblad", "control_area",
+           "control_bandwidth_max", "control_norm", "control_variation",
+           "controls", "densities",
            "forbid_densities", "forbid_states", "linear_hamiltonian",
            "max_control_norms", "states", "target_density_infidelity",
            "target_density_infidelity_time", "target_state_infidelity",
@@ -136,6 +140,55 @@ def forbid_densities(cost):
     count = int(cost.cost_normalization_constant) // len(forbidden)
     return ForbidDensities(forbidden, count + 1,
                            cost_multiplier=cost.cost_multiplier)
+
+
+# The control costs keep their sizes as products (E C, C (E - order)), and
+# the port's constructors form the same products from control_count = 1.
+
+
+def _optional(array):
+    return None if array is None else np.asarray(array, dtype=np.float64)
+
+
+def control_norm(cost):
+    """A port ``ControlNorm`` with the same weights, norms, size and
+    multiplier."""
+    return ControlNorm(1, int(cost.controls_size),
+                       control_weights=_optional(cost.control_weights),
+                       cost_multiplier=cost.cost_multiplier,
+                       max_control_norms=_optional(cost.max_control_norms))
+
+
+def control_area(cost):
+    """A port ``ControlArea`` with the same channels, norms, size and
+    multiplier."""
+    return ControlArea(int(cost.control_count),
+                       int(cost.control_size) // int(cost.control_count),
+                       cost_multiplier=cost.cost_multiplier,
+                       max_control_norms=_optional(cost.max_control_norms))
+
+
+def control_variation(cost):
+    """A port ``ControlVariation`` with the same order, norms, size and
+    multiplier."""
+    return ControlVariation(1, int(cost.diffs_size) + int(cost.order),
+                            cost_multiplier=cost.cost_multiplier,
+                            max_control_norms=_optional(
+                                cost.max_control_norms),
+                            order=int(cost.order))
+
+
+def control_bandwidth_max(cost):
+    """A port ``ControlBandwidthMax`` with the same bounds, frequencies,
+    penalty sets and multiplier (the sets copied, not recomputed, so that a
+    bound on a grid frequency falls on the same side)."""
+    freqs = np.asarray(cost.freqs)
+    port = ControlBandwidthMax(int(cost.control_count), len(freqs), 1.0,
+                               cost.max_bandwidths,
+                               cost_multiplier=cost.cost_multiplier)
+    port.freqs = freqs
+    port.penalty_indices = [np.asarray(i) for i in cost.penalty_indices]
+    return port
 
 
 def adam_state(state, device="cpu", dtype=torch.float64):

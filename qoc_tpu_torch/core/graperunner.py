@@ -2,7 +2,7 @@
 
 Counterpart of ``qoc_tpu/core/graperunner.py`` (the fused path,
 ``_run_fused``). Each iteration is clip-project -> loss and gradient ->
-Adam update, with best-iterate tracking and the termination freeze done by
+optimizer update (Adam or SGD), with best-iterate tracking and the termination freeze done by
 ``torch.where`` on device. Per-iteration rows (error, |grads|, valid) go
 into preallocated device tensors and are pulled to the host once per chunk,
 for logging in the reference's format: no iteration reads a value back to
@@ -17,8 +17,10 @@ Reference-parity semantics, exactly as ``qoc_tpu``:
   before the update; reaching ``error <= min_error`` skips the update and
   freezes every later iteration of the run.
 
-The host loop (L-BFGS-B, user ``impose_control_conditions`` hooks) and
-resuming from a save file are later slices of the port (ROADMAP 3 and 4).
+The host loop (L-BFGS-B, the device L-BFGS, user
+``impose_control_conditions`` hooks) and resuming from a save file are
+later slices of the port (ROADMAP 3 and 4); an optimizer without the
+fused update (``supports_fused``) is refused.
 """
 
 import numpy as np
@@ -52,7 +54,7 @@ def run_grape(pstate, result, loss_flat, device, dtype, evolved="states"):
     if not getattr(pstate.optimizer, "supports_fused", False):
         raise NotImplementedError(
             "{} needs the host optimization loop, which is ROADMAP slice 3 "
-            "of qoc_tpu_torch; use Adam.".format(
+            "of qoc_tpu_torch; use Adam or SGD.".format(
                 type(pstate.optimizer).__name__))
     _run_fused(pstate, result, loss_flat, device, dtype, evolved)
 

@@ -1,7 +1,11 @@
 """qoc_tpu_torch.costs - cost functions: the target infidelities at the
-final step and the step costs (infidelity at every cost step, forbidden
-states and densities)."""
+final step, the step costs (infidelity at every cost step, forbidden
+states and densities) and the control regularizers (norm, area, variation,
+bandwidth)."""
 
+from qoc_tpu_torch.costs.control_costs import (ControlArea,
+                                               ControlBandwidthMax,
+                                               ControlNorm, ControlVariation)
 from qoc_tpu_torch.costs.density_costs import (ForbidDensities,
                                                TargetDensityInfidelity,
                                                TargetDensityInfidelityTime)
@@ -9,6 +13,7 @@ from qoc_tpu_torch.costs.state_costs import (ForbidStates,
                                              TargetStateInfidelity,
                                              TargetStateInfidelityTime)
 
-__all__ = ["ForbidDensities", "ForbidStates", "TargetDensityInfidelity",
-           "TargetDensityInfidelityTime", "TargetStateInfidelity",
-           "TargetStateInfidelityTime"]
+__all__ = ["ControlArea", "ControlBandwidthMax", "ControlNorm",
+           "ControlVariation", "ForbidDensities", "ForbidStates",
+           "TargetDensityInfidelity", "TargetDensityInfidelityTime",
+           "TargetStateInfidelity", "TargetStateInfidelityTime"]

@@ -1,7 +1,7 @@
 """The multistart optimization loop, on device.
 
 Counterpart of ``qoc_tpu/parallel/_msrunner.py``: every candidate carries
-its own controls and Adam state, and each iteration (clip, loss and
+its own controls and optimizer state (Adam's, or SGD's none), and each iteration (clip, loss and
 gradient of all candidates, update) runs on the card for the whole batch.
 The candidates' errors and gradients come from one backward of the sum of
 their errors (candidates are independent, so d(Σ_c err_c)/d(params_c') is
@@ -39,11 +39,11 @@ _DEFAULT_CHUNK = 100
 def validate_multistart_entry(optimizer, entry_name, hamiltonian=None,
                               hamiltonian_params=None):
     """Fail fast on an optimizer without the per-candidate form (the port's
-    Adam is its only optimizer; the others are ROADMAP Queue 1, item 5) and
-    on an ensemble-contract Hamiltonian used without member parameters."""
+    Adam and SGD have it; L-BFGS is ROADMAP Queue 1, item 5) and on an
+    ensemble-contract Hamiltonian used without member parameters."""
     if getattr(optimizer, "update_batch", None) is None:
         raise _not_ported("{} in {} (the port's optimizers other than "
-                          "Adam)".format(type(optimizer).__name__,
+                          "Adam and SGD)".format(type(optimizer).__name__,
                                          entry_name), "3, Queue 1 item 5")
     if (isinstance(hamiltonian, EnsembleLinearHamiltonian)
             and hamiltonian_params is None):

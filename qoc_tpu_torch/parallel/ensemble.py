@@ -8,10 +8,13 @@ members over a device mesh; the port runs them all on one card, so
 ``mesh`` other than None raises (ROADMAP Queue 1, item 8).
 
 One chain loss (:func:`build_chain_loss`) carries every member of a
-Schrödinger problem (states evolve as U ψ) and of a Lindblad problem under
-``MAGNUS_EXPM`` (densities evolve vectorized, vec ← vec P^T, by
-superoperator chains of dimension n = d²; ``parallel/lindblad.py``). Its
-routes, chosen by the problem alone as ``qoc_tpu`` chooses them, by n:
+Schrödinger problem (states evolve as U ψ) and of a Lindblad problem
+(``parallel/lindblad.py``): under ``MAGNUS_EXPM`` densities evolve
+vectorized, vec ← vec P^T, by superoperator chains of dimension n = d²;
+under RKDP5, the default, the chains are the lanes of one adaptive
+integration an interval (route "rkdp5", ``core/lindblad.py``
+``rkdp5_loss``). The chain routes, chosen by the problem alone as
+``qoc_tpu`` chooses them, by n:
 
 - the fused route, for an :class:`EnsembleLinearHamiltonian` (or, without
   member rows, a :class:`LinearHamiltonian`) under Magnus-M2 with controls
@@ -45,7 +48,8 @@ import torch
 from qoc_tpu_torch.config import complex_dtype, resolve
 from qoc_tpu_torch.core.common import initialize_controls, slap_controls_torch
 from qoc_tpu_torch.core.graperunner import run_grape
-from qoc_tpu_torch.core.lindblad import _check_method, superoperator_builder
+from qoc_tpu_torch.core.lindblad import (lindblad_method, rkdp5_loss,
+                                         superoperator_builder)
 from qoc_tpu_torch.core.schroedinger import (_not_ported, _route,
                                              _route_names, _step_cost,
                                              cost_steps, fused_weights,
@@ -111,8 +115,9 @@ class _Evolved:
 
     def __init__(self, pstate):
         self.lindblad = isinstance(pstate, GrapeLindbladDiscreteState)
+        self.rkdp5 = (self.lindblad and lindblad_method(pstate)
+                      != LindbladMethod.MAGNUS_EXPM)
         if self.lindblad:
-            _check_method(getattr(pstate, "method_", LindbladMethod.RKDP5))
             if pstate.interpolation_policy != InterpolationPolicy.LINEAR:
                 raise NotImplementedError(
                     "The interpolation policy {} is not yet supported for "
@@ -154,13 +159,14 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
                      n_candidates=1, time_block_size=None):
     """The loss of N candidates' controls over M members, one chain each.
 
-    ``pstate`` is a Schrödinger or a Lindblad (``MAGNUS_EXPM``) GRAPE state
-    (:class:`_Evolved`). ``hamiltonian_params`` (M, ...) are the member
+    ``pstate`` is a Schrödinger or a Lindblad GRAPE state
+    (:class:`_Evolved`; under RKDP5 the lanes' loss,
+    :func:`_rkdp5_chain_loss`). ``hamiltonian_params`` (M, ...) are the member
     rows of an ensemble-contract ``hamiltonian(params_row, controls, t)``,
     or None for one member of a plain ``hamiltonian(controls, t)``. Returns
     ``loss(controls)``, which maps complex controls (N, E, C) to (errors
     (N, M), final states (N, M, K, d, 1) or densities (N, M, K, d, d)),
-    differentiable; its ``route`` is "fused", "stream" or "blocked"
+    differentiable; its ``route`` is "fused", "stream", "blocked" or "rkdp5"
     (module docstring), ``dim`` the propagated dimension n, ``lindblad``
     the kind, ``n_steps``, ``trajectory`` (step costs) and ``block`` the
     time block in steps, sized for ``n_candidates`` (``chain_block_plan``
@@ -169,6 +175,8 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
               else np.asarray(hamiltonian_params))
     cdtype = complex_dtype(dtype)
     kind = _Evolved(pstate)
+    if kind.rkdp5:
+        return _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype)
     initial = torch.as_tensor(kind.initial, dtype=cdtype, device=device)
     shape, n = tuple(initial.shape), kind.dim
     dt = float(pstate.dt)
@@ -247,6 +255,28 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     return loss
 
 
+def _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype):
+    """The chain loss of a Lindblad state under RKDP5: the N M chains are
+    the lanes of one adaptive integration an interval (``core/lindblad.py``
+    ``rkdp5_loss``; ``qoc_tpu``'s generic route, its members and candidates
+    under ``jax.vmap``). Its ``route`` is "rkdp5", ``block`` 1 (one
+    interval a step of the loop)."""
+    lanes_loss = rkdp5_loss(pstate, device, dtype, hamiltonian, params)
+    n_members = 1 if params is None else params.shape[0]
+    shape = tuple(np.shape(pstate.initial_densities))
+
+    def loss(controls):
+        errors, final = lanes_loss(controls)
+        n_c = controls.shape[0]
+        return (errors.reshape(n_c, n_members),
+                final.reshape((n_c, n_members) + shape))
+
+    loss.route, loss.block, loss.dim = "rkdp5", 1, shape[-1] ** 2
+    loss.lindblad, loss.n_steps = True, pstate.system_eval_count - 1
+    loss.trajectory = bool(pstate.step_costs)
+    return loss
+
+
 def _member_planes(build, hamiltonian, params, device, dtype):
     """planes(controls (N, E, C), t_block) -> (N M, B, n, n): every
     candidate's and member's Magnus planes, ``build(h)(controls, times)``
@@ -276,6 +306,9 @@ def describe_route(chain_loss, device, n_chains):
     """(path, kernels, packing) of a chain loss for the one-time path log:
     the chain routes name their packing, grouped (one segment a chain) or
     segmented (S_m segments a chain), and the rows S x L of one launch."""
+    if chain_loss.route == "rkdp5":
+        return ("adaptive RKDP5 integrator", "plain torch on " + device.type,
+                "{} chains as lanes".format(n_chains))
     path, kernels = _route_names(chain_loss.route, chain_loss.dim, device,
                                  chain_loss.trajectory)
     if chain_loss.route == "blocked":
@@ -304,7 +337,7 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh=None,
     docstring). ``device``/``dtype`` as the entry points' (default the card
     in float32); ``block`` is its time block in steps."""
     refuse_mesh(mesh)
-    device, dtype = resolve(device, dtype)
+    device, dtype = resolve(device, dtype, float64_ok=_Evolved(pstate).rkdp5)
     params = np.asarray(hamiltonian_params)
     if params.ndim < 1 or params.shape[0] < 1:
         raise ValueError("hamiltonian_params must hold one row per member; "
@@ -376,8 +409,8 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
     ``result.best_final_states`` is (n_members, K, d, 1). One card:
     ``mesh`` other than None raises (ROADMAP Queue 1, item 8), as do the
     save file, ``resume_from`` and ``impose_control_conditions`` (items 7
-    and 5); ``optimizer=None`` is a fresh ``Adam()``, the port's only
-    optimizer."""
+    and 5); ``optimizer=None`` is a fresh ``Adam()`` (``SGD`` runs
+    too)."""
     refuse_mesh(mesh)
     if impose_control_conditions is not None:
         raise _not_ported("impose_control_conditions (the host loop)",

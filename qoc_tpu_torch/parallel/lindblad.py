@@ -2,15 +2,19 @@
 
 Counterpart of ``qoc_tpu/parallel/lindblad.py``: the Lindblad twins of
 ``parallel/ensemble.py`` and ``parallel/multistart.py``. Every member (or
-candidate x member) integrates the whole master equation under
-``LindbladMethod.MAGNUS_EXPM``: its densities, vectorized row-major (K,
-d²), propagate by the superoperator chain of dimension n = d², and the
+candidate x member) integrates the whole master equation, and the
 optimized error is the members' mean. The dissipator data
 (``lindblad_data``) is shared by all members.
 
 Both entry points run the ensemble's chain loss (``parallel/ensemble.py``
-``build_chain_loss``) on a Lindblad state, routed by n as ``qoc_tpu``
-routes its members:
+``build_chain_loss``) on a Lindblad state. Under ``LindbladMethod.RKDP5``
+(the default) every candidate x member is a lane of one adaptive
+integration an interval (``core/lindblad.py`` ``rkdp5_loss``; plain torch,
+float64 allowed on CUDA), each lane with its own mesh, as ``qoc_tpu``'s
+generic route runs them under ``jax.vmap``. Under
+``LindbladMethod.MAGNUS_EXPM`` the densities, vectorized row-major (K,
+d²), propagate by the superoperator chain of dimension n = d², routed by n
+as ``qoc_tpu`` routes its members:
 
 - the fused route, for an :class:`EnsembleLinearHamiltonian` (or, in a
   plain multistart, a :class:`LinearHamiltonian`) with a
@@ -36,16 +40,13 @@ generic route and its fused ensemble keep them, and so does the port on
 every route.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``LindbladMethod.RKDP5`` (``qoc_tpu``'s default, so a call
-that leaves ``method`` out raises; Queue 1 item 4), ``mesh`` (item 8),
-save files and ``resume_from`` (item 7) and ``impose_control_conditions``
-(item 5). As in the port's single-member Lindblad GRAPE, without a save
+ROADMAP item: ``mesh`` (item 8), save files and ``resume_from`` (item 7)
+and ``impose_control_conditions`` (item 5). As in the port's single-member Lindblad GRAPE, without a save
 file ``save_intermediate_densities`` is ignored.
 """
 
 from qoc_tpu_torch.config import resolve
 from qoc_tpu_torch.core.common import initialize_controls
-from qoc_tpu_torch.core.lindblad import _check_method
 from qoc_tpu_torch.core.schroedinger import _not_ported
 from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
                                   GrapeLindbladResult, InterpolationPolicy,
@@ -67,8 +68,9 @@ def build_lindblad_ensemble_loss(pstate, hamiltonian, hamiltonian_params,
     """The Lindblad ensemble loss (``qoc_tpu`` lindblad.py:120-190):
     controls (E, C) -> (mean_m error_m, final densities (M, K, d, d)),
     differentiable w.r.t. the controls. ``pstate`` is a
-    :class:`GrapeLindbladDiscreteState` with ``method_`` MAGNUS_EXPM (and
-    ``magnus_policy_``); ``hamiltonian(params_row, controls, t) -> (d, d)``
+    :class:`GrapeLindbladDiscreteState` with ``method_`` (and
+    ``magnus_policy_``, or RKDP5's ``atol``, ``rtol`` and
+    ``rkdp5_max_steps``); ``hamiltonian(params_row, controls, t) -> (d, d)``
     is one member's Hamiltonian, one member a row of ``hamiltonian_params``.
     ``uses_fused_chain`` and ``route`` say which route it took (module
     docstring). ``device``/``dtype`` as the entry points'."""
@@ -77,9 +79,12 @@ def build_lindblad_ensemble_loss(pstate, hamiltonian, hamiltonian_params,
                                log_path=log_path, device=device, dtype=dtype)
 
 
-def _lindblad_pstate(method, magnus_policy, fused_chunk, *args):
+def _lindblad_pstate(method, magnus_policy, fused_chunk, rkdp5, *args):
+    """The GRAPE state of the entry points: ``rkdp5`` (atol, rtol,
+    rkdp5_max_steps) set on it as ``qoc_tpu`` sets them."""
     pstate = GrapeLindbladDiscreteState(*args)
     pstate.method_ = method
+    pstate.atol, pstate.rtol, pstate.rkdp5_max_steps = rkdp5
     pstate.magnus_policy_ = magnus_policy
     pstate.fused_chunk = fused_chunk
     return pstate
@@ -113,16 +118,17 @@ def grape_lindblad_ensemble(control_count, control_eval_count, costs,
     row per member, and the optimized error is the members' mean; the
     dissipator data is shared by all members. ``result.best_final_densities``
     is (n_members, K, d, d). ``atol``, ``rtol`` and ``rkdp5_max_steps`` are
-    RKDP5's, ``fused_mode`` picks ``qoc_tpu``'s compiled loop form (the
-    port has one loop). Refusals: module docstring."""
-    _check_method(method)
+    RKDP5's (the default method), ``fused_mode`` picks ``qoc_tpu``'s
+    compiled loop form (the port has one loop). Refusals: module
+    docstring."""
     refuse_mesh(mesh)
     if impose_control_conditions is not None:
         raise _not_ported("impose_control_conditions (the host loop)",
                           "3, Queue 1 item 5")
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")
-    device, dtype = resolve(device, dtype)
+    device, dtype = resolve(device, dtype, float64_ok=(
+        method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
     if optimizer is None:
         optimizer = Adam()
@@ -130,7 +136,8 @@ def grape_lindblad_ensemble(control_count, control_eval_count, costs,
         complex_controls, control_count, control_eval_count, evolution_time,
         initial_controls, max_control_norms)
     pstate = _lindblad_pstate(
-        method, magnus_policy, fused_chunk, complex_controls, control_count,
+        method, magnus_policy, fused_chunk, (atol, rtol, rkdp5_max_steps),
+        complex_controls, control_count,
         control_eval_count, cost_eval_step, costs, evolution_time, None,
         impose_control_conditions, initial_controls, initial_densities,
         interpolation_policy, iteration_count, lindblad_data,
@@ -171,13 +178,13 @@ def grape_lindblad_multistart(control_count, control_eval_count, costs,
     candidate's best error, ``result.iterations_per_s`` the steady
     candidate-iteration rate and ``best_final_densities`` (K, d, d), or
     (n_members, K, d, d) for a robust multistart. Refusals: module
-    docstring, and an optimizer other than the port's Adam (Queue 1 item
-    5)."""
-    _check_method(method)
+    docstring, and an optimizer other than the port's Adam and SGD (Queue 1
+    item 5)."""
     refuse_mesh(mesh)
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")
-    device, dtype = resolve(device, dtype)
+    device, dtype = resolve(device, dtype, float64_ok=(
+        method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
     if optimizer is None:
         optimizer = Adam()
@@ -187,7 +194,8 @@ def grape_lindblad_multistart(control_count, control_eval_count, costs,
         complex_controls, control_count, control_eval_count, evolution_time,
         initial_controls, max_control_norms)
     pstate = _lindblad_pstate(
-        method, magnus_policy, fused_chunk, complex_controls, control_count,
+        method, magnus_policy, fused_chunk, (atol, rtol, rkdp5_max_steps),
+        complex_controls, control_count,
         control_eval_count, cost_eval_step, costs, evolution_time,
         hamiltonian, None, base_controls, initial_densities,
         interpolation_policy, iteration_count, lindblad_data,

@@ -1,9 +1,11 @@
-"""The port's Lindblad path under Magnus-expm against qoc_tpu (float64, CPU):
-the Lindbladian and its superoperator, the superoperator basis, the density
-cost, the loss and its control gradient on every route, evolve (with an
-analytic T1 decay), a short Adam GRAPE, the refusals of what is not ported
-yet, and the conversions (density step costs and intermediate densities:
-tests/test_torch_stepcost.py).
+"""The port's Lindblad path against qoc_tpu (float64, CPU), under
+Magnus-expm: the Lindbladian and its superoperator, the superoperator basis,
+the density cost, the loss and its control gradient on every route, evolve
+(with an analytic T1 decay), a short Adam GRAPE, the refusals of what is
+not ported yet, and the conversions (density step costs and intermediate
+densities: tests/test_torch_stepcost.py); under RKDP5, the default method:
+evolve with intermediate densities, a GRAPE with a density step cost, and
+a GRAPE whose rkdp5_max_steps is too small (NaN errors in both packages).
 
 On the CPU in x64 ``qoc_tpu`` takes its generic route (an XLA expm per step
 of the superoperator, composed by a tree product). Tolerances: 1e-12 on the
@@ -12,7 +14,10 @@ on losses and 1e-6 on gradients (the port's f32-calibrated Taylor ladder
 against an f64-accurate expm, at the small step norms of these problems,
 which sit on the ladder's low-degree levels); 1e-8 on GRAPE errors and
 1e-6 on the best controls; 1e-10 on evolved densities against qoc_tpu's
-and 1e-9 against the analytic decay.
+and 1e-9 against the analytic decay. RKDP5 at atol 1e-10: 1e-9 on
+densities, errors and controls (measured 2e-11 to 5e-11; the two packages
+round differently, and a mesh decision that flips on a rounding parts the
+results by up to the integrator's own error).
 """
 
 import numpy as np
@@ -249,11 +254,88 @@ def test_grape_trajectory_matches_jax():
                                atol=1e-8)
 
 
+RKDP5_ATOL = 1e-10
+
+
+def test_rkdp5_evolve_matches_jax():
+    """evolve_lindblad_discrete without ``method`` (RKDP5, the forward-only
+    integrator) at d = 3, 4 intervals: the densities at every system step
+    and the error against qoc_tpu's."""
+    import qoc_tpu
+    import qoc_tpu_torch
+    problem = LindbladProblem(d=3, n_steps=5)
+    common = dict(controls=problem.controls, atol=RKDP5_ATOL,
+                  save_intermediate_densities=True)
+    want = qoc_tpu.evolve_lindblad_discrete(
+        problem.evolution_time, problem.initial, problem.n_steps,
+        costs=problem.jax_costs, hamiltonian=problem.jax_hamiltonian,
+        lindblad_data=problem.jax_lindblad, **common)
+    got = qoc_tpu_torch.evolve_lindblad_discrete(
+        problem.evolution_time, problem.torch_initial, problem.n_steps,
+        costs=problem.torch_costs, hamiltonian=problem.torch_hamiltonian,
+        lindblad_data=problem.torch_lindblad, device="cpu", **common)
+    assert got.intermediate_densities.shape == (5, 2, 3, 3)
+    np.testing.assert_allclose(got.intermediate_densities,
+                               np.asarray(want.intermediate_densities),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.final_densities,
+                               got.intermediate_densities[-1], rtol=0,
+                               atol=0)
+    assert got.error == pytest.approx(want.error, abs=1e-9)
+
+
+def _rkdp5_grapes(rkdp5_max_steps, iteration_count):
+    """qoc_tpu's and the port's grape_lindblad_discrete without ``method``
+    (RKDP5) at d = 2, 3 intervals, with TargetDensityInfidelityTime and
+    ForbidDensities every step."""
+    import qoc_tpu
+    import qoc_tpu_torch
+    problem = LindbladProblem(d=2, n_steps=4).add_step_costs()
+    common = dict(complex_controls=True, iteration_count=iteration_count,
+                  initial_controls=problem.controls, log_iteration_step=0,
+                  max_control_norms=problem.max_control_norms,
+                  atol=RKDP5_ATOL, rkdp5_max_steps=rkdp5_max_steps)
+    want = qoc_tpu.grape_lindblad_discrete(
+        problem.n_c, problem.n_steps, problem.jax_costs,
+        problem.evolution_time, problem.initial, problem.n_steps,
+        hamiltonian=problem.jax_hamiltonian,
+        lindblad_data=problem.jax_lindblad, **common)
+    got = qoc_tpu_torch.grape_lindblad_discrete(
+        problem.n_c, problem.n_steps, problem.torch_costs,
+        problem.evolution_time, problem.torch_initial, problem.n_steps,
+        hamiltonian=problem.torch_hamiltonian,
+        lindblad_data=problem.torch_lindblad, device="cpu", **common)
+    return want, got
+
+
+def test_rkdp5_grape_matches_jax():
+    """3 Adam iterations through the default method (the bounded
+    integrator, 1024 attempts an interval): per-iteration errors, the best
+    iterate, its controls and densities."""
+    want, got = _rkdp5_grapes(1024, 3)
+    assert got.iteration_count_ran == 3
+    assert np.all(np.diff(got.errors) < 0)
+    np.testing.assert_allclose(got.errors, np.asarray(want.errors), rtol=0,
+                               atol=1e-9)
+    assert got.best_iteration == want.best_iteration
+    np.testing.assert_allclose(got.best_controls, want.best_controls,
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.best_final_densities,
+                               np.asarray(want.best_final_densities),
+                               rtol=0, atol=1e-9)
+
+
+def test_rkdp5_grape_unconverged_gives_nan():
+    """rkdp5_max_steps=3 cannot cover an interval: every error is NaN in
+    both packages, and neither records a best iterate."""
+    want, got = _rkdp5_grapes(3, 2)
+    assert np.all(np.isnan(np.asarray(want.errors)))
+    assert np.all(np.isnan(got.errors)) and got.errors.shape == (2,)
+    assert got.best_error == want.best_error == np.finfo(np.float64).max
+
+
 def _refusals():
-    from qoc_tpu_torch.models import LindbladMethod
     return {
-        "default method (RKDP5)": (dict(), "MAGNUS_EXPM"),
-        "RKDP5": (dict(method=LindbladMethod.RKDP5), "MAGNUS_EXPM"),
         "save_file_path": (dict(save_file_path="run.h5"), "slice"),
         "impose_control_conditions": (
             dict(impose_control_conditions=lambda c: c), "slice"),
@@ -269,23 +351,14 @@ def test_unported_features_raise_not_implemented(case):
 
     problem = LindbladProblem(d=2, n_steps=4)
     kwargs, match = _refusals()[case]
-    kwargs = dict(kwargs)
-    kwargs.setdefault("method", LindbladMethod.MAGNUS_EXPM)
-    if case == "default method (RKDP5)":
-        del kwargs["method"]
     with pytest.raises(NotImplementedError, match=match):
         qoc_tpu_torch.grape_lindblad_discrete(
             problem.n_c, problem.n_steps, problem.torch_costs,
             problem.evolution_time, problem.torch_initial, problem.n_steps,
             complex_controls=True, hamiltonian=problem.torch_hamiltonian,
             lindblad_data=problem.torch_lindblad, iteration_count=1,
-            log_iteration_step=0, device="cpu", **kwargs)
-    if case == "default method (RKDP5)":
-        with pytest.raises(NotImplementedError, match=match):
-            qoc_tpu_torch.evolve_lindblad_discrete(
-                problem.evolution_time, problem.torch_initial,
-                problem.n_steps, lindblad_data=problem.torch_lindblad,
-                device="cpu", **kwargs)
+            log_iteration_step=0, method=LindbladMethod.MAGNUS_EXPM,
+            device="cpu", **kwargs)
 
 
 def test_conversions_carry_the_data():

@@ -14,6 +14,15 @@ CPU), and the plane chain op's member axis that carries them on the card.
 - grape_lindblad_ensemble (5 iterations at d = 2) and
   grape_lindblad_multistart (4 candidates; 2 candidates x 2 members; 4
   candidates with step costs) against qoc_tpu's.
+- Under RKDP5 (the default method; the members and candidates are the
+  adaptive integrator's lanes): grape_lindblad_ensemble of 3 members and
+  grape_lindblad_multistart of 2 candidates x 2 members, 3 iterations at
+  d = 2, against qoc_tpu's generic route, at atol 1e-10 within 1e-7
+  (errors, controls, densities; measured up to 9e-9). On this problem a
+  1e-15 change of the controls moves either package's densities by up to
+  1e-8: a mesh decision flips on a rounding, so two roundings part by up
+  to the integrator's own error; qoc_tpu's vmapped members equal its single
+  runs, and the port's lanes its single lanes, exactly.
 - The refusals, each naming its ROADMAP item.
 
 On the CPU qoc_tpu takes its generic route (no Pallas), which keeps the
@@ -275,6 +284,71 @@ def test_grape_lindblad_multistart_matches_jax(case):
     _assert_same_run(want, got)
 
 
+@pytest.mark.parametrize("entry", ("ensemble", "multistart"))
+def test_rkdp5_ensemble_and_multistart_match_jax(entry):
+    """The default method, RKDP5, on example 6's problem (3 members, 2
+    intervals of T = 2, atol 1e-10): a 3-iteration ensemble GRAPE, and a
+    robust multistart of 2 candidates x 2 members (4 lanes), each against
+    qoc_tpu's generic route."""
+    import qoc_tpu
+    import qoc_tpu_torch
+    from jax.sharding import Mesh
+    n_members = 3 if entry == "ensemble" else 2
+    problem = LindbladEnsembleProblem(n_members=n_members,
+                                      control_eval_count=6,
+                                      system_eval_count=3,
+                                      evolution_time=2.0)
+    common = dict(complex_controls=True, initial_controls=problem.controls,
+                  max_control_norms=problem.max_control_norms,
+                  iteration_count=3, log_iteration_step=0, atol=1e-10,
+                  rkdp5_max_steps=1024)
+    args = (1, problem.control_eval_count)
+    if entry == "ensemble":
+        want = qoc_tpu.parallel.grape_lindblad_ensemble(
+            *args, problem.jax_costs, problem.evolution_time,
+            problem.jax_hamiltonian, problem.params, problem.initial,
+            problem.system_eval_count, lindblad_data=problem.jax_lindblad,
+            mesh=qoc_tpu.parallel.make_mesh(1),
+            optimizer=qoc_tpu.optim.Adam(learning_rate=0.05), **common)
+        got = qoc_tpu_torch.grape_lindblad_ensemble(
+            *args, problem.torch_costs, problem.evolution_time,
+            problem.torch_hamiltonian, problem.params, problem.torch_initial,
+            problem.system_eval_count, lindblad_data=problem.torch_lindblad,
+            optimizer=qoc_tpu_torch.Adam(learning_rate=0.05), device="cpu",
+            **common)
+    else:
+        one_device = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                          ("candidate", "ensemble"))
+        common.update(n_starts=2, seed=3,
+                      hamiltonian_params=problem.params)
+        want = qoc_tpu.parallel.grape_lindblad_multistart(
+            *args, problem.jax_costs, problem.evolution_time,
+            problem.initial, problem.system_eval_count,
+            hamiltonian=problem.jax_hamiltonian,
+            lindblad_data=problem.jax_lindblad, mesh=one_device,
+            optimizer=qoc_tpu.optim.Adam(learning_rate=0.05), **common)
+        got = qoc_tpu_torch.grape_lindblad_multistart(
+            *args, problem.torch_costs, problem.evolution_time,
+            problem.torch_initial, problem.system_eval_count,
+            hamiltonian=problem.torch_hamiltonian,
+            lindblad_data=problem.torch_lindblad,
+            optimizer=qoc_tpu_torch.Adam(learning_rate=0.05), device="cpu",
+            **common)
+        np.testing.assert_allclose(got.errors, np.asarray(want.errors),
+                                   rtol=0, atol=1e-7)
+    assert got.iteration_count_ran == 3
+    assert got.best_final_densities.shape == (n_members, 1, 2, 2)
+    np.testing.assert_allclose(got.errors, np.asarray(want.errors), rtol=0,
+                               atol=1e-7)
+    assert got.best_iteration == want.best_iteration
+    assert got.best_error == pytest.approx(want.best_error, abs=1e-7)
+    np.testing.assert_allclose(got.best_controls, want.best_controls,
+                               rtol=0, atol=1e-7)
+    np.testing.assert_allclose(got.best_final_densities,
+                               np.asarray(want.best_final_densities),
+                               rtol=0, atol=1e-7)
+
+
 # ---------------------------------------------------------------------------
 # Refusals
 # ---------------------------------------------------------------------------
@@ -284,7 +358,6 @@ def _refusals():
     from qoc_tpu_torch.models import LindbladMethod
     magnus = dict(method=LindbladMethod.MAGNUS_EXPM)
     return {
-        "RKDP5 (the default)": ("Queue 1 item 4", {}),
         "mesh": ("Queue 1 item 8", dict(mesh=object(), **magnus)),
         "save_file_path": ("slice 4", dict(save_file_path="run.h5",
                                            **magnus)),
