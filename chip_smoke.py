@@ -218,14 +218,28 @@ build, for a quick check of a kernel.) Phases, one line each:
    plain torch, no kernel), through the entry points called without a
    method: examples/1_transmon_pi_decoherence.py's problem (d = 2, T1 =
    1000, 11 control points, one interval, T = 10) in float64 at atol 1e-12
-   and rkdp5_max_steps 16384, 5 Adam iterations, finite and falling and
+   and rkdp5_max_steps 16384, 3 Adam iterations, finite and falling and
    within 1e-9 of the same run on the CPU; in float32 at atol 1e-8, its
    first error within 1e-5 of float64's; the d = 20 cell's evolve in
    float64 against the CPU, with its gap to MAGNUS_EXPM (K6); a 4-member
    ensemble whose members each equal their single-member run within 1e-12
-   (float64), and a 16-candidate multistart in float32 for 3 iterations;
+   (float64), and a 16-candidate multistart in float32 for 2 iterations;
    the CPU runs in a spawned process beside the card's; each line with the
-   attempts an interval, host reads a loss and it/s.
+   attempts an interval, host reads a loss and it/s;
+43. the optimizers and the host loop at full width: the Table-3 headline
+   GRAPE with the device L-BFGS (LBFGS(), 5 iterations), exact and in the
+   mode, with counters (K1 launched ls_steps + 2 times and K2 once an
+   iteration, nothing else) and its best error under the initial
+   controls'; the same exact run through an identity
+   impose_control_conditions hook (the host loop and LBFGS's numpy twin),
+   its errors of iterations 0 and 1 within 1e-4 (relative) of the fused
+   run's; LBFGSB() on the headline for 5 iterations, its error falling,
+   with the device evaluations an iteration; example 1 under RKDP5 with
+   LBFGSB() in float64 for 3 iterations against the same call on the CPU
+   (a spawned process) within 1e-9; a 64-candidate multistart with
+   LBFGS() for 3 iterations on phase 29's problem (d = 64, 201 points),
+   every candidate's error finite, the winner under candidate 0's initial
+   error, launches counted; each line with its it/s and the card.
 
 Every phase prints its wall time, the summary the script's total.
 
@@ -389,9 +403,11 @@ MODE_LOSS_RTOL = 5e-5
 # method argument. Example 1 at the reference's atol and rkdp5_max_steps
 # in float64, and at atol 1e-8 in float32, whose first error must lie
 # within RKDP5_F32_TOL of float64's; the d = 20 cell's evolve in float64;
-# the lanes (members, candidates) at RKDP5_LANE_ATOL.
+# the lanes (members, candidates) at RKDP5_LANE_ATOL. The RKDP5 attempt
+# is host-bound, so the iteration counts stay small: the script's time
+# limit holds on a slow host too.
 RKDP5_MAX_STEPS = 16384
-RKDP5_ITERATIONS = 5
+RKDP5_ITERATIONS = 3
 RKDP5_F32_ATOL = 1e-8
 RKDP5_F32_ITERATIONS = 2
 RKDP5_F32_TOL = 1e-5
@@ -400,7 +416,14 @@ RKDP5_MEMBERS = 4
 RKDP5_LANE_ATOL = 1e-10
 RKDP5_LANE_TOL = 1e-12
 RKDP5_CANDIDATES = 16
-RKDP5_MS_ITERATIONS = 3
+RKDP5_MS_ITERATIONS = 2
+# Phase 43: the optimizers and the host loop.
+LBFGS_ITERATIONS = 5
+LBFGSB_ITERATIONS = 5
+EXAMPLE1_LBFGSB_ITERATIONS = 3
+LBFGS_CANDIDATES = 64
+LBFGS_MS_ITERATIONS = 3
+HOST_TWIN_RTOL = 1e-4
 
 
 def _rel(got, want):
@@ -1403,11 +1426,14 @@ def phase_blocked_vs_plane(dev):
     return ms
 
 
-def make_iteration(pstate, dev, build_loss=None):
+def make_iteration(pstate, dev, build_loss=None, optimizer=None):
     """One GRAPE iteration of core/graperunner.py on ``pstate`` (clip,
-    loss, gradient, Adam update); returns the error. ``build_loss``:
-    build_schroedinger_loss, or build_lindblad_loss for a Lindblad
-    state."""
+    loss, gradient, the update of ``optimizer``, by default
+    ``pstate.optimizer``, given the error and the clip-projected loss as
+    the runner gives them, which only LBFGS's line search reads); returns
+    the error.
+    ``build_loss``: build_schroedinger_loss, or build_lindblad_loss for a
+    Lindblad state."""
     from qoc_tpu_torch.core.common import (clip_control_norms_torch,
                                            slap_controls_torch,
                                            strip_controls_torch)
@@ -1417,20 +1443,26 @@ def make_iteration(pstate, dev, build_loss=None):
                                                    torch.float32)
     mcn = torch.as_tensor(pstate.max_control_norms, dtype=torch.float32,
                           device=dev)
-    adam = pstate.optimizer
+    optimizer = optimizer or pstate.optimizer
     params = strip_controls_torch(True, torch.as_tensor(
         pstate.initial_controls, dtype=torch.complex64, device=dev))
-    state = {"params": params, "opt": adam.init_state(params)}
+    state = {"params": params, "opt": optimizer.init_state(params)}
+
+    def clipped(p):
+        return strip_controls_torch(True, clip_control_norms_torch(
+            slap_controls_torch(True, p, shape), mcn))
+
+    def projected_loss(p):
+        return loss(slap_controls_torch(True, clipped(p), shape))[0]
 
     def iteration():
-        controls = clip_control_norms_torch(
-            slap_controls_torch(True, state["params"], shape), mcn)
-        flat = strip_controls_torch(True, controls).detach()
+        flat = clipped(state["params"]).detach()
         flat.requires_grad_(True)
         error, _ = loss(slap_controls_torch(True, flat, shape))
         grads, = torch.autograd.grad(error, flat)
-        state["opt"], state["params"] = adam.update(state["opt"], grads,
-                                                    state["params"])
+        state["opt"], state["params"] = optimizer.update(
+            state["opt"], grads, state["params"], error.detach(),
+            projected_loss)
         return error
     return iteration
 
@@ -5149,7 +5181,7 @@ def phase_rkdp5(dev, card=None):
     """Phase 42: the adaptive RKDP5 integrator, qoc_tpu's default Lindblad
     method, through the public entry points called without ``method``
     (plain torch on the card; no kernel of csrc/ runs). (a) example 1 in
-    float64 at the reference's atol 1e-12 and rkdp5_max_steps 16384, 5
+    float64 at the reference's atol 1e-12 and rkdp5_max_steps 16384, 3
     Adam iterations, the errors finite, falling and within RKDP5_CPU_TOL of
     the same run on the CPU; (b) the same at atol 1e-8 in float32, its
     first error within RKDP5_F32_TOL of (a)'s; (c) evolve_lindblad_discrete
@@ -5157,7 +5189,7 @@ def phase_rkdp5(dev, card=None):
     MAGNUS_EXPM route (K6, float32); (d) a 4-member ensemble at d = 2 in
     float64, each member's error equal to its single-member run within
     RKDP5_LANE_TOL (the lanes independent), then a 16-candidate multistart
-    in float32 at atol 1e-8 for 3 iterations. The CPU runs go in a spawned
+    in float32 at atol 1e-8 for 2 iterations. The CPU runs go in a spawned
     process beside the card's. Every line has the integrator's attempts an
     interval, host reads a loss, it/s and the card. Returns the it/s of
     the summary."""
@@ -5275,6 +5307,193 @@ def phase_rkdp5(dev, card=None):
             "example 1 float32": card_runs["float32"].iterations_per_s,
             "{}-candidate multistart".format(RKDP5_CANDIDATES):
             result.iterations_per_s}
+
+
+def _example1_lbfgsb(device):
+    """Example 1's RKDP5 GRAPE (float64, the reference's atol 1e-12) with
+    LBFGSB() on the host loop."""
+    from qoc_tpu_torch import LBFGSB, grape_lindblad_discrete
+    return grape_lindblad_discrete(
+        iteration_count=EXAMPLE1_LBFGSB_ITERATIONS, log_iteration_step=0,
+        optimizer=LBFGSB(), atol=1e-12, rkdp5_max_steps=RKDP5_MAX_STEPS,
+        device=device, dtype=torch.float64, **example1_problem())
+
+
+def _example1_lbfgsb_cpu():
+    """Phase 43's CPU run, in a process of its own: (errors, it/s)."""
+    torch.set_num_threads(1)
+    result = _example1_lbfgsb("cpu")
+    return np.asarray(result.errors), result.iterations_per_s
+
+
+def _counted_lbfgsb():
+    """An LBFGSB that keeps scipy's result (its iterations and
+    evaluations)."""
+    from qoc_tpu_torch import LBFGSB
+
+    class CountedLBFGSB(LBFGSB):
+        def run(self, *args, **kwargs):
+            self.result = super().run(*args, **kwargs)
+            return self.result
+
+    return CountedLBFGSB()
+
+
+def _headline_lbfgs(kw, mode, hook=None):
+    """The headline GRAPE with LBFGS() for LBFGS_ITERATIONS in ``mode``,
+    counters read around it: (result, launches)."""
+    from qoc_tpu_torch import LBFGS, grape_schroedinger_discrete
+    with precision(mode):
+        reset_launches()
+        result = grape_schroedinger_discrete(
+            complex_controls=True, iteration_count=LBFGS_ITERATIONS,
+            log_iteration_step=0, optimizer=LBFGS(), fused_chunk=1,
+            impose_control_conditions=hook, **kw)
+        launches = read_launches()
+    return result, launches
+
+
+def phase_host_loop(dev, card=None):
+    """Phase 43: the optimizers and the host loop at full width (module
+    docstring). Returns the it/s of the summary."""
+    import concurrent.futures
+    import multiprocessing
+    from qoc_tpu_torch import (LBFGS, grape_schroedinger_discrete,
+                               grape_schroedinger_multistart)
+    from qoc_tpu_torch.ops.chain import chain_block_plan
+    if card is None:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    rates = {}
+    ls_steps = LBFGS().ls_steps
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(_example1_lbfgsb_cpu)
+        pstate, ham, costs = table3_problem(1)
+        kw = _problem_kw(pstate, ham, costs, dev)
+        fused = {}
+        for mode in ("highest", MODE):
+            result, launches = _headline_lbfgs(kw, mode)
+            fused[mode] = result
+            errors = np.asarray(result.errors)
+            want = {"K1": LBFGS_ITERATIONS * (ls_steps + 2),
+                    "K2": LBFGS_ITERATIONS}
+            if mode != "highest":
+                want.update({key + " mode": n for key, n in
+                             list(want.items())})
+            print("phase 43 headline LBFGS ({}): {} iterations, {:.2f} it/s "
+                  "steady, errors {}, best {:.6f}, launches {} | {}".format(
+                      mode, result.iteration_count_ran,
+                      result.iterations_per_s,
+                      np.array2string(errors, precision=8),
+                      result.best_error, launches, card), flush=True)
+            if any(n != want.get(key, 0) for key, n in launches.items()):
+                raise RuntimeError(
+                    "the headline LBFGS ({}) did not launch K1 {} and K2 {} "
+                    "times an iteration and nothing else".format(
+                        mode, ls_steps + 2, 1))
+            if not (result.iteration_count_ran == LBFGS_ITERATIONS
+                    and np.all(np.isfinite(errors))
+                    and result.best_error < errors[0]):
+                raise RuntimeError("the headline LBFGS ({}) did not run "
+                                   "finite and improving".format(mode))
+            rates["headline LBFGS " + mode] = result.iterations_per_s
+        host, _ = _headline_lbfgs(kw, "highest", hook=lambda c: c)
+        twin = np.asarray(fused["highest"].errors[:2])
+        host_errors = np.asarray(host.errors[:2])
+        gap = float(np.max(np.abs(host_errors - twin) / np.abs(twin)))
+        print("phase 43 headline LBFGS through an identity hook (host loop): "
+              "{} evaluations, {:.2f} evaluations/s, errors {}; iterations 0 "
+              "and 1 against the fused run's relative {:.3e} (limit {:g}) | "
+              "{}".format(host.iteration_count_ran, host.iterations_per_s,
+                          np.array2string(np.asarray(host.errors),
+                                          precision=8),
+                          gap, HOST_TWIN_RTOL, card), flush=True)
+        if not gap <= HOST_TWIN_RTOL:
+            raise RuntimeError("the host L-BFGS disagrees with the fused one")
+        rates["headline LBFGS host loop"] = host.iterations_per_s
+        optimizer = _counted_lbfgsb()
+        reset_launches()
+        start = time.perf_counter()
+        result = grape_schroedinger_discrete(
+            complex_controls=True, iteration_count=LBFGSB_ITERATIONS,
+            log_iteration_step=0, optimizer=optimizer, **kw)
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        errors = np.asarray(result.errors)
+        nit = optimizer.result.nit
+        print("phase 43 headline LBFGSB: {} scipy iterations in {:.2f} s "
+              "({:.2f} it/s), {} loss evaluations ({:.2f} an iteration; "
+              "scipy's nfev {}), error {:.6f} -> best {:.6f}, launches K1 {} "
+              "K2 {} | {}".format(
+                  nit, seconds, nit / seconds, result.iteration_count_ran,
+                  result.iteration_count_ran / max(nit, 1),
+                  optimizer.result.nfev, errors[0], result.best_error,
+                  launches["K1"], launches["K2"], card), flush=True)
+        if not (nit >= 1 and np.all(np.isfinite(errors))
+                and result.best_error < errors[0]
+                and launches["K2"] == result.iteration_count_ran):
+            raise RuntimeError("the headline LBFGSB did not run finite and "
+                               "falling")
+        rates["headline LBFGSB"] = nit / seconds
+        card_run = _example1_lbfgsb(dev)
+        cpu_errors, cpu_it_s = cpu_future.result()
+    card_errors = np.asarray(card_run.errors)
+    gap = (float(np.abs(card_errors - cpu_errors).max())
+           if card_errors.shape == cpu_errors.shape else float("inf"))
+    print("phase 43 example 1 RKDP5 LBFGSB (float64, atol 1e-12, {} "
+          "iterations): card {} evaluations {:.3f} evaluations/s, errors {}; "
+          "cpu {} evaluations {:.3f}/s, errors {}; max|diff| {:.3e} (limit "
+          "{:g}) | {}".format(
+              EXAMPLE1_LBFGSB_ITERATIONS, card_errors.size,
+              card_run.iterations_per_s,
+              np.array2string(card_errors, precision=12), cpu_errors.size,
+              cpu_it_s, np.array2string(cpu_errors, precision=12), gap,
+              RKDP5_CPU_TOL, card), flush=True)
+    if not (np.all(np.isfinite(card_errors)) and gap <= RKDP5_CPU_TOL
+            and card_run.best_error < card_errors[0]):
+        raise RuntimeError("example 1 with LBFGSB disagrees across devices "
+                           "or did not fall")
+    rates["example 1 RKDP5 LBFGSB"] = card_run.iterations_per_s
+    problem = multistart_problem()
+    pstate, ham, costs = problem
+    n_steps = pstate.system_eval_count - 1
+    blocks = -(-n_steps // chain_block_plan(D, n_steps, 8, 2,
+                                            LBFGS_CANDIDATES))
+    initial = grape_schroedinger_discrete(
+        complex_controls=True, iteration_count=0, log_iteration_step=0,
+        **_problem_kw(pstate, ham, costs, dev))
+    reset_launches()
+    result = grape_schroedinger_multistart(
+        CONTROL_COUNT, pstate.control_eval_count, costs,
+        pstate.evolution_time, ham, pstate.initial_states,
+        pstate.system_eval_count, n_starts=LBFGS_CANDIDATES,
+        complex_controls=True, iteration_count=LBFGS_MS_ITERATIONS,
+        log_iteration_step=0, optimizer=LBFGS(), fused_chunk=1, device=dev)
+    launches = read_launches()
+    errors = np.asarray(result.errors)
+    want = {"K1": blocks * (LBFGS_MS_ITERATIONS * (ls_steps + 2) + 1),
+            "K2": blocks * LBFGS_MS_ITERATIONS}
+    print("phase 43 {}-candidate multistart LBFGS: {} iterations, {:.1f} "
+          "candidate-it/s steady, best error {:.6f} (candidate 0's initial "
+          "{:.6f}, median best {:.6f}), launches K1 {} K2 {} (want {}) | "
+          "{}".format(LBFGS_CANDIDATES, result.iteration_count_ran,
+                      result.iterations_per_s, result.best_error,
+                      initial.best_error, float(np.median(errors)),
+                      launches["K1"], launches["K2"], want, card),
+          flush=True)
+    if not (result.iteration_count_ran == LBFGS_MS_ITERATIONS
+            and errors.shape == (LBFGS_CANDIDATES,)
+            and np.all(np.isfinite(errors))
+            and result.best_error < initial.best_error
+            and all(launches[key] == n for key, n in want.items())):
+        raise RuntimeError("the LBFGS multistart failed its checks")
+    rates["{}-candidate multistart LBFGS".format(LBFGS_CANDIDATES)] = \
+        result.iterations_per_s
+    return rates
 
 
 def run_phase(phase, *args):
@@ -5412,6 +5631,7 @@ def main():
     ms.update(tiled_ms)
     bounds.update(tiled_bounds)
     rkdp5_rates = run_phase(phase_rkdp5, dev, card)
+    host_rates = run_phase(phase_host_loop, dev, card)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -5491,7 +5711,8 @@ def main():
           "| Lindblad d=20 step-cost GRAPE {:.2f} it/s | ensemble GRAPE "
           "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {} | Lindblad "
           "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | bf16_3x "
-          "mode: {} | RKDP5 (plain torch): {} | total {:.1f} s".format(
+          "mode: {} | RKDP5 (plain torch): {} | optimizers and host loop: "
+          "{} | total {:.1f} s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
@@ -5513,6 +5734,9 @@ def main():
               ", ".join("{} {:.2f} {}".format(
                   k, v, "cand-it/s" if k.endswith("multistart") else "it/s")
                   for k, v in rkdp5_rates.items()),
+              ", ".join("{} {:.2f} {}".format(
+                  k, v, "cand-it/s" if "multistart" in k else "it/s")
+                  for k, v in host_rates.items()),
               time.perf_counter() - start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5534,7 +5758,8 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               35: phase_plane_member_timing, 36: phase_mode_kernels,
               37: phase_mode_grape, 38: phase_mode_timing,
               39: phase_mode_cells, 40: phase_mode_tiled_kernels,
-              41: phase_mode_tiled_timing, 42: phase_rkdp5}
+              41: phase_mode_tiled_timing, 42: phase_rkdp5,
+              43: phase_host_loop}
 
 
 if __name__ == "__main__":

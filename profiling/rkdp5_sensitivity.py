@@ -12,6 +12,12 @@ port to ``qoc_tpu``:
 - examples/1_transmon_pi_decoherence.py's problem
   (``chip_smoke.example1_problem``), 5 Adam iterations at atol 1e-12: the
   largest change of the errors when the drift is scaled by 1 + 1e-15;
+- the same problem with ``LBFGSB()`` (scipy's line search on the host
+  loop; the example's own optimizer), 3 iterations at atol 1e-12 (phase 43
+  of chip_smoke.py), and 1 at atol 1e-10 and rkdp5_max_steps 512 through
+  an identity ``impose_control_conditions`` hook (tests/test_torch_lbfgs.py's
+  settings): the largest change of the errors of every evaluation, of the
+  best controls and of the best final densities under the same scaling;
 - the RKDP5 ensemble of tests/test_torch_lindblad_ensemble.py (example 6's
   construction at d = 2: 3 detuning members in [-0.02, 0.02], 6 control
   points drawn from seed 6, 3 intervals of T = 2, atol 1e-10): the largest
@@ -33,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (example 1; no JAX)
-from qoc_tpu_torch import (ConstantLindblad,  # noqa: E402
+from qoc_tpu_torch import (LBFGSB, ConstantLindblad,  # noqa: E402
                            EnsembleLinearHamiltonian, LinearHamiltonian,
                            TargetDensityInfidelity, grape_lindblad_discrete)
 from qoc_tpu_torch.models import LindbladMethod  # noqa: E402
@@ -50,6 +56,27 @@ def example1_errors(device, scale):
             iteration_count=5, log_iteration_step=0, atol=1e-12,
             device=device, dtype=torch.float64, **kw), 5)
     return np.asarray(result.errors), line
+
+
+def example1_lbfgsb(iterations, atol, max_steps, hook=None):
+    """(device, scale) -> example 1's LBFGSB GRAPE (through ``hook``, an
+    impose_control_conditions hook, where given) with the drift scaled by
+    ``scale``: its errors, best controls and best final densities, and its
+    counts line."""
+    def run(device, scale):
+        kw = chip_smoke.example1_problem()
+        kw["hamiltonian"] = LinearHamiltonian(kw["hamiltonian"].h0 * scale,
+                                              kw["hamiltonian"].operators)
+        result, line = chip_smoke._rkdp5_counted(
+            lambda: grape_lindblad_discrete(
+                iteration_count=iterations, log_iteration_step=0,
+                optimizer=LBFGSB(), atol=atol, rkdp5_max_steps=max_steps,
+                impose_control_conditions=hook, device=device,
+                dtype=torch.float64, **kw), iterations)
+        return {"errors": np.asarray(result.errors),
+                "controls": result.best_controls,
+                "densities": result.best_final_densities}, line
+    return run
 
 
 def ensemble_densities(device, scale):
@@ -90,13 +117,23 @@ def main():
     for name, run in (("example 1 GRAPE errors (5 iterations, atol 1e-12)",
                        example1_errors),
                       ("RKDP5 ensemble final densities (3 members, atol "
-                       "1e-10)", ensemble_densities)):
+                       "1e-10)", ensemble_densities),
+                      ("example 1 LBFGSB GRAPE (3 iterations, atol 1e-12)",
+                       example1_lbfgsb(3, 1e-12, 16384)),
+                      ("example 1 LBFGSB GRAPE (1 iteration, atol 1e-10, "
+                       "512 attempts, identity hook)",
+                       example1_lbfgsb(1, 1e-10, 512, lambda c: c))):
         base, line = run(device, 1.0)
         moved, moved_line = run(device, 1.0 + 1e-15)
-        print("{} on {}: max|change| {:.3e} under a 1 + 1e-15 scaling; "
-              "{} (scaled: {})".format(name, device.type,
-                                       float(np.abs(moved - base).max()),
-                                       line, moved_line), flush=True)
+        if isinstance(base, dict):
+            change = ", ".join("{} {:.3e}".format(key, float(np.abs(
+                moved[key] - base[key]).max()) if moved[key].shape
+                == base[key].shape else float("inf")) for key in base)
+        else:
+            change = "{:.3e}".format(float(np.abs(moved - base).max()))
+        print("{} on {}: max|change| {} under a 1 + 1e-15 scaling; "
+              "{} (scaled: {})".format(name, device.type, change, line,
+                                       moved_line), flush=True)
 
 
 if __name__ == "__main__":

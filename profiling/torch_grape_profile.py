@@ -33,6 +33,10 @@ peak device memory; ``--json PATH`` also writes them to PATH as JSON,
 (``config.MXU_MODE``, in that order, in one call; by default the mode that
 ``QOC_TPU_MXU_PRECISION`` chose); every cell runs in either mode (the
 d = 2^10 backprop's products on torch.matmul as the 3-pass split).
+``--optimizer lbfgs`` runs the GRAPE cells' iterations with the device
+L-BFGS (``LBFGS()``: the loss and gradient, then the line search's
+``ls_steps`` + 1 forward losses) in place of Adam; the multistart cells
+keep Adam.
 """
 
 import argparse
@@ -78,9 +82,20 @@ def ensemble_loss(hamiltonian, params):
         pstate, hamiltonian, params, device=dev, dtype=dtype)
 
 
+# The GRAPE cells' optimizer (--optimizer): "adam", the problems' own, or
+# "lbfgs".
+OPTIMIZER = {"name": "adam"}
+
+
 def grape_cell(pstate, build_loss=None):
-    """(dev -> a cell's iteration) of a GRAPE problem."""
-    return lambda dev: chip_smoke.make_iteration(pstate, dev, build_loss)
+    """(dev -> a cell's iteration) of a GRAPE problem, with the optimizer
+    that --optimizer names."""
+    def build(dev):
+        from qoc_tpu_torch import LBFGS
+        return chip_smoke.make_iteration(
+            pstate, dev, build_loss,
+            LBFGS() if OPTIMIZER["name"] == "lbfgs" else None)
+    return build
 
 
 def ensemble_cell(n_members, step_costs=()):
@@ -233,7 +248,11 @@ def main():
     parser.add_argument("--modes", help="comma-separated precision modes, "
                         "each cell profiled in each (default: the "
                         "QOC_TPU_MXU_PRECISION mode)")
+    parser.add_argument("--optimizer", choices=("adam", "lbfgs"),
+                        default="adam", help="the GRAPE cells' optimizer "
+                        "(default: adam)")
     args = parser.parse_args()
+    OPTIMIZER["name"] = args.optimizer
     if not torch.cuda.is_available():
         raise SystemExit("torch_grape_profile: needs a CUDA device.")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -252,8 +271,10 @@ def main():
     for mode in modes:
         config.MXU_MODE = config.mxu_mode(torch.float32, mode)
         for name, build in chosen:
-            result = profile_cell("{} [{}]".format(name, mode), build, dev)
+            result = profile_cell("{} [{}, {}]".format(
+                name, mode, args.optimizer), build, dev)
             result["mode"] = mode
+            result["optimizer"] = args.optimizer
             results.append(result)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

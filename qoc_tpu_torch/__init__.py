@@ -7,8 +7,10 @@ Schrödinger path with a ``LinearHamiltonian`` or any torch Hamiltonian
 callable, Magnus M2/M4/M6, the state costs (``TargetStateInfidelity`` and
 the step costs ``TargetStateInfidelityTime``, ``ForbidStates``), the
 control costs (``ControlNorm``, ``ControlArea``, ``ControlVariation``,
-``ControlBandwidthMax``), intermediate states, ``grape_unitary``, Adam and
-SGD, and the Lindblad path under both methods, the adaptive
+``ControlBandwidthMax``), intermediate states, ``grape_unitary``, the
+optimizers (Adam, SGD and the L-BFGS ladder on the device or the host
+loop, scipy's L-BFGS-B and ``impose_control_conditions`` hooks on the host
+loop), ``ans_jacobian``, and the Lindblad path under both methods, the adaptive
 ``LindbladMethod.RKDP5`` (the default; ``ops/rkdp5.py``, plain torch) and
 ``LindbladMethod.MAGNUS_EXPM`` (``ConstantLindblad``, the density costs
 ``TargetDensityInfidelity``, ``TargetDensityInfidelityTime``,
@@ -43,7 +45,8 @@ from qoc_tpu_torch.models import (ConstantLindblad,
                                   LinearHamiltonian)
 from qoc_tpu_torch.ops.expm import (expm, expm_eigh, expm_frechet, expm_pade,
                                     expm_taylor)
-from qoc_tpu_torch.optim import SGD, Adam
+from qoc_tpu_torch.gradutil import ans_jacobian
+from qoc_tpu_torch.optim import LBFGS, LBFGSB, SGD, Adam
 from qoc_tpu_torch.parallel import (build_ensemble_loss,
                                     build_lindblad_ensemble_loss,
                                     grape_lindblad_ensemble,
@@ -63,6 +66,8 @@ __all__ = [
     "EnsembleLinearHamiltonian",
     "ForbidDensities",
     "ForbidStates",
+    "LBFGS",
+    "LBFGSB",
     "LindbladMethod",
     "LinearHamiltonian",
     "SGD",
@@ -70,6 +75,7 @@ __all__ = [
     "TargetDensityInfidelityTime",
     "TargetStateInfidelity",
     "TargetStateInfidelityTime",
+    "ans_jacobian",
     "build_ensemble_loss",
     "build_lindblad_ensemble_loss",
     "evolve_lindblad_discrete",

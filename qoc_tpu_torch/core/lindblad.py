@@ -42,8 +42,7 @@ form, as the Schrödinger path's step costs do: the block's prefixes P_t
 give the vectorized densities after every step, ``vec @ P_t^T``.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-slice: save files (H5), ``impose_control_conditions`` (the host loop),
-resume and ``mesh``.
+slice: save files (H5), resume and ``mesh``.
 """
 
 import numpy as np
@@ -518,13 +517,13 @@ def grape_lindblad_discrete(control_count, control_eval_count, costs,
     where an interval does not converge; ``fused_mode`` picks
     ``qoc_tpu``'s compiled loop form, and the port has one loop), plus
     ``device`` and ``dtype`` as :func:`evolve_lindblad_discrete`.
-    ``optimizer=None`` is a fresh ``Adam()`` (``SGD`` runs too); the loop
-    runs on the device (core/graperunner.py).
+    ``optimizer=None`` is a fresh ``Adam()``; Adam, SGD and LBFGS run on
+    the device, LBFGSB and any optimizer under an
+    ``impose_control_conditions`` hook on the host loop
+    (core/graperunner.py).
     Without a save file ``save_intermediate_densities`` is ignored, as in
     ``qoc_tpu``. Returns a ``GrapeLindbladResult`` with the best-seen
     controls, error, final densities and iteration (host numpy)."""
-    if impose_control_conditions is not None:
-        raise _not_ported("impose_control_conditions (the host loop)", 3)
     if resume_from is not None:
         raise _not_ported("resume_from", 4)
     if mesh is not None:

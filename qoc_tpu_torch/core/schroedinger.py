@@ -47,8 +47,7 @@ Constants it closes over may be numpy arrays or tensors of any complex
 dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: ``impose_control_conditions`` (the host loop, slice 3),
-save files and resume (slice 4) and ``mesh`` (slice 6).
+ROADMAP slice: save files and resume (slice 4) and ``mesh`` (slice 6).
 """
 
 import numpy as np
@@ -461,12 +460,12 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
     device in float32, raising ``RuntimeError`` where there is none;
     ``device="cpu"`` runs float64). ``hamiltonian`` follows the port's
     contract (module docstring). ``optimizer=None`` is a fresh ``Adam()``.
-    The loop runs on the device (core/graperunner.py). Without a save file
+    Adam, SGD and LBFGS run on the device, LBFGSB and any optimizer under
+    an ``impose_control_conditions`` hook (controls (E, C) numpy ->
+    controls) on the host loop (core/graperunner.py). Without a save file
     ``save_intermediate_states`` is ignored, as in ``qoc_tpu``. Returns a
     ``GrapeSchroedingerResult`` with the best-seen controls, error, final
     states and iteration (host numpy)."""
-    if impose_control_conditions is not None:
-        raise _not_ported("impose_control_conditions (the host loop)", 3)
     if resume_from is not None:
         raise _not_ported("resume_from", 4)
     if mesh is not None:

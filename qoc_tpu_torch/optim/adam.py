@@ -1,4 +1,4 @@
-"""Adam optimizer, on device.
+"""Adam optimizer, on device and on the host loop.
 
 Counterpart of ``qoc_tpu/optim/adam.py`` (reference
 qoc/standard/optimizers/adam.py:9-165): textbook Adam with bias correction,
@@ -9,10 +9,13 @@ the arithmetic of ``qoc_tpu``'s ``Adam.update_jax``, step for step, and
 never reads a value back to the host. The per-candidate form
 (``init_state_batch``/``update_batch``, ``qoc_tpu``'s
 ``jax.vmap(optimizer.update_jax)`` in its multistart runner) carries a
-leading candidate axis on the state and the parameters. The reference's
-host loop (``run``/``update`` on numpy) is ROADMAP slice 3 of the port.
+leading candidate axis on the state and the parameters. The host twin
+(``run``/``update_np``, ``qoc_tpu``'s ``run``/``update``) is the same rule
+in numpy, for the host loop that an ``impose_control_conditions`` hook
+forces (``core/graperunner.py``).
 """
 
+import numpy as np
 import torch
 
 __all__ = ["Adam"]
@@ -32,7 +35,10 @@ class Adam:
         self.beta_2 = beta_2
         self.clip_grads = clip_grads
         self.epsilon = epsilon
+        self.gradient_moment = None
+        self.gradient_square_moment = None
         self.initial_learning_rate = learning_rate
+        self.iteration_count = 0
         self.learning_rate = learning_rate
         self.learning_rate_decay = learning_rate_decay
         self.scale_grads = scale_grads
@@ -54,8 +60,10 @@ class Adam:
             "t": torch.zeros((), dtype=torch.int32, device=params.device),
         }
 
-    def update(self, state, grads, params):
-        """One Adam step: returns (new state, new params)."""
+    def update(self, state, grads, params, f0=None, loss_fn=None):
+        """One Adam step: returns (new state, new params). ``f0`` and
+        ``loss_fn``, a line search's inputs (see LBFGS.update), are
+        unused."""
         t = state["t"]
         if self.apply_learning_rate_decay:
             learning_rate = (self.initial_learning_rate
@@ -85,11 +93,12 @@ class Adam:
         count per candidate (N,)."""
         return torch.func.vmap(self.init_state)(params)
 
-    def update_batch(self, state, grads, params, frozen):
+    def update_batch(self, state, grads, params, frozen, f0=None,
+                     batch_loss=None):
         """One Adam step of every candidate, each with its own step count
         (:meth:`update` under ``torch.func.vmap``): returns (new state, new
         params), where a ``frozen`` candidate (a bool (N,)) keeps its
-        parameters and its state."""
+        parameters and its state. ``f0`` and ``batch_loss`` are unused."""
         new_state, new_params = torch.func.vmap(self.update)(state, grads,
                                                              params)
 
@@ -99,3 +108,43 @@ class Adam:
 
         return ({key: keep(new_state[key], state[key]) for key in state},
                 keep(new_params, params))
+
+    # -- host twin -----------------------------------------------------------
+
+    def run(self, function, iteration_count, initial_params, jacobian,
+            args=()):
+        """Minimize on the host loop; ``jacobian`` returns (grads,
+        terminate), and a terminating evaluation skips its update."""
+        self.iteration_count = 0
+        self.gradient_moment = np.zeros_like(initial_params)
+        self.gradient_square_moment = np.zeros_like(initial_params)
+        params = initial_params
+        for _ in range(iteration_count):
+            grads, terminate = jacobian(params, *args)
+            if terminate:
+                break
+            params = self.update_np(grads, params)
+
+    def update_np(self, grads, params):
+        """One Adam step on numpy arrays (reference adam.py:110-165)."""
+        if self.apply_learning_rate_decay:
+            learning_rate = (self.initial_learning_rate
+                             * np.exp(-self.iteration_count
+                                      / self.learning_rate_decay))
+        else:
+            learning_rate = self.initial_learning_rate
+        if self.apply_scale_grads:
+            grads = (grads / np.linalg.norm(grads)) * self.scale_grads
+        if self.apply_clip_grads:
+            grads = np.clip(grads, -self.clip_grads, self.clip_grads)
+
+        self.iteration_count += 1
+        t = self.iteration_count
+        b1, b2 = self.beta_1, self.beta_2
+        self.gradient_moment = b1 * self.gradient_moment + (1 - b1) * grads
+        self.gradient_square_moment = (b2 * self.gradient_square_moment
+                                       + (1 - b2) * np.square(grads))
+        m_hat = self.gradient_moment / (1 - b1 ** t)
+        v_hat = self.gradient_square_moment / (1 - b2 ** t)
+        return params - learning_rate * m_hat / (np.sqrt(v_hat)
+                                                 + self.epsilon)

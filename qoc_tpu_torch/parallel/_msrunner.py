@@ -1,8 +1,9 @@
 """The multistart optimization loop, on device.
 
 Counterpart of ``qoc_tpu/parallel/_msrunner.py``: every candidate carries
-its own controls and optimizer state (Adam's, or SGD's none), and each iteration (clip, loss and
-gradient of all candidates, update) runs on the card for the whole batch.
+its own controls and optimizer state (Adam's, LBFGS's, or SGD's none),
+and each iteration (clip, loss and gradient of all candidates, update) runs
+on the card for the whole batch.
 The candidates' errors and gradients come from one backward of the sum of
 their errors (candidates are independent, so d(Σ_c err_c)/d(params_c') is
 d err_c'/d params_c'). As in ``core/graperunner.py`` the per-iteration
@@ -15,9 +16,11 @@ are clipped to ``max_control_norms`` outside the differentiation; a
 candidate whose error reaches ``min_error`` is frozen (its parameters and
 Adam state kept) and the run stops at the end of that chunk when
 ``min_error > 0``; each candidate's best error and clipped controls are
-tracked, and the winner is the best of them. Checkpoint, resume and the H5
-winner rows (ROADMAP Queue 1, item 7) and the L-BFGS ``needs_loss``
-branch (item 5) are not ported.
+tracked, and the winner is the best of them. Every update is also given
+all candidates' clip-projected loss, which only the line search of an
+optimizer that ``needs_loss`` (LBFGS) calls, one batched forward a rung; frozen candidates ride through the
+ladder too, and the freeze discards their step. Checkpoint, resume and the
+H5 winner rows (ROADMAP Queue 1, item 7) are not ported.
 """
 
 import numpy as np
@@ -27,7 +30,6 @@ from qoc_tpu_torch.core.common import (clip_control_norms_torch,
                                        gen_controls_white, slap_controls,
                                        slap_controls_torch, strip_controls,
                                        strip_controls_torch)
-from qoc_tpu_torch.core.schroedinger import _not_ported
 from qoc_tpu_torch.models import EnsembleLinearHamiltonian
 from qoc_tpu_torch.profiler import RateMeter, trace_annotation
 
@@ -38,13 +40,17 @@ _DEFAULT_CHUNK = 100
 
 def validate_multistart_entry(optimizer, entry_name, hamiltonian=None,
                               hamiltonian_params=None):
-    """Fail fast on an optimizer without the per-candidate form (the port's
-    Adam and SGD have it; L-BFGS is ROADMAP Queue 1, item 5) and on an
+    """Fail fast on an optimizer without a device update (every candidate
+    updates on the card; ``qoc_tpu``'s ValueError) and on an
     ensemble-contract Hamiltonian used without member parameters."""
-    if getattr(optimizer, "update_batch", None) is None:
-        raise _not_ported("{} in {} (the port's optimizers other than "
-                          "Adam and SGD)".format(type(optimizer).__name__,
-                                         entry_name), "3, Queue 1 item 5")
+    if not getattr(optimizer, "supports_fused", False):
+        raise ValueError(
+            "{} requires an optimizer with a device update rule "
+            "(optimizer.supports_fused, e.g. Adam/SGD/LBFGS): every "
+            "candidate's update runs on the device. {} is host-loop only — "
+            "run it through {} per candidate instead.".format(
+                entry_name, type(optimizer).__name__,
+                entry_name.replace("_multistart", "_discrete")))
     if (isinstance(hamiltonian, EnsembleLinearHamiltonian)
             and hamiltonian_params is None):
         raise ValueError(
@@ -97,6 +103,12 @@ def run_multistart(pstate, result, loss_sum, n_starts, device, dtype,
     best_iter = torch.zeros((n_starts,), dtype=torch.int64, device=device)
     it = torch.zeros((), dtype=torch.int64, device=device)
 
+    def batch_projected_loss(params_batch):
+        """(N, n_flat) candidate params -> (N,) clip-projected losses: the
+        line search's view for ``needs_loss`` optimizers."""
+        return loss_sum(strip(clip_control_norms_torch(slap(params_batch),
+                                                       mcn)))[1]
+
     def iteration_step(params, opt_state, done, best_err, best_flat,
                        best_iter, it):
         clipped_flat = strip(clip_control_norms_torch(slap(params), mcn))
@@ -105,8 +117,8 @@ def run_multistart(pstate, result, loss_sum, n_starts, device, dtype,
         grads, = torch.autograd.grad(total, clipped_flat)
         errors, clipped_flat = errors.detach(), clipped_flat.detach()
         new_done = done | (errors <= min_error)
-        opt_state, params = optimizer.update_batch(opt_state, grads, params,
-                                                   new_done)
+        opt_state, params = optimizer.update_batch(
+            opt_state, grads, params, new_done, errors, batch_projected_loss)
         valid = ~done
         improved = valid & (errors < best_err)
         best_err = torch.where(improved, errors, best_err)

@@ -408,13 +408,10 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
     row per member, and the optimized error is the members' mean.
     ``result.best_final_states`` is (n_members, K, d, 1). One card:
     ``mesh`` other than None raises (ROADMAP Queue 1, item 8), as do the
-    save file, ``resume_from`` and ``impose_control_conditions`` (items 7
-    and 5); ``optimizer=None`` is a fresh ``Adam()`` (``SGD`` runs
-    too)."""
+    save file and ``resume_from`` (item 7); ``optimizer=None`` is a fresh
+    ``Adam()``, and every optimizer and ``impose_control_conditions`` hook
+    of :func:`grape_schroedinger_discrete` runs."""
     refuse_mesh(mesh)
-    if impose_control_conditions is not None:
-        raise _not_ported("impose_control_conditions (the host loop)",
-                          "3, Queue 1 item 5")
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype)

@@ -40,9 +40,9 @@ generic route and its fused ensemble keep them, and so does the port on
 every route.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``mesh`` (item 8), save files and ``resume_from`` (item 7)
-and ``impose_control_conditions`` (item 5). As in the port's single-member Lindblad GRAPE, without a save
-file ``save_intermediate_densities`` is ignored.
+ROADMAP item: ``mesh`` (item 8), save files and ``resume_from`` (item 7).
+As in the port's single-member Lindblad GRAPE, without a save file
+``save_intermediate_densities`` is ignored.
 """
 
 from qoc_tpu_torch.config import resolve
@@ -122,9 +122,6 @@ def grape_lindblad_ensemble(control_count, control_eval_count, costs,
     compiled loop form (the port has one loop). Refusals: module
     docstring."""
     refuse_mesh(mesh)
-    if impose_control_conditions is not None:
-        raise _not_ported("impose_control_conditions (the host loop)",
-                          "3, Queue 1 item 5")
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype, float64_ok=(
@@ -178,8 +175,8 @@ def grape_lindblad_multistart(control_count, control_eval_count, costs,
     candidate's best error, ``result.iterations_per_s`` the steady
     candidate-iteration rate and ``best_final_densities`` (K, d, d), or
     (n_members, K, d, d) for a robust multistart. Refusals: module
-    docstring, and an optimizer other than the port's Adam and SGD (Queue 1
-    item 5)."""
+    docstring, and a host-loop-only optimizer (LBFGSB) with
+    ``ValueError``."""
     refuse_mesh(mesh)
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")

@@ -72,8 +72,8 @@ def grape_schroedinger_multistart(control_count, control_eval_count, costs,
     ``result.errors`` every candidate's best error and
     ``result.iterations_per_s`` the steady candidate-iteration rate. One
     card: ``mesh`` other than None raises, as do the save file and
-    ``resume_from`` (ROADMAP Queue 1, items 8 and 7) and an optimizer
-    other than the port's Adam and SGD (item 5)."""
+    ``resume_from`` (ROADMAP Queue 1, items 8 and 7); a host-loop-only
+    optimizer (LBFGSB) raises ``ValueError``."""
     refuse_mesh(mesh)
     if resume_from is not None:
         raise _not_ported("resume_from", "4, Queue 1 item 7")

@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import anti_hermitian_basis, f32_exact
 
 torch.set_num_threads(1)

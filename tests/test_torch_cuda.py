@@ -1634,3 +1634,72 @@ def test_mode_adjoint_form_member_rows(cuda_device, bf16_3x, target_norm):
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert float((x - y).abs().max() / y.abs().max()) < MODE_RTOL
+
+
+def _lbfgs_headline_loss(dev, plain):
+    """(loss of the flat real controls, their initial values) of the
+    headline's Hamiltonian (chip_smoke.bench_problem: d = 64, 10 complex
+    controls, seed 0) at 64 steps of the headline's dt, whose chain op runs
+    K1/K2 or, with ``plain``, their plain versions."""
+    from qoc_tpu_torch.core.common import (slap_controls_torch,
+                                           strip_controls_torch)
+    from qoc_tpu_torch.core.schroedinger import fused_weights
+    from qoc_tpu_torch.ops.chain import ChainExpmPropagate
+    n_steps = 64
+    pstate, ham, costs = _chip_smoke().bench_problem(
+        64, 10, n_steps + 1, n_steps + 1, 0.01 * n_steps)
+    dt = float(pstate.dt)
+    op = ChainExpmPropagate(ham.generator_basis(dt), dev, torch.float32,
+                            plain=plain)
+    times = torch.arange(n_steps, dtype=torch.float32, device=dev) * dt
+    cet = torch.as_tensor(pstate.control_eval_times, dtype=torch.float32,
+                          device=dev)
+    initial = torch.as_tensor(pstate.initial_states, dtype=torch.complex64,
+                              device=dev)
+
+    def loss(flat):
+        controls = slap_controls_torch(True, flat, pstate.controls_shape)
+        states = op(fused_weights(controls, times, cet, dt)) @ initial
+        return costs[0].cost(controls, states, n_steps)
+
+    x0 = strip_controls_torch(True, torch.as_tensor(
+        pstate.initial_controls, dtype=torch.complex64, device=dev))
+    return loss, x0
+
+
+@pytest.mark.parametrize("mode", ("highest", "bf16_3x"))
+def test_lbfgs_update_launches_and_matches_plain_versions(cuda_device,
+                                                          monkeypatch,
+                                                          mode):
+    """The device L-BFGS's first update on the headline's Hamiltonian at 64
+    steps: the loss and gradient and the line search's ls_steps + 1 forward
+    losses launch K1 ls_steps + 2 times and K2 once (in the mode, every
+    launch in the mode's forms); the new parameters agree with the same
+    update on a loss whose chain op runs its plain versions, within 1e-5
+    exact and MODE_RTOL in the mode (relative to the largest parameter)."""
+    from qoc_tpu_torch import LBFGS, config
+    from qoc_tpu_torch.ops import chain
+    monkeypatch.setattr(config, "MXU_MODE", mode)
+    optimizer = LBFGS()
+
+    def first_update(plain):
+        loss, x0 = _lbfgs_headline_loss(cuda_device, plain)
+        flat = x0.clone().requires_grad_(True)
+        error = loss(flat)
+        grads, = torch.autograd.grad(error, flat)
+        _, params = optimizer.update(optimizer.init_state(x0), grads, x0,
+                                     error.detach(), loss)
+        return params
+
+    counters = (chain.chain_fwd, chain.chain_bwd)
+    before = _mode_counters(*counters)
+    got = first_update(False)
+    after = _mode_counters(*counters)
+    want = first_update(True)
+    torch.cuda.synchronize()
+    k1 = optimizer.ls_steps + 2
+    in_mode = (k1, 1) if mode == "bf16_3x" else (0, 0)
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == \
+        [(k1, in_mode[0]), (1, in_mode[1])]
+    rtol = MODE_RTOL if mode == "bf16_3x" else 1e-5
+    assert float((got - want).abs().max() / want.abs().max()) < rtol

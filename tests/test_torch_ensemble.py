@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import EnsembleProblem, anti_hermitian_basis
 
 torch.set_num_threads(1)
@@ -266,9 +267,6 @@ def _ensemble_refusals():
                            dict(save_file_path="run.h5")),
         "resume_from": (NotImplementedError, "Queue 1 item 7",
                         dict(resume_from="run.h5")),
-        "impose_control_conditions": (
-            NotImplementedError, "Queue 1 item 5",
-            dict(impose_control_conditions=lambda c: c)),
     }
 
 

@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import LindbladProblem
 from torch_parity import annihilation as _annihilation
 from torch_parity import random_density as _density
@@ -310,9 +311,10 @@ def _rkdp5_grapes(rkdp5_max_steps, iteration_count):
 
 def test_rkdp5_grape_matches_jax():
     """3 Adam iterations through the default method (the bounded
-    integrator, 1024 attempts an interval): per-iteration errors, the best
-    iterate, its controls and densities."""
-    want, got = _rkdp5_grapes(1024, 3)
+    integrator, at most 64 attempts an interval, where the slowest lane
+    takes at most 44): per-iteration errors, the best iterate, its controls and
+    densities."""
+    want, got = _rkdp5_grapes(64, 3)
     assert got.iteration_count_ran == 3
     assert np.all(np.diff(got.errors) < 0)
     np.testing.assert_allclose(got.errors, np.asarray(want.errors), rtol=0,
@@ -337,8 +339,6 @@ def test_rkdp5_grape_unconverged_gives_nan():
 def _refusals():
     return {
         "save_file_path": (dict(save_file_path="run.h5"), "slice"),
-        "impose_control_conditions": (
-            dict(impose_control_conditions=lambda c: c), "slice"),
         "resume_from": (dict(resume_from="run.h5"), "slice"),
         "mesh": (dict(mesh=object()), "slice"),
     }

@@ -16,7 +16,7 @@ CPU), and the plane chain op's member axis that carries them on the card.
   candidates with step costs) against qoc_tpu's.
 - Under RKDP5 (the default method; the members and candidates are the
   adaptive integrator's lanes): grape_lindblad_ensemble of 3 members and
-  grape_lindblad_multistart of 2 candidates x 2 members, 3 iterations at
+  grape_lindblad_multistart of 2 candidates x 2 members, 2 iterations at
   d = 2, against qoc_tpu's generic route, at atol 1e-10 within 1e-7
   (errors, controls, densities; measured up to 9e-9). On this problem a
   1e-15 change of the controls moves either package's densities by up to
@@ -40,6 +40,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import LindbladEnsembleProblem
 
 torch.set_num_threads(1)
@@ -287,7 +288,8 @@ def test_grape_lindblad_multistart_matches_jax(case):
 @pytest.mark.parametrize("entry", ("ensemble", "multistart"))
 def test_rkdp5_ensemble_and_multistart_match_jax(entry):
     """The default method, RKDP5, on example 6's problem (3 members, 2
-    intervals of T = 2, atol 1e-10): a 3-iteration ensemble GRAPE, and a
+    intervals of T = 2, atol 1e-10, at most 128 attempts an interval, where
+    the slowest lane takes about 110): a 2-iteration ensemble GRAPE, and a
     robust multistart of 2 candidates x 2 members (4 lanes), each against
     qoc_tpu's generic route."""
     import qoc_tpu
@@ -300,8 +302,8 @@ def test_rkdp5_ensemble_and_multistart_match_jax(entry):
                                       evolution_time=2.0)
     common = dict(complex_controls=True, initial_controls=problem.controls,
                   max_control_norms=problem.max_control_norms,
-                  iteration_count=3, log_iteration_step=0, atol=1e-10,
-                  rkdp5_max_steps=1024)
+                  iteration_count=2, log_iteration_step=0, atol=1e-10,
+                  rkdp5_max_steps=128)
     args = (1, problem.control_eval_count)
     if entry == "ensemble":
         want = qoc_tpu.parallel.grape_lindblad_ensemble(
@@ -336,7 +338,7 @@ def test_rkdp5_ensemble_and_multistart_match_jax(entry):
             **common)
         np.testing.assert_allclose(got.errors, np.asarray(want.errors),
                                    rtol=0, atol=1e-7)
-    assert got.iteration_count_ran == 3
+    assert got.iteration_count_ran == 2
     assert got.best_final_densities.shape == (n_members, 1, 2, 2)
     np.testing.assert_allclose(got.errors, np.asarray(want.errors), rtol=0,
                                atol=1e-7)

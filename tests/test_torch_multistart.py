@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import EnsembleProblem, Problem
 
 torch.set_num_threads(1)
@@ -149,6 +150,7 @@ def test_multistart_stops_at_min_error():
 
 
 def _multistart_refusals():
+    import qoc_tpu_torch
     problem = EnsembleProblem()
     return problem, {
         "mesh": (NotImplementedError, "Queue 1 item 8",
@@ -157,8 +159,8 @@ def _multistart_refusals():
                            dict(save_file_path="run.h5")),
         "resume_from": (NotImplementedError, "Queue 1 item 7",
                         dict(resume_from="run.h5")),
-        "optimizer": (NotImplementedError, "Queue 1 item 5",
-                      dict(optimizer=object())),
+        "optimizer": (ValueError, "LBFGSB is host-loop only",
+                      dict(optimizer=qoc_tpu_torch.LBFGSB())),
         "ensemble without params": (
             ValueError, "needs hamiltonian_params",
             dict(hamiltonian=problem.torch_hamiltonian)),

@@ -8,6 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import random_hermitian
 
 torch.set_num_threads(1)

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import Problem, anti_hermitian_basis
 
 torch.set_num_threads(1)

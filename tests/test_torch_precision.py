@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import (LindbladProblem, Problem, anti_hermitian_basis,
                           f32_exact)
 

@@ -21,6 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
+
 from qoc_tpu.ops import rkdp5 as jax_rkdp5
 from qoc_tpu.ops.linalg import rms_norm as jax_rms_norm
 from qoc_tpu_torch.ops import rkdp5

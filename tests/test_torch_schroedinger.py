@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import Problem
 
 torch.set_num_threads(1)
@@ -145,8 +146,6 @@ def _refusals():
     return {
         "save_file_path": dict(save_file_path="run.h5"),
         "save_iteration_step": dict(save_iteration_step=5),
-        "impose_control_conditions": dict(
-            impose_control_conditions=lambda c: c),
         "resume_from": dict(resume_from="run.h5"),
         "mesh": dict(mesh=object()),
     }

@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import LindbladProblem, Problem, anti_hermitian_basis
 from torch_parity import f32_exact, random_density
 

@@ -1,23 +1,27 @@
 """The port's streamed chain route (K6's, 256 < padded d <= 512) on the CPU.
 
-- The plane op at d = 260 (padded 320) with weights x basis planes, on a
-  Taylor level against ``qoc_tpu``'s ``make_chain_expm_propagate``, whose
-  streamed kernels ``_stream_fwd_kernel`` / ``_stream_bwd_kernel`` run in
-  Pallas interpret mode (float32): relative 1e-4 forward and 1e-3 on the
-  weight gradient, as tests/test_chain.py holds them to its reference. The
-  inputs are exact in float32, so both packages see the same numbers. The
-  squaring branch and the Taylor level are also held against the port's
-  own float64 reference on the same input (an ordered product of
+- The plane op at d = 260 (padded 320) with weights x basis planes, which
+  on the CPU runs K6's plain versions (the streamed kernels' arithmetic):
+  on a Taylor level and on the squaring branch against the port's own
+  float64 reference on the same input (an ordered product of
   ``torch.linalg.matrix_exp``, autograd for the gradient) at
   test_torch_chain.py's 1e-6 / 1e-5 (the f32-calibrated ladder against an
-  f64 expm): one interpret-mode run of the JAX kernels is the slow part, and
-  the small-d tests already hold the plain math to ``qoc_tpu``.
+  f64 expm); and against ``qoc_tpu``'s XLA reference under x64
+  (``chain_expm_propagate_reference``, the reference that
+  tests/test_chain.py holds the streamed kernels ``_stream_fwd_kernel`` /
+  ``_stream_bwd_kernel``, run in Pallas interpret mode, to), at the same
+  tolerances: the 3-step Taylor-level chain, and one step of the squaring
+  branch. The reference's expm at d = 260 is the slow part, so each is
+  computed once. The inputs are exact in float32, so both packages see the
+  same numbers.
 - K6's segment plan, ``chain_block_plan``'s padded dimension, the refusals
   of the CUDA wrappers, and the d = 260 Schrödinger loss and gradient: the
   streamed route against ``qoc_tpu``'s ``build_schroedinger_loss``
   (relative 1e-6 / 1e-5, as tests/test_torch_schroedinger.py), the plane
   route of an M4 callable against the port's blocked route.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -26,23 +30,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from torch_parity import Problem
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture()
-def interpreted_pallas(monkeypatch):
-    jax.clear_caches()
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kwargs):
-        kwargs.setdefault("interpret", True)
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
-    yield
 
 
 def _rel(got, want):
@@ -96,44 +87,13 @@ def _expm_chain_loss_and_grad(basis, w, tgt):
 _CASES = {"ladder": (11, 0.01 / 3), "squaring": (12, 2.0 / (2 * 260 ** 0.5))}
 
 
-@pytest.mark.parametrize("case", ("ladder", "squaring"))
-def test_plane_op_matches_interpreted_stream_kernels(request, case):
-    """The streamed regime on a Taylor level and on the squaring branch
-    (tests/test_chain.py:975-1037's inputs): the port's total and weight
-    gradient against the port's float64 matrix_exp chain and, on the Taylor
-    level, against qoc_tpu's streamed kernels in interpret mode."""
-    from qoc_tpu_torch.ops.chain import (_plane_norm_max, ladder_level,
-                                         uses_stream)
-    seed, scale = _CASES[case]
-    basis, w, tgt = _stream_problem(seed, scale)
-    assert uses_stream(260)
-    got, g_got = _port_loss_and_grad(basis, w, tgt)
-    planes = torch.as_tensor(np.einsum("bk,kij->bij", w.astype(np.float64),
-                                       basis.astype(np.complex128)))
-    level = ladder_level(_plane_norm_max(planes)[0])
-    assert level == (4 if case == "squaring" else 3)
-    want, g_want = _expm_chain_loss_and_grad(basis, w, tgt)
-    assert _rel(got, want) < 1e-6
-    assert _rel(g_got, g_want) < 1e-5
-    if case == "ladder":
-        request.getfixturevalue("interpreted_pallas")
-        from qoc_tpu.ops.chain_pallas import (chain_fused_ok,
-                                              make_chain_expm_propagate)
-        assert chain_fused_ok(260, 3)
-        prop = make_chain_expm_propagate(basis)
-        want = np.asarray(prop(jnp.asarray(w)))
-        g_want = np.asarray(jax.grad(lambda ww: jnp.sum(
-            jnp.abs(prop(ww) - tgt) ** 2))(jnp.asarray(w)))
-        assert _rel(got, want) < 1e-4
-        assert _rel(g_got, g_want) < 1e-3
-
-
-def test_plane_op_matches_chain_reference():
-    """The same d = 260 chain against qoc_tpu's XLA reference under x64, on
-    two steps (the reference's expm at d = 260 is the slow part)."""
+@functools.cache
+def _jax_reference(case, n_steps):
+    """qoc_tpu's XLA reference under x64 of the first ``n_steps`` steps of
+    ``case``'s chain: the total and the weight gradient of
+    sum |P - tgt|^2."""
     from qoc_tpu.ops.chain_pallas import chain_expm_propagate_reference
-    basis, w, tgt = _stream_problem(11, 0.01 / 3)
-    w = w[:2]
+    basis, w, tgt = _stream_problem(*_CASES[case])
     basis64 = basis.astype(np.complex128)
 
     def loss(ww):
@@ -141,7 +101,48 @@ def test_plane_op_matches_chain_reference():
         return jnp.sum(jnp.abs(total - tgt) ** 2), total
 
     (_, want), g_want = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        jnp.asarray(w.astype(np.float64)))
+        jnp.asarray(w[:n_steps].astype(np.float64)))
+    return np.asarray(want), np.asarray(g_want)
+
+
+def _level(basis, w):
+    from qoc_tpu_torch.ops.chain import _plane_norm_max, ladder_level
+    planes = torch.as_tensor(np.einsum("bk,kij->bij", w.astype(np.float64),
+                                       basis.astype(np.complex128)))
+    return ladder_level(_plane_norm_max(planes)[0])
+
+
+@pytest.mark.parametrize("case", ("ladder", "squaring"))
+def test_plane_op_matches_interpreted_stream_kernels(case):
+    """The streamed regime on a Taylor level and on the squaring branch
+    (tests/test_chain.py:975-1037's inputs), 3 steps: the port's total and
+    weight gradient against the port's float64 matrix_exp chain and, on the
+    Taylor level, against qoc_tpu's reference for its streamed kernels."""
+    from qoc_tpu_torch.ops.chain import uses_stream
+    seed, scale = _CASES[case]
+    basis, w, tgt = _stream_problem(seed, scale)
+    assert uses_stream(260)
+    got, g_got = _port_loss_and_grad(basis, w, tgt)
+    assert _level(basis, w) == (4 if case == "squaring" else 3)
+    want, g_want = _expm_chain_loss_and_grad(basis, w, tgt)
+    assert _rel(got, want) < 1e-6
+    assert _rel(g_got, g_want) < 1e-5
+    if case == "ladder":
+        from qoc_tpu.ops.chain_pallas import chain_fused_ok
+        assert chain_fused_ok(260, 3)
+        want, g_want = _jax_reference(case, 3)
+        assert _rel(got, want) < 1e-6
+        assert _rel(g_got, g_want) < 1e-5
+
+
+def test_plane_op_matches_chain_reference():
+    """The squaring branch against qoc_tpu's XLA reference under x64, on
+    the case's first step (one expm at d = 260 and its gradient): the
+    port's total and weight gradient."""
+    basis, w, tgt = _stream_problem(*_CASES["squaring"])
+    w = w[:1]
+    assert _level(basis, w) == 4
+    want, g_want = _jax_reference("squaring", 1)
     got, g_got = _port_loss_and_grad(basis, w, tgt)
     assert _rel(got, want) < 1e-6
     assert _rel(g_got, g_want) < 1e-5

@@ -5,9 +5,26 @@ and handed to both packages:
 to ``qoc_tpu`` directly, to the port through ``qoc_tpu_torch.convert``. The
 JAX side runs at float64 on the CPU (tests/conftest.py), the port at
 float64 on the CPU.
+
+``one_blas_thread`` is an autouse fixture that the parity test files
+import: each of their tests runs with the BLAS thread pools of numpy and
+scipy (the LAPACK that JAX's CPU linear algebra calls) at one thread,
+restored after the test. Under pytest-xdist every worker's 8-thread
+OpenBLAS pools otherwise oversubscribe the cores, and the large-d
+references (a Padé expm's LU solve at d = 260) ran several times slower in
+the suite than in one process. Results do not depend on it beyond
+rounding.
 """
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def one_blas_thread():
+    from threadpoolctl import threadpool_limits
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def random_hermitian(rng, d):
