@@ -181,7 +181,9 @@ build, for a quick check of a kernel.) Phases, one line each:
    adjoints (K2, K5's, K4: AdjointTC) each within MODE_RTOL of its plain
    version, the worst printed with its margin; each also against the
    exact-f32 kernel and float64 matrix_exp products, within the mode's
-   envelope;
+   envelope; on K5's d = 16, 2001-step case at the last level, the mode
+   kernel, its plain version in the mode and the exact kernel each against
+   a float64 chain of matrix_exp in complex128 of the same planes;
 37. the slice at full width in the mode: the Table-3 headline GRAPE (2
    warm-up + 10 timed iterations) with counters (the mode forms of K1 and
    K2 launched, the exact forms not), its rate beside phase 5's, its loss
@@ -239,7 +241,27 @@ build, for a quick check of a kernel.) Phases, one line each:
    (a spawned process) within 1e-9; a 64-candidate multistart with
    LBFGS() for 3 iterations on phase 29's problem (d = 64, 201 points),
    every candidate's error finite, the winner under candidate 0's initial
-   error, launches counted; each line with its it/s and the card.
+   error, launches counted; each line with its it/s and the card;
+44. save files and resume at full width: whether h5py imports (where it
+   does not, the save files go through qoc_tpu_torch.io.h5's writer on
+   memory, said on a line of its own); the Table-3 headline GRAPE (Adam,
+   save_iteration_step 2, intermediate states, chunks of 2) run 6
+   iterations (A) and 4 then resumed into its own file to 6 (B), B's rows,
+   errors and final params within 1e-6 (relative) of A's, launches counted
+   (K1 once an iteration and once a save row for the trajectory, K2 once
+   an iteration, nothing else); the headline's it/s at save_iteration_step
+   0, 1 and 10; LBFGSB() on the host loop stopped and resumed at its
+   checkpoint; the 64-candidate multistart of phase 29's problem stopped
+   after a chunk and resumed, within 1e-6 of the uninterrupted run;
+45. expm's forward choice (set_expm_forward): "auto", "pallas", "taylor"
+   and "pade" at d = 100 (padded 128) and 300 against float64 matrix_exp
+   and its autograd within FWD_RTOL / GRAD_RTOL in both modes, K3/K4
+   launched under "auto" and "pallas" at padded <= 256 and nothing
+   otherwise; Padé-13 against Taylor at d = 300, 512 and 1024 (batches 1
+   and 64, 8 at 1024) and at phase 14's own step, forward and with the
+   gradient, in both modes, each the fastest of interleaved calls, and
+   "auto"'s choice above padded 256 not slower than the other beyond 10%
+   where every one of its calls was slower (the spreads apart).
 
 Every phase prints its wall time, the summary the script's total.
 
@@ -396,6 +418,9 @@ MODE_TILED_BATCHES = (37, 133)
 MODE_STREAM_DIMS = (260, 330, 400, 512)
 MODE_STREAM_CASES = ((1, 37), (3, 5))
 MODE_RTOL = 1.5e-5
+# Phase 36's K5 case nearest MODE_RTOL (d, chains, steps), held on its last
+# level against a float64 chain.
+MODE_F64_CASE = (16, 1, 2001)
 MODE_LOSS_RTOL = 5e-5
 
 # Phase 42: the adaptive RKDP5 integrator (qoc_tpu's default Lindblad
@@ -424,6 +449,38 @@ EXAMPLE1_LBFGSB_ITERATIONS = 3
 LBFGS_CANDIDATES = 64
 LBFGS_MS_ITERATIONS = 3
 HOST_TWIN_RTOL = 1e-4
+
+# Phase 44: save and resume on the headline: run A SAVE_ITERATIONS Adam
+# iterations, run B SAVE_STOP then resumed to SAVE_ITERATIONS, a save row
+# every SAVE_STEP iterations with the intermediate states, chunks of
+# SAVE_CHUNK, B held to A within SAVE_RTOL (relative); the it/s at each
+# SAVE_RATE_STEPS; LBFGSB on the host loop stopped after SAVE_HOST_STOP
+# evaluations and resumed; the 64-candidate multistart (phase 29's
+# problem) stopped after a chunk and resumed to SAVE_MS_ITERATIONS.
+SAVE_ITERATIONS = 6
+SAVE_STOP = 4
+SAVE_STEP = 2
+SAVE_CHUNK = 2
+SAVE_RTOL = 1e-6
+SAVE_RATE_STEPS = (0, 1, 10)
+SAVE_RATE_ITERATIONS = 30
+SAVE_RATE_CHUNK = 10
+SAVE_HOST_STOP = 2
+SAVE_MS_ITERATIONS = 4
+
+# Phase 45: expm's forward choice. Each name checked at padded <= 256 and
+# above; Padé-13 against Taylor timed at these (d, batch) (the blocked
+# route's single step and a block of 64 steps, 8 at d = 1024) and at phase
+# 14's own step, the fastest of 2 x APPROXIMANT_ROUNDS calls each. "auto"
+# takes the faster with its gradient, one within APPROXIMANT_TIE of it, or
+# one whose calls' spread overlaps the other's (launch-bound batches, where
+# the host's jitter decides: unresolved).
+APPROXIMANT_CHECK_DIMS = (100, 300)
+APPROXIMANT_CASES = ((300, 1), (300, 64), (512, 1), (512, 64), (1024, 1),
+                     (1024, 8))
+APPROXIMANT_NORM = 2.0
+APPROXIMANT_ROUNDS = 3
+APPROXIMANT_TIE = 1.10
 
 
 def _rel(got, want):
@@ -702,6 +759,16 @@ def resident_design_line(key, s_count, bound_ms, ms):
     return design_line(key, entry, s_count, 1, smem, bound_ms, ms, threads)
 
 
+def _card(card):
+    """The card's name and power limit as nvidia-smi gives them."""
+    if card is not None:
+        return card
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -710,11 +777,7 @@ def phase_device():
         raise SystemExit("chip_smoke: qoc_tpu_torch/csrc not found beside "
                          "this script; run it from a checkout of the "
                          "repository.")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = _card(None)
     print(card)
     print("phase 1 device: {} | torch {} cuda {}".format(
         torch.cuda.get_device_name(0), torch.__version__,
@@ -4057,10 +4120,47 @@ def _mode_headline(dev, headline_w, worst, adjoint, forward):
                       chain.ladder_level(ninf), "; ".join(rows)), flush=True)
 
 
+def _f64_plane_outputs(a, g_total, g_pref):
+    """The outputs of :func:`_plane_member_outputs` for planes ``a`` from a
+    float64 chain: torch.linalg.matrix_exp of each plane in complex128,
+    the prefixes P_t = U_t ... U_0 by products in order, and both
+    gradients by autograd through them."""
+    c128 = torch.complex128
+    x = a.to(c128).requires_grad_(True)
+    u = torch.linalg.matrix_exp(x)
+    prefix = u[:, 0]
+    prefixes = [prefix]
+    for t in range(1, u.shape[1]):
+        prefix = u[:, t] @ prefix
+        prefixes.append(prefix)
+    prefixes = torch.stack(prefixes, dim=1)
+    total = prefixes[:, -1]
+    last, = torch.autograd.grad(total, x, g_total.to(c128),
+                                retain_graph=True)
+    step, = torch.autograd.grad((total, prefixes), x,
+                                (g_total.to(c128), g_pref.to(c128)))
+    return total.detach(), prefixes.detach(), last, step
+
+
+def _f64_distances(sides, f64):
+    """{side: (forward, adjoint)}: each side's largest relative distance
+    from the float64 outputs ``f64``, over the total and the prefixes
+    (forward) and both seed modes' gradients (adjoint)."""
+    out = {}
+    for side, outputs in sides.items():
+        rels = [_rel(x.to(torch.complex128), y)
+                for x, y in zip(outputs, f64)]
+        out[side] = (max(rels[:2]), max(rels[2:]))
+    return out
+
+
 def _mode_plane_kernels(dev, rng, gen, worst, adjoint, forward):
     """Phase 36's K5: the plane op's trajectory form on MODE_PLANE_CASES
-    and against float64 matrix_exp products."""
+    and against float64 matrix_exp products; on MODE_F64_CASE's last
+    level, the mode kernel, its plain version in the mode and the exact
+    kernel each against a float64 chain of the same planes."""
     from qoc_tpu_torch.ops import chain
+    f64_line = None
     for d, n_chains, n_steps in MODE_PLANE_CASES:
         rows = []
         for target in LEVEL_NORMS:
@@ -4101,11 +4201,27 @@ def _mode_plane_kernels(dev, rng, gen, worst, adjoint, forward):
             rows.append("{} {:.1e}/{:.1e}/{:.1e}/{:.1e} exact {:.1e}/{:.1e}"
                         "".format(LEVEL_NORMS.index(target), *rels, env[0],
                                   env[2]))
+            if ((d, n_chains, n_steps) == MODE_F64_CASE
+                    and target == LEVEL_NORMS[-1]):
+                dist = _f64_distances(
+                    {"mode kernel": got, "plain in the mode": want,
+                     "exact kernel": exact},
+                    _f64_plane_outputs(a, g_total, g_pref))
+                f64_line = (
+                    "phase 36 bf16_3x K5 ({}) vs a float64 matrix_exp "
+                    "chain of the same planes, rel forward (total, "
+                    "prefixes) / adjoint (both seed modes): {}; the mode "
+                    "kernel vs its plain version {:.6e} / {:.6e}".format(
+                        label, "; ".join(
+                            "{} {:.6e} / {:.6e}".format(side, *v)
+                            for side, v in dist.items()),
+                        max(rels[:2]), max(rels[2:])))
         print("phase 36 bf16_3x K5 (d = {}, {} chains x {} steps): level "
               "total/prefixes/grad last-step/grad per-step rel vs plain in "
               "the mode, total/grad rel vs the exact kernels: {}; padding "
               "exact".format(d, n_chains, n_steps, "; ".join(rows)),
               flush=True)
+    print(f64_line, flush=True)
     d = 16
     a = torch.as_tensor(_unit_planes(rng, 37, d), dtype=torch.complex64,
                         device=dev)
@@ -5199,11 +5315,7 @@ def phase_rkdp5(dev, card=None):
                                grape_lindblad_multistart)
     from qoc_tpu_torch.models import LindbladMethod
     from qoc_tpu_torch.parallel.ensemble import build_chain_loss
-    if card is None:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = _card(card)
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -5361,11 +5473,7 @@ def phase_host_loop(dev, card=None):
     from qoc_tpu_torch import (LBFGS, grape_schroedinger_discrete,
                                grape_schroedinger_multistart)
     from qoc_tpu_torch.ops.chain import chain_block_plan
-    if card is None:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = _card(card)
     rates = {}
     ls_steps = LBFGS().ls_steps
     with concurrent.futures.ProcessPoolExecutor(
@@ -5494,6 +5602,403 @@ def phase_host_loop(dev, card=None):
     rates["{}-candidate multistart LBFGS".format(LBFGS_CANDIDATES)] = \
         result.iterations_per_s
     return rates
+
+
+class _MemoryFile(dict):
+    """An in-memory stand-in for an open h5py.File: datasets as numpy
+    arrays (written in place by row), groups as nested _MemoryFiles."""
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, np.array(value))
+
+    def require_group(self, name):
+        if name not in self:
+            dict.__setitem__(self, name, _MemoryFile())
+        return self[name]
+
+
+def _memory_checkpointer():
+    """H5Checkpointer's writer over _MemoryFiles (``files``, by path), for
+    a machine without h5py: the writes and reads of qoc_tpu_torch.io.h5
+    run as they are, on memory instead of a file."""
+    from qoc_tpu_torch.io.h5 import H5Checkpointer
+
+    class MemoryCheckpointer(H5Checkpointer):
+        files = {}
+
+        def __init__(self, save_file_path):
+            self.save_file_path = save_file_path
+            self.lock_path = save_file_path + ".lock"
+            self._writes_enabled = True
+
+        def _locked_write(self, fn, mode="a", what="save"):
+            if mode == "w" or self.save_file_path not in self.files:
+                self.files[self.save_file_path] = _MemoryFile()
+            fn(self.files[self.save_file_path])
+
+        def load_optimizer_state(self):
+            f = self.files.get(self.save_file_path, {})
+            if "optimizer_state" not in f:
+                return None
+            return {key: np.array(value)
+                    for key, value in f["optimizer_state"].items()}
+
+    return MemoryCheckpointer
+
+
+@contextlib.contextmanager
+def _save_files(card):
+    """(path(name), read(path) -> {dataset: array}) for phase 44: H5 files
+    in a temporary directory where h5py imports, else (printed on a line
+    of its own) qoc_tpu_torch.io.h5's writer on memory."""
+    import tempfile
+    from qoc_tpu_torch.io import h5
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    with tempfile.TemporaryDirectory(prefix="qoc_save_") as root:
+        def path(name):
+            return str(Path(root) / name)
+        if h5py is not None:
+            def read(file_path):
+                out = {}
+                with h5py.File(file_path, "r") as f:
+                    f.visititems(lambda key, obj: out.__setitem__(
+                        key, obj[()]) if isinstance(obj, h5py.Dataset)
+                        else None)
+                return out
+            print("phase 44 h5py {}: save files written to disk | {}".format(
+                h5py.__version__, card), flush=True)
+            yield path, read
+            return
+        print("phase 44 h5py is not installed on this machine: the save "
+              "files go through qoc_tpu_torch.io.h5's writer on memory "
+              "(the file schema is held by the CPU tests) | {}".format(card),
+              flush=True)
+        memory = _memory_checkpointer()
+        real = h5.H5Checkpointer
+
+        def read(file_path):
+            out = {}
+
+            def walk(group, prefix):
+                for key, value in group.items():
+                    if isinstance(value, _MemoryFile):
+                        walk(value, prefix + key + "/")
+                    else:
+                        out[prefix + key] = value
+            walk(memory.files[file_path], "")
+            return out
+        h5.H5Checkpointer = memory
+        try:
+            yield path, read
+        finally:
+            h5.H5Checkpointer = real
+            memory.files.clear()
+
+
+def _saved_rows_rel(got, want, keys, rows=slice(None)):
+    """The largest relative distance over ``keys`` (their ``rows``) of two
+    saved files."""
+    return max(_rel(torch.as_tensor(np.asarray(got[key])[rows]),
+                    torch.as_tensor(np.asarray(want[key])[rows]))
+               for key in keys)
+
+
+def phase_save_resume(dev, card=None):
+    """Phase 44: save files and resume at full width (module docstring).
+    Returns the headline's it/s by save_iteration_step."""
+    from qoc_tpu_torch import (LBFGSB, grape_schroedinger_discrete,
+                               grape_schroedinger_multistart)
+    card = _card(card)
+    pstate, ham, costs = table3_problem(1)
+    kw = dict(_problem_kw(pstate, ham, costs, dev), complex_controls=True,
+              log_iteration_step=0)
+    rows = ("controls", "error", "grads", "final_states",
+            "intermediate_states")
+    with _save_files(card) as (path, read):
+        def headline(file_path, iterations, **extra):
+            reset_launches()
+            result = grape_schroedinger_discrete(
+                iteration_count=iterations, fused_chunk=SAVE_CHUNK,
+                save_iteration_step=SAVE_STEP, save_file_path=file_path,
+                save_intermediate_states=True, **kw, **extra)
+            return result, read_launches()
+
+        def check_launches(label, launches, iterations, save_rows):
+            want = {"K1": iterations + save_rows, "K2": iterations}
+            print("phase 44 {}: launches {} (K1 once an iteration and once "
+                  "a save row for its trajectory, K2 once an iteration: "
+                  "{})".format(label, {k: n for k, n in launches.items()
+                                       if n}, want), flush=True)
+            if any(n != want.get(key, 0) for key, n in launches.items()):
+                raise RuntimeError("phase 44 {} launched {}, not {}".format(
+                    label, launches, want))
+
+        start = time.perf_counter()
+        full, launches = headline(path("a.h5"), SAVE_ITERATIONS)
+        def save_iterations(first, stop):
+            return sum(1 for i in range(first, stop)
+                       if i % SAVE_STEP == 0 or i == stop - 1)
+
+        check_launches("run A ({} iterations)".format(SAVE_ITERATIONS),
+                       launches, SAVE_ITERATIONS,
+                       save_iterations(0, SAVE_ITERATIONS))
+        first, _ = headline(path("b.h5"), SAVE_STOP)
+        resumed, launches = headline(path("b.h5"), SAVE_ITERATIONS,
+                                     resume_from=path("b.h5"))
+        check_launches("run B resumed at iteration {}".format(SAVE_STOP),
+                       launches, SAVE_ITERATIONS - SAVE_STOP,
+                       save_iterations(SAVE_STOP, SAVE_ITERATIONS))
+        a, b = read(path("a.h5")), read(path("b.h5"))
+        errors = np.concatenate((first.errors, resumed.errors))
+        # The stopped run's final iteration (3) wrote its row (1) over
+        # iteration 2's, as the reference's final-iteration save does;
+        # that row holds A's iteration 3.
+        overwritten = (SAVE_STOP - 1) // SAVE_STEP
+        same = [r for r in range(a["error"].shape[0]) if r != overwritten]
+        rel_rows = max(_saved_rows_rel(b, a, rows, same), abs(
+            b["error"][overwritten] - full.errors[SAVE_STOP - 1])
+            / abs(full.errors[SAVE_STOP - 1]))
+        rel_errors = float(np.max(np.abs(errors - full.errors)
+                                  / np.abs(full.errors)))
+        rel_params = _saved_rows_rel(b, a, ("optimizer_state/__params__",))
+        print("phase 44 headline save and resume (save_iteration_step {}, "
+              "chunk {}, intermediate states): run A {} iterations, run B "
+              "{} then resumed into its file to {}; B against A rel rows "
+              "{:.3e}, errors {:.3e}, final params {:.3e} (limit {:g}); "
+              "rows {} of {} intermediate states each, t {} | {:.1f} s | "
+              "{}".format(SAVE_STEP, SAVE_CHUNK, SAVE_ITERATIONS, SAVE_STOP,
+                          SAVE_ITERATIONS, rel_rows, rel_errors, rel_params,
+                          SAVE_RTOL, a["error"].shape[0],
+                          a["intermediate_states"].shape[1],
+                          b["optimizer_state/opt['t']"],
+                          time.perf_counter() - start, card), flush=True)
+        if not (max(rel_rows, rel_errors, rel_params) <= SAVE_RTOL
+                and b["error"].shape == a["error"].shape
+                and int(b["optimizer_state/opt['t']"]) == SAVE_ITERATIONS):
+            raise RuntimeError("the resumed headline run differs from the "
+                               "uninterrupted one")
+        rates = {}
+        for step in SAVE_RATE_STEPS:
+            result = grape_schroedinger_discrete(
+                iteration_count=SAVE_RATE_ITERATIONS,
+                fused_chunk=SAVE_RATE_CHUNK, save_iteration_step=step,
+                save_file_path=path("rate.h5") if step else None, **kw)
+            rates[step] = result.iterations_per_s
+        print("phase 44 headline it/s by save_iteration_step (rows and a "
+              "snapshot a chunk of {}, no intermediate states): {} | "
+              "{}".format(SAVE_RATE_CHUNK, ", ".join(
+                  "{} {:.2f}".format(step, rate)
+                  for step, rate in rates.items()), card), flush=True)
+
+        host = dict(kw, save_iteration_step=1, optimizer=None)
+        stopped = grape_schroedinger_discrete(
+            iteration_count=SAVE_HOST_STOP, save_file_path=path("c.h5"),
+            **dict(host, optimizer=LBFGSB()))
+        keys = sorted(key for key in read(path("c.h5"))
+                      if key.startswith("optimizer_state/"))
+        resumed = grape_schroedinger_discrete(
+            iteration_count=SAVE_HOST_STOP + 1, resume_from=path("c.h5"),
+            save_file_path=path("c2.h5"), **dict(host, optimizer=LBFGSB()))
+        # The host loop saves evaluations 0 .. iteration_count - 1 and
+        # snapshots each before scipy's next step: the resumed run starts
+        # by evaluating the last saved one again.
+        want = stopped.errors[SAVE_HOST_STOP - 1]
+        gap = abs(resumed.errors[0] - want) / abs(want)
+        print("phase 44 headline LBFGSB host loop: {} evaluations, "
+              "checkpoint {}; resumed at evaluation {}: its first error "
+              "{:.8f} against {:.8f} (rel {:.3e}), {} evaluations | "
+              "{}".format(stopped.iteration_count_ran, keys,
+                          SAVE_HOST_STOP - 1, resumed.errors[0], want, gap,
+                          resumed.iteration_count_ran, card), flush=True)
+        if gap > SAVE_RTOL or not np.all(np.isfinite(resumed.errors)):
+            raise RuntimeError("the LBFGSB host loop did not resume at its "
+                               "checkpoint")
+
+        ms_pstate, ms_ham, ms_costs = multistart_problem()
+        ms = dict(_problem_kw(ms_pstate, ms_ham, ms_costs, dev),
+                  complex_controls=True, log_iteration_step=0,
+                  n_starts=ROBUST_CANDIDATES, fused_chunk=SAVE_CHUNK,
+                  save_iteration_step=1)
+        uninterrupted = grape_schroedinger_multistart(
+            iteration_count=SAVE_MS_ITERATIONS, save_file_path=path("d.h5"),
+            **ms)
+        grape_schroedinger_multistart(
+            iteration_count=SAVE_CHUNK, save_file_path=path("e.h5"), **ms)
+        resumed = grape_schroedinger_multistart(
+            iteration_count=SAVE_MS_ITERATIONS, save_file_path=path("e.h5"),
+            resume_from=path("e.h5"), **ms)
+        d, e = read(path("d.h5")), read(path("e.h5"))
+        rel = max(_saved_rows_rel(e, d, ("controls", "error",
+                                         "final_states")),
+                  _rel(torch.as_tensor(resumed.errors),
+                       torch.as_tensor(uninterrupted.errors)))
+        print("phase 44 {}-candidate multistart: {} iterations, and {} "
+              "resumed from its checkpoint to {}: winner rows and every "
+              "candidate's best error rel {:.3e} (limit {:g}), winner "
+              "{:.6f} / {:.6f} | {}".format(
+                  ROBUST_CANDIDATES, SAVE_MS_ITERATIONS, SAVE_CHUNK,
+                  SAVE_MS_ITERATIONS, rel, SAVE_RTOL, resumed.best_error,
+                  uninterrupted.best_error, card), flush=True)
+        if rel > SAVE_RTOL:
+            raise RuntimeError("the resumed multistart differs from the "
+                               "uninterrupted one")
+    return rates
+
+
+def _expm_impl(impl, mode, a, g):
+    """expm of ``a`` and its gradient for the output gradient ``g`` under
+    set_expm_forward(impl) in precision ``mode``, the choice restored
+    after: (output, gradient, launches)."""
+    import importlib
+    expm_mod = importlib.import_module("qoc_tpu_torch.ops.expm")
+    expm_mod.set_expm_forward(impl)
+    try:
+        with precision(mode):
+            reset_launches()
+            x = a.clone().requires_grad_(True)
+            out = expm_mod.expm(x)
+            grad, = torch.autograd.grad(out, x, g)
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        expm_mod.set_expm_forward("auto")
+    return out.detach(), grad, launches
+
+
+def _approximant_ms(mode, a, g):
+    """{impl: (forward ms, forward + gradient ms, slowest forward +
+    gradient ms)} of expm under set_expm_forward("taylor") and ("pade")
+    in precision ``mode``: each call timed alone with CUDA events, the two
+    approximants interleaved (a b b a) over APPROXIMANT_ROUNDS rounds after
+    a warm-up, the fastest call of each kept, and the slowest with the
+    gradient (its spread)."""
+    import importlib
+    expm_mod = importlib.import_module("qoc_tpu_torch.ops.expm")
+    x = a.clone().requires_grad_(True)
+    calls = {"forward": lambda: expm_mod.expm(a),
+             "both": lambda: torch.autograd.grad(expm_mod.expm(x), x, g)}
+    times = {}
+
+    def timed(impl, what):
+        expm_mod.set_expm_forward(impl)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        calls[what]()
+        end.record()
+        torch.cuda.synchronize()
+        times.setdefault((impl, what), []).append(start.elapsed_time(end))
+
+    try:
+        with precision(mode):
+            for what in calls:
+                for impl in ("taylor", "pade"):
+                    timed(impl, what)
+            times.clear()
+            for what in calls:
+                for _ in range(APPROXIMANT_ROUNDS):
+                    for impl in ("taylor", "pade", "pade", "taylor"):
+                        timed(impl, what)
+    finally:
+        expm_mod.set_expm_forward("auto")
+    return {impl: (min(times[impl, "forward"]), min(times[impl, "both"]),
+                   max(times[impl, "both"]))
+            for impl in ("taylor", "pade")}
+
+
+def phase_approximants(dev, card=None):
+    """Phase 45: expm's forward choice (set_expm_forward) on the card. Each
+    name against float64 matrix_exp and its autograd, with its launches
+    (K3/K4 under "auto" and "pallas" at padded <= 256, nothing under
+    "taylor" and "pade" or above 256); then Padé-13 against Taylor at
+    forward and forward plus gradient, complex64, in both modes, on
+    APPROXIMANT_CASES and phase 14's own step, and "auto"'s choice above
+    padded 256 against the faster. Returns the table."""
+    import importlib
+    expm_mod = importlib.import_module("qoc_tpu_torch.ops.expm")
+    card = _card(card)
+    gen = torch.Generator(device=dev).manual_seed(45)
+    for d in APPROXIMANT_CHECK_DIMS:
+        a = _random_planes(gen, 3, d, APPROXIMANT_NORM, dev)
+        g = torch.randn(a.shape, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        a64 = a.to(torch.complex128).requires_grad_(True)
+        u64 = torch.linalg.matrix_exp(a64)
+        grad64, = torch.autograd.grad(u64, a64, g.to(torch.complex128))
+        rows = []
+        for mode in ("highest", MODE):
+            for impl in ("auto", "pallas", "taylor", "pade"):
+                out, grad, launches = _expm_impl(impl, mode, a, g)
+                fwd = _rel(out.to(torch.complex128), u64.detach())
+                bwd = _rel(grad.to(torch.complex128), grad64)
+                kernels = d <= 256 and impl in ("auto", "pallas")
+                want = {"K3": 1, "K4": 1} if kernels else {}
+                if mode == MODE and kernels:
+                    want.update({"K3 mode": 1, "K4 mode": 1})
+                got = {k: n for k, n in launches.items() if n}
+                rows.append("{} {} {:.1e}/{:.1e} {}".format(
+                    mode, impl, fwd, bwd, got or "no launch"))
+                if got != want:
+                    raise RuntimeError(
+                        "expm under {!r} ({}) at d = {} launched {}, not "
+                        "{}".format(impl, mode, d, got, want))
+                if not (fwd <= FWD_RTOL and bwd <= GRAD_RTOL):
+                    raise RuntimeError(
+                        "expm under {!r} ({}) at d = {} is {:.2e} / {:.2e} "
+                        "from float64".format(impl, mode, d, fwd, bwd))
+        print("phase 45 set_expm_forward at d = {} (padded {}), batch 3, "
+              "norm {}: mode impl rel forward/gradient vs float64, "
+              "launches: {}".format(d, expm_mod.kernel_dp(d),
+                                    APPROXIMANT_NORM, "; ".join(rows)),
+              flush=True)
+    pstate, hamiltonian, _ = d1024_problem()
+    cases = [(d, batch, APPROXIMANT_NORM) for d, batch in APPROXIMANT_CASES]
+    cases.append((D1024, 1, None))
+    table, slower = [], []
+    for d, batch, norm in cases:
+        if norm is None:
+            a = initial_planes(pstate, hamiltonian, dev)
+            label = "phase 14's step"
+        else:
+            a = _random_planes(gen, batch, d, norm, dev)
+            label = "norm {}".format(norm)
+        g = torch.randn(a.shape, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        for mode in ("highest", MODE):
+            times = _approximant_ms(mode, a, g)
+            taylor, pade = times["taylor"], times["pade"]
+            faster = "pade" if pade[1] < taylor[1] else "taylor"
+            auto = expm_mod.approximant(d, dev)
+            chosen, other = ((pade, taylor) if auto == "pade"
+                             else (taylor, pade))
+            # auto loses where it is slower beyond APPROXIMANT_TIE and
+            # every call of it was slower than every call of the other;
+            # where the two spreads overlap the winner is unresolved.
+            resolved = chosen[1] > other[2] or other[1] > chosen[2]
+            table.append({"d": d, "batch": batch, "planes": label,
+                          "mode": mode, "taylor_ms": taylor,
+                          "pade_ms": pade, "faster": faster, "auto": auto,
+                          "resolved": resolved})
+            print("phase 45 approximants d = {}, batch {}, {} ({}): Taylor "
+                  "{:.3f} ms forward, {:.3f} ms with the gradient (slowest "
+                  "{:.3f}); Padé-13 {:.3f} / {:.3f} ({:.3f}) ms; faster {}{}, "
+                  "auto takes {} | {}".format(
+                      d, batch, label, mode, *taylor, *pade, faster,
+                      "" if resolved else " (spreads overlap: unresolved)",
+                      auto, card), flush=True)
+            if (chosen[1] > APPROXIMANT_TIE * other[1]
+                    and chosen[1] > other[2]):
+                slower.append("d = {}, batch {}, {} ({}): auto takes {}, "
+                              "{} is faster".format(d, batch, label, mode,
+                                                    auto, faster))
+    if slower:
+        raise RuntimeError("expm's auto choice is slower than the other "
+                           "approximant beyond {:.0%}: {}".format(
+                               APPROXIMANT_TIE - 1, "; ".join(slower)))
+    return table
 
 
 def run_phase(phase, *args):
@@ -5632,6 +6137,8 @@ def main():
     bounds.update(tiled_bounds)
     rkdp5_rates = run_phase(phase_rkdp5, dev, card)
     host_rates = run_phase(phase_host_loop, dev, card)
+    save_rates = run_phase(phase_save_resume, dev, card)
+    approximants = run_phase(phase_approximants, dev, card)
     kernels = [
         _kernel_row(name, source, replaces, launches[key], worst[key],
                     ms[key], ms[key + " plain"], bounds[key],
@@ -5712,7 +6219,8 @@ def main():
           "{} | M4 ensemble GRAPE {:.2f} it/s | multistart {} | Lindblad "
           "d=20 ensemble GRAPE {} | Lindblad d=20 multistart {} | bf16_3x "
           "mode: {} | RKDP5 (plain torch): {} | optimizers and host loop: "
-          "{} | total {:.1f} s".format(
+          "{} | headline it/s by save_iteration_step: {} | expm above padded "
+          "256, faster with its gradient: {} | total {:.1f} s".format(
               card, build_s, it_s, m4_it_s, d128_it_s, route_ms["blocked"],
               route_ms["plane"], backprop_ms, d20_it_s, stepcost[1][1],
               THINNED_COST_EVAL_STEP, stepcost[THINNED_COST_EVAL_STEP][1],
@@ -5737,6 +6245,12 @@ def main():
               ", ".join("{} {:.2f} {}".format(
                   k, v, "cand-it/s" if "multistart" in k else "it/s")
                   for k, v in host_rates.items()),
+              ", ".join("{} {:.2f}".format(k, v)
+                        for k, v in save_rates.items()),
+              ", ".join("d={} b={} {} {}{}".format(
+                  row["d"], row["batch"], row["mode"], row["faster"],
+                  "" if row["resolved"] else " (unresolved)")
+                  for row in approximants),
               time.perf_counter() - start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5759,7 +6273,8 @@ STANDALONE = {11: phase_expm_kernels, 16: phase_stream_kernels,
               37: phase_mode_grape, 38: phase_mode_timing,
               39: phase_mode_cells, 40: phase_mode_tiled_kernels,
               41: phase_mode_tiled_timing, 42: phase_rkdp5,
-              43: phase_host_loop}
+              43: phase_host_loop, 44: phase_save_resume,
+              45: phase_approximants}
 
 
 if __name__ == "__main__":

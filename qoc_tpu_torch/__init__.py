@@ -14,13 +14,16 @@ loop), ``ans_jacobian``, and the Lindblad path under both methods, the adaptive
 ``LindbladMethod.RKDP5`` (the default; ``ops/rkdp5.py``, plain torch) and
 ``LindbladMethod.MAGNUS_EXPM`` (``ConstantLindblad``, the density costs
 ``TargetDensityInfidelity``, ``TargetDensityInfidelityTime``,
-``ForbidDensities``, intermediate densities), and on one card the
+``ForbidDensities``, intermediate densities), H5 save files and resume on
+every entry point (``io/``, ``qoc_tpu``'s schema; ``plot``, and
+``standard`` with ``qoc_tpu.standard``'s names), and on one card the
 ensemble-robust GRAPE and the multistart, Schrödinger and Lindblad
 (``parallel/``, ``EnsembleLinearHamiltonian``), whose propagation runs
 through the fused expm-product chain kernels (``ops/chain.py``: d <= 64, and the
 streamed chain at 256 < padded d <= 512) or the batched expm kernels and a
 tree product (``ops/expm.py``; up to padded d = 256 on the card,
-``torch.matmul`` above 512), all in ``csrc/``; the Lindblad path takes
+``torch.matmul`` above 512, ``set_expm_forward`` as in ``qoc_tpu``), all
+in ``csrc/``; the Lindblad path takes
 them at the superoperator's dimension d². Every entry point takes ``device`` and
 ``dtype``: by default the current CUDA device in float32 (the kernels'
 type), raising ``RuntimeError`` where there is none; ``device="cpu"`` runs

@@ -1,8 +1,8 @@
 """Device and dtype policy of qoc_tpu_torch.
 
-Counterpart of ``qoc_tpu/config.py``, keeping only the dtype policy. Every
-entry point takes ``device`` and ``dtype`` (the real working dtype; the
-complex one follows from it):
+Counterpart of ``qoc_tpu/config.py``, keeping the dtype policy and
+:func:`is_io_process`. Every entry point takes ``device`` and ``dtype``
+(the real working dtype; the complex one follows from it):
 
 - ``device=None`` is the current CUDA device; without one the call raises
   ``RuntimeError`` rather than run on the CPU. The CPU runs only when asked
@@ -38,7 +38,8 @@ import os
 
 import torch
 
-__all__ = ["MXU_MODE", "MXU_MODES", "complex_dtype", "mxu_mode", "resolve"]
+__all__ = ["MXU_MODE", "MXU_MODES", "complex_dtype", "is_io_process",
+           "mxu_mode", "resolve"]
 
 MXU_MODES = ("highest", "bf16_3x")
 MXU_MODE = os.environ.get("QOC_TPU_MXU_PRECISION", "highest").lower()
@@ -96,3 +97,13 @@ def mxu_mode(dtype, mode=None):
     if dtype in (torch.float64, torch.complex128):
         return "highest"
     return mode
+
+
+def is_io_process():
+    """True on the process that owns stdout logging and save-file writes
+    (``qoc_tpu/config.py`` is_io_process): every process unless
+    ``torch.distributed`` is initialized with a rank other than 0. Reads
+    (``resume_from``) are not gated."""
+    distributed = torch.distributed
+    return not (distributed.is_available() and distributed.is_initialized()
+                and distributed.get_rank() != 0)

@@ -41,8 +41,9 @@ Density step costs and intermediate densities take the routes' trajectory
 form, as the Schrödinger path's step costs do: the block's prefixes P_t
 give the vectorized densities after every step, ``vec @ P_t^T``.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-slice: save files (H5), resume and ``mesh``.
+Save files and ``resume_from`` work as on the Schrödinger path. ``mesh``
+is not ported yet, and raises ``NotImplementedError`` naming its ROADMAP
+item (Queue 1 item 8).
 """
 
 import numpy as np
@@ -52,6 +53,7 @@ import torch.utils.checkpoint
 from qoc_tpu_torch.config import complex_dtype, resolve
 from qoc_tpu_torch.core.common import initialize_controls, slap_controls_torch
 from qoc_tpu_torch.core.graperunner import run_grape
+from qoc_tpu_torch.io.resume import apply_resume
 from qoc_tpu_torch.core.schroedinger import (_MAGNUS, _not_ported, _route,
                                              _route_names, fused_weights,
                                              hamiltonian_sampler,
@@ -459,9 +461,11 @@ def evolve_lindblad_discrete(evolution_time, initial_densities,
     ``final_densities`` (host numpy), and with
     ``save_intermediate_densities`` the densities at every system step,
     step 0 included, ``intermediate_densities`` (system_eval_count, K, d,
-    d), as ``qoc_tpu`` returns them without a save file."""
+    d), as ``qoc_tpu`` returns them; with ``save_file_path`` the evolve
+    file is written (``qoc_tpu``'s schema), with the intermediate
+    densities when asked."""
     if mesh is not None:
-        raise _not_ported("mesh (density sharding)", 6)
+        raise _not_ported("mesh (density sharding)", "6d, Queue 1 item 8")
     device, dtype = resolve(device, dtype, float64_ok=(
         method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
@@ -474,6 +478,7 @@ def evolve_lindblad_discrete(evolution_time, initial_densities,
     pstate.atol = atol
     pstate.rtol = rtol
     pstate.magnus_policy_ = magnus_policy
+    pstate.save_initial(controls)
     loss = build_lindblad_loss(
         pstate, device, dtype,
         collect_intermediates=save_intermediate_densities,
@@ -488,6 +493,7 @@ def evolve_lindblad_discrete(evolution_time, initial_densities,
     result.final_densities = out[1].cpu().numpy()
     if save_intermediate_densities:
         result.intermediate_densities = out[2].cpu().numpy()
+        pstate.save_intermediate_densities(result.intermediate_densities)
     return result
 
 
@@ -521,13 +527,13 @@ def grape_lindblad_discrete(control_count, control_eval_count, costs,
     the device, LBFGSB and any optimizer under an
     ``impose_control_conditions`` hook on the host loop
     (core/graperunner.py).
-    Without a save file ``save_intermediate_densities`` is ignored, as in
+    Save files and ``resume_from`` as :func:`grape_schroedinger_discrete`'s
+    (``save_intermediate_densities`` the trajectory a save row); without a
+    save file ``save_intermediate_densities`` is ignored, as in
     ``qoc_tpu``. Returns a ``GrapeLindbladResult`` with the best-seen
     controls, error, final densities and iteration (host numpy)."""
-    if resume_from is not None:
-        raise _not_ported("resume_from", 4)
     if mesh is not None:
-        raise _not_ported("mesh (density sharding)", 6)
+        raise _not_ported("mesh (density sharding)", "6d, Queue 1 item 8")
     device, dtype = resolve(device, dtype, float64_ok=(
         method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
@@ -550,6 +556,8 @@ def grape_lindblad_discrete(control_count, control_eval_count, costs,
     pstate.magnus_policy_ = magnus_policy
     if fused_chunk is not None:
         pstate.fused_chunk = fused_chunk
+    if resume_from is not None:
+        apply_resume(pstate, resume_from)
     loss_controls = build_lindblad_loss(pstate, device, dtype,
                                         log_path=pstate.should_log)
     pstate.log_and_save_initial()
@@ -560,5 +568,16 @@ def grape_lindblad_discrete(control_count, control_eval_count, costs,
         return loss_controls(
             slap_controls_torch(complex_controls, flat_params, shape))
 
-    run_grape(pstate, result, loss_flat, device, dtype, evolved="densities")
+    collect_fn = None
+    if pstate.save_intermediate_densities_:
+        collect_loss = build_lindblad_loss(pstate, device, dtype,
+                                           collect_intermediates=True,
+                                           differentiable=False)
+
+        def collect_fn(flat):
+            return collect_loss(
+                slap_controls_torch(complex_controls, flat, shape))[2]
+
+    run_grape(pstate, result, loss_flat, device, dtype, evolved="densities",
+              collect_fn=collect_fn)
     return result

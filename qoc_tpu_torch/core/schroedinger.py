@@ -46,8 +46,10 @@ operations, ``(controls (C,) complex tensor or None, t 0-dim real tensor)
 Constants it closes over may be numpy arrays or tensors of any complex
 dtype: on CUDA the planes are cast to complex64 at the op boundary.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP slice: save files and resume (slice 4) and ``mesh`` (slice 6).
+Save files (``save_file_path``, ``save_iteration_step``,
+``save_intermediate_states``) and ``resume_from`` work as in ``qoc_tpu``
+(``io/``, ``core/graperunner.py``). ``mesh`` is not ported yet, and
+raises ``NotImplementedError`` naming its ROADMAP item (Queue 1 item 8).
 """
 
 import numpy as np
@@ -56,6 +58,7 @@ import torch
 from qoc_tpu_torch.config import complex_dtype, resolve
 from qoc_tpu_torch.core.common import initialize_controls, slap_controls_torch
 from qoc_tpu_torch.core.graperunner import run_grape
+from qoc_tpu_torch.io.resume import apply_resume
 from qoc_tpu_torch.models import (EvolveSchroedingerDiscreteState,
                                   EvolveSchroedingerResult,
                                   GrapeSchroedingerDiscreteState,
@@ -67,7 +70,7 @@ from qoc_tpu_torch.ops.chain import (KERNEL_DP, ChainExpmPropagate,
                                      kernel_dp, plane_chain_propagate,
                                      plane_chain_propagate_prefixes,
                                      uses_stream)
-from qoc_tpu_torch.ops.expm import expm
+from qoc_tpu_torch.ops.expm import approximant, expm
 from qoc_tpu_torch.ops.expm_cuda import KERNEL_MAX_DP
 from qoc_tpu_torch.ops.interpolate import interpolate_linear_set
 from qoc_tpu_torch.ops.magnus import magnus_m2, magnus_m4, magnus_m6
@@ -189,20 +192,27 @@ def _route(d, fused_ok, allow_plane_chain):
     return "plane" if chain and allow_plane_chain else "blocked"
 
 
+_APPROXIMANT_NAMES = {"kernels": "CUDA kernels K3/K4",
+                      "taylor": "torch.matmul Taylor",
+                      "pade": "Padé-13 on torch.linalg.solve"}
+
+
 def _route_names(route, d, device, trajectory=False):
     """(path, what carries it) for the one-time path log line."""
     if route == "blocked":
         path = "blocked expm + " + ("prefix scan" if trajectory
                                     else "tree product")
-        kernels = ("CUDA kernels K3/K4" if kernel_dp(d) <= KERNEL_MAX_DP
-                   else "torch.matmul Taylor (d > 256)")
+        method = approximant(d, device)
+        kernels = _APPROXIMANT_NAMES[method]
+        if method != "kernels" and kernel_dp(d) > KERNEL_MAX_DP:
+            kernels += " (d > 256)"
     else:
         path = {"fused": "fused chain", "stream": "streamed chain",
                 "plane": "plane chain"}[route]
         kernels = ("CUDA kernels K1/K2" if route == "fused"
                    else "CUDA kernels K5" if d <= KERNEL_DP
                    else "CUDA kernels K6")
-    if device.type != "cuda" and not kernels.startswith("torch"):
+    if device.type != "cuda" and kernels.startswith("CUDA"):
         kernels = "plain torch on " + device.type
     return path, kernels
 
@@ -411,9 +421,10 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
     ``final_states`` (host numpy), and with ``save_intermediate_states``
     the states at every system step, step 0 included,
     ``intermediate_states`` (system_eval_count, K, d, 1), as ``qoc_tpu``
-    returns them without a save file."""
+    returns them; with ``save_file_path`` the evolve file is written
+    (``qoc_tpu``'s schema), with the intermediate states when asked."""
     if mesh is not None:
-        raise _not_ported("mesh (state sharding)", 6)
+        raise _not_ported("mesh (state sharding)", "6d, Queue 1 item 8")
     device, dtype = resolve(device, dtype)
     costs = list(costs)
     control_eval_count = controls.shape[0] if controls is not None else 0
@@ -421,6 +432,7 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
         control_eval_count, cost_eval_step, costs, evolution_time,
         hamiltonian, initial_states, interpolation_policy, magnus_policy,
         save_file_path, save_intermediate_states, system_eval_count)
+    pstate.save_initial(controls)
     loss = build_schroedinger_loss(
         pstate, device, dtype, time_block_size=time_block_size,
         collect_intermediates=save_intermediate_states)
@@ -434,6 +446,7 @@ def evolve_schroedinger_discrete(evolution_time, hamiltonian, initial_states,
     result.final_states = out[1].cpu().numpy()
     if save_intermediate_states:
         result.intermediate_states = out[2].cpu().numpy()
+        pstate.save_intermediate_states(result.intermediate_states)
     return result
 
 
@@ -462,14 +475,19 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
     contract (module docstring). ``optimizer=None`` is a fresh ``Adam()``.
     Adam, SGD and LBFGS run on the device, LBFGSB and any optimizer under
     an ``impose_control_conditions`` hook (controls (E, C) numpy ->
-    controls) on the host loop (core/graperunner.py). Without a save file
-    ``save_intermediate_states`` is ignored, as in ``qoc_tpu``. Returns a
+    controls) on the host loop (core/graperunner.py).
+    ``save_file_path`` with ``save_iteration_step`` > 0 writes ``qoc_tpu``'s
+    GRAPE file (rows on the cadence and at the final iteration, the
+    optimizer snapshot, with ``save_intermediate_states`` the trajectory
+    a row); without a save file ``save_intermediate_states`` is ignored,
+    as in ``qoc_tpu``. ``resume_from`` names a save file of either package:
+    its checkpointed params, optimizer state and iteration are restored
+    and the run continues (into the same file, grown for a larger
+    ``iteration_count``, when it is also ``save_file_path``). Returns a
     ``GrapeSchroedingerResult`` with the best-seen controls, error, final
     states and iteration (host numpy)."""
-    if resume_from is not None:
-        raise _not_ported("resume_from", 4)
     if mesh is not None:
-        raise _not_ported("mesh (state sharding)", 6)
+        raise _not_ported("mesh (state sharding)", "6d, Queue 1 item 8")
     device, dtype = resolve(device, dtype)
     costs = list(costs)
     if optimizer is None:
@@ -486,6 +504,8 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
         save_intermediate_states, save_iteration_step, system_eval_count)
     if fused_chunk is not None:
         pstate.fused_chunk = fused_chunk
+    if resume_from is not None:
+        apply_resume(pstate, resume_from)
     loss_controls = build_schroedinger_loss(pstate, device, dtype,
                                             time_block_size=time_block_size,
                                             log_path=pstate.should_log)
@@ -497,5 +517,16 @@ def grape_schroedinger_discrete(control_count, control_eval_count, costs,
         return loss_controls(
             slap_controls_torch(complex_controls, flat_params, shape))
 
-    run_grape(pstate, result, loss_flat, device, dtype)
+    collect_fn = None
+    if pstate.save_intermediate_states_:
+        collect_loss = build_schroedinger_loss(
+            pstate, device, dtype, time_block_size=time_block_size,
+            collect_intermediates=True)
+
+        def collect_fn(flat):
+            return collect_loss(
+                slap_controls_torch(complex_controls, flat, shape))[2]
+
+    run_grape(pstate, result, loss_flat, device, dtype,
+              collect_fn=collect_fn)
     return result

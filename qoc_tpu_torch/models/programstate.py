@@ -2,11 +2,15 @@
 
 Counterpart of ``qoc_tpu/models/programstate.py`` (reference
 qoc/models/{programstate,schroedingermodels,lindbladmodels}.py): static
-configuration that the loss closes over. Saving to H5 files is ROADMAP
-slice 4 of the port, so ``save_file_path`` and ``save_iteration_step``
-raise ``NotImplementedError`` here; nothing imports h5py. Without a save
-file ``save_intermediate_states`` / ``save_intermediate_densities`` mean
-what they mean in ``qoc_tpu``: evolve returns the intermediate states or
+configuration that the loss closes over, with the save file's writes
+delegated to ``qoc_tpu_torch.io.h5.H5Checkpointer`` (created with the
+state when ``save_file_path`` is given; h5py is imported then). GRAPE
+states save on ``save_iteration_step``'s cadence and on the final
+iteration (:func:`save_step`; the runners write each row through the
+checkpointer), evolve states save their file at the start
+(``save_initial``) and the intermediate stack once. Without a save file
+``save_intermediate_states`` / ``save_intermediate_densities`` mean what
+they mean in ``qoc_tpu``: evolve returns the intermediate states or
 densities in its result, GRAPE ignores the flag.
 
 The GRAPE states carry the fields ``qoc_tpu``'s ensemble entry points set
@@ -15,11 +19,13 @@ the loss returns (with a leading member axis for an ensemble),
 ``ensemble_params``, the member rows (None outside an ensemble; both set
 by ``set_ensemble``, ``member_shape`` being one member's shape), and
 ``fused_chunk``, the iterations between host pulls of the GRAPE loop
-(None: its default).
+(None: its default). ``io/resume.py`` ``apply_resume`` sets
+``resume_state`` and ``resuming_same_file``.
 """
 
 import numpy as np
 
+from qoc_tpu_torch.config import is_io_process
 from qoc_tpu_torch.models.cost import validate_cost_dimensions
 from qoc_tpu_torch.models.policies import ProgramType
 
@@ -30,17 +36,19 @@ __all__ = [
     "GrapeSchroedingerDiscreteState",
     "EvolveLindbladDiscreteState",
     "GrapeLindbladDiscreteState",
+    "save_step",
 ]
 
-_H5_SLICE = ("{} is not ported yet: H5 save files are ROADMAP slice 4 of "
-             "qoc_tpu_torch (use qoc_tpu for saved runs).")
 
-
-def _refuse_saving(save_file_path, save_iteration_step=0):
-    if save_file_path is not None:
-        raise NotImplementedError(_H5_SLICE.format("save_file_path"))
-    if save_iteration_step:
-        raise NotImplementedError(_H5_SLICE.format("save_iteration_step"))
+def save_step(pstate, iteration):
+    """The save row of ``iteration``, or None where it saves nothing: on
+    ``save_iteration_step``'s cadence and on the final iteration."""
+    if not pstate.should_save or iteration > pstate.final_iteration:
+        return None
+    if (iteration % pstate.save_iteration_step == 0
+            or iteration == pstate.final_iteration):
+        return iteration // pstate.save_iteration_step
+    return None
 
 
 class ProgramState:
@@ -64,6 +72,11 @@ class ProgramState:
         self.interpolation_policy = interpolation_policy
         self.program_type = program_type
         self.save_file_path = save_file_path
+        if save_file_path is not None:
+            from qoc_tpu_torch.io.h5 import H5Checkpointer
+            self.checkpointer = H5Checkpointer(save_file_path)
+        else:
+            self.checkpointer = None
         self.system_eval_count = system_eval_count
         self.step_costs = []
         self.step_cost_indices = []
@@ -97,7 +110,12 @@ class GrapeState(ProgramState):
         self.min_error = min_error
         self.optimizer = optimizer
         self.save_iteration_step = save_iteration_step
-        self.should_log = log_iteration_step != 0
+        # Logging is gated on the I/O process; should_save is not, since
+        # it shapes what the loop collects (the checkpointer's writes do
+        # nothing off the I/O process instead).
+        self.should_log = log_iteration_step != 0 and is_io_process()
+        self.should_save = (save_iteration_step != 0
+                            and save_file_path is not None)
         self.ensemble_params = None
         self.fused_chunk = None
 
@@ -109,10 +127,28 @@ class GrapeState(ProgramState):
         self.evolved_shape = ((self.ensemble_params.shape[0],)
                               + self.member_shape)
 
+    def _save_count(self):
+        """Number of preallocated H5 rows (reference
+        schroedingermodels.py:266-271)."""
+        return -(-self.iteration_count // self.save_iteration_step)
+
     def log_and_save_initial(self):
+        if self.should_save:
+            if self.checkpointer._writes_enabled:
+                print("QOC is saving this optimization run to {}."
+                      "".format(self.save_file_path))
+            # Resuming into the same file keeps its preallocated schema
+            # (io/resume.py apply_resume).
+            if not getattr(self, "resuming_same_file", False):
+                self.checkpointer.create_grape_file(self, self._save_count())
         if self.should_log:
             print("iter   |   total error  |    grads_l2   \n"
                   "=========================================")
+
+    def _save_intermediate(self, key, iteration, stack):
+        step = save_step(self, iteration)
+        if step is not None:
+            self.checkpointer.save_intermediate(key, step, stack)
 
 
 class EvolveSchroedingerDiscreteState(ProgramState):
@@ -123,7 +159,6 @@ class EvolveSchroedingerDiscreteState(ProgramState):
                  evolution_time, hamiltonian, initial_states,
                  interpolation_policy, magnus_policy, save_file_path,
                  save_intermediate_states_, system_eval_count):
-        _refuse_saving(save_file_path)
         super().__init__(control_eval_count, cost_eval_step, costs,
                          evolution_time, hamiltonian, interpolation_policy,
                          ProgramType.EVOLVE, save_file_path,
@@ -131,6 +166,21 @@ class EvolveSchroedingerDiscreteState(ProgramState):
         self.initial_states = initial_states
         validate_cost_dimensions(costs, np.asarray(initial_states).shape[-2])
         self.magnus_policy = magnus_policy
+        self.save_intermediate_states_ = (save_file_path is not None
+                                          and save_intermediate_states_)
+
+    def save_initial(self, controls):
+        if self.save_file_path is not None:
+            if self.checkpointer._writes_enabled:
+                print("QOC is saving this evolution to {}."
+                      "".format(self.save_file_path))
+            self.checkpointer.create_evolve_file(self, controls)
+
+    def save_intermediate_states(self, states_stack):
+        """Write the (system_eval_count, K, d, 1) stack at once."""
+        if self.save_intermediate_states_:
+            self.checkpointer.save_intermediate(
+                "intermediate_states", slice(None), states_stack)
 
 
 class GrapeSchroedingerDiscreteState(GrapeState):
@@ -144,7 +194,6 @@ class GrapeSchroedingerDiscreteState(GrapeState):
                  max_control_norms, magnus_policy, min_error, optimizer,
                  save_file_path, save_intermediate_states_,
                  save_iteration_step, system_eval_count):
-        _refuse_saving(save_file_path, save_iteration_step)
         super().__init__(complex_controls, control_count, control_eval_count,
                          cost_eval_step, costs, evolution_time, hamiltonian,
                          impose_control_conditions, initial_controls,
@@ -158,6 +207,13 @@ class GrapeSchroedingerDiscreteState(GrapeState):
             initial_states).shape
         validate_cost_dimensions(costs, np.asarray(initial_states).shape[-2])
         self.magnus_policy = magnus_policy
+        self.save_intermediate_states_ = (self.should_save
+                                          and save_intermediate_states_)
+
+    def save_intermediate_states(self, iteration, states_stack):
+        if self.save_intermediate_states_:
+            self._save_intermediate("intermediate_states", iteration,
+                                    states_stack)
 
 
 class EvolveLindbladDiscreteState(ProgramState):
@@ -168,7 +224,6 @@ class EvolveLindbladDiscreteState(ProgramState):
                  evolution_time, hamiltonian, initial_densities,
                  interpolation_policy, lindblad_data, save_file_path,
                  save_intermediate_densities_, system_eval_count):
-        _refuse_saving(save_file_path)
         super().__init__(control_eval_count, cost_eval_step, costs,
                          evolution_time, hamiltonian, interpolation_policy,
                          ProgramType.EVOLVE, save_file_path,
@@ -177,6 +232,20 @@ class EvolveLindbladDiscreteState(ProgramState):
         validate_cost_dimensions(costs,
                                  np.asarray(initial_densities).shape[-1])
         self.lindblad_data = lindblad_data
+        self.save_intermediate_densities_ = (save_intermediate_densities_
+                                             and save_file_path is not None)
+
+    def save_initial(self, controls):
+        if self.save_file_path is not None:
+            if self.checkpointer._writes_enabled:
+                print("QOC is saving this evolution to {}."
+                      "".format(self.save_file_path))
+            self.checkpointer.create_evolve_file(self, controls)
+
+    def save_intermediate_densities(self, densities_stack):
+        if self.save_intermediate_densities_:
+            self.checkpointer.save_intermediate(
+                "intermediate_densities", slice(None), densities_stack)
 
 
 class GrapeLindbladDiscreteState(GrapeState):
@@ -191,7 +260,6 @@ class GrapeLindbladDiscreteState(GrapeState):
                  min_error, optimizer, save_file_path,
                  save_intermediate_densities_, save_iteration_step,
                  system_eval_count):
-        _refuse_saving(save_file_path, save_iteration_step)
         super().__init__(complex_controls, control_count, control_eval_count,
                          cost_eval_step, costs, evolution_time, hamiltonian,
                          impose_control_conditions, initial_controls,
@@ -206,3 +274,10 @@ class GrapeLindbladDiscreteState(GrapeState):
         validate_cost_dimensions(costs,
                                  np.asarray(initial_densities).shape[-1])
         self.lindblad_data = lindblad_data
+        self.save_intermediate_densities_ = (self.should_save
+                                             and save_intermediate_densities_)
+
+    def save_intermediate_densities(self, iteration, densities_stack):
+        if self.save_intermediate_densities_:
+            self._save_intermediate("intermediate_densities", iteration,
+                                    densities_stack)

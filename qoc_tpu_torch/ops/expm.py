@@ -4,24 +4,34 @@ Counterpart of ``qoc_tpu/ops/expm.py``. :func:`expm` is a
 ``torch.autograd.Function``: the gradient of exp at A is the Fréchet
 derivative L(A^H, G) of the output's gradient G (PyTorch's convention,
 dL/dRe + i dL/dIm), evaluated directly instead of differentiating through
-the algorithm. It dispatches as ``qoc_tpu`` does (``_use_pallas``,
-``_pallas_size_ok``), by size only:
+the algorithm. :func:`set_expm_forward` picks the forward as ``qoc_tpu``'s
+does, with its four names:
 
-- padded d <= 256: the kernels K3 (forward) and K4 (gradient) of
-  ``ops/expm_cuda.py``: on CUDA they launch or raise, on the CPU they are
-  their plain versions, in the caller's dtype;
-- larger d: :func:`expm_taylor` on ``torch.matmul``, with the gradient
-  chosen as ``qoc_tpu``'s ``_expm_bwd`` chooses: without squarings the
-  gradient of the polynomial, else the dual-number Taylor chain
-  (``_frechet_dual_taylor``).
+- ``"auto"`` (the default) and ``"pallas"``: padded d <= 256 runs the
+  kernels K3 (forward) and K4 (gradient) of ``ops/expm_cuda.py`` (on CUDA
+  they launch or raise, on the CPU they are their plain versions, in the
+  caller's dtype); above that the approximant of :func:`approximant`: on
+  the CPU Padé-13, ``qoc_tpu``'s ``_default_method`` there, and on CUDA
+  Taylor, which an H100 measured faster (``_CUDA_AUTO``);
+- ``"taylor"``: :func:`expm_taylor` on ``torch.matmul`` at every size;
+- ``"pade"``: Padé-13 with ``torch.linalg.solve`` at every size.
+
+The gradient is the exact Fréchet adjoint whatever the forward, chosen as
+``qoc_tpu``'s ``_expm_bwd`` chooses: K4 under the kernels; without
+squarings anywhere in the batch the gradient of the approximant, else the
+dual-number Taylor chain (``_frechet_dual_taylor``, Taylor) or the block
+identity on [[A^H, G], [0, A^H]] (Padé). "taylor" and "pade" launch no
+kernel, and on CUDA no name gives way to another route when a kernel
+fails to build or launch.
 
 In the bf16_3x precision mode (``config.MXU_MODE``, float32 work) expm
-runs K3/K4 in the mode, and :func:`expm_taylor` runs every product as the
-3-pass TF32 split on ``torch.matmul`` (``qoc_tpu``'s ``_mul``), its
-squarings on X - I as the kernels run them; the backward runs in the
-forward's mode.
+runs K3/K4 in the mode, and :func:`expm_taylor` and the Padé forward run
+every product as the 3-pass TF32 split on ``torch.matmul`` (``qoc_tpu``'s
+``_mul``; the solve stays FP32), their squarings on X - I as the kernels
+run them; the backward runs in the forward's mode, Padé's by the dual
+Taylor chain.
 
-:func:`expm_pade` (Padé-13 with ``torch.linalg.solve``) and
+:func:`expm_pade` (Padé-13, differentiable through the algorithm) and
 :func:`expm_eigh` are the oracles and alternatives, as in ``qoc_tpu``.
 The port never calls ``torch.linalg.matrix_exp``. All functions batch over
 leading axes.
@@ -35,7 +45,8 @@ from qoc_tpu_torch.ops.chain import (_MUL, _Dual, _scale_and_square,
 from qoc_tpu_torch.ops.expm_cuda import (KERNEL_MAX_DP, expm_frechet_fwd,
                                          expm_fwd, kernel_dp)
 
-__all__ = ["expm", "expm_eigh", "expm_frechet", "expm_pade", "expm_taylor"]
+__all__ = ["approximant", "expm", "expm_eigh", "expm_frechet", "expm_pade",
+           "expm_taylor", "set_expm_forward"]
 
 # Padé-13 numerator coefficients b_0..b_13 (Higham 2005, Table 10.4).
 _B = (64764752532480000.0, 32382376266240000.0, 7771770303897600.0,
@@ -50,9 +61,34 @@ _THETA_TAYLOR = 1.0
 _THETA_TAYLOR_8 = 0.25
 
 
-def _uses_kernels(d):
-    """True where expm runs K3/K4: padded d <= 256."""
-    return kernel_dp(d) <= KERNEL_MAX_DP
+# The forward implementation (qoc_tpu's _EXPM_FORWARD).
+_EXPM_FORWARD = {"impl": "auto"}
+# "auto"'s approximant above padded d = 256 on CUDA: Taylor, faster than
+# Padé-13 at forward plus gradient in both precision modes at d = 300, 512
+# and 1024, complex64, on an H100 (chip_smoke.py phase 45; PERF.md
+# section 6).
+_CUDA_AUTO = "taylor"
+
+
+def set_expm_forward(impl):
+    """Select the expm forward implementation: 'auto' | 'taylor' | 'pade' |
+    'pallas' (module docstring; qoc_tpu's names)."""
+    if impl not in ("auto", "taylor", "pade", "pallas"):
+        raise ValueError("Unknown expm forward implementation: {}"
+                         "".format(impl))
+    _EXPM_FORWARD["impl"] = impl
+
+
+def approximant(d, device):
+    """'kernels' (K3/K4), 'taylor' or 'pade': what :func:`expm` runs for
+    (..., d, d) matrices on ``device`` under the current
+    :func:`set_expm_forward` choice."""
+    impl = _EXPM_FORWARD["impl"]
+    if impl in ("taylor", "pade"):
+        return impl
+    if kernel_dp(d) <= KERNEL_MAX_DP:
+        return "kernels"
+    return _CUDA_AUTO if torch.device(device).type == "cuda" else "pade"
 
 
 def _taylor_poly(m, eye, mul=_MUL["highest"]):
@@ -75,16 +111,24 @@ def _taylor_core(m, max_squarings, mode):
                              _THETA_TAYLOR, max_squarings, mul)
 
 
-def _pade13(m, eye):
-    """The order-13 Padé approximant r = (V - U)^-1 (V + U)."""
-    m2 = m @ m
-    m4 = m2 @ m2
-    m6 = m2 @ m4
-    u = m @ (m6 @ (_B[13] * m6 + _B[11] * m4 + _B[9] * m2)
-             + _B[7] * m6 + _B[5] * m4 + _B[3] * m2 + _B[1] * eye)
-    v = (m6 @ (_B[12] * m6 + _B[10] * m4 + _B[8] * m2)
+def _pade13(m, eye, mul=_MUL["highest"]):
+    """The order-13 Padé approximant r = (V - U)^-1 (V + U), products by
+    ``mul``."""
+    m2 = mul(m, m)
+    m4 = mul(m2, m2)
+    m6 = mul(m2, m4)
+    u = mul(m, mul(m6, _B[13] * m6 + _B[11] * m4 + _B[9] * m2)
+            + _B[7] * m6 + _B[5] * m4 + _B[3] * m2 + _B[1] * eye)
+    v = (mul(m6, _B[12] * m6 + _B[10] * m4 + _B[8] * m2)
          + _B[6] * m6 + _B[4] * m4 + _B[2] * m2 + _B[0] * eye)
     return torch.linalg.solve(v - u, v + u)
+
+
+def _pade_core(a, max_squarings, mode):
+    """Padé-13 scaling and squaring of a in precision ``mode``."""
+    mul = _MUL[mode]
+    return _scale_and_square(a, lambda x, eye: _pade13(x, eye, mul),
+                             _THETA_13, max_squarings, mul)
 
 
 def expm_taylor(a, max_squarings=None):
@@ -102,7 +146,7 @@ def expm_pade(a, max_squarings=16):
     """Padé-13 scaling and squaring with ``max_squarings`` masked squarings
     (qoc_tpu expm_pade): the oracle, differentiable by autograd through the
     algorithm."""
-    return _scale_and_square(a, _pade13, _THETA_13, max_squarings)
+    return _pade_core(a, max_squarings, "highest")
 
 
 def _frechet_dual_taylor(b, g, mode="highest"):
@@ -128,21 +172,41 @@ def _taylor_grad(a, g, mode="highest"):
     return _frechet_dual_taylor(a.mH, g)
 
 
+def _pade_grad(a, g, mode="highest"):
+    """The gradient of the Padé forward at a for the output gradient g
+    (qoc_tpu expm.py _expm_bwd, Padé method): without squarings anywhere in
+    the batch, the gradient of the approximant; else L(a^H, g) by the block
+    identity (:func:`expm_frechet`, Padé at 2d: the forward's choice
+    holds there too). In the bf16_3x mode the dual Taylor chain."""
+    if mode == "bf16_3x":
+        return _frechet_dual_taylor(a.mH, g, mode)
+    if not bool(_squaring_count(a, _THETA_13).any()):
+        with torch.enable_grad():
+            x = a.detach().requires_grad_(True)
+            eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+            return torch.autograd.grad(_pade13(x, eye), x, g)[0]
+    return expm_frechet(a.mH, g)
+
+
+_FORWARD = {"kernels": lambda a, mode: expm_fwd(a, mode),
+            "taylor": lambda a, mode: _taylor_core(a, None, mode),
+            "pade": lambda a, mode: _pade_core(a, None, mode)}
+_BACKWARD = {"kernels": lambda a, g, mode: expm_frechet_fwd(a.mH, g, mode),
+             "taylor": _taylor_grad, "pade": _pade_grad}
+
+
 class _Expm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a):
         ctx.save_for_backward(a)
         ctx.mode = config.mxu_mode(a.dtype)
-        if _uses_kernels(a.shape[-1]):
-            return expm_fwd(a, ctx.mode)
-        return _taylor_core(a, None, ctx.mode)
+        ctx.method = approximant(a.shape[-1], a.device)
+        return _FORWARD[ctx.method](a, ctx.mode)
 
     @staticmethod
     def backward(ctx, g):
         a, = ctx.saved_tensors
-        if _uses_kernels(a.shape[-1]):
-            return expm_frechet_fwd(a.mH, g, ctx.mode)
-        return _taylor_grad(a, g, ctx.mode)
+        return _BACKWARD[ctx.method](a, g, ctx.mode)
 
 
 def expm(a):

@@ -1,17 +1,20 @@
 """Batched complex linear-algebra primitives.
 
 Counterpart of ``qoc_tpu/ops/linalg.py`` (reference
-qoc/standard/functions/convenience.py), the ones the Schrödinger path and
-the adaptive integrator use. Float32 products run in full f32 (TF32 is off,
-see ``config``).
+qoc/standard/functions/convenience.py): the ones the Schrödinger path and
+the adaptive integrator use, and the public helpers of ``qoc_tpu.ops``
+(``krons``, ``matmuls``, the column-vector isomorphism), on tensors.
+Float32 products run in full f32 (TF32 is off, see ``config``).
 """
 
+import functools
 import math
 
 import torch
 
-__all__ = ["commutator", "conjugate_transpose", "mul", "one_norm",
-           "rms_norm"]
+__all__ = ["column_vector_list_to_matrix", "commutator",
+           "conjugate_transpose", "krons", "matmuls",
+           "matrix_to_column_vector_list", "mul", "one_norm", "rms_norm"]
 
 
 def mul(a, b):
@@ -57,3 +60,34 @@ def rms_norm(array, batch_dims=0):
     safe = torch.where(positive, mean_square, torch.ones_like(mean_square))
     return torch.where(positive, torch.sqrt(safe),
                        torch.zeros_like(mean_square))
+
+
+def krons(*matrices):
+    """Kronecker product of all arguments, left to right.
+
+    Parity: reference convenience.py:49-60.
+    """
+    return functools.reduce(torch.kron, matrices)
+
+
+def matmuls(*matrices):
+    """Matrix product of all arguments, left to right.
+
+    Parity: reference convenience.py:63-74.
+    """
+    return functools.reduce(mul, matrices)
+
+
+def column_vector_list_to_matrix(column_vector_list):
+    """Stack of (d, 1) column vectors (K, d, 1) -> (d, K) matrix: the
+    unitary <-> state-batch isomorphism that poses gate synthesis as
+    multi-state transfer. Parity: reference convenience.py:98-100."""
+    return torch.hstack(tuple(column_vector_list))
+
+
+def matrix_to_column_vector_list(matrix):
+    """(d, K) matrix -> stack of column vectors (K, d, 1).
+
+    Parity: reference convenience.py:103-104.
+    """
+    return torch.stack([matrix[:, i:i + 1] for i in range(matrix.shape[1])])

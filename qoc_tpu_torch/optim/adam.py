@@ -12,7 +12,8 @@ never reads a value back to the host. The per-candidate form
 leading candidate axis on the state and the parameters. The host twin
 (``run``/``update_np``, ``qoc_tpu``'s ``run``/``update``) is the same rule
 in numpy, for the host loop that an ``impose_control_conditions`` hook
-forces (``core/graperunner.py``).
+forces (``core/graperunner.py``); its ``state_dict``/``load_state_dict``
+are what that loop checkpoints (``qoc_tpu``'s names).
 """
 
 import numpy as np
@@ -114,10 +115,16 @@ class Adam:
     def run(self, function, iteration_count, initial_params, jacobian,
             args=()):
         """Minimize on the host loop; ``jacobian`` returns (grads,
-        terminate), and a terminating evaluation skips its update."""
-        self.iteration_count = 0
-        self.gradient_moment = np.zeros_like(initial_params)
-        self.gradient_square_moment = np.zeros_like(initial_params)
+        terminate), and a terminating evaluation skips its update. When
+        ``_warm_start`` is set (by the resume after ``load_state_dict``),
+        the moments and step count carried over are kept; the flag is
+        consumed."""
+        if getattr(self, "_warm_start", False):
+            self._warm_start = False
+        else:
+            self.iteration_count = 0
+            self.gradient_moment = np.zeros_like(initial_params)
+            self.gradient_square_moment = np.zeros_like(initial_params)
         params = initial_params
         for _ in range(iteration_count):
             grads, terminate = jacobian(params, *args)
@@ -148,3 +155,19 @@ class Adam:
         v_hat = self.gradient_square_moment / (1 - b2 ** t)
         return params - learning_rate * m_hat / (np.sqrt(v_hat)
                                                  + self.epsilon)
+
+    # -- checkpoint support ------------------------------------------------
+
+    def state_dict(self):
+        """The host twin's state (``qoc_tpu``'s keys)."""
+        return {
+            "gradient_moment": self.gradient_moment,
+            "gradient_square_moment": self.gradient_square_moment,
+            "iteration_count": np.asarray(self.iteration_count),
+        }
+
+    def load_state_dict(self, state):
+        self.gradient_moment = np.asarray(state["gradient_moment"])
+        self.gradient_square_moment = np.asarray(
+            state["gradient_square_moment"])
+        self.iteration_count = int(state["iteration_count"])

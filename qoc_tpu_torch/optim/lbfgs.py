@@ -227,12 +227,16 @@ class LBFGS:
         (grads, terminate)."""
         params = np.asarray(initial_params, dtype=float)
         n, m = params.size, self.history
-        self._host = {
-            "s": np.zeros((m, n)), "y": np.zeros((m, n)),
-            "rho": np.zeros(m), "gamma": 0.0,
-            "prev_params": np.zeros(n), "prev_grads": np.zeros(n),
-            "have_prev": 0.0, "t": 0,
-        }
+        if getattr(self, "_warm_start", False):
+            # The ring carried over by load_state_dict (a resume).
+            self._warm_start = False
+        else:
+            self._host = {
+                "s": np.zeros((m, n)), "y": np.zeros((m, n)),
+                "rho": np.zeros(m), "gamma": 0.0,
+                "prev_params": np.zeros(n), "prev_grads": np.zeros(n),
+                "have_prev": 0.0, "t": 0,
+            }
         h = self._host
         for _ in range(iteration_count):
             grads, terminate = jacobian(params, *args)
@@ -299,6 +303,26 @@ class LBFGS:
             d = -gamma * grads
             gtd = -gamma * float(grads @ grads)
         return d, gtd
+
+    # -- checkpoint support ------------------------------------------------
+
+    def state_dict(self):
+        """The host twin's ring (``qoc_tpu``'s keys), empty before a run."""
+        if self._host is None:
+            return {}
+        return {key: np.asarray(value) for key, value in self._host.items()}
+
+    def load_state_dict(self, state):
+        self._host = {
+            "s": np.asarray(state["s"], dtype=float),
+            "y": np.asarray(state["y"], dtype=float),
+            "rho": np.asarray(state["rho"], dtype=float),
+            "gamma": float(state["gamma"]),
+            "prev_params": np.asarray(state["prev_params"], dtype=float),
+            "prev_grads": np.asarray(state["prev_grads"], dtype=float),
+            "have_prev": float(state["have_prev"]),
+            "t": int(state["t"]),
+        }
 
 
 def _dot(a, b):

@@ -59,3 +59,10 @@ class SGD:
     def update_np(self, grads, params):
         """One step on numpy arrays."""
         return params - self.learning_rate * grads
+
+    def state_dict(self):
+        """SGD keeps no state."""
+        return {}
+
+    def load_state_dict(self, state):
+        pass

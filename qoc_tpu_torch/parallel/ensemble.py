@@ -37,9 +37,12 @@ integration an interval (route "rkdp5", ``core/lindblad.py``
   ``vmap``).
 
 Step costs run on every route through the trajectory form, as in
-``qoc_tpu``'s fused ensemble and its generic route. The same chain loss
-carries the multistart (``parallel/multistart.py``): candidates x
-members, candidate-major, are the chains of one call.
+``qoc_tpu``'s fused ensemble and its generic route, and so do the
+intermediate states or densities a save file asks for
+(``collect_intermediates``). The same chain loss carries the multistart
+(``parallel/multistart.py``): candidates x members, candidate-major, are
+the chains of one call. Save files carry the member axis on the evolved
+datasets and the member rows as ``hamiltonian_params`` (``io/h5.py``).
 """
 
 import numpy as np
@@ -54,6 +57,7 @@ from qoc_tpu_torch.core.schroedinger import (_not_ported, _route,
                                              _route_names, _step_cost,
                                              cost_steps, fused_weights,
                                              make_propagator, plane_builder)
+from qoc_tpu_torch.io.resume import apply_resume
 from qoc_tpu_torch.models import (ConstantLindblad,
                                   EnsembleLinearHamiltonian,
                                   GrapeLindbladDiscreteState,
@@ -156,7 +160,8 @@ class _Evolved:
 
 
 def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
-                     n_candidates=1, time_block_size=None):
+                     n_candidates=1, time_block_size=None,
+                     collect_intermediates=False):
     """The loss of N candidates' controls over M members, one chain each.
 
     ``pstate`` is a Schrödinger or a Lindblad GRAPE state
@@ -166,7 +171,10 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     or None for one member of a plain ``hamiltonian(controls, t)``. Returns
     ``loss(controls)``, which maps complex controls (N, E, C) to (errors
     (N, M), final states (N, M, K, d, 1) or densities (N, M, K, d, d)),
-    differentiable; its ``route`` is "fused", "stream", "blocked" or "rkdp5"
+    differentiable; with ``collect_intermediates`` also the states or
+    densities at every system step, step 0 included, (N, M,
+    system_eval_count, ...) (the trajectory form, forward only under
+    RKDP5); its ``route`` is "fused", "stream", "blocked" or "rkdp5"
     (module docstring), ``dim`` the propagated dimension n, ``lindblad``
     the kind, ``n_steps``, ``trajectory`` (step costs) and ``block`` the
     time block in steps, sized for ``n_candidates`` (``chain_block_plan``
@@ -176,7 +184,8 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     cdtype = complex_dtype(dtype)
     kind = _Evolved(pstate)
     if kind.rkdp5:
-        return _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype)
+        return _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype,
+                                 collect_intermediates)
     initial = torch.as_tensor(kind.initial, dtype=cdtype, device=device)
     shape, n = tuple(initial.shape), kind.dim
     dt = float(pstate.dt)
@@ -186,7 +195,7 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     final_costs = [cost for cost in pstate.costs
                    if not cost.requires_step_evaluation]
     cost_eval_step = pstate.cost_eval_step
-    trajectory = bool(step_costs)
+    trajectory = bool(step_costs) or collect_intermediates
     n_members = 1 if params is None else params.shape[0]
     times = torch.arange(n_steps, dtype=dtype, device=device) * dt
     cet = (torch.as_tensor(pstate.control_eval_times, dtype=dtype,
@@ -222,15 +231,18 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
         chain_controls = controls.repeat_interleave(n_members, dim=0)
         x = x0.expand((n_c * n_members,) + x0.shape)
         errors = torch.zeros((n_c * n_members,), dtype=dtype, device=device)
+        intermediates = [x[:, None]]
         for start in range(0, n_steps, block):
             out = propagate(controls, times[start:start + block])
             if not trajectory:
                 x = x @ out.mT
                 continue
             prod, prefixes = out
-            steps = cost_steps(start, prefixes.shape[-3], cost_eval_step,
-                               device)
-            if steps is not None:
+            if collect_intermediates:
+                intermediates.append(x[:, None] @ prefixes.mT)
+            steps = step_costs and cost_steps(
+                start, prefixes.shape[-3], cost_eval_step, device)
+            if steps:
                 sel, ks = steps
                 # The states or densities after the block's cost steps,
                 # every chain: (R, steps, K, ...).
@@ -246,8 +258,12 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
             errors = errors + torch.func.vmap(
                 lambda c, y: _step_cost(final_costs, c)(y, final_step))(
                     chain_controls, final)
-        return (errors.reshape(n_c, n_members),
-                final.reshape((n_c, n_members) + shape))
+        out = (errors.reshape(n_c, n_members),
+               final.reshape((n_c, n_members) + shape))
+        if collect_intermediates:
+            out += (torch.cat(intermediates, dim=1).reshape(
+                (n_c, n_members, -1) + shape),)
+        return out
 
     loss.route, loss.block, loss.dim = route, block, n
     loss.lindblad, loss.n_steps, loss.trajectory = (kind.lindblad, n_steps,
@@ -255,21 +271,28 @@ def build_chain_loss(pstate, hamiltonian, hamiltonian_params, device, dtype,
     return loss
 
 
-def _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype):
+def _rkdp5_chain_loss(pstate, hamiltonian, params, device, dtype,
+                      collect_intermediates=False):
     """The chain loss of a Lindblad state under RKDP5: the N M chains are
     the lanes of one adaptive integration an interval (``core/lindblad.py``
     ``rkdp5_loss``; ``qoc_tpu``'s generic route, its members and candidates
-    under ``jax.vmap``). Its ``route`` is "rkdp5", ``block`` 1 (one
-    interval a step of the loop)."""
-    lanes_loss = rkdp5_loss(pstate, device, dtype, hamiltonian, params)
+    under ``jax.vmap``; with ``collect_intermediates`` the forward-only
+    integrator). Its ``route`` is "rkdp5", ``block`` 1 (one interval a
+    step of the loop)."""
+    lanes_loss = rkdp5_loss(pstate, device, dtype, hamiltonian, params,
+                            differentiable=not collect_intermediates,
+                            collect_intermediates=collect_intermediates)
     n_members = 1 if params is None else params.shape[0]
     shape = tuple(np.shape(pstate.initial_densities))
 
     def loss(controls):
-        errors, final = lanes_loss(controls)
+        out = lanes_loss(controls)
         n_c = controls.shape[0]
-        return (errors.reshape(n_c, n_members),
-                final.reshape((n_c, n_members) + shape))
+        chains = (n_c, n_members)
+        if collect_intermediates:
+            return (out[0].reshape(chains), out[1].reshape(chains + shape),
+                    out[2].movedim(0, 1).reshape(chains + (-1,) + shape))
+        return out[0].reshape(chains), out[1].reshape(chains + shape)
 
     loss.route, loss.block, loss.dim = "rkdp5", 1, shape[-1] ** 2
     loss.lindblad, loss.n_steps = True, pstate.system_eval_count - 1
@@ -362,12 +385,17 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh=None,
 
 
 def run_ensemble(pstate, hamiltonian, hamiltonian_params, result, device,
-                 dtype, time_block_size=None, evolved="states"):
+                 dtype, time_block_size=None, evolved="states",
+                 resume_from=None):
     """Mark ``pstate`` as the ensemble's, build its loss and run the GRAPE
-    loop (``core/graperunner.py``) into ``result``: the body of
+    loop (``core/graperunner.py``) into ``result``, the save file and
+    ``resume_from`` included (the intermediate stack of a save row (S, M,
+    ...) by the chain loss's trajectory form): the body of
     :func:`grape_schroedinger_ensemble` and of
     ``grape_lindblad_ensemble`` (``evolved="densities"``)."""
     pstate.set_ensemble(hamiltonian_params)
+    if resume_from is not None:
+        apply_resume(pstate, resume_from)
     loss_controls = build_ensemble_loss(pstate, hamiltonian,
                                         hamiltonian_params,
                                         time_block_size=time_block_size,
@@ -379,7 +407,19 @@ def run_ensemble(pstate, hamiltonian, hamiltonian_params, result, device,
     def loss_flat(flat_params):
         return loss_controls(slap_controls_torch(cc, flat_params, shape))
 
-    run_grape(pstate, result, loss_flat, device, dtype, evolved=evolved)
+    collect_fn = None
+    if getattr(pstate, "save_intermediate_{}_".format(evolved)):
+        collect_loss = build_chain_loss(
+            pstate, hamiltonian, np.asarray(hamiltonian_params), device,
+            dtype, time_block_size=time_block_size,
+            collect_intermediates=True)
+
+        def collect_fn(flat):
+            controls = slap_controls_torch(cc, flat, shape)
+            return collect_loss(controls[None])[2][0].movedim(1, 0)
+
+    run_grape(pstate, result, loss_flat, device, dtype, evolved=evolved,
+              collect_fn=collect_fn)
     return result
 
 
@@ -406,14 +446,13 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
     ``hamiltonian(params_row, controls, time) -> (d, d)`` takes a member's
     parameter row first; ``hamiltonian_params`` (n_members, ...) holds one
     row per member, and the optimized error is the members' mean.
-    ``result.best_final_states`` is (n_members, K, d, 1). One card:
-    ``mesh`` other than None raises (ROADMAP Queue 1, item 8), as do the
-    save file and ``resume_from`` (item 7); ``optimizer=None`` is a fresh
-    ``Adam()``, and every optimizer and ``impose_control_conditions`` hook
-    of :func:`grape_schroedinger_discrete` runs."""
+    ``result.best_final_states`` is (n_members, K, d, 1), and so are the
+    save file's rows, beside ``hamiltonian_params``. One card: ``mesh``
+    other than None raises (ROADMAP Queue 1, item 8); ``optimizer=None`` is
+    a fresh ``Adam()``, and every optimizer, ``impose_control_conditions``
+    hook, save file and ``resume_from`` of
+    :func:`grape_schroedinger_discrete` runs."""
     refuse_mesh(mesh)
-    if resume_from is not None:
-        raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype)
     costs = list(costs)
     if optimizer is None:
@@ -431,4 +470,4 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
     pstate.fused_chunk = fused_chunk
     return run_ensemble(pstate, hamiltonian, hamiltonian_params,
                         GrapeSchroedingerResult(), device, dtype,
-                        time_block_size)
+                        time_block_size, resume_from=resume_from)

@@ -39,15 +39,16 @@ mode). ``qoc_tpu``'s fused Lindblad multistart drops the step costs
 generic route and its fused ensemble keep them, and so does the port on
 every route.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``mesh`` (item 8), save files and ``resume_from`` (item 7).
-As in the port's single-member Lindblad GRAPE, without a save file
-``save_intermediate_densities`` is ignored.
+Save files and ``resume_from`` work as in the Schrödinger twins (the
+ensemble's rows carry the member axis and ``hamiltonian_params``; with
+``save_intermediate_densities`` the trajectory a save row). ``mesh`` is
+not ported yet, and raises ``NotImplementedError`` naming its ROADMAP item
+(Queue 1 item 8). As in the port's single-member Lindblad GRAPE, without
+a save file ``save_intermediate_densities`` is ignored.
 """
 
 from qoc_tpu_torch.config import resolve
 from qoc_tpu_torch.core.common import initialize_controls
-from qoc_tpu_torch.core.schroedinger import _not_ported
 from qoc_tpu_torch.models import (GrapeLindbladDiscreteState,
                                   GrapeLindbladResult, InterpolationPolicy,
                                   LindbladMethod, MagnusPolicy)
@@ -119,11 +120,9 @@ def grape_lindblad_ensemble(control_count, control_eval_count, costs,
     dissipator data is shared by all members. ``result.best_final_densities``
     is (n_members, K, d, d). ``atol``, ``rtol`` and ``rkdp5_max_steps`` are
     RKDP5's (the default method), ``fused_mode`` picks ``qoc_tpu``'s
-    compiled loop form (the port has one loop). Refusals: module
-    docstring."""
+    compiled loop form (the port has one loop). Save files, resume and
+    refusals: module docstring."""
     refuse_mesh(mesh)
-    if resume_from is not None:
-        raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype, float64_ok=(
         method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
@@ -143,7 +142,8 @@ def grape_lindblad_ensemble(control_count, control_eval_count, costs,
         system_eval_count)
     return run_ensemble(pstate, hamiltonian, hamiltonian_params,
                         GrapeLindbladResult(), device, dtype,
-                        time_block_size, evolved="densities")
+                        time_block_size, evolved="densities",
+                        resume_from=resume_from)
 
 
 def grape_lindblad_multistart(control_count, control_eval_count, costs,
@@ -174,12 +174,10 @@ def grape_lindblad_multistart(control_count, control_eval_count, costs,
     ``GrapeLindbladResult`` for the winner, with ``result.errors`` every
     candidate's best error, ``result.iterations_per_s`` the steady
     candidate-iteration rate and ``best_final_densities`` (K, d, d), or
-    (n_members, K, d, d) for a robust multistart. Refusals: module
-    docstring, and a host-loop-only optimizer (LBFGSB) with
-    ``ValueError``."""
+    (n_members, K, d, d) for a robust multistart. Save files, resume and
+    refusals: module docstring, and a host-loop-only optimizer (LBFGSB)
+    with ``ValueError``."""
     refuse_mesh(mesh)
-    if resume_from is not None:
-        raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype, float64_ok=(
         method != LindbladMethod.MAGNUS_EXPM))
     costs = list(costs)
@@ -200,4 +198,5 @@ def grape_lindblad_multistart(control_count, control_eval_count, costs,
         save_file_path, False, save_iteration_step, system_eval_count)
     return run_chain_multistart(pstate, hamiltonian, hamiltonian_params,
                                 n_starts, seed, GrapeLindbladResult(),
-                                device, dtype, evolved="densities")
+                                device, dtype, evolved="densities",
+                                resume_from=resume_from)

@@ -17,9 +17,10 @@ chains at d <= 64, one K6 forward and one K6 adjoint at 256 < padded d <=
 512 (step costs through the trajectory form, the adjoint per step);
 anything else takes the blocked route, all chains' planes in one K3/K4
 batch a time block. :func:`run_chain_multistart` is the body it shares with
-the Lindblad multistart (``parallel/lindblad.py``). ``qoc_tpu`` shards the
-candidates over a mesh; on one card ``mesh`` other than None raises
-(ROADMAP Queue 1, item 8).
+the Lindblad multistart (``parallel/lindblad.py``), save file and resume
+included (``parallel/_msrunner.py``). ``qoc_tpu`` shards the candidates
+over a mesh; on one card ``mesh`` other than None raises (ROADMAP Queue 1,
+item 8).
 """
 
 import numpy as np
@@ -27,7 +28,7 @@ import torch
 
 from qoc_tpu_torch.config import resolve
 from qoc_tpu_torch.core.common import initialize_controls, slap_controls_torch
-from qoc_tpu_torch.core.schroedinger import _not_ported
+from qoc_tpu_torch.io.resume import apply_resume
 from qoc_tpu_torch.models import (GrapeSchroedingerDiscreteState,
                                   GrapeSchroedingerResult,
                                   InterpolationPolicy, MagnusPolicy)
@@ -70,13 +71,15 @@ def grape_schroedinger_multistart(control_count, control_eval_count, costs,
 
     Returns a ``GrapeSchroedingerResult`` for the winner, with
     ``result.errors`` every candidate's best error and
-    ``result.iterations_per_s`` the steady candidate-iteration rate. One
-    card: ``mesh`` other than None raises, as do the save file and
-    ``resume_from`` (ROADMAP Queue 1, items 8 and 7); a host-loop-only
-    optimizer (LBFGSB) raises ``ValueError``."""
+    ``result.iterations_per_s`` the steady candidate-iteration rate.
+    ``save_file_path`` with ``save_iteration_step`` writes ``qoc_tpu``'s
+    file: each save iteration's best candidate a row (its final states
+    (n_members, K, d, 1) and ``hamiltonian_params`` for a robust
+    multistart), and the candidate carry at every chunk's end, which
+    ``resume_from`` (a multistart file, the same ``n_starts``) restores.
+    One card: ``mesh`` other than None raises (ROADMAP Queue 1, item 8); a
+    host-loop-only optimizer (LBFGSB) raises ``ValueError``."""
     refuse_mesh(mesh)
-    if resume_from is not None:
-        raise _not_ported("resume_from", "4, Queue 1 item 7")
     device, dtype = resolve(device, dtype)
     costs = list(costs)
     if optimizer is None:
@@ -96,20 +99,31 @@ def grape_schroedinger_multistart(control_count, control_eval_count, costs,
     pstate.fused_chunk = fused_chunk
     return run_chain_multistart(pstate, hamiltonian, hamiltonian_params,
                                 n_starts, seed, GrapeSchroedingerResult(),
-                                device, dtype)
+                                device, dtype, resume_from=resume_from)
 
 
 def run_chain_multistart(pstate, hamiltonian, hamiltonian_params, n_starts,
-                         seed, result, device, dtype, evolved="states"):
+                         seed, result, device, dtype, evolved="states",
+                         resume_from=None):
     """The multistart on a GRAPE state: the chain loss over candidates x
     members (``parallel/ensemble.py``), the runner
     (``parallel/_msrunner.py``) and one forward of the winner for its
     final states, or densities (``evolved="densities"``), per member for a
-    robust multistart; the body of :func:`grape_schroedinger_multistart`
-    and of ``grape_lindblad_multistart``."""
+    robust multistart; the save file and ``resume_from``; the body of
+    :func:`grape_schroedinger_multistart` and of
+    ``grape_lindblad_multistart``."""
     ensemble = hamiltonian_params is not None
     if ensemble:
         pstate.set_ensemble(hamiltonian_params)
+    if resume_from is not None:
+        apply_resume(pstate, resume_from)
+    if pstate.should_save:
+        if pstate.checkpointer._writes_enabled:
+            print("QOC is saving this optimization run to {}."
+                  "".format(pstate.save_file_path))
+        if not getattr(pstate, "resuming_same_file", False):
+            pstate.checkpointer.create_grape_file(pstate,
+                                                  pstate._save_count())
     chain_loss = build_chain_loss(
         pstate, hamiltonian, hamiltonian_params, device, dtype,
         n_candidates=n_starts)
@@ -130,8 +144,17 @@ def run_chain_multistart(pstate, hamiltonian, hamiltonian_params, n_starts,
         errors = chain_loss(slap(clipped_flat))[0].mean(dim=1)
         return errors.sum(), errors
 
+    def winner_states(clipped_flat):
+        """Final states (R, [M,] ...) of R candidates' clipped params, in
+        one forward (the save rows)."""
+        with torch.no_grad():
+            final = chain_loss(slap(clipped_flat))[1]
+        return final if ensemble else final[:, 0]
+
     winning_flat = run_multistart(pstate, result, loss_sum, n_starts, device,
-                                  dtype, seed=seed)
+                                  dtype, seed=seed,
+                                  winner_states=winner_states,
+                                  evolved=evolved)
     # One forward of the winner gives its final states (per member for a
     # robust multistart).
     with torch.no_grad():

@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import one_blas_thread  # noqa: F401 (autouse)
-from torch_parity import EnsembleProblem, anti_hermitian_basis
+from torch_parity import (EnsembleProblem, anti_hermitian_basis,
+                          not_a_grape_file, saved_errors)
 
 torch.set_num_threads(1)
 
@@ -260,28 +261,42 @@ def test_grape_ensemble_matches_jax():
                                atol=1e-6)
 
 
-def _ensemble_refusals():
+def _ensemble_refusals(directory):
+    """case: (exception, match, kwargs), or (None, None, kwargs) for a run
+    whose save rows are checked."""
     return {
         "mesh": (NotImplementedError, "Queue 1 item 8", dict(mesh=object())),
-        "save_file_path": (NotImplementedError, "slice 4",
-                           dict(save_file_path="run.h5")),
-        "resume_from": (NotImplementedError, "Queue 1 item 7",
-                        dict(resume_from="run.h5")),
+        "save_file_path": (None, None,
+                           dict(save_file_path=str(directory / "run.h5"),
+                                save_iteration_step=1)),
+        "resume_from": (ValueError, "not a GRAPE save file",
+                        dict(resume_from=not_a_grape_file(directory))),
     }
 
 
-@pytest.mark.parametrize("case", sorted(_ensemble_refusals()))
-def test_grape_ensemble_refusals(case):
+@pytest.mark.parametrize("case", ("mesh", "resume_from", "save_file_path"))
+def test_grape_ensemble_refusals(case, tmp_path):
+    """``mesh`` raises, naming ROADMAP Queue 1 item 8; a save file gets its
+    rows; a resume_from without GRAPE rows is refused as in qoc_tpu."""
     import qoc_tpu_torch
-    error, match, kwargs = _ensemble_refusals()[case]
+    error, match, kwargs = _ensemble_refusals(tmp_path)[case]
     problem = EnsembleProblem()
-    with pytest.raises(error, match=match):
-        qoc_tpu_torch.grape_schroedinger_ensemble(
+
+    def run():
+        return qoc_tpu_torch.grape_schroedinger_ensemble(
             problem.n_c, problem.n_steps, problem.torch_costs,
             problem.evolution_time, problem.torch_hamiltonian,
             problem.params, problem.torch_initial, problem.n_steps,
             complex_controls=True, iteration_count=1, log_iteration_step=0,
             device="cpu", **kwargs)
+
+    if error is None:
+        errors = run().errors
+        np.testing.assert_array_equal(
+            saved_errors(kwargs["save_file_path"]), errors)
+        return
+    with pytest.raises(error, match=match):
+        run()
 
 
 def test_ensemble_stream_range_matches_jax(capsys):

@@ -8,6 +8,10 @@
   relative 1e-6 (the f32-calibrated ladder against JAX's f64 Padé-13).
 - The Taylor route above padded d = 256 against qoc_tpu's expm_taylor and
   _frechet_dual_taylor (float64, same algorithm): relative 1e-10.
+- set_expm_forward's four names against qoc_tpu's same name (value and
+  gradient): at d = 4 relative 1e-10, "pallas" (qoc_tpu's kernels in
+  interpret mode, float32, padded 64) 1e-5; "auto" at d = 260, Padé-13
+  on the CPU as in qoc_tpu, 1e-10.
 
 Gradient relation: PyTorch's gradient of a complex tensor is
 dL/dRe + i dL/dIm, the conjugate of JAX's cotangent. For the output
@@ -127,11 +131,20 @@ def test_expm_gradcheck(level, norm):
     assert torch.autograd.gradcheck(expm, (a,))
 
 
+@pytest.fixture()
+def expm_forward():
+    """set_expm_forward of the port, restored to "auto" after the test."""
+    from qoc_tpu_torch.ops import set_expm_forward
+    yield set_expm_forward
+    set_expm_forward("auto")
+
+
 @pytest.mark.parametrize("norm", (0.5, 5.0))
-def test_taylor_route_above_256_matches_jax(norm):
-    """d = 260 pads to 320 > 256: expm takes expm_taylor forward and, at
-    norm 0.5 (no squaring), the polynomial's gradient, at norm 5 the dual
-    Taylor chain."""
+def test_taylor_route_above_256_matches_jax(norm, expm_forward):
+    """d = 260 pads to 320 > 256: under set_expm_forward("taylor") (on
+    CUDA, "auto" there) expm takes expm_taylor forward and, at norm 0.5
+    (no squaring), the polynomial's gradient, at norm 5 the dual Taylor
+    chain."""
     from qoc_tpu.ops.expm import _frechet_dual_taylor
     from qoc_tpu.ops.expm import expm_taylor as jax_expm_taylor
     from qoc_tpu_torch.ops.expm import expm, expm_taylor
@@ -141,12 +154,105 @@ def test_taylor_route_above_256_matches_jax(norm):
     want = np.asarray(jax_expm_taylor(jnp.asarray(a)))
     g_want = np.conj(np.asarray(_frechet_dual_taylor(
         jnp.asarray(a.swapaxes(-1, -2)), jnp.asarray(np.conj(g)))))
+    expm_forward("taylor")
     at = torch.tensor(a, requires_grad=True)
     got = expm(at)
     g_got, = torch.autograd.grad(got, at, torch.as_tensor(g))
     assert _rel(got.detach().numpy(), want) < 1e-10
     assert _rel(expm_taylor(at.detach()).numpy(), want) < 1e-10
     assert _rel(g_got.numpy(), g_want) < 1e-10
+
+
+def _jax_expm_and_grad(impl, a, g):
+    """qoc_tpu's expm of a and its gradient for the output gradient g
+    under its set_expm_forward(impl), in the port's convention."""
+    from qoc_tpu.ops.expm import expm as jax_expm
+    from qoc_tpu.ops.expm import set_expm_forward as jax_set_expm_forward
+    def value_and_vjp(a_, g_):
+        out_, vjp = jax.vjp(jax_expm, a_)
+        return out_, vjp(g_)[0]
+
+    try:
+        jax_set_expm_forward(impl)
+        out, grad = jax.jit(value_and_vjp)(jnp.asarray(a),
+                                           jnp.asarray(np.conj(g)))
+    finally:
+        jax_set_expm_forward("auto")
+    return np.asarray(out), np.conj(np.asarray(grad))
+
+
+@pytest.mark.parametrize("impl", ("auto", "pade", "pallas", "taylor"))
+def test_set_expm_forward_matches_qoc_tpu(impl, expm_forward, monkeypatch,
+                                          interpreted_pallas):
+    """Each name at d = 4 (padded 64), a squaring norm: the port's value
+    and gradient against qoc_tpu's under the same name; K3/K4's wrappers
+    are called under "auto" and "pallas" only. qoc_tpu's "pallas" is its
+    float32 kernel pair, interpret mode: expm_taylor_pallas forward and
+    expm_frechet_pallas adjoint, on the shapes of the two tests above
+    (3 x 12 x 12 and 2 x 10 x 10, padded 64 as d = 4 is), so that their
+    compiles serve here too."""
+    import importlib
+    expm_mod = importlib.import_module("qoc_tpu_torch.ops.expm")
+    rng = np.random.default_rng(9)
+    calls = []
+    for name in ("expm_fwd", "expm_frechet_fwd"):
+        wrapper = getattr(expm_mod, name)
+        monkeypatch.setattr(expm_mod, name, lambda *args, _w=wrapper, _n=name:
+                            calls.append(_n) or _w(*args))
+    expm_forward(impl)
+    if impl == "pallas":
+        from qoc_tpu.ops.expm_pallas import (expm_frechet_pallas,
+                                             expm_taylor_pallas)
+        a = _planes(rng, 3, 12, 3.0).astype(np.complex64)
+        b = _planes(rng, 2, 10, 3.0).astype(np.complex64)
+        g = _normal(rng, b.shape).astype(np.complex64)
+        got = expm_mod.expm(torch.as_tensor(a))
+        want = np.asarray(expm_taylor_pallas(jnp.asarray(a)))
+        bt = torch.tensor(b, requires_grad=True)
+        g_got, = torch.autograd.grad(expm_mod.expm(bt), bt,
+                                     torch.as_tensor(g))
+        g_want = np.conj(np.asarray(expm_frechet_pallas(
+            jnp.asarray(b.swapaxes(-1, -2)), jnp.asarray(g.conj()))))
+        tol = 1e-5
+    else:
+        a = _planes(rng, 3, 4, 3.0)
+        g = _normal(rng, a.shape)
+        at = torch.tensor(a, requires_grad=True)
+        got = expm_mod.expm(at)
+        g_got, = torch.autograd.grad(got, at, torch.as_tensor(g))
+        want, g_want = _jax_expm_and_grad(impl, a, g)
+        tol = 1e-10
+    assert _rel(got.detach().numpy(), want) < tol
+    assert _rel(g_got.numpy(), g_want) < tol
+    kernels = impl in ("auto", "pallas")
+    assert calls == (["expm_fwd", "expm_fwd", "expm_frechet_fwd"]
+                     if impl == "pallas" else
+                     ["expm_fwd", "expm_frechet_fwd"] if kernels else [])
+    assert expm_mod.approximant(4, "cpu") == ("kernels" if kernels
+                                              else impl)
+
+
+def test_auto_above_256_is_pade_on_the_cpu():
+    """On the CPU "auto" takes Padé-13 above padded 256, as qoc_tpu's
+    _default_method does there: at d = 260 and a squaring norm (the
+    gradient by the block identity) within 1e-10 of qoc_tpu's expm."""
+    from qoc_tpu_torch.ops.expm import approximant, expm
+    rng = np.random.default_rng(10)
+    a = _planes(rng, 1, 260, 8.0)
+    g = _normal(rng, a.shape)
+    at = torch.tensor(a, requires_grad=True)
+    got = expm(at)
+    g_got, = torch.autograd.grad(got, at, torch.as_tensor(g))
+    want, g_want = _jax_expm_and_grad("auto", a, g)
+    assert approximant(260, "cpu") == "pade"
+    assert _rel(got.detach().numpy(), want) < 1e-10
+    assert _rel(g_got.numpy(), g_want) < 1e-10
+
+
+def test_set_expm_forward_refuses_other_names():
+    from qoc_tpu_torch.ops import set_expm_forward
+    with pytest.raises(ValueError, match="Unknown expm forward"):
+        set_expm_forward("eigh")
 
 
 def test_pade_eigh_and_frechet_match_jax():

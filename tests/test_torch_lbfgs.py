@@ -338,6 +338,7 @@ def test_host_loop_bookkeeping(capsys):
         impose_control_conditions = None
         iteration_count, min_error = 3, 0.0
         should_log, log_iteration_step, final_iteration = True, 1, 2
+        should_save = False
 
         class optimizer:
             @staticmethod
@@ -540,21 +541,27 @@ def test_parallel_lbfgs_matches_jax(entry):
 
 
 @pytest.mark.parametrize("case", ("multistart LBFGSB", "save file"))
-def test_refusals(case):
+def test_refusals(case, tmp_path):
     """A multistart refuses a host-loop-only optimizer with qoc_tpu's
-    ValueError; the host loop still refuses a save file (ROADMAP Queue 1
-    item 7)."""
+    ValueError; the host loop writes a save file: a row for each
+    evaluation up to iteration_count and the checkpoint, params and
+    iteration (LBFGSB has no state of its own to save, as in qoc_tpu)."""
     import qoc_tpu_torch
     costs, hamiltonian, initial = _grape_problem()["torch"]
     common = dict(complex_controls=True, iteration_count=1,
                   log_iteration_step=0, optimizer=qoc_tpu_torch.LBFGSB(),
                   device="cpu")
     if case == "save file":
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            qoc_tpu_torch.grape_schroedinger_discrete(
-                1, 11, costs, 10, hamiltonian, initial, 11,
-                save_file_path="run.h5",
-                impose_control_conditions=lambda c: c, **common)
+        import h5py
+        path = str(tmp_path / "run.h5")
+        result = qoc_tpu_torch.grape_schroedinger_discrete(
+            1, 11, costs, 10, hamiltonian, initial, 11,
+            save_file_path=path, save_iteration_step=1,
+            impose_control_conditions=lambda c: c, **common)
+        with h5py.File(path, "r") as f:
+            assert f["error"][0] == result.errors[0]
+            assert sorted(f["optimizer_state"]) == [
+                "__iteration__", "__params__", "checkpoint_kind"]
     else:
         with pytest.raises(ValueError, match="host-loop only.*"
                            "grape_lindblad_discrete"):

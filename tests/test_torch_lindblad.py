@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import one_blas_thread  # noqa: F401 (autouse)
-from torch_parity import LindbladProblem
+from torch_parity import LindbladProblem, not_a_grape_file, saved_errors
 from torch_parity import annihilation as _annihilation
 from torch_parity import random_density as _density
 
@@ -336,29 +336,45 @@ def test_rkdp5_grape_unconverged_gives_nan():
     assert got.best_error == want.best_error == np.finfo(np.float64).max
 
 
-def _refusals():
+def _refusals(directory):
+    """case: (kwargs, what it does now): the exception it raises, or None
+    for a run whose save rows are checked."""
     return {
-        "save_file_path": (dict(save_file_path="run.h5"), "slice"),
-        "resume_from": (dict(resume_from="run.h5"), "slice"),
-        "mesh": (dict(mesh=object()), "slice"),
+        "save_file_path": (dict(save_file_path=str(directory / "run.h5"),
+                                save_iteration_step=1), None),
+        "resume_from": (dict(resume_from=not_a_grape_file(directory)),
+                        (ValueError, "not a GRAPE save file")),
+        "mesh": (dict(mesh=object()), (NotImplementedError, "slice")),
     }
 
 
-@pytest.mark.parametrize("case", sorted(_refusals()))
-def test_unported_features_raise_not_implemented(case):
+@pytest.mark.parametrize("case", ("mesh", "resume_from", "save_file_path"))
+def test_unported_features_raise_not_implemented(case, tmp_path):
+    """``mesh`` is not ported (ROADMAP Queue 1 item 8); save files and
+    resume are: a save file gets its rows, and a resume_from without GRAPE
+    rows is refused as in qoc_tpu."""
     import qoc_tpu_torch
     from qoc_tpu_torch.models import LindbladMethod
 
     problem = LindbladProblem(d=2, n_steps=4)
-    kwargs, match = _refusals()[case]
-    with pytest.raises(NotImplementedError, match=match):
-        qoc_tpu_torch.grape_lindblad_discrete(
+    kwargs, raises = _refusals(tmp_path)[case]
+
+    def run():
+        return qoc_tpu_torch.grape_lindblad_discrete(
             problem.n_c, problem.n_steps, problem.torch_costs,
             problem.evolution_time, problem.torch_initial, problem.n_steps,
             complex_controls=True, hamiltonian=problem.torch_hamiltonian,
             lindblad_data=problem.torch_lindblad, iteration_count=1,
             log_iteration_step=0, method=LindbladMethod.MAGNUS_EXPM,
             device="cpu", **kwargs)
+
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            run()
+        return
+    result = run()
+    np.testing.assert_array_equal(saved_errors(kwargs["save_file_path"]),
+                                  result.errors)
 
 
 def test_conversions_carry_the_data():

@@ -41,7 +41,8 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import one_blas_thread  # noqa: F401 (autouse)
-from torch_parity import LindbladEnsembleProblem
+from torch_parity import (LindbladEnsembleProblem, not_a_grape_file,
+                          saved_errors)
 
 torch.set_num_threads(1)
 
@@ -356,36 +357,52 @@ def test_rkdp5_ensemble_and_multistart_match_jax(entry):
 # ---------------------------------------------------------------------------
 
 
-def _refusals():
+def _refusals(directory):
+    """case: (exception, match, kwargs), or (None, None, kwargs) for a run
+    whose save rows are checked."""
     from qoc_tpu_torch.models import LindbladMethod
     magnus = dict(method=LindbladMethod.MAGNUS_EXPM)
     return {
-        "mesh": ("Queue 1 item 8", dict(mesh=object(), **magnus)),
-        "save_file_path": ("slice 4", dict(save_file_path="run.h5",
-                                           **magnus)),
-        "resume_from": ("Queue 1 item 7", dict(resume_from="run.h5",
-                                               **magnus)),
+        "mesh": (NotImplementedError, "Queue 1 item 8",
+                 dict(mesh=object(), **magnus)),
+        "save_file_path": (None, None, dict(
+            save_file_path=str(directory / "run.h5"), save_iteration_step=1,
+            **magnus)),
+        "resume_from": (ValueError, "not a GRAPE save file", dict(
+            resume_from=not_a_grape_file(directory), **magnus)),
     }
 
 
 @pytest.mark.parametrize("entry", ("ensemble", "multistart"))
-@pytest.mark.parametrize("case", sorted(_refusals()))
-def test_lindblad_parallel_refusals(entry, case):
+@pytest.mark.parametrize("case", ("mesh", "resume_from", "save_file_path"))
+def test_lindblad_parallel_refusals(entry, case, tmp_path):
+    """``mesh`` raises, naming ROADMAP Queue 1 item 8; a save file gets its
+    rows; a resume_from without GRAPE rows is refused as in qoc_tpu."""
     import qoc_tpu_torch
-    match, kwargs = _refusals()[case]
+    error, match, kwargs = _refusals(tmp_path)[case]
     problem = LindbladEnsembleProblem(n_members=2)
     args = (1, problem.control_eval_count, problem.torch_costs,
             problem.evolution_time)
     common = dict(complex_controls=True, iteration_count=1,
                   log_iteration_step=0, lindblad_data=problem.torch_lindblad,
                   device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
+
+    def run():
         if entry == "ensemble":
-            qoc_tpu_torch.grape_lindblad_ensemble(
+            return qoc_tpu_torch.grape_lindblad_ensemble(
                 *args, problem.torch_hamiltonian, problem.params,
                 problem.torch_initial, problem.system_eval_count, **common)
-        else:
-            qoc_tpu_torch.grape_lindblad_multistart(
-                *args, problem.torch_initial, problem.system_eval_count,
-                n_starts=2, hamiltonian=problem.torch_hamiltonian,
-                hamiltonian_params=problem.params, **common)
+        return qoc_tpu_torch.grape_lindblad_multistart(
+            *args, problem.torch_initial, problem.system_eval_count,
+            n_starts=2, hamiltonian=problem.torch_hamiltonian,
+            hamiltonian_params=problem.params, **common)
+
+    if error is None:
+        result = run()
+        want = (result.errors if entry == "ensemble"
+                else [min(result.errors)])
+        np.testing.assert_array_equal(
+            saved_errors(kwargs["save_file_path"]), want)
+        return
+    with pytest.raises(error, match=match):
+        run()

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from torch_parity import one_blas_thread  # noqa: F401 (autouse)
-from torch_parity import EnsembleProblem, Problem
+from torch_parity import (EnsembleProblem, Problem, not_a_grape_file,
+                          saved_errors)
 
 torch.set_num_threads(1)
 
@@ -149,16 +150,19 @@ def test_multistart_stops_at_min_error():
     _assert_same_run(want, got)
 
 
-def _multistart_refusals():
+def _multistart_refusals(directory):
+    """case: (exception, match, kwargs), or (None, None, kwargs) for a run
+    whose save rows are checked."""
     import qoc_tpu_torch
     problem = EnsembleProblem()
     return problem, {
         "mesh": (NotImplementedError, "Queue 1 item 8",
                  dict(mesh=object())),
-        "save_file_path": (NotImplementedError, "slice 4",
-                           dict(save_file_path="run.h5")),
-        "resume_from": (NotImplementedError, "Queue 1 item 7",
-                        dict(resume_from="run.h5")),
+        "save_file_path": (None, None,
+                           dict(save_file_path=str(directory / "run.h5"),
+                                save_iteration_step=1)),
+        "resume_from": (ValueError, "not a GRAPE save file",
+                        dict(resume_from=not_a_grape_file(directory))),
         "optimizer": (ValueError, "LBFGSB is host-loop only",
                       dict(optimizer=qoc_tpu_torch.LBFGSB())),
         "ensemble without params": (
@@ -167,19 +171,34 @@ def _multistart_refusals():
     }
 
 
-@pytest.mark.parametrize("case", sorted(_multistart_refusals()[1]))
-def test_multistart_refusals(case):
+@pytest.mark.parametrize("case", ("ensemble without params", "mesh",
+                                  "optimizer", "resume_from",
+                                  "save_file_path"))
+def test_multistart_refusals(case, tmp_path):
+    """The refusals that stand (mesh, a host-loop-only optimizer, an
+    ensemble Hamiltonian without member rows, a resume_from without GRAPE
+    rows); a save file gets its winner rows."""
     import qoc_tpu_torch
-    problem, refusals = _multistart_refusals()
+    problem, refusals = _multistart_refusals(tmp_path)
     error, match, kwargs = refusals[case]
     kwargs.setdefault("hamiltonian", problem.torch_hamiltonian)
     kwargs.setdefault("hamiltonian_params",
                       None if case == "ensemble without params"
                       else problem.params)
-    with pytest.raises(error, match=match):
-        qoc_tpu_torch.grape_schroedinger_multistart(
+    hamiltonian = kwargs.pop("hamiltonian")
+
+    def run():
+        return qoc_tpu_torch.grape_schroedinger_multistart(
             problem.n_c, problem.n_steps, problem.torch_costs,
-            problem.evolution_time, kwargs.pop("hamiltonian"),
-            problem.torch_initial, problem.n_steps, n_starts=2,
-            complex_controls=True, iteration_count=1, log_iteration_step=0,
-            device="cpu", **kwargs)
+            problem.evolution_time, hamiltonian, problem.torch_initial,
+            problem.n_steps, n_starts=2, complex_controls=True,
+            iteration_count=1, log_iteration_step=0, device="cpu", **kwargs)
+
+    if error is None:
+        # The winner's row: the best candidate's error at iteration 0.
+        best = min(run().errors)
+        np.testing.assert_array_equal(
+            saved_errors(kwargs["save_file_path"]), [best])
+        return
+    with pytest.raises(error, match=match):
+        run()

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import one_blas_thread  # noqa: F401 (autouse)
-from torch_parity import Problem
+from torch_parity import Problem, not_a_grape_file, saved_errors
 
 torch.set_num_threads(1)
 
@@ -142,29 +142,49 @@ def test_evolve_matches_jax(with_controls):
     assert got.error == pytest.approx(want.error, abs=1e-8)
 
 
-def _refusals():
+def _refusals(directory):
+    """case: (kwargs, what it does now): the exception it raises, or None
+    for a run whose save rows (a save file) are checked."""
     return {
-        "save_file_path": dict(save_file_path="run.h5"),
-        "save_iteration_step": dict(save_iteration_step=5),
-        "resume_from": dict(resume_from="run.h5"),
-        "mesh": dict(mesh=object()),
+        "save_file_path": (dict(save_file_path=str(directory / "run.h5"),
+                                save_iteration_step=1), None),
+        "save_iteration_step": (dict(save_iteration_step=5), None),
+        "resume_from": (dict(resume_from=not_a_grape_file(directory)),
+                        (ValueError, "not a GRAPE save file")),
+        "mesh": (dict(mesh=object()), (NotImplementedError, "slice")),
     }
 
 
-@pytest.mark.parametrize("case", sorted(_refusals()))
-def test_unported_features_raise_not_implemented(case):
+@pytest.mark.parametrize("case", ("mesh", "resume_from", "save_file_path",
+                                  "save_iteration_step"))
+def test_unported_features_raise_not_implemented(case, tmp_path):
+    """``mesh`` is not ported (ROADMAP Queue 1 item 8); save files and
+    resume are: a save file gets its rows, save_iteration_step without
+    one saves nothing, and a resume_from without GRAPE rows is refused as
+    in qoc_tpu."""
     import qoc_tpu_torch
 
     problem = Problem()
-    kwargs = dict(costs=problem.torch_costs,
-                  hamiltonian=problem.torch_hamiltonian)
-    kwargs.update(_refusals()[case])
-    with pytest.raises(NotImplementedError, match="slice"):
-        qoc_tpu_torch.grape_schroedinger_discrete(
-            problem.n_c, problem.n_steps, kwargs.pop("costs"),
-            problem.evolution_time, kwargs.pop("hamiltonian"),
+    kwargs, raises = _refusals(tmp_path)[case]
+
+    def run():
+        return qoc_tpu_torch.grape_schroedinger_discrete(
+            problem.n_c, problem.n_steps, problem.torch_costs,
+            problem.evolution_time, problem.torch_hamiltonian,
             problem.torch_initial, problem.n_steps, complex_controls=True,
             iteration_count=1, log_iteration_step=0, device="cpu", **kwargs)
+
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            run()
+        return
+    result = run()
+    if "save_file_path" in kwargs:
+        np.testing.assert_array_equal(saved_errors(kwargs["save_file_path"]),
+                                      result.errors)
+    else:
+        assert result.iteration_count_ran == 1
+        assert not (tmp_path / "run.h5").exists()
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -292,8 +312,8 @@ def test_blocked_route_grape_trajectory_matches_jax():
     (8, "M4", False, "blocked expm + tree product, plain torch on cpu"),
     (72, "M2", True, "blocked expm + tree product, plain torch on cpu"),
     (300, "M2", True, "streamed chain, plain torch on cpu"),
-    (600, "M2", True, "blocked expm + tree product, torch.matmul Taylor "
-                      "(d > 256)"),
+    (600, "M2", True, "blocked expm + tree product, Padé-13 on "
+                      "torch.linalg.solve (d > 256)"),
 ))
 def test_route_table(d, magnus, allow_plane_chain, path, capsys):
     """The route by the problem alone (core/schroedinger.py): the loss is

@@ -16,6 +16,8 @@ the suite than in one process. Results do not depend on it beyond
 rounding.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,23 @@ def one_blas_thread():
     from threadpoolctl import threadpool_limits
     with threadpool_limits(limits=1, user_api="blas"):
         yield
+
+
+def not_a_grape_file(directory):
+    """An H5 file without GRAPE rows in ``directory``: a ``resume_from``
+    that both packages refuse with ValueError."""
+    import h5py
+    path = os.path.join(str(directory), "not_grape.h5")
+    with h5py.File(path, "w") as f:
+        f["program_type"] = "evolve"
+    return path
+
+
+def saved_errors(path):
+    """The ``error`` rows of a save file."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        return np.asarray(f["error"])
 
 
 def random_hermitian(rng, d):
